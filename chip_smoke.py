@@ -5,8 +5,9 @@
 Phases, each fatal on failure (any failure exits non-zero and prints no
 result line):
 
-  1. build   — compile the CUDA kernels of ``src/repro_torch/csrc`` with nvcc
-               and load them (build seconds and ptxas usage are printed).
+  1. build   — compile the three CUDA sources of ``src/repro_torch/csrc``
+               (one nvcc each, in parallel) and load them (build seconds
+               and ptxas registers/spills are printed).
   2. kernels — each kernel against its plain PyTorch version on the card:
                float32/float64/bfloat16, n in {256*43, 256, 1, 127,
                1000003}, s in {1, 6, 7, 12, 13}, m = 2 rows.  Tolerance:
@@ -36,6 +37,36 @@ result line):
                kernel alone.
   7. profile — one fixed-grid loss+gradient under torch.profiler: wall
                time, kernel time, the device's busy share, top kernels.
+
+The LM serving slice (qwen3-0.6b, float32 weights, bfloat16 KV cache):
+
+  8. LM kernels vs plain — rms_norm at rows x d in {8192x1024, 131072x128,
+               4099x1000, 77x16}, with and without residual; flash
+               attention on the JAX package's eight kernel-test cases and
+               the prefill shape (8, 16/8, 1024, 128) causal; float32 and
+               bfloat16.  |kernel - plain| <= atol + rtol*|plain| with
+               (rtol, atol) (1e-6, 1e-6) / (1e-5, 1e-5) in float32 and one
+               bfloat16 ulp / 2e-2 in bfloat16.
+  9. serve   — the main path: ``repro_torch.launch.serve lm --arch
+               qwen3-0.6b`` at full width, batch 8, prompt 1024, 32 tokens
+               (after a 2-token warm-up); prefill ms, decode ms/token, and
+               the launch counters, zeroed just before: 113 rms_norm per
+               forward and 28 flash_attention per prefill.  Logits finite.
+ 10. serve vs plain — the same prefill and 4 decode steps with the kernels
+               and with the plain versions (``use_kernels=False``) on the
+               card, fed the same tokens: logits within 1e-3 of max|plain
+               logits|; launches per prefill and per decode step; greedy
+               token agreement (reported, not a pass condition).
+ 11. card vs CPU — the smoke width, the same seed weights on both devices:
+               prefill + 4 decode logits within 1e-5 of max|CPU logits|
+               with a float32 KV cache, within 1e-3 with the path's
+               bfloat16 cache (entries may round the other way).
+ 12. report  — float32 ms per call of both LM kernels at the serving shapes,
+               their plain versions, one library call (F.rms_norm,
+               F.scaled_dot_product_attention) and the bound: bytes over
+               3.35 TB/s (rms_norm), causal flops over 67 TFLOP/s
+               (flash attention).
+ 13. profile — one prefill and one decode step under torch.profiler.
 
 The card's name and power limit are printed early; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -78,14 +109,19 @@ def phase(name: str):
 # ---------------------------------------------------------------------------
 
 def build():
-    from repro_torch.kernels import butcher_combine as kern
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import butcher_combine, flash_attention, rmsnorm
     phase("1 build")
     t = time.perf_counter()
-    log = kern.build()
-    print(f"build_seconds {time.perf_counter() - t:.2f}")
-    for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}")
+    logs = _build.build_all([butcher_combine.LIBRARY, rmsnorm.LIBRARY,
+                             flash_attention.LIBRARY])
+    print(f"build_seconds {time.perf_counter() - t:.2f} (one nvcc per "
+          f"source, in parallel)")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "Compiling entry" in line or \
+                    "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
 
 
 def _close(got, want, mag, dtype):
@@ -412,6 +448,344 @@ def profile_step():
               f"{ev.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# The LM serving slice: qwen3-0.6b prefill + greedy decode
+
+# (B, H, Hkv, Sq, Sk, D, causal, window, q_offset): the JAX package's
+# kernel test cases, then the serving path's prefill shape
+ATTN_CASES = [
+    (1, 4, 4, 128, 128, 64, True, None, 0),     # MHA causal
+    (2, 8, 2, 256, 256, 64, True, None, 0),     # GQA causal
+    (1, 4, 1, 128, 128, 128, True, 64, 0),      # MQA + sliding window
+    (1, 4, 2, 100, 100, 64, True, None, 0),     # ragged (padding path)
+    (2, 8, 4, 1, 512, 64, True, None, 511),     # decode: 1 query vs cache
+    (1, 4, 4, 64, 256, 64, True, None, 192),    # chunked prefill offset
+    (1, 4, 4, 128, 128, 64, False, None, 0),    # non-causal (encoder)
+    (1, 16, 8, 1, 300, 64, True, 128, 299),     # decode + SWA, ragged cache
+    (8, 16, 8, 1024, 1024, 128, True, None, 0),  # qwen3-0.6b prefill
+]
+# kernel vs plain, both float32 inside, differing in summation order:
+# |diff| <= atol + rtol*|plain|; bfloat16 adds one output ulp
+RMS_TOL = {torch.float32: (1e-6, 1e-6), torch.bfloat16: (2.0 ** -7, 1e-6)}
+ATTN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
+# full-width logits, kernels vs plain versions on the card: float32
+# rounding carried through 28 layers, plus bfloat16 cache entries that
+# round the other way: |diff| <= 1e-3 * max|plain logits|
+LOGITS_RTOL = 1e-3
+# the smoke width, card vs CPU (2 layers), relative to max|CPU logits|:
+# with a float32 cache, float32 rounding alone (1e-5); with the path's
+# bfloat16 cache, also entries that round the other way (a flipped entry
+# moves by 2^-8 of itself), as for the full-width check (1e-3)
+SMOKE_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+SERVE = dict(batch=8, prompt=1024, gen=32)
+
+
+def _allclose(got, want, tol):
+    rtol, atol = tol
+    err = (got.float() - want.float()).abs()
+    return bool(torch.all(err <= atol + rtol * want.float().abs())), \
+        float(err.max())
+
+
+def lm_kernels_vs_plain():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    phase("8 LM kernels vs plain")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    max_err = {"rms_norm": 0.0, "flash_attention": 0.0}
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, d in ((8192, 1024), (131072, 128), (4099, 1000), (77, 16)):
+            x = torch.randn(rows, d, generator=g, device=dev).to(dtype)
+            r = torch.randn(rows, d, generator=g, device=dev).to(dtype)
+            w = torch.randn(d, generator=g, device=dev)
+            for res in (None, r):
+                ok, e = _allclose(rn.rms_norm(x, w, res),
+                                  ref.rms_norm_ref(x, w, res), RMS_TOL[dtype])
+                check(ok, f"rms_norm {dtype} {rows}x{d} residual="
+                          f"{res is not None}: max err {e}")
+                if dtype == torch.float32:
+                    max_err["rms_norm"] = max(max_err["rms_norm"], e)
+                n += 1
+        for case in ATTN_CASES:
+            B, H, Hkv, Sq, Sk, D, causal, window, q_offset = case
+            q = torch.randn(B, H, Sq, D, generator=g, device=dev).to(dtype)
+            k = torch.randn(B, Hkv, Sk, D, generator=g, device=dev).to(dtype)
+            v = torch.randn(B, Hkv, Sk, D, generator=g, device=dev).to(dtype)
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            ok, e = _allclose(fa.flash_attention(q, k, v, **kw),
+                              ref.attention_ref(q, k, v, **kw),
+                              ATTN_TOL[dtype])
+            check(ok, f"flash_attention {dtype} {case}: max err {e}")
+            if dtype == torch.float32:
+                max_err["flash_attention"] = max(max_err["flash_attention"],
+                                                 e)
+            n += 1
+    torch.cuda.synchronize()
+    print(f"LM kernel cases {n} all within tolerance; float32 max abs err "
+          f"{max_err}")
+    return max_err
+
+
+def _lm_counts():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    return rn.rms_norm.launches, fa.flash_attention.launches
+
+
+def _zero_lm_counts():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    rn.rms_norm.launches = 0
+    fa.flash_attention.launches = 0
+
+
+def serve_main_path():
+    """The LM main path: the serving CLI at full width on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    phase("9 serve (LM main path): qwen3-0.6b, full width")
+    cfg = get_arch("qwen3-0.6b")
+    argv = ["lm", "--arch", "qwen3-0.6b", "--batch", str(SERVE["batch"]),
+            "--prompt-len", str(SERVE["prompt"]), "--device", "cuda"]
+    serve.main(argv + ["--gen-len", "2"])       # warm-up: first-call set-up
+    _zero_lm_counts()
+    torch.cuda.synchronize()
+    out = serve.main(argv + ["--gen-len", str(SERVE["gen"])])
+    rms, flash = _lm_counts()
+    check(out["logits_finite"], "serve: non-finite logits")
+    check(tuple(out["tokens"].shape) == (SERVE["batch"], SERVE["gen"]),
+          f"serve: tokens of shape {tuple(out['tokens'].shape)}")
+    per_forward = 4 * cfg.n_layers + 1        # block, q, k, ffn norms + final
+    print(f"serve: prefill {out['prefill_ms']:.3f} ms ({SERVE['batch']} x "
+          f"{SERVE['prompt']} tokens), decode "
+          f"{out['decode_ms_per_token']:.3f} ms/token ({SERVE['gen'] - 1} "
+          f"steps of batch {SERVE['batch']}); launches rms_norm {rms} "
+          f"flash_attention {flash} (expected {per_forward} x "
+          f"{SERVE['gen']} forwards and {cfg.n_layers})")
+    check(rms == per_forward * SERVE["gen"] and flash == cfg.n_layers,
+          f"serve: launches rms_norm {rms}, flash_attention {flash}")
+    return {"rms_norm": rms, "flash_attention": flash,
+            "prefill_ms": out["prefill_ms"],
+            "decode_ms_per_token": out["decode_ms_per_token"]}
+
+
+def _greedy(logits):
+    return torch.argmax(logits[:, -1], -1)[:, None]
+
+
+def serve_vs_plain():
+    """Prefill + 4 decode steps at full width with the kernels and with the
+    plain versions (use_kernels=False), fed the same tokens; launches per
+    prefill and per decode step from the counters."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train import make_decode_step, make_prefill_step
+    phase("10 serve: kernels vs plain versions on the card (full width)")
+    dev = torch.device("cuda")
+    cfg = get_arch("qwen3-0.6b")
+    plain = cfg.with_(use_kernels=False)
+    B, S, steps = SERVE["batch"], SERVE["prompt"], 4
+    params = init_lm(cfg, seed=0, device=dev)
+    toks = torch.as_tensor(synthetic_lm_batch(0, B, S + 1, cfg.vocab)[
+        "tokens"], dtype=torch.long, device=dev)
+    pre_k = make_prefill_step(cfg, B, S + steps)
+    pre_p = make_prefill_step(plain, B, S + steps)
+    dec_k, dec_p = make_decode_step(cfg), make_decode_step(plain)
+    _zero_lm_counts()
+    lk, ck = pre_k(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    per_prefill = _lm_counts()
+    lp, cp = pre_p(params, {"tokens": toks})
+    errs, agree, total = [], 0, 0
+    per_decode = []
+    for i in range(steps + 1):
+        err = float((lk - lp).abs().max() / lp.abs().max())
+        errs.append(err)
+        check(bool(torch.isfinite(lk).all()),
+              f"serve vs plain: non-finite kernel logits at step {i}")
+        check(err <= LOGITS_RTOL, f"serve vs plain: step {i} logits differ "
+                                  f"by {err:.3e} of max|logits|")
+        tok = _greedy(lk)
+        agree += int((tok == _greedy(lp)).sum())
+        total += B
+        if i == steps:
+            break
+        _zero_lm_counts()
+        lk, ck = dec_k(params, ck, tok, S + i)
+        torch.cuda.synchronize()
+        per_decode.append(_lm_counts())
+        lp, cp = dec_p(params, cp, tok, S + i)
+    n_rms = 4 * cfg.n_layers + 1
+    check(per_prefill == (n_rms, cfg.n_layers),
+          f"launches per prefill {per_prefill}")
+    check(all(c == (n_rms, 0) for c in per_decode),
+          f"launches per decode step {per_decode}")
+    print(f"launches per prefill: rms_norm {per_prefill[0]} flash_attention "
+          f"{per_prefill[1]}; per decode step: rms_norm {per_decode[0][0]} "
+          f"flash_attention {per_decode[0][1]}")
+    print(f"logits kernels vs plain: max|diff| / max|plain| per step "
+          f"(prefill, then {steps} decode steps) "
+          f"{[f'{e:.3e}' for e in errs]} (tolerance {LOGITS_RTOL}); greedy "
+          f"tokens agree {agree}/{total}")
+    return params
+
+
+def serve_card_vs_cpu():
+    """The smoke width: the port's own seed weights, built once on the CPU
+    and copied to the card; prefill + 4 decode steps on both devices, with
+    a float32 cache (the kernels' arithmetic alone) and with the path's
+    bfloat16 cache."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from torch.utils import _pytree as pytree
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train import make_decode_step, make_prefill_step
+    phase("11 serve: card vs CPU (smoke width)")
+    cfg = get_smoke_arch("qwen3-0.6b")
+    B, S, steps = 4, 32, 4
+    cpu_params = init_lm(cfg, seed=0, device="cpu")
+    gpu_params = pytree.tree_map(lambda t: t.to("cuda"), cpu_params)
+    toks = torch.as_tensor(synthetic_lm_batch(0, B, S + 1, cfg.vocab)[
+        "tokens"], dtype=torch.long)
+    decode = make_decode_step(cfg)
+    for cache_dtype, rtol in SMOKE_RTOL.items():
+        prefill = make_prefill_step(cfg, B, S + steps, cache_dtype)
+        lc, cc = prefill(cpu_params, {"tokens": toks})
+        lg, cg = prefill(gpu_params, {"tokens": toks.cuda()})
+        errs = []
+        for i in range(steps + 1):
+            err = float((lg.cpu() - lc).abs().max() / lc.abs().max())
+            errs.append(err)
+            check(err <= rtol, f"card vs CPU ({cache_dtype} cache): step "
+                               f"{i} logits differ by {err:.3e} of "
+                               f"max|logits|")
+            if i == steps:
+                break
+            tok = _greedy(lc)
+            lc, cc = decode(cpu_params, cc, tok, S + i)
+            lg, cg = decode(gpu_params, cg, tok.cuda(), S + i)
+        print(f"card == CPU (smoke, batch {B}, prompt {S}, {steps} decode "
+              f"steps, {cache_dtype} cache): max|diff| / max|CPU| per step "
+              f"{[f'{e:.3e}' for e in errs]} (tolerance {rtol})")
+
+
+def lm_report(max_err, launches):
+    """ms per call of each LM kernel at the serving path's shapes, beside
+    its plain version, one library call and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    phase("12 report (LM kernels, float32, serving shapes)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21)
+    lines, main = [], {}
+    # prefill: block/final norms (B*S, 1024), q-norm (B*S*16, 128), k-norm
+    # (B*S*8, 128); decode: (B, 1024) and (B*16, 128)
+    for rows, d in ((8192, 1024), (131072, 128), (65536, 128), (8, 1024),
+                    (128, 128)):
+        x = torch.randn(rows, d, generator=g, device=dev)
+        w = torch.randn(d, generator=g, device=dev)
+        iters = 200 if rows * d <= 1 << 24 else 50
+        t_k = _time_ms(lambda: rn.rms_norm(x, w), iters)
+        t_p = _time_ms(lambda: ref.rms_norm_ref(x, w), iters)
+        t_l = _time_ms(lambda: F.rms_norm(x, (d,), w, 1e-6), iters)
+        d_k = _device_ms(lambda: rn.rms_norm(x, w), "rms_norm_kernel")
+        bound = (2 * rows * d + d) * 4 / HBM_BYTES_PER_S * 1e3
+        lines.append(f"rms_norm {rows}x{d}: kernel {t_k:.6f} ms (device "
+                     f"{d_k if d_k is None else f'{d_k:.6f}'}) plain "
+                     f"{t_p:.6f} F.rms_norm {t_l:.6f} bound {bound:.6f}")
+        if (rows, d) == (8192, 1024):
+            main["rms_norm"] = dict(ms=t_k, device_ms=d_k, plain_ms=t_p,
+                                    library_ms=t_l, bound_ms=bound,
+                                    bound_by="bytes",
+                                    shape="float32 rows 8192 d 1024")
+    B, H, Hkv, S, D = 8, 16, 8, 1024, 128
+    q = torch.randn(B, H, S, D, generator=g, device=dev)
+    k = torch.randn(B, Hkv, S, D, generator=g, device=dev)
+    v = torch.randn(B, Hkv, S, D, generator=g, device=dev)
+    t_k = _time_ms(lambda: fa.flash_attention(q, k, v), 50, 5)
+    t_p = _time_ms(lambda: ref.attention_ref(q, k, v), 20, 3)
+    t_l = _time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 50, 5)
+    d_k = _device_ms(lambda: fa.flash_attention(q, k, v),
+                     "flash_attention_kernel", 10)
+    flops = 4 * B * H * D * (S * (S + 1) // 2)     # the causal pairs only
+    nbytes = (2 * B * H * S * D + 2 * B * Hkv * S * D) * 4
+    t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    bound = max(t_ops, t_bytes) * 1e3
+    lines.append(f"flash_attention B{B} H{H}/{Hkv} S{S} D{D} causal: kernel "
+                 f"{t_k:.6f} ms (device "
+                 f"{d_k if d_k is None else f'{d_k:.6f}'}) plain {t_p:.6f} "
+                 f"sdpa {t_l:.6f} bound {bound:.6f} "
+                 f"({flops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s achieved)")
+    main["flash_attention"] = dict(
+        ms=t_k, device_ms=d_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        shape=f"float32 B{B} H{H} Hkv{Hkv} S{S} D{D} causal")
+    print("float32 ms per call (CUDA events over back-to-back calls, wrapper "
+          "included; device = kernel time from torch.profiler):")
+    for line in lines:
+        print("  " + line)
+    srcs = {"rms_norm": ("src/repro_torch/csrc/rmsnorm.cu",
+                         "src/repro/kernels/rmsnorm.py:39"),
+            "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:94")}
+    return [{"name": name, "route": "cuda", "source": srcs[name][0],
+             "replaces": srcs[name][1], "launches": launches[name],
+             "max_abs_err": max_err[name], **main[name]}
+            for name in ("rms_norm", "flash_attention")]
+
+
+def profile_serve(params):
+    """Where a serving step's time goes: one full-width prefill and one
+    decode step under torch.profiler (after a warm-up of each)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.train import make_decode_step, make_prefill_step
+    phase("13 profile (one prefill, one decode step; qwen3-0.6b float32)")
+    cfg = get_arch("qwen3-0.6b")
+    B, S = SERVE["batch"], SERVE["prompt"]
+    toks = torch.as_tensor(synthetic_lm_batch(0, B, S + 1, cfg.vocab)[
+        "tokens"], dtype=torch.long, device="cuda")
+    prefill = make_prefill_step(cfg, B, S + 2)
+    decode = make_decode_step(cfg)
+    logits, caches = prefill(params, {"tokens": toks})
+    decode(params, caches, _greedy(logits), S)
+    torch.cuda.synchronize()
+
+    def one(label, fn):
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t) * 1e6
+        except RuntimeError as exc:  # CUPTI unavailable: report, don't guess
+            print(f"  profiler unavailable: {exc}")
+            return
+        kernels = [ev for ev in prof.key_averages()
+                   if str(ev.device_type).endswith("CUDA")
+                   and _self_device_us(ev) > 0]
+        busy_us = sum(_self_device_us(ev) for ev in kernels)
+        print(f"{label}: wall {wall_us / 1e3:.3f} ms, kernel time "
+              f"{busy_us / 1e3:.3f} ms, device busy share "
+              f"{busy_us / wall_us:.4f}, kernel launches "
+              f"{sum(ev.count for ev in kernels)}")
+        for ev in sorted(kernels, key=_self_device_us, reverse=True)[:8]:
+            print(f"  {_self_device_us(ev) / 1e3:9.3f} ms  x{ev.count:6d}  "
+                  f"{ev.key[:90]}")
+
+    one("prefill", lambda: prefill(params, {"tokens": toks}))
+    one("decode step", lambda: decode(params, caches, _greedy(logits), S))
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -434,6 +808,12 @@ def main():
     memory()
     rows = report(max_err, launches)
     profile_step()
+    lm_err = lm_kernels_vs_plain()
+    lm_launches = serve_main_path()
+    params = serve_vs_plain()
+    serve_card_vs_cpu()
+    rows += lm_report(lm_err, lm_launches)
+    profile_serve(params)
     print(f"total_seconds {time.perf_counter() - t0:.1f}")
     print(smi.splitlines()[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"kernels": rows}))

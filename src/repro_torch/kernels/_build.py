@@ -1,0 +1,101 @@
+"""Build and load the hand-written CUDA kernels of this package.
+
+Each source in ``csrc/`` is compiled with ``nvcc`` for Hopper (``sm_90a``)
+into its own shared library with a plain C interface, at first use, under
+``repro_torch/_build/`` (named by a hash of the source and the flags, so an
+edited source rebuilds), and loaded with ``ctypes``.  No PyTorch headers are
+included, so a build takes seconds.  A failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence
+
+__all__ = ["CudaLibrary", "build_all", "raise_on", "NVCC_FLAGS",
+           "BUILD_DIR", "CSRC"]
+
+_PKG = pathlib.Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and on PATH): the "
+            "CUDA kernels cannot be built")
+    return found
+
+
+def _compile(source: pathlib.Path):
+    src = source.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"{source.stem}_{tag}.so"
+    if so.exists():
+        return so, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (rc={proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
+    return so, proc.stdout + proc.stderr
+
+
+class CudaLibrary:
+    """One ``csrc/<name>.cu`` source: built on first ``load()``, then cached
+    for the process.  ``entries`` maps each C entry point to its ctypes
+    argument types (every entry returns an ``int`` cudaError code).
+    ``log`` keeps the compiler's output (``-Xptxas -v``: registers, shared
+    memory and spills per kernel); it is empty when a cached build of the
+    same source was loaded."""
+
+    def __init__(self, name: str, entries: Dict[str, Sequence]):
+        self.source = CSRC / f"{name}.cu"
+        self.entries = entries
+        self.cdll: Optional[ctypes.CDLL] = None
+        self.path: Optional[pathlib.Path] = None
+        self.log = ""
+
+    def load(self) -> ctypes.CDLL:
+        if self.cdll is None:
+            self.path, self.log = _compile(self.source)
+            lib = ctypes.CDLL(str(self.path))
+            for entry, argtypes in self.entries.items():
+                fn = getattr(lib, entry)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            self.cdll = lib
+        return self.cdll
+
+
+def build_all(libraries: List[CudaLibrary]) -> Dict[str, str]:
+    """Compile the given libraries' sources in parallel (one ``nvcc`` each,
+    all started together), then load them; returns each source's compiler
+    log by name."""
+    with ThreadPoolExecutor(max_workers=max(1, len(libraries))) as pool:
+        futures = [pool.submit(lib.load) for lib in libraries]
+        for f in futures:
+            f.result()
+    return {lib.source.stem: lib.log for lib in libraries}
+
+
+def raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")

@@ -18,103 +18,33 @@ read them on the host.  The plain PyTorch versions of both functions are in
 tensors here.
 
 The source is compiled with ``nvcc`` at first use into a shared library
-with a plain C interface under ``repro_torch/_build/`` (named by the
-source's hash, so an edited source rebuilds) and loaded with ``ctypes``.
+with a plain C interface and loaded with ``ctypes`` (``kernels/_build.py``).
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, a plain
 integer that callers may reset.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-from typing import Optional
 
 import torch
 
+from ._build import BUILD_DIR, NVCC_FLAGS, CudaLibrary, raise_on
 from .ref import acc_dtype
 
-__all__ = ["butcher_combine", "butcher_combine_rows", "build", "MAX_STAGES",
-           "MAX_ROWS", "SOURCE", "BUILD_DIR"]
+__all__ = ["butcher_combine", "butcher_combine_rows", "MAX_STAGES",
+           "MAX_ROWS", "SOURCE", "BUILD_DIR", "NVCC_FLAGS"]
 
 MAX_STAGES = 13
 MAX_ROWS = 13
-_PKG = pathlib.Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "butcher_combine.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
                torch.bfloat16: 3}
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME/bin and on PATH): the "
-            "butcher_combine CUDA kernels cannot be built")
-    return found
-
-
-class _Library:
-    """The compiled kernels: built on first use, then cached for the
-    process.  ``log`` keeps the compiler's output (``-Xptxas -v``: registers
-    and shared memory per kernel)."""
-
-    def __init__(self):
-        self.cdll: Optional[ctypes.CDLL] = None
-        self.path: Optional[pathlib.Path] = None
-        self.log = ""
-
-    def load(self) -> ctypes.CDLL:
-        if self.cdll is None:
-            self.path, self.log = _compile()
-            lib = ctypes.CDLL(str(self.path))
-            vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.butcher_combine_launch.argtypes = [i32, vp, vp, vp, vp, i64,
-                                                   i32, vp]
-            lib.butcher_combine_launch.restype = i32
-            lib.butcher_combine_rows_launch.argtypes = [i32, vp, vp, vp, vp,
-                                                        vp, i64, i32, i32, vp]
-            lib.butcher_combine_rows_launch.restype = i32
-            self.cdll = lib
-        return self.cdll
-
-
-_LIB = _Library()
-
-
-def _compile():
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"butcher_combine_{tag}.so"
-    if so.exists():
-        return so, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc={proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
-    return so, proc.stdout + proc.stderr
-
-
-def build() -> str:
-    """Compile (if needed) and load the kernels; returns the compiler log
-    (empty when a cached build of the same source was loaded)."""
-    _LIB.load()
-    return _LIB.log
+_vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+LIBRARY = CudaLibrary("butcher_combine", {
+    "butcher_combine_launch": [_i32, _vp, _vp, _vp, _vp, _i64, _i32, _vp],
+    "butcher_combine_rows_launch": [_i32, _vp, _vp, _vp, _vp, _vp, _i64,
+                                    _i32, _i32, _vp],
+})
+SOURCE = LIBRARY.source
 
 
 def _check(x: torch.Tensor, ks: torch.Tensor, coef: torch.Tensor,
@@ -146,11 +76,6 @@ def _check(x: torch.Tensor, ks: torch.Tensor, coef: torch.Tensor,
     return s
 
 
-def _raise_on(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
-
-
 def butcher_combine(x: torch.Tensor, ks: torch.Tensor,
                     hc: torch.Tensor) -> torch.Tensor:
     """out = x + sum_i hc[i] * ks[i] on the card.
@@ -164,13 +89,13 @@ def butcher_combine(x: torch.Tensor, ks: torch.Tensor,
     n = x.numel()
     if n == 0:
         return out
-    lib = _LIB.load()
+    lib = LIBRARY.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.butcher_combine_launch(
             _DTYPE_CODE[x.dtype], x.data_ptr(), ks.data_ptr(), hc.data_ptr(),
             out.data_ptr(), n, s, stream)
-    _raise_on(err, "butcher_combine")
+    raise_on(err, "butcher_combine")
     butcher_combine.launches += 1
     return out
 
@@ -190,13 +115,13 @@ def butcher_combine_rows(x: torch.Tensor, ks: torch.Tensor, hc: torch.Tensor,
     n = x.numel()
     if n == 0:
         return out
-    lib = _LIB.load()
+    lib = LIBRARY.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.butcher_combine_rows_launch(
             _DTYPE_CODE[x.dtype], x.data_ptr(), ks.data_ptr(), hc.data_ptr(),
             sc.data_ptr(), out.data_ptr(), n, s, m, stream)
-    _raise_on(err, "butcher_combine_rows")
+    raise_on(err, "butcher_combine_rows")
     butcher_combine_rows.launches += 1
     return out
 

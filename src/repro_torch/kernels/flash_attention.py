@@ -1,0 +1,102 @@
+"""CUDA kernel for flash attention (Hopper, sm_90a), in
+``csrc/flash_attention.cu``: online-softmax attention with causal masking,
+GQA (kv head = h // (H // Hkv)), a sliding window, a query offset and a
+padded-kv mask (replaces the JAX package's ``flash_attention_pallas``).
+The plain PyTorch version is ``kernels/ref.py::attention_ref``;
+``kernels/ops.py`` routes CPU tensors there and CUDA tensors here.
+
+The kernel reads q, k and v through their strides, so the transposed
+(B, H, S, D) views of (B, S, H, D) projections need no copy; only the last
+dim must be contiguous.  It writes its output into a (B, Sq, H, D) buffer
+and returns the (B, H, Sq, D) view of it, so that the caller's transpose
+back to (B, Sq, H*D) is free.
+
+The wrapper counts its kernel launches in ``flash_attention.launches``, a
+plain integer that callers may reset.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ._build import CudaLibrary, raise_on
+
+__all__ = ["flash_attention", "SOURCE", "HEAD_DIMS"]
+
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
+               torch.bfloat16: 3}
+_vp, _i32 = ctypes.c_void_p, ctypes.c_int
+LIBRARY = CudaLibrary("flash_attention", {
+    "flash_attention_launch": [_i32, _vp, _vp, _vp, _vp, _vp, _i32, _i32,
+                               _i32, _i32, _i32, _i32, ctypes.c_float, _i32,
+                               _i32, _i32, _i32, _vp],
+})
+SOURCE = LIBRARY.source
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str):
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {q.dtype} not supported "
+                        f"(have {sorted(map(str, _DTYPE_CODE))})")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q, k, v dtypes {q.dtype}, {k.dtype}, "
+                        f"{v.dtype} differ")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"{name}: need q (B,H,Sq,D) and k, v (B,Hkv,Sk,D); "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, _, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or H % k.shape[1] != 0:
+        raise ValueError(f"{name}: k/v shape {tuple(k.shape)} does not fit "
+                         f"q shape {tuple(q.shape)} (H % Hkv must be 0)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D} not in {HEAD_DIMS}")
+    for t in (q, k, v):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the last dim must be contiguous (got "
+                             f"strides {tuple(t.stride())}); the kernel "
+                             f"reads rows through the other strides")
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: q must be a CUDA tensor, got {q.device}")
+    for t in (k, v):
+        if t.device != q.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {q.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Attention on the card.  q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D), one
+    float dtype, D in ``HEAD_DIMS``, last dim contiguous.  ``q_offset`` is
+    the absolute position of query 0; with ``window`` w, query i attends
+    keys j with i - w < j <= i (absolute).  Returns (B, H, Sq, D) in q's
+    dtype, a view of a (B, Sq, H, D) buffer."""
+    name = "flash_attention"
+    _check(q, k, v, name)
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    view = out.transpose(1, 2)
+    if q.numel() == 0 or Sk == 0:
+        return view.zero_()
+    strides = (ctypes.c_longlong * 12)(*(
+        s for t in (q, k, v, view) for s in t.stride()[:3]))
+    lib = LIBRARY.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_launch(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), strides, B, H, Hkv, Sq, Sk, D, float(scale),
+            int(causal), int(window is not None),
+            0 if window is None else int(window), int(q_offset), stream)
+    raise_on(err, name)
+    flash_attention.launches += 1
+    return view
+
+
+flash_attention.launches = 0

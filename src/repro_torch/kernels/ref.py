@@ -1,12 +1,20 @@
 """Plain PyTorch versions of the CUDA kernels in this package.
 
-They compute what the kernels compute, in the same accumulation dtype
-(``promote(x.dtype, float32)``: float32 for float32/bfloat16/float16
-states, float64 for float64 states) and in the same stage order i =
-0..s-1.  On CPU tensors they ARE the stage combine (``kernels/ops.py``);
-on the card they are only the yardstick the kernels are checked against.
+They compute what the kernels compute.  The stage combines accumulate in
+``promote(x.dtype, float32)`` (float32 for float32/bfloat16/float16
+states, float64 for float64 states) in stage order i = 0..s-1; RMSNorm and
+attention compute in float32 whatever the input dtype, casting at the same
+points as the JAX package's ``repro.kernels.ref``, and return the input's
+dtype.  On CPU tensors they ARE the operations (``kernels/ops.py``); on the
+card they are the yardstick the kernels are checked against, or what a
+caller picks on purpose with ``use_kernels=False``.
+
+``decode_attention_ref`` has no kernel, in the JAX package either: decode
+runs it on every device.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -50,3 +58,84 @@ def butcher_combine_rows_ref(x: torch.Tensor, ks: torch.Tensor, coefs,
             acc = acc + hc[r, i] * ks[i].to(acc_dt)
         outs.append(acc.to(x.dtype))
     return torch.stack(outs)
+
+
+def rms_norm_ref(x: torch.Tensor, weight: torch.Tensor,
+                 residual: Optional[torch.Tensor] = None,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim of x (+ residual, the fused pre-norm
+    pattern), in float32, returned in x.dtype."""
+    xf = x.to(torch.float32)
+    if residual is not None:
+        xf = xf + residual.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.reciprocal(torch.sqrt(var + eps))
+    return (out * weight.to(torch.float32)).to(x.dtype)
+
+
+def _masked_softmax(s: torch.Tensor) -> torch.Tensor:
+    m = torch.amax(s, dim=-1, keepdim=True)
+    # rows that are fully masked (all -inf) produce zeros, not NaNs
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.where(torch.isfinite(s), torch.exp(s - m), torch.zeros_like(s))
+    return e / torch.clamp(torch.sum(e, dim=-1, keepdim=True), min=1e-30)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  q_offset: int = 0,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Multi-head attention with GQA, causal masking and a sliding window.
+
+    q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D); H % Hkv == 0.  ``q_offset`` is
+    the absolute position of q[..., 0, :]; with window w, query j attends
+    keys i with j - w < i <= j.  Scores and softmax in float32 over the
+    whole (Sq, Sk) matrix; returns q.dtype.
+    """
+    D = q.shape[-1]
+    group = q.shape[1] // k.shape[1]
+    scale = scale if scale is not None else D ** -0.5
+    kk = torch.repeat_interleave(k, group, dim=1).to(torch.float32)
+    vv = torch.repeat_interleave(v, group, dim=1).to(torch.float32)
+    s = torch.matmul(q.to(torch.float32), kk.transpose(-1, -2)) * scale
+    qpos = torch.arange(q.shape[2], device=q.device)[:, None] + q_offset
+    kpos = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = torch.ones((q.shape[2], k.shape[2]), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    p = _masked_softmax(s.masked_fill(~mask, float("-inf")))
+    return torch.matmul(p, vv).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, pos: int, *,
+                         window: Optional[int] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """One-token GQA decode attention against a cache in its own dtype.
+
+    q: (B, H, 1, D); k_cache, v_cache: (B, Smax, Hkv, D) (bfloat16 as a
+    rule); pos: the absolute position of the new token (keys past it are
+    masked).  As in the JAX package: scores are products of q and the cache
+    accumulated in float32 (both operands taken to float32); the
+    probabilities are rounded to the cache's dtype before the second
+    product, which again accumulates in float32.  Returns q.dtype.
+    """
+    B, H, _, D = q.shape
+    Hkv = k_cache.shape[2]
+    G = H // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qg = q.reshape(B, Hkv, G, D).to(torch.float32)
+    kf = k_cache.to(torch.float32).permute(0, 2, 3, 1)      # (B, Hkv, D, S)
+    s = torch.matmul(qg, kf) * scale                         # (B, Hkv, G, S)
+    kpos = torch.arange(k_cache.shape[1], device=q.device)
+    mask = kpos <= pos
+    if window is not None:
+        mask &= kpos > pos - window
+    s = s.masked_fill(~mask, float("-inf"))
+    p = _masked_softmax(s).to(v_cache.dtype).to(torch.float32)
+    vf = v_cache.to(torch.float32).transpose(1, 2)           # (B, Hkv, S, D)
+    o = torch.matmul(p, vf)
+    return o.reshape(B, H, 1, D).to(q.dtype)
