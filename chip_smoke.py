@@ -32,16 +32,20 @@ result line):
   6. report  — float32 kernel, plain-version and one-library-call times
                at the main path's shapes (and at n = 1e6 and 8e6), the
                bound (bytes over 3.35 TB/s, or flops over 67 TFLOP/s if
-               larger), and a ``kernels`` JSON line whose ``ms`` is the
-               time per call including the wrapper and ``device_ms`` the
-               kernel alone.
+               larger), the host cost per call of the kernel and of the
+               library call (a host clock over 1000 calls with no
+               synchronise), the kernel/library ratio of the times per
+               call, and a ``kernels`` JSON line whose ``ms`` is the time
+               per call including the wrapper, ``device_ms`` the kernel
+               alone and ``host_ms`` the wrapper's host cost.
   7. profile — one fixed-grid loss+gradient under torch.profiler: wall
                time, kernel time, the device's busy share, top kernels.
 
 The LM serving slice (qwen3-0.6b, float32 weights, bfloat16 KV cache):
 
   8. LM kernels vs plain — rms_norm at rows x d in {8192x1024, 131072x128,
-               4099x1000, 77x16}, with and without residual; flash
+               4099x1000, 77x16} and at decode's {8x1024, 128x128,
+               64x128}, with and without residual; flash
                attention on the JAX package's eight kernel-test cases and
                the prefill shape (8, 16/8, 1024, 128) causal; float32 and
                bfloat16.  |kernel - plain| <= atol + rtol*|plain| with
@@ -65,7 +69,8 @@ The LM serving slice (qwen3-0.6b, float32 weights, bfloat16 KV cache):
                their plain versions, one library call (F.rms_norm,
                F.scaled_dot_product_attention) and the bound: bytes over
                3.35 TB/s (rms_norm), causal flops over 67 TFLOP/s
-               (flash attention).
+               (flash attention); host cost per call of the kernel and the
+               library call, as in phase 6, and the kernel/library ratio.
  13. profile — one prefill and one decode step under torch.profiler.
 
 The card's name and power limit are printed early; the last line is
@@ -309,6 +314,20 @@ def _time_ms(fn, iters=200, warmup=20):
     return a.elapsed_time(b) / iters
 
 
+def _host_ms(fn, calls=1000):
+    """Host time per call: a host clock over ``calls`` back-to-back calls
+    with no synchronise, so the enqueue cost of the wrapper or library call
+    (once the launch queue is full it is paced by the device instead)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t) / calls * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
 def _device_ms(fn, name, iters=50):
     """Kernel time on the device timeline from torch.profiler, or None."""
     from torch.profiler import ProfilerActivity, profile
@@ -363,18 +382,23 @@ def report(max_err, launches):
                             "butcher_combine_kernel")
             d2 = _device_ms(lambda: kern.butcher_combine_rows(x, ks, hc, sc),
                             "butcher_combine_rows_kernel")
+            h1 = _host_ms(lambda: kern.butcher_combine(x, ks, h0))
+            hl1 = _host_ms(lambda: torch.addmv(x.flatten(), k2, h0))
+            h2 = _host_ms(lambda: kern.butcher_combine_rows(x, ks, hc, sc))
             lines.append(
                 f"n={n:8d} s={s:2d} | combine kernel {t_k1:.6f} ms "
-                f"(device {d1 if d1 is None else f'{d1:.6f}'}) plain "
-                f"{t_p1:.6f} addmv {t_l1:.6f} bound {b1:.6f} | rows(m=2) "
-                f"kernel {t_k2:.6f} ms (device "
-                f"{d2 if d2 is None else f'{d2:.6f}'}) plain {t_p2:.6f} "
-                f"bound {b2:.6f}")
+                f"(device {d1 if d1 is None else f'{d1:.6f}'}, host "
+                f"{h1:.6f}) plain {t_p1:.6f} addmv {t_l1:.6f} (host "
+                f"{hl1:.6f}) kernel/addmv {t_k1 / t_l1:.3f} bound {b1:.6f} "
+                f"| rows(m=2) kernel {t_k2:.6f} ms (device "
+                f"{d2 if d2 is None else f'{d2:.6f}'}, host {h2:.6f}) plain "
+                f"{t_p2:.6f} bound {b2:.6f}")
             if n == MAIN_N and s == MAIN_S:
                 main = dict(t_k1=t_k1, t_p1=t_p1, t_l1=t_l1, b1=b1, t_k2=t_k2,
-                            t_p2=t_p2, b2=b2, d1=d1, d2=d2)
+                            t_p2=t_p2, b2=b2, d1=d1, d2=d2, h1=h1, h2=h2)
     print("float32 ms per call (CUDA events over 200 back-to-back calls, "
-          "wrapper included; device = kernel time from torch.profiler):")
+          "wrapper included; device = kernel time from torch.profiler; "
+          "host = host clock per call over 1000 calls, no synchronise):")
     for line in lines:
         print("  " + line)
     src = "src/repro_torch/csrc/butcher_combine.cu"
@@ -384,7 +408,7 @@ def report(max_err, launches):
          "launches": launches["butcher_combine"],
          "max_abs_err": max_err["butcher_combine"],
          "ms": main["t_k1"], "device_ms": main["d1"],
-         "plain_ms": main["t_p1"],
+         "host_ms": main["h1"], "plain_ms": main["t_p1"],
          "bound_ms": main["b1"], "bound_by": "bytes",
          "library_ms": main["t_l1"],
          "shape": f"float32 n={MAIN_N} s={MAIN_S}"},
@@ -393,7 +417,7 @@ def report(max_err, launches):
          "launches": launches["butcher_combine_rows"],
          "max_abs_err": max_err["butcher_combine_rows"],
          "ms": main["t_k2"], "device_ms": main["d2"],
-         "plain_ms": main["t_p2"],
+         "host_ms": main["h2"], "plain_ms": main["t_p2"],
          "bound_ms": main["b2"], "bound_by": "bytes",
          "library_ms": None,
          "shape": f"float32 n={MAIN_N} s={MAIN_S} m=2"},
@@ -497,7 +521,8 @@ def lm_kernels_vs_plain():
     max_err = {"rms_norm": 0.0, "flash_attention": 0.0}
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for rows, d in ((8192, 1024), (131072, 128), (4099, 1000), (77, 16)):
+        for rows, d in ((8192, 1024), (131072, 128), (4099, 1000), (77, 16),
+                        (8, 1024), (128, 128), (64, 128)):
             x = torch.randn(rows, d, generator=g, device=dev).to(dtype)
             r = torch.randn(rows, d, generator=g, device=dev).to(dtype)
             w = torch.randn(d, generator=g, device=dev)
@@ -695,14 +720,18 @@ def lm_report(max_err, launches):
         t_p = _time_ms(lambda: ref.rms_norm_ref(x, w), iters)
         t_l = _time_ms(lambda: F.rms_norm(x, (d,), w, 1e-6), iters)
         d_k = _device_ms(lambda: rn.rms_norm(x, w), "rms_norm_kernel")
+        h_k = _host_ms(lambda: rn.rms_norm(x, w))
+        h_l = _host_ms(lambda: F.rms_norm(x, (d,), w, 1e-6))
         bound = (2 * rows * d + d) * 4 / HBM_BYTES_PER_S * 1e3
         lines.append(f"rms_norm {rows}x{d}: kernel {t_k:.6f} ms (device "
-                     f"{d_k if d_k is None else f'{d_k:.6f}'}) plain "
-                     f"{t_p:.6f} F.rms_norm {t_l:.6f} bound {bound:.6f}")
+                     f"{d_k if d_k is None else f'{d_k:.6f}'}, host "
+                     f"{h_k:.6f}) plain {t_p:.6f} F.rms_norm {t_l:.6f} (host "
+                     f"{h_l:.6f}) kernel/F.rms_norm {t_k / t_l:.3f} bound "
+                     f"{bound:.6f}")
         if (rows, d) == (8192, 1024):
-            main["rms_norm"] = dict(ms=t_k, device_ms=d_k, plain_ms=t_p,
-                                    library_ms=t_l, bound_ms=bound,
-                                    bound_by="bytes",
+            main["rms_norm"] = dict(ms=t_k, device_ms=d_k, host_ms=h_k,
+                                    plain_ms=t_p, library_ms=t_l,
+                                    bound_ms=bound, bound_by="bytes",
                                     shape="float32 rows 8192 d 1024")
     B, H, Hkv, S, D = 8, 16, 8, 1024, 128
     q = torch.randn(B, H, S, D, generator=g, device=dev)
@@ -714,21 +743,28 @@ def lm_report(max_err, launches):
         q, k, v, is_causal=True, enable_gqa=True), 50, 5)
     d_k = _device_ms(lambda: fa.flash_attention(q, k, v),
                      "flash_attention_kernel", 10)
+    h_k = _host_ms(lambda: fa.flash_attention(q, k, v), 100)
+    h_l = _host_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 100)
     flops = 4 * B * H * D * (S * (S + 1) // 2)     # the causal pairs only
     nbytes = (2 * B * H * S * D + 2 * B * Hkv * S * D) * 4
     t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
     bound = max(t_ops, t_bytes) * 1e3
     lines.append(f"flash_attention B{B} H{H}/{Hkv} S{S} D{D} causal: kernel "
                  f"{t_k:.6f} ms (device "
-                 f"{d_k if d_k is None else f'{d_k:.6f}'}) plain {t_p:.6f} "
-                 f"sdpa {t_l:.6f} bound {bound:.6f} "
+                 f"{d_k if d_k is None else f'{d_k:.6f}'}, host {h_k:.6f}) "
+                 f"plain {t_p:.6f} sdpa {t_l:.6f} (host {h_l:.6f}) "
+                 f"kernel/sdpa {t_k / t_l:.3f} bound {bound:.6f} "
                  f"({flops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s achieved)")
     main["flash_attention"] = dict(
-        ms=t_k, device_ms=d_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound,
+        ms=t_k, device_ms=d_k, host_ms=h_k, plain_ms=t_p, library_ms=t_l,
+        bound_ms=bound,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         shape=f"float32 B{B} H{H} Hkv{Hkv} S{S} D{D} causal")
     print("float32 ms per call (CUDA events over back-to-back calls, wrapper "
-          "included; device = kernel time from torch.profiler):")
+          "included; device = kernel time from torch.profiler; host = host "
+          "clock per call with no synchronise, over 1000 calls, 100 for "
+          "flash attention):")
     for line in lines:
         print("  " + line)
     srcs = {"rms_norm": ("src/repro_torch/csrc/rmsnorm.cu",

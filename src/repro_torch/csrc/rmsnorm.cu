@@ -10,18 +10,35 @@
 // (a double input is computed in float, as the JAX kernel does), and the
 // weight arrives as float.  The plain PyTorch version is
 // repro_torch/kernels/ref.py::rms_norm_ref.  The sum of squares is taken
-// per lane and then over the warp, in another order than the plain
-// version's, and v*v+acc contracts into one fused multiply-add, so float
-// results differ from it at rounding scale.
+// per thread, then over the warp, then over the row's warps, in another
+// order than the plain version's, and v*v+acc contracts into one fused
+// multiply-add, so float results differ from it at rounding scale.
 //
 // Bound on the H100: bytes.  One call must read x (and res) and write out,
 // (2 or 3) * rows * d * sizeof(T) bytes, against ~4 flops per element: far
 // below the card's balance point, so the least time is bytes over 3.35
-// TB/s.  The design is the simple one: one warp per row, lanes on
-// consecutive elements (coalesced), a grid-stride loop over rows; the row
-// is read twice -- once for the sum of squares, once to scale it -- and the
-// second read hits L1/L2 (a 1024-float row is 4 KB), so device memory sees
-// each input once.
+// TB/s, reached only with enough loads in flight on every SM.  The design:
+//
+//   * each row is read from device memory once and kept in registers
+//     (kN vectors a thread), then scaled and written once;
+//   * 16-byte loads and stores (float4, 8 x half/bfloat16, double2) for x,
+//     res, w and out when d * sizeof(T) is a multiple of 16 and every
+//     pointer is 16-byte aligned; otherwise the same kernel moves one
+//     element at a time (the scalar path: an odd d, or a view at an odd
+//     storage offset).  The launcher picks the path from d and the pointer
+//     bits;
+//   * a group of tpr threads owns a row.  Where rows are many (the prefill
+//     shapes), the group is the fewest threads that hold the row in
+//     registers -- one warp at d = 128 (one float4 a lane), two at d = 1024
+//     -- so the card fills with independent rows ("many": enough groups
+//     for 1024 threads on each of the device's SMs).  Where rows are few (the
+//     decode shapes, 8 x 1024), the group is one vector a thread, up to a
+//     1024-thread block, so all of a row's loads are in flight at once and
+//     the call costs about one round trip to memory.  The groups' sums meet
+//     in shared memory;
+//   * a row too long for registers (more than 1024 threads x kMaxN vectors:
+//     d > 16384 float or half, > 8192 double, > 4096 on the scalar path)
+//     is walked twice by one 1024-thread block, the second read from L2.
 #include <cuda_runtime.h>
 #include <cuda_fp16.h>
 #include <cuda_bf16.h>
@@ -29,8 +46,8 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxThreads = 1024;    // a row's group is at most one block
+constexpr int kBlock = 256;          // block size when a group is smaller
 
 __device__ __forceinline__ float load_f(float v) { return v; }
 __device__ __forceinline__ float load_f(double v) { return (float)v; }
@@ -45,52 +62,198 @@ template <> __device__ __forceinline__ __nv_bfloat16 store_as<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
-template <typename T, bool kRes>
-__global__ void __launch_bounds__(kThreads)
+// V elements of T moved as one aligned access (16 bytes on the vector path)
+template <typename T, int V> struct alignas(sizeof(T) * V) Pack { T v[V]; };
+
+template <typename T, int V>
+__device__ __forceinline__ void load_row(const T* p, float (&f)[V]) {
+  const Pack<T, V> q = *reinterpret_cast<const Pack<T, V>*>(p);
+#pragma unroll
+  for (int e = 0; e < V; ++e) f[e] = load_f(q.v[e]);
+}
+
+// the float weight of V elements, in pieces of at most 16 bytes
+template <int V>
+__device__ __forceinline__ void load_w(const float* p, float (&f)[V]) {
+  constexpr int W = V < 4 ? V : 4;
+#pragma unroll
+  for (int e = 0; e < V; e += W) {
+    const Pack<float, W> q = *reinterpret_cast<const Pack<float, W>*>(p + e);
+#pragma unroll
+    for (int k = 0; k < W; ++k) f[e + k] = q.v[k];
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_row(T* p, const float (&f)[V]) {
+  Pack<T, V> q;
+#pragma unroll
+  for (int e = 0; e < V; ++e) q.v[e] = store_as<T>(f[e]);
+  *reinterpret_cast<Pack<T, V>*>(p) = q;
+}
+
+template <typename T, bool kRes, int V>
+__device__ __forceinline__ void load_v(const T* x, const T* res, int64_t at,
+                                       float (&v)[V]) {
+  load_row<T, V>(x + at, v);
+  if (kRes) {
+    float r[V];
+    load_row<T, V>(res + at, r);
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[e] += r[e];
+  }
+}
+
+// A group of tpr threads (a multiple of 32) owns row r; blockDim.x / tpr
+// rows a block.  The row is nv = d / V vectors of V elements; thread t
+// holds vectors t, t + tpr, ..., kN of them, in registers.  kN == 0: the
+// row does not fit, and is walked twice.
+template <typename T, bool kRes, int V, int kN>
+__global__ void __launch_bounds__(kMaxThreads)
 rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ res,
                 const float* __restrict__ w, T* __restrict__ out,
-                int64_t rows, int d, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int64_t stride = (int64_t)gridDim.x * kWarps;
-  for (int64_t r = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5); r < rows;
-       r += stride) {
-    const T* xr = x + r * d;
-    const T* rr = kRes ? res + r * d : nullptr;
-    float ss = 0.f;
-    for (int j = lane; j < d; j += 32) {
-      float v = load_f(xr[j]);
-      if (kRes) v += load_f(rr[j]);
-      ss += v * v;
+                int64_t rows, int d, int tpr, float eps) {
+  __shared__ float partial[kMaxThreads / 32];
+  const int t = threadIdx.x % tpr;
+  const int64_t r = (int64_t)blockIdx.x * (blockDim.x / tpr) + threadIdx.x / tpr;
+  const bool live = r < rows;
+  const int nv = d / V;
+  const int64_t row = r * d;
+  constexpr int kHeld = kN > 0 ? kN : 1;
+  float v[kHeld][V], wv[kHeld][V];
+  float ss = 0.f;
+  if (kN > 0) {
+    // every load of the row is issued before the first use
+#pragma unroll
+    for (int k = 0; k < kHeld; ++k) {
+      const int q = t + k * tpr;
+      if (live && q < nv) {
+        load_v<T, kRes, V>(x, res, row + (int64_t)q * V, v[k]);
+        load_w<V>(w + q * V, wv[k]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) v[k][e] = 0.f;
+      }
     }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    const float inv = 1.0f / sqrtf(ss / (float)d + eps);
-    T* orow = out + r * d;
-    for (int j = lane; j < d; j += 32) {
-      float v = load_f(xr[j]);
-      if (kRes) v += load_f(rr[j]);
-      orow[j] = store_as<T>(v * inv * w[j]);
+    for (int k = 0; k < kHeld; ++k)
+#pragma unroll
+      for (int e = 0; e < V; ++e) ss += v[k][e] * v[k][e];
+  } else {
+    for (int q = t; live && q < nv; q += tpr) {
+      float u[V];
+      load_v<T, kRes, V>(x, res, row + (int64_t)q * V, u);
+#pragma unroll
+      for (int e = 0; e < V; ++e) ss += u[e] * u[e];
     }
   }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  if (tpr > 32) {  // uniform over the block: the row's warps meet in shared memory
+    if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = ss;
+    __syncthreads();
+    const int first = (threadIdx.x / tpr) * (tpr >> 5);
+    ss = 0.f;
+    for (int i = 0; i < (tpr >> 5); ++i) ss += partial[first + i];
+  }
+  if (!live) return;
+  const float inv = 1.0f / sqrtf(ss / (float)d + eps);
+  if (kN > 0) {
+#pragma unroll
+    for (int k = 0; k < kHeld; ++k) {
+      const int q = t + k * tpr;
+      if (q < nv) {
+        float o[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) o[e] = v[k][e] * inv * wv[k][e];
+        store_row<T, V>(out + row + (int64_t)q * V, o);
+      }
+    }
+  } else {
+    for (int q = t; q < nv; q += tpr) {
+      float u[V], wq[V], o[V];
+      load_v<T, kRes, V>(x, res, row + (int64_t)q * V, u);
+      load_w<V>(w + q * V, wq);
+#pragma unroll
+      for (int e = 0; e < V; ++e) o[e] = u[e] * inv * wq[e];
+      store_row<T, V>(out + row + (int64_t)q * V, o);
+    }
+  }
+}
+
+template <typename T, bool kRes, int V, int kN>
+int launch_n(const T* x, const T* res, const float* w, T* out, int64_t rows,
+             int d, int tpr, float eps, cudaStream_t stream) {
+  const int per_block = tpr < kBlock ? kBlock / tpr : 1;
+  const int64_t blocks = (rows + per_block - 1) / per_block;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  rms_norm_kernel<T, kRes, V, kN><<<(int)blocks, per_block * tpr, 0, stream>>>(
+      x, res, w, out, rows, d, tpr, eps);
+  return (int)cudaGetLastError();
+}
+
+// The current device's multiprocessor count (132 on the H100 SXM), read
+// once: the launch policies below size their grids by it.
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v > 0 ? v : 1;
+  }();
+  return n;
+}
+
+int pow2_at_least(int v) {
+  int p = 32;
+  while (p < v) p <<= 1;
+  return p;
+}
+
+// Threads per row and vectors per thread for nv vectors a row; kMaxN is the
+// most vectors a thread holds (16 floats: 4 float4, 2 x 8 half/bfloat16,
+// 4 double2; 4 scalars).
+template <typename T, bool kRes, int V>
+int launch_v(const T* x, const T* res, const float* w, T* out, int64_t rows,
+             int d, float eps, cudaStream_t stream) {
+  constexpr int kMaxN = (V == 8) ? 2 : 4;
+  const int nv = d / V;
+  // many rows: the fewest threads that hold a row, if the card still gets
+  // a full complement of threads on every SM
+  const int few = pow2_at_least((nv + kMaxN - 1) / kMaxN);
+  int tpr;
+  if (few <= kBlock && rows * few >= (int64_t)sm_count() * kMaxThreads)
+    tpr = few;
+  else  // few rows: one vector a thread, as far as one block goes
+    tpr = nv < kMaxThreads ? (nv + 31) / 32 * 32 : kMaxThreads;
+  const int n = (nv + tpr - 1) / tpr;
+  if (n == 1) return launch_n<T, kRes, V, 1>(x, res, w, out, rows, d, tpr, eps, stream);
+  if (n == 2) return launch_n<T, kRes, V, 2>(x, res, w, out, rows, d, tpr, eps, stream);
+  if (n <= kMaxN) return launch_n<T, kRes, V, kMaxN>(x, res, w, out, rows, d, tpr, eps, stream);
+  return launch_n<T, kRes, V, 0>(x, res, w, out, rows, d, kMaxThreads, eps, stream);
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <typename T, bool kRes>
+int launch_r(const void* xp, const void* resp, const float* w, void* outp,
+             int64_t rows, int d, float eps, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  const T* x = static_cast<const T*>(xp);
+  const T* res = static_cast<const T*>(resp);
+  T* out = static_cast<T*>(outp);
+  if (d % V == 0 && aligned16(x) && aligned16(w) && aligned16(out) &&
+      (!kRes || aligned16(res)))
+    return launch_v<T, kRes, V>(x, res, w, out, rows, d, eps, stream);
+  return launch_v<T, kRes, 1>(x, res, w, out, rows, d, eps, stream);
 }
 
 template <typename T>
 int launch(const void* x, const void* res, const float* w, void* out,
            int64_t rows, int d, float eps, cudaStream_t stream) {
-  // one warp per row, capped at 16 resident blocks on each of the 132 SMs;
-  // the grid-stride loop covers the rest
-  int64_t blocks = (rows + kWarps - 1) / kWarps;
-  const int64_t cap = 132 * 16;
-  const int grid = (int)(blocks < cap ? blocks : cap);
-  const T* xt = static_cast<const T*>(x);
-  T* ot = static_cast<T*>(out);
   if (res == nullptr)
-    rms_norm_kernel<T, false><<<grid, kThreads, 0, stream>>>(
-        xt, nullptr, w, ot, rows, d, eps);
-  else
-    rms_norm_kernel<T, true><<<grid, kThreads, 0, stream>>>(
-        xt, static_cast<const T*>(res), w, ot, rows, d, eps);
-  return (int)cudaGetLastError();
+    return launch_r<T, false>(x, nullptr, w, out, rows, d, eps, stream);
+  return launch_r<T, true>(x, res, w, out, rows, d, eps, stream);
 }
 
 }  // namespace

@@ -17,7 +17,9 @@ import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
 
-__all__ = ["CudaLibrary", "build_all", "raise_on", "NVCC_FLAGS",
+import torch
+
+__all__ = ["CudaLibrary", "build_all", "call", "raise_on", "NVCC_FLAGS",
            "BUILD_DIR", "CSRC"]
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
@@ -94,6 +96,18 @@ def build_all(libraries: List[CudaLibrary]) -> Dict[str, str]:
         for f in futures:
             f.result()
     return {lib.source.stem: lib.log for lib in libraries}
+
+
+def call(fn, index: int, *args) -> int:
+    """Call the C entry point ``fn(*args, stream)`` on the current stream of
+    CUDA device ``index`` (read as a raw handle, with no Stream object),
+    under a device guard only when ``index`` is not the current device;
+    returns its cudaError code."""
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, stream)
+    with torch.cuda.device(index):
+        return fn(*args, stream)
 
 
 def raise_on(err: int, name: str):

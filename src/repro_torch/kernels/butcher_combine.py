@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from ._build import BUILD_DIR, NVCC_FLAGS, CudaLibrary, raise_on
+from ._build import BUILD_DIR, NVCC_FLAGS, CudaLibrary, call, raise_on
 from .ref import acc_dtype
 
 __all__ = ["butcher_combine", "butcher_combine_rows", "MAX_STAGES",
@@ -47,33 +47,42 @@ LIBRARY = CudaLibrary("butcher_combine", {
 SOURCE = LIBRARY.source
 
 
-def _check(x: torch.Tensor, ks: torch.Tensor, coef: torch.Tensor,
-           coef_shape, name: str):
-    if x.device.type != "cuda":
+_ACC = {dt: acc_dtype(dt) for dt in _DTYPE_CODE}
+
+
+def _check(x: torch.Tensor, ks: torch.Tensor, name: str):
+    """Checks x and ks; returns (dtype code, s, device index).  Sizes are
+    compared directly and messages are built only to raise."""
+    if not x.is_cuda:
         raise ValueError(f"{name}: x must be a CUDA tensor, got {x.device}")
-    if x.dtype not in _DTYPE_CODE:
+    code = _DTYPE_CODE.get(x.dtype)
+    if code is None:
         raise TypeError(f"{name}: dtype {x.dtype} not supported "
                         f"(have {sorted(map(str, _DTYPE_CODE))})")
     if ks.dtype != x.dtype:
         raise TypeError(f"{name}: ks dtype {ks.dtype} != x dtype {x.dtype}")
-    if tuple(ks.shape[1:]) != tuple(x.shape) or ks.ndim != x.ndim + 1:
+    if ks.shape[1:] != x.shape or ks.dim() != x.dim() + 1:
         raise ValueError(f"{name}: ks shape {tuple(ks.shape)} is not "
                          f"(s,) + {tuple(x.shape)}")
     s = ks.shape[0]
     if not 1 <= s <= MAX_STAGES:
         raise ValueError(f"{name}: s={s} stages not in [1, {MAX_STAGES}]")
-    acc = acc_dtype(x.dtype)
-    if coef.dtype != acc or tuple(coef.shape) != tuple(coef_shape):
+    return code, s, x.get_device()
+
+
+def _check_coef(x: torch.Tensor, ks: torch.Tensor, coef: torch.Tensor,
+                shape, index: int, name: str):
+    acc = _ACC[x.dtype]
+    if coef.dtype != acc or coef.shape != shape:
         raise ValueError(f"{name}: coefficients must be {acc} of shape "
-                         f"{tuple(coef_shape)}, got {coef.dtype} "
+                         f"{tuple(shape)}, got {coef.dtype} "
                          f"{tuple(coef.shape)}")
-    for t in (ks, coef):
-        if t.device != x.device:
-            raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
-    for t in (x, ks, coef):
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous")
-    return s
+    if ks.get_device() != index or coef.get_device() != index:
+        t = ks if ks.get_device() != index else coef
+        raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
+    if not (x.is_contiguous() and ks.is_contiguous() and
+            coef.is_contiguous()):
+        raise ValueError(f"{name}: inputs must be contiguous")
 
 
 def butcher_combine(x: torch.Tensor, ks: torch.Tensor,
@@ -83,19 +92,23 @@ def butcher_combine(x: torch.Tensor, ks: torch.Tensor,
     x: (...,) CUDA tensor of float32/float64/float16/bfloat16; ks: (s,) +
     x.shape of the same dtype, 1 <= s <= 13; hc: (s,) in promote(x.dtype,
     float32).  All contiguous on one device.
+
+    The kernel moves 16-byte vectors when n * itemsize is a multiple of 16
+    and x, ks and out are 16-byte aligned (its scalar path otherwise), with
+    all s stage loads of a vector in flight before the sums, which run in
+    stage order 0..s-1.
     """
-    s = _check(x, ks, hc, (ks.shape[0],), "butcher_combine")
+    name = "butcher_combine"
+    code, s, index = _check(x, ks, name)
+    _check_coef(x, ks, hc, (s,), index, name)
     out = torch.empty_like(x)
     n = x.numel()
     if n == 0:
         return out
-    lib = LIBRARY.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.butcher_combine_launch(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), ks.data_ptr(), hc.data_ptr(),
-            out.data_ptr(), n, s, stream)
-    raise_on(err, "butcher_combine")
+    err = call(LIBRARY.load().butcher_combine_launch, index, code,
+               x.data_ptr(), ks.data_ptr(), hc.data_ptr(), out.data_ptr(), n,
+               s)
+    raise_on(err, name)
     butcher_combine.launches += 1
     return out
 
@@ -105,23 +118,22 @@ def butcher_combine_rows(x: torch.Tensor, ks: torch.Tensor, hc: torch.Tensor,
     """out[r] = sc[r] * x + sum_i hc[r, i] * ks[i] on the card, all m rows
     from one read of (x, ks).  hc: (m, s), sc: (m,), both in
     promote(x.dtype, float32); 1 <= m <= 13.  Returns (m,) + x.shape."""
-    m = hc.shape[0] if hc.ndim == 2 else -1
+    name = "butcher_combine_rows"
+    m = hc.shape[0] if hc.dim() == 2 else -1
     if not 1 <= m <= MAX_ROWS:
-        raise ValueError(f"butcher_combine_rows: hc must be (m, s) with "
+        raise ValueError(f"{name}: hc must be (m, s) with "
                          f"1 <= m <= {MAX_ROWS}, got {tuple(hc.shape)}")
-    s = _check(x, ks, hc, (m, ks.shape[0]), "butcher_combine_rows")
-    _check(x, ks, sc, (m,), "butcher_combine_rows")
+    code, s, index = _check(x, ks, name)
+    _check_coef(x, ks, hc, (m, s), index, name)
+    _check_coef(x, ks, sc, (m,), index, name)
     out = torch.empty((m,) + tuple(x.shape), dtype=x.dtype, device=x.device)
     n = x.numel()
     if n == 0:
         return out
-    lib = LIBRARY.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.butcher_combine_rows_launch(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), ks.data_ptr(), hc.data_ptr(),
-            sc.data_ptr(), out.data_ptr(), n, s, m, stream)
-    raise_on(err, "butcher_combine_rows")
+    err = call(LIBRARY.load().butcher_combine_rows_launch, index, code,
+               x.data_ptr(), ks.data_ptr(), hc.data_ptr(), sc.data_ptr(),
+               out.data_ptr(), n, s, m)
+    raise_on(err, name)
     butcher_combine_rows.launches += 1
     return out
 

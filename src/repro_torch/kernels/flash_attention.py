@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from ._build import CudaLibrary, raise_on
+from ._build import CudaLibrary, call, raise_on
 
 __all__ = ["flash_attention", "SOURCE", "HEAD_DIMS"]
 
@@ -86,14 +86,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return view.zero_()
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, view) for s in t.stride()[:3]))
-    lib = LIBRARY.load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_launch(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), strides, B, H, Hkv, Sq, Sk, D, float(scale),
-            int(causal), int(window is not None),
-            0 if window is None else int(window), int(q_offset), stream)
+    err = call(LIBRARY.load().flash_attention_launch, q.get_device(),
+               _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               out.data_ptr(), strides, B, H, Hkv, Sq, Sk, D, float(scale),
+               int(causal), int(window is not None),
+               0 if window is None else int(window), int(q_offset))
     raise_on(err, name)
     flash_attention.launches += 1
     return view

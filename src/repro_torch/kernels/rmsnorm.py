@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from ._build import CudaLibrary, raise_on
+from ._build import CudaLibrary, call, raise_on
 
 __all__ = ["rms_norm", "SOURCE"]
 
@@ -41,40 +41,50 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
     x: (..., d) CUDA tensor of float32/float64/float16/bfloat16, contiguous;
     residual: None or like x; w: (d,), any float dtype (read as float32).
     Returns a new tensor like x.
+
+    The kernel reads each row once into registers, with 16-byte accesses
+    where d and the pointers allow (a view at an odd storage offset, or a d
+    that is not a multiple of 16 bytes, takes its scalar path), and writes
+    it once: its bound is bytes over the card's memory rate.  The launch
+    goes to the current stream; the device guard is taken only when x is
+    not on the current device.
     """
     name = "rms_norm"
-    if x.dtype not in _DTYPE_CODE:
+    code = _DTYPE_CODE.get(x.dtype)
+    if code is None:
         raise TypeError(f"{name}: dtype {x.dtype} not supported "
                         f"(have {sorted(map(str, _DTYPE_CODE))})")
-    if x.ndim < 1 or tuple(w.shape) != (x.shape[-1],):
+    shape = x.shape
+    if not shape or w.shape != (shape[-1],):
         raise ValueError(f"{name}: weight shape {tuple(w.shape)} is not "
-                         f"(d,) for x of shape {tuple(x.shape)}")
+                         f"(d,) for x of shape {tuple(shape)}")
     if residual is not None and (residual.dtype != x.dtype or
-                                 residual.shape != x.shape):
+                                 residual.shape != shape):
         raise ValueError(f"{name}: residual {residual.dtype} "
                          f"{tuple(residual.shape)} is not like x {x.dtype} "
-                         f"{tuple(x.shape)}")
-    for t in (x, residual):
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"{name}: x and residual must be contiguous "
-                             f"(got strides {tuple(t.stride())})")
-    if x.device.type != "cuda":
+                         f"{tuple(shape)}")
+    if not x.is_contiguous() or (residual is not None and
+                                 not residual.is_contiguous()):
+        t = residual if x.is_contiguous() else x
+        raise ValueError(f"{name}: x and residual must be contiguous "
+                         f"(got strides {tuple(t.stride())})")
+    if not x.is_cuda:
         raise ValueError(f"{name}: x must be a CUDA tensor, got {x.device}")
-    for t in (w, residual):
-        if t is not None and t.device != x.device:
-            raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
+    index = x.get_device()
+    if w.get_device() != index or (residual is not None and
+                                   residual.get_device() != index):
+        t = w if w.get_device() != index else residual
+        raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
     out = torch.empty_like(x)
-    d = x.shape[-1]
-    if x.numel() == 0:
+    n = x.numel()
+    if n == 0:
         return out
-    wf = w.to(torch.float32).contiguous()
-    lib = LIBRARY.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.rms_norm_launch(
-            _DTYPE_CODE[x.dtype], x.data_ptr(),
-            None if residual is None else residual.data_ptr(), wf.data_ptr(),
-            out.data_ptr(), x.numel() // d, d, float(eps), stream)
+    if w.dtype != torch.float32 or not w.is_contiguous():
+        w = w.to(torch.float32).contiguous()
+    d = shape[-1]
+    err = call(LIBRARY.load().rms_norm_launch, index, code, x.data_ptr(),
+               None if residual is None else residual.data_ptr(),
+               w.data_ptr(), out.data_ptr(), n // d, d, float(eps))
     raise_on(err, name)
     rms_norm.launches += 1
     return out

@@ -1,5 +1,5 @@
-"""PyTorch port: the LM kernels (rms_norm, flash attention) against their
-plain PyTorch versions on the card.
+"""PyTorch port: the kernels (rms_norm, flash attention, butcher_combine)
+against their plain PyTorch versions on the card.
 
 ``cuda`` marker: skipped with a reason where there is no CUDA device.  This
 file imports no JAX, so it runs on a machine that has only PyTorch (the
@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import butcher_combine as combine_kern
 from repro_torch.kernels import flash_attention as flash_kern
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rmsnorm as rms_kern
@@ -40,6 +41,25 @@ TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
 RMS_TOL = {"float32": dict(rtol=1e-6, atol=1e-6),
            "bfloat16": dict(rtol=float(torch.finfo(torch.bfloat16).eps),
                             atol=1e-6)}
+# rms_norm computes in float32 for every dtype, on both sides: a float64
+# output is that float32 result widened (float32's bound), a float16 output
+# that result rounded once (one float16 ulp)
+ALL_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+              "float16": torch.float16, "bfloat16": torch.bfloat16}
+RMS_TOL.update(float64=RMS_TOL["float32"],
+               float16=dict(rtol=float(torch.finfo(torch.float16).eps),
+                            atol=1e-6))
+
+
+def combine_close(got, want, mag, dtype):
+    """|got - want| <= rtol * (summed term magnitudes) [+ one output ulp in
+    bfloat16 and float16]: the kernel contracts a*b+c into one rounding,
+    the plain version two."""
+    acc = torch.promote_types(dtype, torch.float32)
+    tol = (1e-13 if dtype == torch.float64 else 1e-6) * mag
+    if dtype in (torch.bfloat16, torch.float16):
+        tol = tol + want.to(acc).abs() * torch.finfo(dtype).eps
+    return bool(torch.all((got.to(acc) - want.to(acc)).abs() <= tol))
 
 
 def attn_inputs(case, seed=42):
@@ -88,3 +108,62 @@ def test_flash_attention_kernel_matches_plain_on_card(case, dtype):
     torch.testing.assert_close(got.float(),
                                tref.attention_ref(q, k, v, **kw).float(),
                                **TOL[dtype])
+
+
+def _misaligned(shape, offset, dtype, g, dev):
+    """A contiguous (shape) tensor at storage offset ``offset`` elements
+    (1 breaks 16-byte alignment: the kernels then take their scalar
+    path)."""
+    n = 1
+    for size in shape:
+        n *= size
+    flat = torch.randn(n + offset, generator=g, device=dev).to(dtype)
+    return flat[offset:].view(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", [16, 128, 384, 512, 1000, 1024, 4096, 8192,
+                               12288])
+@pytest.mark.parametrize("dtype", sorted(ALL_DTYPES))
+def test_rms_norm_kernel_paths_match_plain_on_card(dtype, d, offset):
+    """Every launch path: 16-byte or scalar accesses (offset 1), a warp,
+    a few warps or a block per row (8192 rows against 1 and 8), groups of
+    warps that are not a power of two, several to a block (d 384 in
+    float32: 96 threads a row, two rows in a 192-thread block), the row
+    in registers or walked twice (d 12288 in float64, d >= 8192 on the
+    scalar path), with and without the residual."""
+    dev = _on_card()
+    tdt = ALL_DTYPES[dtype]
+    g = torch.Generator(device=dev).manual_seed(d + offset)
+    w = torch.randn(d, generator=g, device=dev)
+    for rows in (1, 8, 8192):
+        x = _misaligned((rows, d), offset, tdt, g, dev)
+        r = _misaligned((rows, d), offset, tdt, g, dev)
+        for res in (None, r):
+            got = rms_kern.rms_norm(x, w, res)
+            want = tref.rms_norm_ref(x, w, res)
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **RMS_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 3, 11008, 1000003, 4000000])
+@pytest.mark.parametrize("dtype", sorted(ALL_DTYPES))
+def test_butcher_combine_kernel_paths_match_plain_on_card(dtype, n, offset):
+    """s = 1..13 stages on the 16-byte path (n = 11008 and 4e6, the
+    latter at full blocks) and the scalar one (an odd n, or offset 1)."""
+    dev = _on_card()
+    tdt = ALL_DTYPES[dtype]
+    acc = torch.promote_types(tdt, torch.float32)
+    g = torch.Generator(device=dev).manual_seed(n + offset)
+    for s in range(1, combine_kern.MAX_STAGES + 1):
+        x = _misaligned((n,), offset, tdt, g, dev)
+        ks = _misaligned((s, n), offset, tdt, g, dev)
+        hc = torch.randn(s, generator=g, device=dev,
+                         dtype=torch.float64).to(acc)
+        got = combine_kern.butcher_combine(x, ks, hc)
+        want = tref.butcher_combine_ref(x, ks, hc, 1.0)
+        mag = x.to(acc).abs() + hc.abs() @ ks.to(acc).abs()
+        assert combine_close(got, want, mag, tdt), f"s={s}"

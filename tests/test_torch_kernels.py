@@ -21,6 +21,8 @@ from repro_torch.kernels import butcher_combine as kern
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 
+from test_torch_cuda import combine_close
+
 STAGES = (1, 3, 7, 12, 13)
 # float64: the two packages run the same float64 operations in the same
 # stage order; what differs is the libraries' rounding of a*b+c fusions.
@@ -135,16 +137,6 @@ def test_kernel_source_is_in_the_package():
     assert kern.BUILD_DIR.parent == kern.SOURCE.parent.parent
 
 
-def _close(got, want, mag, dtype):
-    """|got - want| <= rtol * (summed term magnitudes) [+ one bf16 ulp]:
-    the kernel contracts a*b+c into one rounding, the plain version two."""
-    acc = torch.promote_types(dtype, torch.float32)
-    tol = (1e-13 if dtype == torch.float64 else 1e-6) * mag
-    if dtype == torch.bfloat16:
-        tol = tol + want.to(acc).abs() * torch.finfo(dtype).eps
-    return bool(torch.all((got.to(acc) - want.to(acc)).abs() <= tol))
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
                                    torch.bfloat16])
@@ -165,8 +157,8 @@ def test_kernels_match_plain_on_card(dtype):
             xmag = x.to(acc).abs()
             got = kern.butcher_combine(x, ks, hc[0])
             want = tref.butcher_combine_ref(x, ks, hc[0], 1.0)
-            assert _close(got, want, xmag + kmag[0], dtype)
+            assert combine_close(got, want, xmag + kmag[0], dtype)
             rows = kern.butcher_combine_rows(x, ks, hc, sc)
             rows_ref = tref.butcher_combine_rows_ref(x, ks, hc, sc, 1.0)
-            assert _close(rows[0], rows_ref[0], xmag + kmag[0], dtype)
-            assert _close(rows[1], rows_ref[1], kmag[1], dtype)
+            assert combine_close(rows[0], rows_ref[0], xmag + kmag[0], dtype)
+            assert combine_close(rows[1], rows_ref[1], kmag[1], dtype)
