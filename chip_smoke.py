@@ -46,10 +46,11 @@ The LM serving slice (qwen3-0.6b, float32 weights, bfloat16 KV cache):
   8. LM kernels vs plain — rms_norm at rows x d in {8192x1024, 131072x128,
                4099x1000, 77x16} and at decode's {8x1024, 128x128,
                64x128}, with and without residual; flash
-               attention on the JAX package's eight kernel-test cases and
-               the prefill shape (8, 16/8, 1024, 128) causal; float32 and
-               bfloat16.  |kernel - plain| <= atol + rtol*|plain| with
-               (rtol, atol) (1e-6, 1e-6) / (1e-5, 1e-5) in float32 and one
+               attention on the JAX package's eight kernel-test cases, head
+               dims 16 and 32, 65 queries against 4096 and 8192 keys, a
+               GQA group of 4 with a window, and the prefill shape
+               (8, 16/8, 1024, 128) causal; float32 and bfloat16.
+               |kernel - plain| <= atol + rtol*|plain| with (rtol, atol) (1e-6, 1e-6) / (1e-5, 1e-5) in float32 and one
                bfloat16 ulp / 2e-2 in bfloat16.
   9. serve   — the main path: ``repro_torch.launch.serve lm --arch
                qwen3-0.6b`` at full width, batch 8, prompt 1024, 32 tokens
@@ -68,9 +69,12 @@ The LM serving slice (qwen3-0.6b, float32 weights, bfloat16 KV cache):
  12. report  — float32 ms per call of both LM kernels at the serving shapes,
                their plain versions, one library call (F.rms_norm,
                F.scaled_dot_product_attention) and the bound: bytes over
-               3.35 TB/s (rms_norm), causal flops over 67 TFLOP/s
-               (flash attention); host cost per call of the kernel and the
-               library call, as in phase 6, and the kernel/library ratio.
+               3.35 TB/s (rms_norm); for flash attention 3 x the causal
+               flops over 495 TFLOP/s (3xTF32 on the tensor cores, its
+               float32-accurate least time; the float32-FMA bound at
+               67 TFLOP/s printed beside it); host cost per call of the
+               kernel and the library call, as in phase 6, and the
+               kernel/library ratio.
  13. profile — one prefill and one decode step under torch.profiler.
 
 The card's name and power limit are printed early; the last line is
@@ -93,6 +97,7 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12           # H100 SXM float32, outside the tensor cores
+TF32_FLOP_PER_S = 495e12         # H100 SXM TF32 on the tensor cores, dense
 MAIN_N = 256 * 43                # the CNF state leaf: batch 256 x dim 43
 MAIN_S = 7                       # dopri5
 
@@ -486,6 +491,11 @@ ATTN_CASES = [
     (1, 4, 4, 64, 256, 64, True, None, 192),    # chunked prefill offset
     (1, 4, 4, 128, 128, 64, False, None, 0),    # non-causal (encoder)
     (1, 16, 8, 1, 300, 64, True, 128, 299),     # decode + SWA, ragged cache
+    (1, 4, 2, 200, 200, 16, True, None, 0),     # D 16
+    (1, 4, 2, 200, 200, 32, False, None, 0),    # D 32, non-causal
+    (1, 8, 2, 65, 4096, 128, True, None, 4031),  # Sq 65, long Sk, offset
+    (1, 4, 2, 65, 8192, 64, False, None, 0),    # Sq 65, Sk 8192
+    (1, 16, 4, 300, 300, 128, True, 100, 0),    # GQA group 4 + window
     (8, 16, 8, 1024, 1024, 128, True, None, 0),  # qwen3-0.6b prefill
 ]
 # kernel vs plain, both float32 inside, differing in summation order:
@@ -748,14 +758,23 @@ def lm_report(max_err, launches):
         q, k, v, is_causal=True, enable_gqa=True), 100)
     flops = 4 * B * H * D * (S * (S + 1) // 2)     # the causal pairs only
     nbytes = (2 * B * H * S * D + 2 * B * Hkv * S * D) * 4
-    t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    # float32 accuracy on the tensor cores takes three TF32 products
+    t_ops = 3 * flops / TF32_FLOP_PER_S
+    t_fma = flops / F32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
     bound = max(t_ops, t_bytes) * 1e3
+    alone = d_k if d_k is not None else t_k
     lines.append(f"flash_attention B{B} H{H}/{Hkv} S{S} D{D} causal: kernel "
                  f"{t_k:.6f} ms (device "
                  f"{d_k if d_k is None else f'{d_k:.6f}'}, host {h_k:.6f}) "
                  f"plain {t_p:.6f} sdpa {t_l:.6f} (host {h_l:.6f}) "
                  f"kernel/sdpa {t_k / t_l:.3f} bound {bound:.6f} "
-                 f"({flops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s achieved)")
+                 f"({'operations' if t_ops >= t_bytes else 'bytes'}, 3xTF32 "
+                 f"on the tensor cores; {bound / alone * 100:.1f}% of it "
+                 f"alone) float32-FMA bound {t_fma * 1e3:.6f} "
+                 f"({t_fma * 1e3 / alone * 100:.1f}% of it alone) "
+                 f"({flops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s achieved per "
+                 f"call, {flops / (alone * 1e-3) / 1e12:.2f} alone)")
     main["flash_attention"] = dict(
         ms=t_k, device_ms=d_k, host_ms=h_k, plain_ms=t_p, library_ms=t_l,
         bound_ms=bound,

@@ -8,53 +8,146 @@
 //   replaces repro/kernels/flash_attention.py::flash_attention_pallas
 //   (Pallas body _flash_kernel).
 //
-// q (B,H,Sq,D), k and v (B,Hkv,Sk,D) and out (B,H,Sq,D) are addressed by
-// their strides (in elements) along b, h and s; the last dim must be
-// contiguous.  So the (B,S,H,D) projections can be read through their
-// transposed (B,H,S,D) views without a copy.  T is float, double, half or
-// bfloat16; all arithmetic is float (a double input is computed in float,
-// as the JAX reference does), the output is stored as T.  D is a template
-// parameter: 16, 32, 64 or 128.  The plain PyTorch version is
-// repro_torch/kernels/ref.py::attention_ref.
+// q (B,H,Sq,D), k and v (B,Hkv,Sk,D) are read by TMA through 4-D tensor
+// maps over (D, S, H, B) built from their strides, so the (B,S,H,D)
+// projections are read through their transposed (B,H,S,D) views without a
+// copy; bases and the b, h, s strides must be 16-byte aligned and the last
+// dim contiguous (the wrapper checks).  out (B,H,Sq,D) is written through
+// its strides.  T is float, double, half or bfloat16; all arithmetic is
+// float (a double input is computed in float, as the JAX reference does),
+// the output is stored as T.  D is a template parameter: 16, 32, 64 or 128.
+// The plain PyTorch version is repro_torch/kernels/ref.py::attention_ref.
 //
 // Numerics follow _flash_kernel: per query row a running maximum m, sum l
-// and accumulator acc in float; a kv tile that no row of the query tile may
-// see is skipped by the same test (k_lo < Sk, causal k_lo <= q_hi, window
+// and accumulator in float; a kv tile that no row of the query tile may see
+// is skipped by the same test (k_lo < Sk, causal k_lo <= q_hi, window
 // k_hi > q_lo - w); -inf maxima are clamped to 0 before exponentiating, and
-// l is floored at 1e-30.  Dot products and sums run in another order than
-// the plain version's (which materialises the whole score matrix), with
-// fused multiply-adds, so results differ from it at float rounding scale.
+// l is floored at 1e-30.  The exponentials are exp2 of scores scaled by
+// scale * log2(e), which is exp of the scaled score up to float rounding.
 //
 // Bound on the H100: operations.  Causal prefill at the LM's shape (B 8,
-// H 16, S 1024, D 128) does 4*B*H*D*(S*(S+1)/2) ~ 34 GFLOP against ~100 MB
-// moved: ~340 flop/byte, so the least time is flops over the 67 TFLOP/s of
-// float32 FMA outside the tensor cores (tensor cores in TF32/bf16 are later
-// work).  The design is the simple one: one CTA of 256 threads per (query
-// tile of 64 rows, head, batch); a loop over kv tiles of 32 keys staged in
-// shared memory (q, k and the probability tile padded by one float per row
-// so the column reads hit distinct banks); each thread owns 4 query rows x
-// 2 keys of the score tile and 4 rows x D/16 columns of the accumulator,
-// and the row reductions run over 16 lanes with warp shuffles.
+// H 16, S 1024, D 128) does 4*B*H*D*(S*(S+1)/2) = 34.4 GFLOP against
+// ~200 MB moved.  Both products run on the tensor cores with wgmma in
+// 3xTF32, so the result keeps float32 accuracy: each float operand x is
+// split into hi = x with its low 13 mantissa bits dropped (what the tensor
+// core reads of a float as TF32) and lo = x - hi (exact in float); per step
+// of 8 along the reduction the two small products hi_a.lo_b and lo_a.hi_b
+// go into one accumulator and hi_a.hi_b into another, which are added at
+// the end, small sum first.  The tensor core reads lo as TF32 too, an error
+// below 2^-21 |x|.  Plain TF32 (hi.hi alone) misses the float32 tolerance
+// on a 1024-key row.  So the least time is 3 x flops over the 495 TFLOP/s
+// of TF32: 0.208 ms at that shape (the float32-FMA bound is 0.513 ms).
+// half and bfloat16 values are exact in TF32: their lo is zero, so Q.K^T
+// takes one product and P.V two (the probabilities are float and split).
+//
+// Design.  One CTA of 384 threads per (128 query rows, head, batch): two
+// consumer warpgroups of 64 query rows each, and a producer warpgroup that
+// gives 128 of its registers a thread to them (setmaxnreg 40 / 232).
+// Lane 0 of the producer's first warp issues every copy as TMA: Q once,
+// then the live K and V tiles of kBK keys (32; 16 for double, whose tiles
+// are twice the bytes) into a ring of two slots.  The producer's other
+// three warps write, per tile, the operands TMA cannot: K_lo beside K_hi
+// in the slot (another T than float: K_hi and K_lo from the raw tile) and
+// V transposed, hi and lo (D rows x kBK keys), since TF32 wgmma takes both
+// operands K-major only and V's rows are D-contiguous.  Four mbarriers per
+// slot order the roles: full (TMA's bytes landed), conv (the converters'
+// writes are done), K free and Vt free (every consumer warp is done with
+// them).  Tiles land in TMA's 128-byte swizzle (64 or 32 bytes where a row
+// is that short), which is the canonical K-major layout of wgmma's shared
+// memory operands: a float K tile is the hi operand of Q.K^T as it lands,
+// and a float Q tile is loaded straight into its operand buffer.  Per tile
+// a consumer warpgroup computes S (64 x kBK) = Q.K^T, per step of 8 along
+// D, with one wgmma.m64n(2 kBK)k8 of Q_hi against [K_hi; K_lo] (both from
+// shared memory) and one m64n(kBK)k8 of Q_lo, from registers, against K_hi
+// into the hi.lo half; runs the online softmax on the accumulator
+// fragments (a row lives on the 4 lanes of a quad: row max and sum are
+// quad shuffles); then O (64 x D) += P.V with wgmma.m64nDk8, P from
+// registers: the accumulator holds P[g][2t] and P[g][2t+1] of each 8-key
+// block, which is the TF32 A fragment once the keys of the block are taken
+// in the order 0,2,4,6,1,3,5,7, so Vt is written in that order.  P.V is
+// waited for at once and the slot's Vt given back, so the converters fill
+// it for the tile after next while the consumers work on the next one.  A
+// warpgroup skips the products of a tile none of its rows may see, and
+// only tiles that the causal diagonal, the window edge or Sk crosses pay
+// for the element mask.  Causal grids start with the last query tiles,
+// which see the most keys, so the tail of the grid is the light tiles.
+//
+// Shared memory (bytes, D 128):  float: Q_hi 65536 + 2 slots x (K hi/lo
+// 32768 + raw V 16384 + Vt hi/lo 32768) = 229376;  half and bfloat16: Q_hi
+// 65536 + 2 x (K hi 16384 + raw K 8192 + raw V 8192 + Vt hi 16384) =
+// 163840;  double: Q_hi 65536 + 2 x (K hi/lo 16384 + raw K 16384 + raw V
+// 16384 + Vt hi/lo 16384) = 196608; each plus 1 KB of alignment slack and
+// the barriers.  Q_lo stays in registers (D/2 a thread), as do S and O.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_fp16.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
-constexpr int kBQ = 64;              // query rows per CTA
-constexpr int kBK = 32;              // keys per kv tile
-constexpr int kTX = 16;              // threads along keys / head dim
-constexpr int kTY = 16;              // threads along query rows
-constexpr int kThreads = kTX * kTY;
-constexpr int kRQ = kBQ / kTY;       // query rows per thread
-constexpr int kRK = kBK / kTX;       // keys per thread in the score tile
+constexpr int kRowsWG = 64;          // query rows per consumer warpgroup
+constexpr int kWG = 2;               // consumer warpgroups
+constexpr int kBQ = kRowsWG * kWG;   // query rows per CTA
+constexpr int kConsumers = 128 * kWG;
+// + a producer warpgroup: its warp 0 issues the copies, warps 1-3 convert;
+// a whole warpgroup, so that its setmaxnreg.dec frees the registers the
+// consumers take
+constexpr int kConverters = 96;
+constexpr int kThreads = kConsumers + 128;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float load_f(float v) { return v; }
-__device__ __forceinline__ float load_f(double v) { return (float)v; }
-__device__ __forceinline__ float load_f(__half v) { return __half2float(v); }
-__device__ __forceinline__ float load_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+struct Cfg {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  // inputs with a non-zero lo part (half and bfloat16 are exact in TF32)
+  static constexpr bool kSplit = kF32 || std::is_same<T, double>::value;
+  // keys per kv tile: 16 for double, whose raw tiles are twice the bytes
+  static constexpr int kBK = sizeof(T) == 8 ? 16 : 32;
+};
+
+// Shared-memory plan.  Raw tiles (as TMA lands them) are rows of kRaw
+// bytes in chunks of kRawElems elements along D; float operands are rows of
+// kOp bytes (K-major along D), or of kVtRow bytes (Vt, K-major along keys).
+template <typename T, int D>
+struct Plan {
+  using C = Cfg<T>;
+  static constexpr int kBK = C::kBK;
+  static constexpr int kRaw = D * (int)sizeof(T) < 128 ? D * (int)sizeof(T) : 128;
+  static constexpr int kRawElems = kRaw / (int)sizeof(T);
+  static constexpr int kChunks = D / kRawElems;
+  static constexpr int kOp = D * 4 < 128 ? D * 4 : 128;
+  static constexpr int kTile = kBK * D * (int)sizeof(T);   // raw K or V tile
+  static constexpr int kQh = kBQ * D * 4;
+  // K as the B operand of Q.K^T: per chunk of kOp/4 along D, the kBK rows
+  // of K_hi and then (split inputs) the kBK rows of K_lo, so that one
+  // 2kBK-row operand gives Q_hi.K_hi and Q_hi.K_lo in one wgmma
+  static constexpr int kKlo = kBK * kOp;                    // hi -> lo rows
+  static constexpr int kKpitch = (C::kSplit ? 2 : 1) * kBK * kOp;
+  static constexpr int kKop = (D * 4 / kOp) * kKpitch;
+  // V transposed: D rows of kBK keys, hi [and lo]
+  static constexpr int kVtRow = kBK * 4;
+  static constexpr int kVt = D * kVtRow;
+  // a ring slot: the K operand (float: TMA lands K_hi in it), raw K
+  // (another T), raw V, Vt
+  static constexpr int oSRawK = kKop;
+  static constexpr int oSV = oSRawK + (C::kF32 ? 0 : kTile);
+  static constexpr int oSVt = oSV + kTile;
+  static constexpr int kStage = oSVt + kVt * (C::kSplit ? 2 : 1);
+  static_assert(C::kF32 || kRowsWG * D * (int)sizeof(T) <= kStage,
+                "a slot holds a warpgroup's raw Q rows");
+  static constexpr int oQh = 0;
+  static constexpr int oRing = oQh + kQh;
+  static constexpr int oBar = oRing + 2 * kStage;
+  static constexpr int kBytes = oBar + 16 * 8 + 1024;       // + align slack
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(double v) { return (float)v; }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T store_as(float v);
 template <> __device__ __forceinline__ float store_as<float>(float v) { return v; }
@@ -64,197 +157,744 @@ template <> __device__ __forceinline__ __nv_bfloat16 store_as<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
+// x with its low 13 mantissa bits dropped: what the tensor core reads of x
+__device__ __forceinline__ float tf32_hi(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
+
 struct Strides {
   long long b, h, s;
 };
 
-template <int D>
-constexpr int smem_floats() {
-  return kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1);
+// Byte offset of byte `b` of row `row` in a tile of rows of `rb` bytes, as
+// TMA's CU_TENSOR_MAP_SWIZZLE_<rb>B lays it out (the 16-byte unit index is
+// XORed with address bits 7 and up: CuTe's Swizzle<log2(rb/16), 4, 3>), which
+// is also wgmma's K-major swizzled operand layout.  Tiles start 1 KB aligned.
+__device__ __forceinline__ uint32_t swz(uint32_t row, uint32_t b, uint32_t rb) {
+  const uint32_t o = row * rb + b;
+  return o ^ (((o >> 7) & (rb / 16 - 1)) << 4);
 }
 
-// max / sum over the 16 lanes that share a query row (lane groups 0-15 and
-// 16-31 of a warp hold two different rows)
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = kTX / 2; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// element (row, k) of a float operand of `rows` rows, K-major in rows of rb
+// bytes, chunked along k every rb/4 elements
+__device__ __forceinline__ uint32_t op_off(int rows, int row, int k, int rb) {
+  const int per = rb / 4;
+  return (k / per) * rows * rb + swz(row, (k % per) * 4, rb);
 }
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = kTX / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+
+// element (row, col) of a raw tile of `rows` rows
+template <typename T, int D>
+__device__ __forceinline__ float raw_at(const uint8_t* tile, int rows, int row,
+                                        int col) {
+  using P = Plan<T, D>;
+  const uint32_t off = (col / P::kRawElems) * rows * P::kRaw +
+                       swz(row, (col % P::kRawElems) * sizeof(T), P::kRaw);
+  return to_f(*reinterpret_cast<const T*>(tile + off));
 }
+
+// wgmma shared-memory descriptor of a K-major swizzled operand starting at
+// shared address `addr`, rows of rb bytes, 8-row groups rb * 8 apart
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t rb) {
+  const uint64_t layout = rb == 128 ? 1 : rb == 64 ? 2 : 3;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)((8 * rb) >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// wait for the completion of the barrier's phase of parity `parity`
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2, int c3,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar) : "memory");
+}
+
+// generic-proxy shared-memory writes -> visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of an accumulator
+// register across the asynchronous wgmma that owns it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d[64 x 64] (+)= a[64 x 8] . b[64 x 8]^T, a and b in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 32] (+)= a[64 x 8] . b[32 x 8]^T, a and b in shared memory
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 16] (+)= a[64 x 8] . b[16 x 8]^T, a in registers (the tf32 A
+// fragment), b in shared memory
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 32] (+)= a[64 x 8] . b[32 x 8]^T, a in registers (the tf32 A
+// fragment), b in shared memory
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 64] (+)= a[64 x 8] . b[64 x 8]^T, a in registers (the tf32 A
+// fragment), b in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 128] (+)= a[64 x 8] . b[128 x 8]^T, a in registers (the tf32 A
+// fragment), b in shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, db, scale_d);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, db, scale_d);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, db, scale_d);
+  else wgmma_rs_n128(d, a, db, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
+  else wgmma_ss_n64(d, da, db, scale_d);
+}
+
+// the lo part of x as a TF32 operand: x - hi, exact in float
+__device__ __forceinline__ uint32_t tf32_lo(float x) {
+  return __float_as_uint(x - tf32_hi(x));
+}
+
+// barriers (8 bytes each): Q (float), then one per ring slot of each kind
+constexpr int kBarQ = 0;
+constexpr int kBarFull = 1;     // TMA bytes of the slot landed
+constexpr int kBarConv = 3;     // converters wrote K_lo (K_hi) and Vt
+constexpr int kBarKFree = 5;    // consumers are done with K and raw V
+constexpr int kBarVtFree = 7;   // consumers are done with Vt
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
-                       Strides qs, Strides ks, Strides vs, Strides os,
-                       int group, int Sq, int Sk, float scale, int causal,
-                       int has_window, int window, int q_offset) {
-  constexpr int kDC = D / kTX;       // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;                          // kBQ x (D+1)
-  float* sK = sQ + kBQ * (D + 1);            // kBK x (D+1)
-  float* sV = sK + kBK * (D + 1);            // kBK x D
-  float* sP = sV + kBK * D;                  // kBQ x (kBK+1)
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_kernel(__grid_constant__ const CUtensorMap qmap,
+                       __grid_constant__ const CUtensorMap kmap,
+                       __grid_constant__ const CUtensorMap vmap,
+                       T* __restrict__ out, Strides os, int group, int Sq,
+                       int Sk, float scale_log2, int causal, int has_window,
+                       int window, int q_offset) {
+  using C = Cfg<T>;
+  using P = Plan<T, D>;
+  constexpr int kBK = C::kBK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t sbase = smem_addr(smem);
+  const uint32_t bars = sbase + P::oBar;
+  auto bar = [&](int i) { return bars + 8 * i; };
 
-  const int tid = threadIdx.x;
-  const int tx = tid % kTX, ty = tid / kTX;
-  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / group;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h;
+  const int iq = gridDim.x - 1 - blockIdx.x;   // heaviest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
   const int q0 = iq * kBQ;
-
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    sQ[r * (D + 1) + c] = q0 + r < Sq ? load_f(qb[(q0 + r) * qs.s + c]) : 0.f;
-  }
-
-  float m[kRQ], l[kRQ], acc[kRQ][kDC];
-#pragma unroll
-  for (int i = 0; i < kRQ; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kDC; ++c) acc[i][c] = 0.f;
-  }
-
-  // absolute positions, as in _flash_kernel
+  // the CTA's live kv tiles [j_begin, j_begin + n_tiles), by _flash_kernel's
+  // test (a contiguous range); rows past Sq see nothing
   const int q_lo = q0 + q_offset;
-  const int q_hi = q_lo + kBQ - 1;
-  const int nk = (Sk + kBK - 1) / kBK;
-  for (int ik = 0; ik < nk; ++ik) {
-    const int k_lo = ik * kBK;
-    const int k_hi = k_lo + kBK - 1;
-    bool live = k_lo < Sk;
-    if (causal) live = live && k_lo <= q_hi;
-    if (has_window) live = live && k_hi > q_lo - window;
-    if (!live) continue;             // the same for every thread of the CTA
+  const int q_hi = min(q0 + kBQ, Sq) - 1 + q_offset;
+  int j_end = (Sk + kBK - 1) / kBK;
+  if (causal) j_end = min(j_end, q_hi < 0 ? 0 : q_hi / kBK + 1);
+  int j_begin = 0;
+  if (has_window) {
+    const int x = q_lo - window - (kBK - 1);
+    j_begin = x < 0 ? 0 : x / kBK + 1;
+  }
+  const int n_tiles = max(0, j_end - j_begin);
+  // Tile i lives in ring slot i & 1.  Another T than float first stages
+  // warpgroup w's raw Q rows in slot w: the full and K-free barriers then
+  // complete once more before tile i's use, (i >> 1) + kQOff.
+  constexpr int kQOff = C::kF32 ? 0 : 1;
 
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D;
-      const bool in = k_lo + r < Sk;
-      sK[r * (D + 1) + c] = in ? load_f(kb[(k_lo + r) * ks.s + c]) : 0.f;
-      sV[r * D + c] = in ? load_f(vb[(k_lo + r) * vs.s + c]) : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(bar(kBarQ), 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(bar(kBarFull + s), 1);
+      mbar_init(bar(kBarConv + s), kConverters / 32);
+      mbar_init(bar(kBarKFree + s), kConsumers / 32);
+      mbar_init(bar(kBarVtFree + s), kConsumers / 32);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    float s[kRQ][kRK];
-#pragma unroll
-    for (int i = 0; i < kRQ; ++i)
-#pragma unroll
-      for (int j = 0; j < kRK; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      float qv[kRQ], kv[kRK];
-#pragma unroll
-      for (int i = 0; i < kRQ; ++i) qv[i] = sQ[(ty + kTY * i) * (D + 1) + c];
-#pragma unroll
-      for (int j = 0; j < kRK; ++j) kv[j] = sK[(tx + kTX * j) * (D + 1) + c];
-#pragma unroll
-      for (int i = 0; i < kRQ; ++i)
-#pragma unroll
-        for (int j = 0; j < kRK; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
+  // the warp index through a shuffle: the compiler then knows it (and all
+  // that derives from it) is uniform across the warp, so the wgmma under
+  // a warpgroup's branches is not serialized
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
 
+  if (warp >= 4 * kWG) {
+    // ---- producer warpgroup ----
+    // 384 threads start with 168 registers each; this warpgroup gives 128
+    // of its back (setmaxnreg.inc draws only on what .dec freed)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (n_tiles == 0) return;
+    if (warp == 4 * kWG) {
+      // warp 0, lane 0: every TMA copy
+      if (lane != 0) return;
+      if constexpr (C::kF32) {
+        mbar_expect_tx(bar(kBarQ), P::kQh);
 #pragma unroll
-    for (int i = 0; i < kRQ; ++i) {
-      const int qpos = q_lo + ty + kTY * i;
-      bool mask[kRK];
-      float mx = -INFINITY;
+        for (int c = 0; c < P::kChunks; ++c)
+          tma_load(sbase + P::oQh + c * kBQ * P::kOp, &qmap, c * P::kRawElems,
+                   q0, h, b, bar(kBarQ));
+      } else {
+        for (int w = 0; w < kWG; ++w) {
+          mbar_expect_tx(bar(kBarFull + w), kRowsWG * D * (int)sizeof(T));
 #pragma unroll
-      for (int j = 0; j < kRK; ++j) {
-        const int kpos = k_lo + tx + kTX * j;
-        bool ok = kpos < Sk;
-        if (causal) ok = ok && kpos <= qpos;
-        if (has_window) ok = ok && kpos > qpos - window;
-        mask[j] = ok;
-        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
+          for (int c = 0; c < P::kChunks; ++c)
+            tma_load(sbase + P::oRing + w * P::kStage + c * kRowsWG * P::kRaw,
+                     &qmap, c * P::kRawElems, q0 + kRowsWG * w, h, b,
+                     bar(kBarFull + w));
+        }
       }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float m_safe = isfinite(m_new) ? m_new : 0.f;
-      const float corr = isfinite(m[i]) ? expf(m[i] - m_safe) : 0.f;
-      float psum = 0.f;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i & 1, n = (i >> 1) + kQOff;
+        if (n >= 1) mbar_wait(bar(kBarKFree + s), (n - 1) & 1);
+        mbar_expect_tx(bar(kBarFull + s), 2 * P::kTile);
+        const int k_lo = (j_begin + i) * kBK;
+        const uint32_t st = sbase + P::oRing + s * P::kStage;
 #pragma unroll
-      for (int j = 0; j < kRK; ++j) {
-        const float p = mask[j] ? expf(s[i][j] - m_safe) : 0.f;
-        psum += p;
-        sP[(ty + kTY * i) * (kBK + 1) + tx + kTX * j] = p;
+        for (int c = 0; c < P::kChunks; ++c) {
+          tma_load(st + (C::kF32 ? c * P::kKpitch : P::oSRawK + c * kBK * P::kRaw),
+                   &kmap, c * P::kRawElems, k_lo, hk, b, bar(kBarFull + s));
+          tma_load(st + P::oSV + c * kBK * P::kRaw, &vmap, c * P::kRawElems,
+                   k_lo, hk, b, bar(kBarFull + s));
+        }
       }
-      l[i] = l[i] * corr + row_sum(psum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kDC; ++c) acc[i][c] *= corr;
+      return;
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float pv[kRQ], vv[kDC];
-#pragma unroll
-      for (int i = 0; i < kRQ; ++i) pv[i] = sP[(ty + kTY * i) * (kBK + 1) + j];
-#pragma unroll
-      for (int c = 0; c < kDC; ++c) vv[c] = sV[j * D + tx + kTX * c];
-#pragma unroll
-      for (int i = 0; i < kRQ; ++i)
-#pragma unroll
-        for (int c = 0; c < kDC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+    // warps 1-3: the operands each tile needs beyond what TMA lands, in
+    // wgmma's layout: K_lo beside K_hi (another T: K_hi and K_lo from raw
+    // K), and V transposed, hi and lo
+    const int vtid = threadIdx.x - kConsumers - 32;   // 0 .. kConverters-1
+    if constexpr (!C::kF32) {
+      // a later parity wait on a slot must not find its Q phase still open
+      mbar_wait(bar(kBarFull), 0);
+      mbar_wait(bar(kBarFull + 1), 0);
     }
-    __syncthreads();                 // before the next tile overwrites sK/sV/sP
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i & 1;
+      mbar_wait(bar(kBarFull + s), ((i >> 1) + kQOff) & 1);
+      if (i >= 2) mbar_wait(bar(kBarVtFree + s), ((i >> 1) - 1) & 1);
+      uint8_t* const stage = smem + P::oRing + s * P::kStage;
+      if constexpr (C::kF32) {
+        constexpr int kPer = kBK * P::kOp / 16;      // float4s in a chunk
+        for (int e = vtid; e < kBK * D / 4; e += kConverters) {
+          uint8_t* const hi = stage + (e / kPer) * P::kKpitch + (e % kPer) * 16;
+          const float4 x = *reinterpret_cast<const float4*>(hi);
+          *reinterpret_cast<float4*>(hi + P::kKlo) =
+              make_float4(x.x - tf32_hi(x.x), x.y - tf32_hi(x.y),
+                          x.z - tf32_hi(x.z), x.w - tf32_hi(x.w));
+        }
+      } else {
+        const uint8_t* kraw = stage + P::oSRawK;
+        for (int e = vtid; e < kBK * D / 4; e += kConverters) {
+          const int row = e / (D / 4), col = (e % (D / 4)) * 4;
+          float4 hv, lv;
+          float* hp = &hv.x;
+          float* lp = &lv.x;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float x = raw_at<T, D>(kraw, kBK, row, col + c);
+            hp[c] = tf32_hi(x);
+            lp[c] = x - hp[c];
+          }
+          constexpr int per = P::kOp / 4;
+          const uint32_t off = (col / per) * P::kKpitch +
+                               swz(row, (col % per) * 4, P::kOp);
+          *reinterpret_cast<float4*>(stage + off) = hv;
+          if constexpr (C::kSplit)
+            *reinterpret_cast<float4*>(stage + off + P::kKlo) = lv;
+        }
+      }
+      // Vt: a thread takes one row d and the 4 key positions 4u .. 4u+3 (one
+      // 16-byte unit), which hold keys 8(u/2) + (u&1) + 0, 2, 4, 6: P.V
+      // takes the keys of each 8-block in the order 0,2,4,6,1,3,5,7.  A warp
+      // spans 32 rows d, so the raw reads and the 16-byte writes hit
+      // distinct banks.
+      const uint8_t* vraw = stage + P::oSV;
+      uint8_t* const vt = stage + P::oSVt;
+      for (int e = vtid; e < D * kBK / 4; e += kConverters) {
+        const int d = e % D, u = e / D;
+        const int key0 = 8 * (u >> 1) + (u & 1);
+        float4 hv, lv;
+        float* hp = &hv.x;
+        float* lp = &lv.x;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float x = raw_at<T, D>(vraw, kBK, key0 + 2 * c, d);
+          hp[c] = tf32_hi(x);
+          lp[c] = x - hp[c];
+        }
+        const uint32_t off = swz(d, 16 * u, P::kVtRow);
+        *reinterpret_cast<float4*>(vt + off) = hv;
+        if constexpr (C::kSplit)
+          *reinterpret_cast<float4*>(vt + P::kVt + off) = lv;
+      }
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar(kBarConv + s));
+    }
+    return;
   }
 
+  // ---- consumers: warpgroup w owns query rows q0 + 64w .. q0 + 64w + 63 ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int w = warp / 4, wl = warp % 4;
+  const int g = lane / 4, t = lane % 4;
+  const int row_a = q0 + kRowsWG * w + 16 * wl + g;  // and row_a + 8
+  const int wq_lo = q0 + kRowsWG * w + q_offset;
+  const int wq_hi = min(q0 + kRowsWG * (w + 1), Sq) - 1 + q_offset;
+  const bool has_rows = q0 + kRowsWG * w < Sq;
+
+  constexpr int kNO = D / 2;                         // O registers a thread
+  float o[kNO];
+#pragma unroll
+  for (int i = 0; i < kNO; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  uint32_t qlo[C::kSplit ? D / 8 : 1][4];
+
+  if (n_tiles > 0) {
+    // Q: hi in shared memory (operand layout), lo in registers as A fragments
+    const int qr = kRowsWG * w + 16 * wl + g;        // row within the CTA
+    if constexpr (C::kF32) {
+      mbar_wait(bar(kBarQ), 0);
+      const uint8_t* qh = smem + P::oQh;
+#pragma unroll
+      for (int ks = 0; ks < D / 8; ++ks) {
+        // the A fragment: rows (g, g+8) x columns (t, t+4) of the step
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          qlo[ks][i] = tf32_lo(*reinterpret_cast<const float*>(
+              qh + op_off(kBQ, qr + 8 * (i & 1), 8 * ks + t + 4 * (i >> 1),
+                          P::kOp)));
+      }
+    } else {
+      // a later parity wait on a slot must not find its Q phase still open
+      mbar_wait(bar(kBarFull), 0);
+      mbar_wait(bar(kBarFull + 1), 0);
+      const uint8_t* raw = smem + P::oRing + w * P::kStage;
+      for (int i = threadIdx.x % 128; i < kRowsWG * D / 4; i += 128) {
+        const int row = i / (D / 4), col = (i % (D / 4)) * 4;
+        float4 hv;
+        float* hp = &hv.x;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          hp[e] = tf32_hi(raw_at<T, D>(raw, kRowsWG, row, col + e));
+        *reinterpret_cast<float4*>(
+            smem + P::oQh + op_off(kBQ, kRowsWG * w + row, col, P::kOp)) = hv;
+      }
+      if constexpr (C::kSplit) {
+#pragma unroll
+        for (int ks = 0; ks < D / 8; ++ks) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            qlo[ks][i] = tf32_lo(raw_at<T, D>(raw, kRowsWG,
+                                              16 * wl + g + 8 * (i & 1),
+                                              8 * ks + t + 4 * (i >> 1)));
+        }
+      }
+      fence_proxy_async();
+      named_barrier(1 + w, 128);
+      if (lane == 0) {
+        mbar_arrive(bar(kBarKFree));
+        mbar_arrive(bar(kBarKFree + 1));
+      }
+    }
+  }
+
+  // Per kv tile i (slot s = i & 1): wait for the converters; Q.K^T; release
+  // K and raw V; online softmax; P.V; release Vt.  The two warpgroups do
+  // not wait for each other.
+  // sacc: columns 0..kBK-1 Q_hi.K_hi; kBK..2kBK-1 Q_hi.K_lo + Q_lo.K_hi
+  // (split inputs; 16-bit ones use the first half alone)
+  float sacc[kBK], sc[kBK / 2];
+  uint32_t pl[kBK / 2];
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) {
+    sc[i] = 0.f;
+    pl[i] = 0u;
+  }
+#pragma unroll
+  for (int i = 0; i < kBK; ++i) sacc[i] = 0.f;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i & 1;
+    const int k_lo = (j_begin + i) * kBK, k_hi = k_lo + kBK - 1;
+    const uint32_t stage = sbase + P::oRing + s * P::kStage;
+    mbar_wait(bar(kBarConv + s), (i >> 1) & 1);
+
+    const bool live = has_rows && (!causal || k_lo <= wq_hi) &&
+                      (!has_window || k_hi > wq_lo - window);
+    if (live) {
+      // S = Q.K^T, per step of 8 along D: Q_hi.[K_hi; K_lo] in one wgmma,
+      // then Q_lo.K_hi into its hi.lo half; the two small terms are summed
+      // before the large one is added, below
+      const uint32_t qh = sbase + P::oQh + kRowsWG * w * P::kOp;
+      float (&shi)[kBK / 2] = *reinterpret_cast<float (*)[kBK / 2]>(&sacc[0]);
+      float (&slo)[kBK / 2] = *reinterpret_cast<float (*)[kBK / 2]>(&sacc[kBK / 2]);
+      fence_regs(sacc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 8; ++ks) {
+        constexpr int per = P::kOp / 4;
+        const uint32_t kc = (8 * ks / per) * P::kKpitch + (8 * ks % per) * 4;
+        const uint32_t qc = (8 * ks / per) * kBQ * P::kOp + (8 * ks % per) * 4;
+        const uint64_t dk = gmma_desc(stage + kc, P::kOp);
+        const uint64_t dq = gmma_desc(qh + qc, P::kOp);
+        if constexpr (C::kSplit) {
+          wgmma_ss<2 * kBK>(sacc, dq, dk, ks > 0);
+          wgmma_rs<kBK>(slo, qlo[ks], dk, 1);
+        } else {
+          wgmma_ss<kBK>(shi, dq, dk, ks > 0);
+        }
+      }
+      wgmma_commit();
+    }
+    wgmma_wait_all();
+    fence_regs(sacc);
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar(kBarKFree + s));
+
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < kBK / 2; ++j) {
+        if constexpr (C::kSplit) sc[j] = sacc[kBK / 2 + j] + sacc[j];
+        else sc[j] = sacc[j];
+      }
+      // online softmax on the accumulator fragments: sc[4n + 2hr + e] is
+      // row g + 8hr, key k_lo + 8n + 2t + e
+      const bool full = k_hi < Sk && (!causal || k_hi <= wq_lo) &&
+                        (!has_window || k_lo > wq_hi - window);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int qpos = row_a + 8 * hr + q_offset;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v = sc[4 * n + 2 * hr + e] * scale_log2;
+            if (!full) {
+              const int kpos = k_lo + 8 * n + 2 * t + e;
+              bool ok = kpos < Sk;
+              if (causal) ok = ok && kpos <= qpos;
+              if (has_window) ok = ok && kpos > qpos - window;
+              if (!ok) v = -INFINITY;
+            }
+            sc[4 * n + 2 * hr + e] = v;
+            mx = fmaxf(mx, v);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hr], mx);
+        const float m_safe = isfinite(m_new) ? m_new : 0.f;
+        const float corr = isfinite(m[hr]) ? exp2f(m[hr] - m_safe) : 0.f;
+        float psum = 0.f;
+#pragma unroll
+        for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = 4 * n + 2 * hr + e;
+            const float p = exp2f(sc[j] - m_safe);
+            sc[j] = p;
+            pl[j] = tf32_lo(p);
+            psum += p;
+          }
+        l[hr] = l[hr] * corr + psum;   // this lane's part; summed at the end
+        m[hr] = m_new;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[4 * n + 2 * hr] *= corr;
+          o[4 * n + 2 * hr + 1] *= corr;
+        }
+      }
+
+
+      // O += P.V: per 8-key step, P_lo.V_hi + P_hi.V_lo + P_hi.V_hi, with
+      // A k-columns (t, t+4) = keys (2t, 2t+1) of the step.  P_hi is p
+      // itself: the tensor core reads it as TF32, dropping the bits in lo.
+      const uint32_t vth = stage + P::oSVt, vtl = vth + P::kVt;
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int n = 0; n < kBK / 8; ++n) {
+        const uint32_t ah[4] = {__float_as_uint(sc[4 * n]),
+                                __float_as_uint(sc[4 * n + 2]),
+                                __float_as_uint(sc[4 * n + 1]),
+                                __float_as_uint(sc[4 * n + 3])};
+        const uint32_t al[4] = {pl[4 * n], pl[4 * n + 2], pl[4 * n + 1],
+                                pl[4 * n + 3]};
+        const uint64_t dvh = gmma_desc(vth + 32 * n, P::kVtRow);
+        wgmma_rs<D>(o, al, dvh, 1);
+        if constexpr (C::kSplit)
+          wgmma_rs<D>(o, ah, gmma_desc(vtl + 32 * n, P::kVtRow), 1);
+        wgmma_rs<D>(o, ah, dvh, 1);
+      }
+      wgmma_commit();
+    }
+    // P.V is waited for at once, so that the converters get the slot's Vt
+    // back a whole tile before they need it; the other warpgroup keeps the
+    // tensor cores busy meanwhile
+    wgmma_wait_all();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar(kBarVtFree + s));
+  }
+
+  // ---- epilogue: O / l, rows past Sq not written ----
+  // ---- epilogue: O / l, rows past Sq not written ----
   T* ob = out + b * os.b + h * os.h;
 #pragma unroll
-  for (int i = 0; i < kRQ; ++i) {
-    const int row = q0 + ty + kTY * i;
+  for (int hr = 0; hr < 2; ++hr) {
+    float lt = l[hr];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int row = row_a + 8 * hr;
     if (row >= Sq) continue;
-    const float li = fmaxf(l[i], 1e-30f);
+    const float li = fmaxf(lt, 1e-30f);
+    T* orow = ob + row * os.s;
 #pragma unroll
-    for (int c = 0; c < kDC; ++c)
-      ob[row * os.s + tx + kTX * c] = store_as<T>(acc[i][c] / li);
+    for (int n = 0; n < D / 8; ++n) {
+      orow[8 * n + 2 * t] = store_as<T>(o[4 * n + 2 * hr] / li);
+      orow[8 * n + 2 * t + 1] = store_as<T>(o[4 * n + 2 * hr + 1] / li);
+    }
   }
+}
+
+// ---- host side ----
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so the
+// library does not link libcuda
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+template <typename T> constexpr CUtensorMapDataType tma_type();
+template <> constexpr CUtensorMapDataType tma_type<float>() { return CU_TENSOR_MAP_DATA_TYPE_FLOAT32; }
+template <> constexpr CUtensorMapDataType tma_type<double>() { return CU_TENSOR_MAP_DATA_TYPE_FLOAT64; }
+template <> constexpr CUtensorMapDataType tma_type<__half>() { return CU_TENSOR_MAP_DATA_TYPE_FLOAT16; }
+template <> constexpr CUtensorMapDataType tma_type<__nv_bfloat16>() { return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16; }
+
+// A (D, S, heads, B) map over a (B, heads, S, D) view with element strides
+// st = (b, h, s); boxes of one raw chunk x `rows` rows of one head.  Rows
+// past S are filled with zeros.  Returns 0 or 1000 + the CUresult.
+template <typename T, int D>
+int encode(CUtensorMap* map, const void* base, int S, int heads, int B,
+           const long long* st, int rows) {
+  using P = Plan<T, D>;
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return 1000 + (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)(st[2] * sizeof(T)),
+                                 (cuuint64_t)(st[1] * sizeof(T)),
+                                 (cuuint64_t)(st[0] * sizeof(T))};
+  const cuuint32_t box[4] = {(cuuint32_t)P::kRawElems, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw = P::kRaw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : P::kRaw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = fn(map, tma_type<T>(), 4, const_cast<void*>(base), dims,
+                        strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out,
-           const long long* st, int B, int H, int group, int Sq, int Sk,
+           const long long* st, int B, int H, int Hkv, int Sq, int Sk,
            float scale, int causal, int has_window, int window, int q_offset,
            cudaStream_t stream) {
-  constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
+  using C = Cfg<T>;
+  using P = Plan<T, D>;
   // above 48 KB a kernel must opt in to dynamic shared memory (once each)
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
         flash_attention_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        cudaFuncAttributeMaxDynamicSharedMemorySize, P::kBytes);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
-      vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
+  CUtensorMap qm, km, vm;
+  int e = encode<T, D>(&qm, q, Sq, H, B, st, C::kF32 ? kBQ : kRowsWG);
+  if (e == 0) e = encode<T, D>(&km, k, Sk, Hkv, B, st + 3, C::kBK);
+  if (e == 0) e = encode<T, D>(&vm, v, Sk, Hkv, B, st + 6, C::kBK);
+  if (e != 0) return e;
+  const Strides os{st[9], st[10], st[11]};
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), qs, ks, vs, os, group,
-      Sq, Sk, scale, causal, has_window, window, q_offset);
+  flash_attention_kernel<T, D><<<grid, kThreads, P::kBytes, stream>>>(
+      qm, km, vm, static_cast<T*>(out), os, H / Hkv, Sq, Sk, scale * kLog2e,
+      causal, has_window, window, q_offset);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_d(int D, const void* q, const void* k, const void* v, void* out,
-             const long long* st, int B, int H, int group, int Sq, int Sk,
+             const long long* st, int B, int H, int Hkv, int Sq, int Sk,
              float scale, int causal, int has_window, int window, int q_offset,
              cudaStream_t stream) {
   switch (D) {
 #define FA_CASE(DD)                                                         \
   case DD:                                                                  \
-    return launch<T, DD>(q, k, v, out, st, B, H, group, Sq, Sk, scale,      \
+    return launch<T, DD>(q, k, v, out, st, B, H, Hkv, Sq, Sk, scale,        \
                          causal, has_window, window, q_offset, stream);
     FA_CASE(16) FA_CASE(32) FA_CASE(64) FA_CASE(128)
 #undef FA_CASE
@@ -267,9 +907,10 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* out,
 // dtype codes shared with repro_torch/kernels/flash_attention.py:
 //   0 float32, 1 float64, 2 float16, 3 bfloat16.
 // strides: 12 element strides, (b, h, s) for q, k, v and out in that order;
-// the last dim of each is contiguous.  Returns the cudaError_t of the launch
-// (0 = success), or cudaErrorInvalidValue for arguments the kernel does not
-// take.
+// the last dim of each is contiguous, and q, k, v bases and strides are
+// 16-byte aligned (TMA's rule).  Returns the cudaError_t of the launch
+// (0 = success), cudaErrorInvalidValue for arguments the kernel does not
+// take, or 1000 + the CUresult when a tensor map cannot be encoded.
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, void* out,
                                       const long long* strides, int B, int H,
@@ -279,13 +920,15 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk <= 0 ||
       B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
-  const int group = H / Hkv;
+  for (int i = 0; i < 3; ++i)
+    if (reinterpret_cast<uintptr_t>(i == 0 ? q : i == 1 ? k : v) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_d<float>(D, q, k, v, out, strides, B, H, group, Sq, Sk, scale, causal, has_window, window, q_offset, st);
-    case 1: return launch_d<double>(D, q, k, v, out, strides, B, H, group, Sq, Sk, scale, causal, has_window, window, q_offset, st);
-    case 2: return launch_d<__half>(D, q, k, v, out, strides, B, H, group, Sq, Sk, scale, causal, has_window, window, q_offset, st);
-    case 3: return launch_d<__nv_bfloat16>(D, q, k, v, out, strides, B, H, group, Sq, Sk, scale, causal, has_window, window, q_offset, st);
+    case 0: return launch_d<float>(D, q, k, v, out, strides, B, H, Hkv, Sq, Sk, scale, causal, has_window, window, q_offset, st);
+    case 1: return launch_d<double>(D, q, k, v, out, strides, B, H, Hkv, Sq, Sk, scale, causal, has_window, window, q_offset, st);
+    case 2: return launch_d<__half>(D, q, k, v, out, strides, B, H, Hkv, Sq, Sk, scale, causal, has_window, window, q_offset, st);
+    case 3: return launch_d<__nv_bfloat16>(D, q, k, v, out, strides, B, H, Hkv, Sq, Sk, scale, causal, has_window, window, q_offset, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -5,11 +5,25 @@ padded-kv mask (replaces the JAX package's ``flash_attention_pallas``).
 The plain PyTorch version is ``kernels/ref.py::attention_ref``;
 ``kernels/ops.py`` routes CPU tensors there and CUDA tensors here.
 
-The kernel reads q, k and v through their strides, so the transposed
-(B, H, S, D) views of (B, S, H, D) projections need no copy; only the last
-dim must be contiguous.  It writes its output into a (B, Sq, H, D) buffer
-and returns the (B, H, Sq, D) view of it, so that the caller's transpose
-back to (B, Sq, H*D) is free.
+Design (the source note has the details): both products on the tensor
+cores with ``wgmma`` in 3xTF32 (each float split into a TF32 hi and a lo
+part; hi.hi plus hi.lo + lo.hi, the small sum first), which keeps float32
+accuracy; bound by operations, 3 x flops over the 495 TFLOP/s of TF32
+(0.208 ms at the LM's prefill, B 8, H 16, S 1024, D 128, causal).  One CTA
+of 384 threads per 128 query rows: two consumer warpgroups of 64 rows, and
+a producer warpgroup whose first lane brings Q once and the K/V tiles of
+32 keys (16 for float64) by TMA into a two-slot ring, while its other
+three warps write K's lo part beside K and V transposed; mbarriers order
+the roles.  Shared memory at D 128 float32: 224 KB (Q hi 64 KB, and per
+slot K hi/lo 32 KB, raw V 16 KB, V transposed hi/lo 32 KB).
+
+The kernel reads q, k and v by TMA through their strides, so the
+transposed (B, H, S, D) views of (B, S, H, D) projections need no copy;
+the last dim must be contiguous, and the bases and the b, h, s strides
+16-byte aligned (TMA's rule; the wrapper raises ``ValueError`` otherwise).
+It writes its output into a (B, Sq, H, D) buffer and returns the
+(B, H, Sq, D) view of it, so that the caller's transpose back to
+(B, Sq, H*D) is free.
 
 The wrapper counts its kernel launches in ``flash_attention.launches``, a
 plain integer that callers may reset.
@@ -37,6 +51,15 @@ LIBRARY = CudaLibrary("flash_attention", {
 SOURCE = LIBRARY.source
 
 
+def _strides(t: torch.Tensor):
+    """The b, h, s element strides, with the stride of a dim of size 1 (never
+    stepped along, and free in PyTorch) replaced by a contiguous one."""
+    B, H, S, D = t.shape
+    dense = (H * S * D, S * D, D)
+    return tuple(st if n > 1 else c
+                 for st, n, c in zip(t.stride()[:3], (B, H, S), dense))
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtype {q.dtype} not supported "
@@ -59,6 +82,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str):
             raise ValueError(f"{name}: the last dim must be contiguous (got "
                              f"strides {tuple(t.stride())}); the kernel "
                              f"reads rows through the other strides")
+        if t.data_ptr() % 16 or any(
+                st * t.element_size() % 16 for st in _strides(t)):
+            raise ValueError(f"{name}: TMA needs a 16-byte aligned base and "
+                             f"b, h, s strides (got storage offset "
+                             f"{t.storage_offset()}, strides "
+                             f"{tuple(t.stride())}, {t.dtype})")
     if q.device.type != "cuda":
         raise ValueError(f"{name}: q must be a CUDA tensor, got {q.device}")
     for t in (k, v):
@@ -85,7 +114,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.numel() == 0 or Sk == 0:
         return view.zero_()
     strides = (ctypes.c_longlong * 12)(*(
-        s for t in (q, k, v, view) for s in t.stride()[:3]))
+        s for t in (q, k, v, view) for s in _strides(t)))
     err = call(LIBRARY.load().flash_attention_launch, q.get_device(),
                _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                out.data_ptr(), strides, B, H, Hkv, Sq, Sk, D, float(scale),

@@ -30,6 +30,18 @@ ATTN_CASES = [
     (1, 4, 4, 128, 128, 64, False, None, 0),    # non-causal (encoder)
     (1, 16, 8, 1, 300, 64, True, 128, 299),     # decode + SWA, ragged cache
 ]
+# the card checks the kernel further: every head dim's operand layout (D 16
+# and 32 use TMA's 64- and 32-byte swizzles for 16-bit rows), query tiles
+# cut by Sq against long and very long key ranges, a GQA group of 4 with a
+# window, and the LM's prefill shape
+CARD_ATTN_CASES = ATTN_CASES + [
+    (1, 4, 2, 200, 200, 16, True, None, 0),     # D 16
+    (1, 4, 2, 200, 200, 32, False, None, 0),    # D 32, non-causal
+    (1, 8, 2, 65, 4096, 128, True, None, 4031),  # Sq 65, long Sk, offset
+    (1, 4, 2, 65, 8192, 64, False, None, 0),    # Sq 65, Sk 8192
+    (1, 16, 4, 300, 300, 128, True, 100, 0),    # GQA group 4 + window
+    (8, 16, 8, 1024, 1024, 128, True, None, 0),  # qwen3-0.6b prefill
+]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # Both sides compute in float32 and differ only in the order of the float32
 # sums (dot products, softmax and mean-of-squares reductions): ~1e-6
@@ -49,6 +61,9 @@ ALL_DTYPES = {"float32": torch.float32, "float64": torch.float64,
 RMS_TOL.update(float64=RMS_TOL["float32"],
                float16=dict(rtol=float(torch.finfo(torch.float16).eps),
                             atol=1e-6))
+# flash attention computes in float32 for every dtype as well: float64 at
+# float32's bound, float16 at the bfloat16 rule's
+TOL.update(float64=TOL["float32"], float16=TOL["bfloat16"])
 
 
 def combine_close(got, want, mag, dtype):
@@ -95,12 +110,12 @@ def test_rms_norm_kernel_matches_plain_on_card(dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("dtype", sorted(ALL_DTYPES))
+@pytest.mark.parametrize("case", CARD_ATTN_CASES)
 def test_flash_attention_kernel_matches_plain_on_card(case, dtype):
     dev = _on_card()
     _, _, _, _, _, _, causal, window, q_offset = case
-    tdt = DTYPES[dtype]
+    tdt = ALL_DTYPES[dtype]
     q, k, v = (torch.tensor(a, device=dev).to(tdt)
                for a in attn_inputs(case))
     kw = dict(causal=causal, window=window, q_offset=q_offset)
@@ -110,10 +125,24 @@ def test_flash_attention_kernel_matches_plain_on_card(case, dtype):
                                **TOL[dtype])
 
 
+@pytest.mark.cuda
+def test_flash_attention_refuses_unaligned_inputs_on_card():
+    """TMA needs 16-byte aligned bases: a q at storage offset 1 raises
+    before any launch, and nothing is computed another way."""
+    dev = _on_card()
+    g = torch.Generator(device=dev).manual_seed(0)
+    kv = torch.randn(1, 2, 64, 64, generator=g, device=dev)
+    q = _misaligned((1, 4, 64, 64), 1, torch.float32, g, dev)
+    launches = flash_kern.flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_kern.flash_attention(q, kv, kv)
+    assert flash_kern.flash_attention.launches == launches
+
+
 def _misaligned(shape, offset, dtype, g, dev):
     """A contiguous (shape) tensor at storage offset ``offset`` elements
-    (1 breaks 16-byte alignment: the kernels then take their scalar
-    path)."""
+    (1 breaks 16-byte alignment: rms_norm and the combines then take their
+    scalar path, flash attention refuses it)."""
     n = 1
     for size in shape:
         n *= size

@@ -205,6 +205,11 @@ def test_wrappers_check_their_inputs():
                                    torch.ones(1, 3, 8, 64))
     with pytest.raises(TypeError, match="differ"):
         flash_kern.flash_attention(q, kv.to(torch.bfloat16), kv)
+    # TMA reads 16-byte aligned bases only: a q at storage offset 1 is
+    # refused before the device check
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_kern.flash_attention(torch.ones(1 + 4 * 8 * 64)[1:].view(
+            1, 4, 8, 64), kv, kv)
 
 
 @pytest.mark.parametrize("module,entries", [
