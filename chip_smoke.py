@@ -5,12 +5,15 @@
 Phases, each fatal on failure (any failure exits non-zero and prints no
 result line):
 
-  1. build   — compile the three CUDA sources of ``src/repro_torch/csrc``
+  1. build   — compile the four CUDA sources of ``src/repro_torch/csrc``
                (one nvcc each, in parallel) and load them (build seconds
                and ptxas registers/spills are printed).
   2. kernels — each kernel against its plain PyTorch version on the card:
                float32/float64/bfloat16, n in {256*43, 256, 1, 127,
-               1000003}, s in {1, 6, 7, 12, 13}, m = 2 rows.  Tolerance:
+               1000003}, s in {1, 6, 7, 12, 13}, m = 2 rows; then the lane
+               forms (one coefficient row per lane): B in {1, 3, 256},
+               n_lane in {1, 43, 44, 4096}, the same s, m in {1, 2, 13} for
+               rows, at storage offsets 0 and 1.  Tolerance:
                |kernel - plain| <= rtol * (sum of |terms|) with rtol 1e-13
                for float64 and 1e-6 for float32 (the kernel fuses a*b+c
                into one rounding), plus one output ulp for bfloat16.
@@ -77,6 +80,34 @@ The LM serving slice (qwen3-0.6b, float32 weights, bfloat16 KV cache):
                kernel/library ratio.
  13. profile — one prefill and one decode step under torch.profiler.
 
+The per-sample CNF slice (``solve(..., batch_axis=0)``: a step controller
+per sample, the lane forms of both combines):
+
+ 14. per-sample train — the main path: 3 float32 SGD steps of the trainer
+               with ``--adaptive --per-sample`` (dim 43, hidden (64, 64),
+               batch 256 = 256 lanes, dopri5, Hutchinson, rtol 1e-4, atol
+               1e-6, max_steps 48, symplectic adjoint); seconds per step,
+               both combines' launch counters (zeroed just before, both >
+               0), loss and gradient finite.  Then the solver on step 0's
+               batch and weights: attempts, accepted steps per lane (min,
+               median, max), failed lanes, launches per attempt at B 256
+               and B 16 (must be equal), and host reads per attempt (CUDA
+               synchronisations counted by ``torch.cuda``'s sync debug
+               mode: must be 1).
+ 15. per-sample exactness — float64, B 16, the same widths: the
+               ``batch_axis=0`` symplectic gradient equals DirectBackprop
+               through the batched driver and the mean of 16 single-sample
+               symplectic gradients, to rtol 1e-9 (phase 4's rule).
+ 16. per-sample memory — peak allocated bytes of one float32 B 256
+               per-sample loss+gradient, symplectic vs DirectBackprop:
+               symplectic must be below.
+ 17. lane report — float32 ms per call, alone and host of both lane forms
+               at the per-sample shape (B 256, n_lane 43, s 7; m 2), their
+               plain versions, the bound (bytes over 3.35 TB/s, coefficient
+               rows included), one ``torch.baddbmm`` for the one-row form,
+               and launches per per-sample attempt.
+ 18. profile — one per-sample loss+gradient under torch.profiler.
+
 The card's name and power limit are printed early; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -100,6 +131,11 @@ F32_FLOP_PER_S = 67e12           # H100 SXM float32, outside the tensor cores
 TF32_FLOP_PER_S = 495e12         # H100 SXM TF32 on the tensor cores, dense
 MAIN_N = 256 * 43                # the CNF state leaf: batch 256 x dim 43
 MAIN_S = 7                       # dopri5
+LANE_B = (1, 3, 256)             # lane counts of phase 2's lane forms
+LANE_N = (1, 43, 44, 4096)       # elements per lane (43: the per-sample x)
+LANE_M = (1, 2, 13)              # rows of the rows kernel's lane form
+PER_SAMPLE = ["--dataset", "miniboone", "--batch", "256", "--n-steps", "8",
+              "--adaptive", "--per-sample", "--device", "cuda"]
 
 
 def fail(msg: str):
@@ -123,7 +159,8 @@ def build():
     from repro_torch.kernels import butcher_combine, flash_attention, rmsnorm
     phase("1 build")
     t = time.perf_counter()
-    logs = _build.build_all([butcher_combine.LIBRARY, rmsnorm.LIBRARY,
+    logs = _build.build_all([butcher_combine.LIBRARY,
+                             butcher_combine.ROWS_LIBRARY, rmsnorm.LIBRARY,
                              flash_attention.LIBRARY])
     print(f"build_seconds {time.perf_counter() - t:.2f} (one nvcc per "
           f"source, in parallel)")
@@ -148,7 +185,9 @@ def kernels_vs_plain():
     from repro_torch.kernels import ref
     phase("2 kernels vs plain")
     dev = torch.device("cuda")
-    max_err = {"butcher_combine": 0.0, "butcher_combine_rows": 0.0}
+    max_err = {"butcher_combine": 0.0, "butcher_combine_rows": 0.0,
+               "butcher_combine_lanes": 0.0,
+               "butcher_combine_rows_lanes": 0.0}
     n_cases = 0
     for dtype in (torch.float32, torch.float64, torch.bfloat16):
         acc = torch.promote_types(dtype, torch.float32)
@@ -180,10 +219,72 @@ def kernels_vs_plain():
                     max_err["butcher_combine_rows"] = max(
                         max_err["butcher_combine_rows"], e2, e3)
                 n_cases += 2
+    n_cases += _lane_cases(kern, ref, dev, max_err)
     torch.cuda.synchronize()
     print(f"kernel cases {n_cases} all within tolerance; float32 max abs "
           f"err {max_err}")
     return max_err
+
+
+def _offset_view(shape, offset, dtype, g, dev):
+    """A contiguous tensor of ``shape`` at storage offset ``offset``
+    elements (1 breaks 16-byte alignment: the scalar path)."""
+    n = math.prod(shape)
+    flat = torch.randn(n + offset, generator=g, device=dev).to(dtype)
+    return flat[offset:].view(shape)
+
+
+def _lane_cases(kern, ref, dev, max_err):
+    """The lane forms against the plain versions: x (B, n_lane), ks (s, B,
+    n_lane), one (s,) or (m, s) row per lane."""
+    n_cases = 0
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+        acc = torch.promote_types(dtype, torch.float32)
+        for B in LANE_B:
+            for n_lane in LANE_N:
+                for s in (1, 6, 7, 12, 13):
+                    for offset in (0, 1):
+                        g = torch.Generator(device=dev).manual_seed(
+                            B * 1000 + n_lane * 20 + s + offset)
+                        x = _offset_view((B, n_lane), offset, dtype, g, dev)
+                        ks = _offset_view((s, B, n_lane), offset, dtype, g,
+                                          dev)
+                        ka = ks.to(acc).abs()
+                        xa = x.to(acc).abs()
+                        hc = (0.3 * torch.randn((B, s), generator=g,
+                                                device=dev,
+                                                dtype=torch.float64)).to(acc)
+                        got = kern.butcher_combine(x, ks, hc)
+                        mag = xa + torch.einsum("bi,ibn->bn", hc.abs(), ka)
+                        ok, e = _close(got, ref.butcher_combine_ref(
+                            x, ks, hc, 1.0), mag, dtype)
+                        check(ok, f"butcher_combine lanes {dtype} B={B} "
+                                  f"n_lane={n_lane} s={s} offset={offset}: "
+                                  f"max err {e}")
+                        if dtype == torch.float32:
+                            max_err["butcher_combine_lanes"] = max(
+                                max_err["butcher_combine_lanes"], e)
+                        n_cases += 1
+                        for m in LANE_M:
+                            hm = (0.3 * torch.randn(
+                                (B, m, s), generator=g, device=dev,
+                                dtype=torch.float64)).to(acc)
+                            sc = torch.randn(m, generator=g, device=dev,
+                                             dtype=torch.float64).to(acc)
+                            got = kern.butcher_combine_rows(x, ks, hm, sc)
+                            want = ref.butcher_combine_rows_ref(x, ks, hm,
+                                                                sc, 1.0)
+                            mag = sc.abs()[:, None, None] * xa + \
+                                torch.einsum("bri,ibn->rbn", hm.abs(), ka)
+                            ok, e = _close(got, want, mag, dtype)
+                            check(ok, f"butcher_combine_rows lanes {dtype} "
+                                      f"B={B} n_lane={n_lane} s={s} m={m} "
+                                      f"offset={offset}: max err {e}")
+                            if dtype == torch.float32:
+                                max_err["butcher_combine_rows_lanes"] = max(
+                                    max_err["butcher_combine_rows_lanes"], e)
+                            n_cases += 1
+    return n_cases
 
 
 def train_main_path():
@@ -363,7 +464,11 @@ def report(max_err, launches):
     esize = 4
     lines = []
     # 1000003 x 9 float32 rows fit in the 50 MB L2 (L2-warm reading);
-    # 8000000 x 9 do not (an HBM-bound reading)
+    # 8000000 x 9 do not (an HBM-bound reading).  The share of the HBM byte
+    # bound is printed only where the rows kernel's working set exceeds
+    # the L2: back-to-back calls on a smaller one read it from the L2.
+    l2_bytes = getattr(torch.cuda.get_device_properties(dev),
+                       "L2_cache_size", 50 * 2 ** 20)
     for n in (MAIN_N, 256, 1_000_003, 8_000_000):
         for s in (1, 6, 7):
             g = torch.Generator(device=dev).manual_seed(n + s)
@@ -397,7 +502,9 @@ def report(max_err, launches):
                 f"{hl1:.6f}) kernel/addmv {t_k1 / t_l1:.3f} bound {b1:.6f} "
                 f"| rows(m=2) kernel {t_k2:.6f} ms (device "
                 f"{d2 if d2 is None else f'{d2:.6f}'}, host {h2:.6f}) plain "
-                f"{t_p2:.6f} bound {b2:.6f}")
+                f"{t_p2:.6f} bound {b2:.6f}"
+                + ("" if d2 is None or (s + 3) * n * esize <= l2_bytes
+                   else f" ({b2 / d2 * 100:.1f}% of it alone)"))
             if n == MAIN_N and s == MAIN_S:
                 main = dict(t_k1=t_k1, t_p1=t_p1, t_l1=t_l1, b1=b1, t_k2=t_k2,
                             t_p2=t_p2, b2=b2, d1=d1, d2=d2, h1=h1, h2=h2)
@@ -417,7 +524,8 @@ def report(max_err, launches):
          "bound_ms": main["b1"], "bound_by": "bytes",
          "library_ms": main["t_l1"],
          "shape": f"float32 n={MAIN_N} s={MAIN_S}"},
-        {"name": "butcher_combine_rows", "route": "cuda", "source": src,
+        {"name": "butcher_combine_rows", "route": "cuda",
+         "source": "src/repro_torch/csrc/butcher_combine_rows.cu",
          "replaces": "src/repro/kernels/butcher_combine.py:110",
          "launches": launches["butcher_combine_rows"],
          "max_abs_err": max_err["butcher_combine_rows"],
@@ -841,6 +949,258 @@ def profile_serve(params):
     one("decode step", lambda: decode(params, caches, _greedy(logits), S))
 
 
+# ---------------------------------------------------------------------------
+# The per-sample CNF slice: solve(..., batch_axis=0), a controller per sample
+
+def _zero_combine_counts():
+    from repro_torch.kernels import butcher_combine as kern
+    kern.butcher_combine.launches = 0
+    kern.butcher_combine_rows.launches = 0
+
+
+def _combine_counts():
+    from repro_torch.kernels import butcher_combine as kern
+    return kern.butcher_combine.launches, kern.butcher_combine_rows.launches
+
+
+def _per_sample_inputs(B, dtype=torch.float32, seed=0):
+    """Step 0 of the per-sample trainer: its weights (``init_cnf`` from
+    ``seed``), its first batch and its Hutchinson noise (the trainer's
+    generator from ``seed``), the first B samples of each."""
+    from repro_torch.data.tabular import make_tabular_dataset
+    from repro_torch.launch.train_cnf import make_config
+    from repro_torch.models.cnf import init_cnf
+    dev = torch.device("cuda")
+    cfg = make_config("miniboone", adaptive=True, per_sample=True)
+    params = init_cnf(cfg, seed=seed, device=dev, dtype=dtype)
+    u = torch.as_tensor(make_tabular_dataset("miniboone", n=256 * 8)[:256],
+                        dtype=dtype, device=dev)
+    noise = torch.Generator(device=dev).manual_seed(seed)
+    eps = torch.randn(u.shape, generator=noise, dtype=dtype, device=dev)
+    return cfg, params, u[:B], eps[:B]
+
+
+def _lane_solve(cfg, params, u, eps):
+    """The per-sample forward solve of ``cnf_forward`` (one component, no
+    graph) through the batched driver; returns (solution, CUDA
+    synchronisations during the solve, combine launches during it)."""
+    import warnings
+    from repro_torch.core import AdaptiveConfig, get_tableau
+    from repro_torch.core.rk import rk_solve_adaptive_batched
+    from repro_torch.models.cnf import cnf_field, component
+    state = (u[:, None], torch.zeros((u.shape[0], 1), dtype=u.dtype,
+                                     device=u.device), eps[:, None])
+    acfg = AdaptiveConfig(rtol=cfg.rtol, atol=cfg.atol,
+                          max_steps=cfg.max_steps)
+    torch.cuda.synchronize()
+    _zero_combine_counts()
+    with torch.no_grad(), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sol = rk_solve_adaptive_batched(
+                cnf_field(cfg), get_tableau(cfg.method), state, 0.0, cfg.t1,
+                component(params, 0), acfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+    return sol, syncs, _combine_counts()
+
+
+def per_sample_main_path():
+    """The per-sample main path: the trainer CLI with --per-sample."""
+    from repro_torch.launch import train_cnf
+    phase("14 per-sample train (main path): MiniBooNE CNF, 256 lanes")
+    steps = 3
+    _zero_combine_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hist = train_cnf.main(PER_SAMPLE + ["--steps", str(steps)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    one, rows = _combine_counts()
+    for rec in hist:
+        check(math.isfinite(rec["nll"]) and math.isfinite(rec["grad_norm"])
+              and rec["grad_norm"] > 0,
+              f"per-sample train: non-finite loss or gradient {rec}")
+    per_step = [round(b["seconds"] - a, 4) for a, b in
+                zip([0.0] + [r["seconds"] for r in hist[:-1]], hist)]
+    print(f"per-sample train: {steps} steps in {secs:.3f}s (seconds per "
+          f"step {per_step}) nll {[round(r['nll'], 5) for r in hist]}; "
+          f"launches butcher_combine {one} ({one / steps:.1f}/step) "
+          f"butcher_combine_rows {rows} ({rows / steps:.1f}/step)")
+    check(one > 0 and rows > 0,
+          f"per-sample train: lane forms launched {one} / {rows} times")
+    out = {"butcher_combine_lanes": one, "butcher_combine_rows_lanes": rows,
+           "seconds_per_step": per_step}
+    per_attempt = {}
+    for B in (256, 16):
+        cfg, params, u, eps = _per_sample_inputs(B)
+        sol, syncs, (c1, c2) = _lane_solve(cfg, params, u, eps)
+        attempts = int(sol.n_attempts.max())
+        acc = sol.n_accepted.cpu().float()
+        failed = int((~sol.succeeded).sum())
+        per_attempt[B] = (c1 / attempts, c2 / attempts)
+        print(f"solver on step 0's batch, B {B}: {attempts} attempts; "
+              f"accepted steps per lane min {int(acc.min())} median "
+              f"{float(acc.median()):.0f} max {int(acc.max())}; failed lanes "
+              f"{failed} (max_steps {cfg.max_steps}); launches per attempt "
+              f"butcher_combine {c1 / attempts:.2f} butcher_combine_rows "
+              f"{c2 / attempts:.2f}; host reads per attempt "
+              f"{syncs / attempts:.3f} ({syncs} CUDA synchronisations)")
+        check(syncs == attempts, f"B {B}: {syncs} host reads in {attempts} "
+                                 f"attempts")
+        if B == 256:
+            out["attempts"] = attempts
+            out["per_attempt"] = per_attempt[B]
+    check(per_attempt[256] == per_attempt[16],
+          f"launches per attempt grow with B: {per_attempt}")
+    return out
+
+
+def per_sample_exactness():
+    import dataclasses
+    phase("15 per-sample exactness (float64, B 16)")
+    cfg, params, u, eps = _per_sample_inputs(16, torch.float64, seed=3)
+    v_sym, g_sym = _loss_and_grads(cfg, params, u, eps)
+    v_bp, g_bp = _loss_and_grads(
+        dataclasses.replace(cfg, grad_mode="backprop"), params, u, eps)
+    worst = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(g_sym, g_bp))
+    check(_rel_close(v_sym, v_bp, 1e-9) and
+          all(_rel_close(a, b, 1e-9) for a, b in zip(g_sym, g_bp)),
+          f"per-sample symplectic != backprop: worst leaf rel err {worst}")
+    print(f"per-sample symplectic == DirectBackprop through the batched "
+          f"driver: worst leaf rel err {worst:.3e}")
+    single = dataclasses.replace(cfg, per_sample=False)
+    v_one, g_one = 0.0, None
+    for b in range(u.shape[0]):
+        v, g = _loss_and_grads(single, params, u[b:b + 1], eps[b:b + 1])
+        v_one = v_one + v / u.shape[0]
+        g = [x / u.shape[0] for x in g]
+        g_one = g if g_one is None else [a + c for a, c in zip(g_one, g)]
+    worst = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(g_sym, g_one))
+    check(_rel_close(v_sym, v_one, 1e-9) and
+          all(_rel_close(a, b, 1e-9) for a, b in zip(g_sym, g_one)),
+          f"per-sample != mean of single-sample solves: {worst}")
+    print(f"per-sample symplectic == mean of 16 single-sample symplectic "
+          f"solves: loss {float(v_sym):.12f} worst leaf rel err "
+          f"{worst:.3e}")
+
+
+def per_sample_memory():
+    import dataclasses
+    phase("16 per-sample memory (float32, B 256, one loss+gradient)")
+    out = {}
+    for mode in ("symplectic", "backprop"):
+        cfg, params, u, eps = _per_sample_inputs(256)
+        cfg = dataclasses.replace(cfg, grad_mode=mode)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        _loss_and_grads(cfg, params, u, eps)
+        torch.cuda.synchronize()
+        out[mode] = torch.cuda.max_memory_allocated() - before
+    sym, bp = out["symplectic"], out["backprop"]
+    print(f"per-sample peak_bytes: symplectic {sym} backprop {bp} (ratio "
+          f"{bp / sym:.2f})")
+    check(sym < bp, f"per-sample: symplectic peak {sym} not below "
+                    f"backprop {bp}")
+
+
+def lane_report(max_err, ps):
+    """ms per call of both lane forms at the per-sample shape, beside the
+    plain versions, the bound and (one-row form) one torch.baddbmm."""
+    from repro_torch.kernels import butcher_combine as kern
+    from repro_torch.kernels import ref
+    phase("17 lane report (float32, B 256, n_lane 43, s 7, m 2)")
+    dev = torch.device("cuda")
+    B, n_lane, s, m, esize = 256, 43, MAIN_S, 2, 4
+    n = B * n_lane
+    g = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn((B, 1, n_lane), generator=g, device=dev)
+    ks = torch.randn((s, B, 1, n_lane), generator=g, device=dev)
+    hc = torch.randn((B, s), generator=g, device=dev)
+    hm = torch.randn((B, m, s), generator=g, device=dev)
+    sc = torch.tensor([1.0, 0.0], device=dev)
+    xb, kb = x.view(B, 1, n_lane), ks.view(s, B, n_lane).transpose(0, 1)
+    hb = hc.view(B, 1, s)
+    rows = []
+    for name, fn, plain, lib, nbytes, flops, launches in (
+            ("butcher_combine_lanes", lambda: kern.butcher_combine(x, ks, hc),
+             lambda: ref.butcher_combine_ref(x, ks, hc, 1.0),
+             lambda: torch.baddbmm(xb, hb, kb),
+             (s + 2) * n * esize + B * s * esize, 2 * s * n,
+             ps["butcher_combine_lanes"]),
+            ("butcher_combine_rows_lanes",
+             lambda: kern.butcher_combine_rows(x, ks, hm, sc),
+             lambda: ref.butcher_combine_rows_ref(x, ks, hm, sc, 1.0), None,
+             (s + 1 + m) * n * esize + (B * m * s + m) * esize,
+             2 * m * (s + 1) * n, ps["butcher_combine_rows_lanes"])):
+        kname = name[:-len("_lanes")] + "_kernel"
+        t_k, t_p = _time_ms(fn), _time_ms(plain)
+        t_l = _time_ms(lib) if lib is not None else None
+        d_k = _device_ms(fn, kname)
+        h_k = _host_ms(fn)
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
+        per_attempt = ps["per_attempt"][0 if "rows" not in name else 1]
+        print(f"  {name}: kernel {t_k:.6f} ms (device "
+              f"{d_k if d_k is None else f'{d_k:.6f}'}, host {h_k:.6f}) "
+              f"plain {t_p:.6f} "
+              + ("" if t_l is None else f"baddbmm {t_l:.6f} kernel/baddbmm "
+                 f"{t_k / t_l:.3f} ")
+              + f"bound {bound:.6f} ({nbytes} bytes); launches {launches} "
+              f"in 3 per-sample steps, {per_attempt:.2f} per forward "
+              f"attempt")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": ("src/repro_torch/csrc/butcher_combine_rows.cu"
+                       if "rows" in name else
+                       "src/repro_torch/csrc/butcher_combine.cu"),
+            "replaces": ("src/repro/kernels/butcher_combine.py:110"
+                         if "rows" in name else
+                         "src/repro/kernels/butcher_combine.py:69"),
+            "launches": launches, "max_abs_err": max_err[name], "ms": t_k,
+            "device_ms": d_k, "host_ms": h_k, "plain_ms": t_p,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": t_l,
+            "shape": f"float32 B={B} n_lane={n_lane} s={s}"
+                     + (f" m={m}" if "rows" in name else "")})
+    return rows
+
+
+def per_sample_profile():
+    """Where a per-sample training step's time goes: one float32 B 256
+    loss+gradient under torch.profiler (after a warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+    phase("18 profile (one per-sample loss+gradient, float32, B 256)")
+    cfg, params, u, eps = _per_sample_inputs(256)
+    _loss_and_grads(cfg, params, u, eps)
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            _loss_and_grads(cfg, params, u, eps)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t) * 1e6
+    except RuntimeError as exc:     # CUPTI unavailable: report, don't guess
+        print(f"  profiler unavailable: {exc}")
+        return
+    kernels = [ev for ev in prof.key_averages()
+               if str(ev.device_type).endswith("CUDA")
+               and _self_device_us(ev) > 0]
+    busy_us = sum(_self_device_us(ev) for ev in kernels)
+    print(f"per-sample step wall {wall_us / 1e3:.3f} ms, kernel time "
+          f"{busy_us / 1e3:.3f} ms, device busy share "
+          f"{busy_us / wall_us:.4f}, kernel launches "
+          f"{sum(ev.count for ev in kernels)}")
+    for ev in sorted(kernels, key=_self_device_us, reverse=True)[:8]:
+        print(f"  {_self_device_us(ev) / 1e3:9.3f} ms  x{ev.count:6d}  "
+              f"{ev.key[:90]}")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -869,6 +1229,11 @@ def main():
     serve_card_vs_cpu()
     rows += lm_report(lm_err, lm_launches)
     profile_serve(params)
+    ps = per_sample_main_path()
+    per_sample_exactness()
+    per_sample_memory()
+    rows += lane_report(max_err, ps)
+    per_sample_profile()
     print(f"total_seconds {time.perf_counter() - t0:.1f}")
     print(smi.splitlines()[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"kernels": rows}))

@@ -2,24 +2,33 @@
 adjoint, and the ``solve`` API."""
 from .api import (GRADIENT_REGISTRY, NOT_PORTED, DirectBackprop,
                   GradientStrategy, SaveAt, Solution, SymplecticAdjoint,
-                  as_gradient, capability_matrix, register_gradient, solve)
+                  as_gradient, batched_capability_matrix, capability_matrix,
+                  register_gradient, solve)
 from .combine import COMBINE_BACKENDS, StageCombiner, get_combiner
-from .rk import (AdaptiveConfig, AdaptiveSolution, FixedSolution,
-                 apply_on_failure, rk_solve_adaptive, rk_solve_fixed,
-                 rk_stages, rk_step)
-from .stepper import AdaptiveStepper, FixedStepper, SolverState
+from .rk import (AdaptiveConfig, AdaptiveSolution, BatchedAdaptiveSolution,
+                 FixedSolution, apply_on_failure, apply_on_failure_lanes,
+                 lane_count, rk_solve_adaptive, rk_solve_adaptive_batched,
+                 rk_solve_fixed, rk_stages, rk_step)
+from .stepper import (AdaptiveStepper, BatchedSolverState, FixedStepper,
+                      SolverState)
 from .symplectic import (odeint_symplectic, odeint_symplectic_adaptive,
-                         symplectic_step_adjoint)
+                         odeint_symplectic_adaptive_batched,
+                         symplectic_step_adjoint,
+                         symplectic_step_adjoint_lanes)
 from .tableau import HERMITE_DENSE_W, TABLEAUS, ButcherTableau, get_tableau
 
 __all__ = [
     "AdaptiveConfig", "AdaptiveSolution", "AdaptiveStepper",
-    "ButcherTableau", "COMBINE_BACKENDS", "DirectBackprop", "FixedSolution",
-    "FixedStepper", "GRADIENT_REGISTRY", "GradientStrategy",
-    "HERMITE_DENSE_W", "NOT_PORTED", "SaveAt", "Solution", "SolverState",
-    "StageCombiner", "SymplecticAdjoint", "TABLEAUS", "apply_on_failure",
-    "as_gradient", "capability_matrix", "get_combiner", "get_tableau",
-    "odeint_symplectic", "odeint_symplectic_adaptive", "register_gradient",
-    "rk_solve_adaptive", "rk_solve_fixed", "rk_stages", "rk_step", "solve",
-    "symplectic_step_adjoint",
+    "BatchedAdaptiveSolution", "BatchedSolverState", "ButcherTableau",
+    "COMBINE_BACKENDS", "DirectBackprop", "FixedSolution", "FixedStepper",
+    "GRADIENT_REGISTRY", "GradientStrategy", "HERMITE_DENSE_W", "NOT_PORTED",
+    "SaveAt", "Solution", "SolverState", "StageCombiner",
+    "SymplecticAdjoint", "TABLEAUS", "apply_on_failure",
+    "apply_on_failure_lanes", "as_gradient", "batched_capability_matrix",
+    "capability_matrix", "get_combiner", "get_tableau", "lane_count",
+    "odeint_symplectic", "odeint_symplectic_adaptive",
+    "odeint_symplectic_adaptive_batched", "register_gradient",
+    "rk_solve_adaptive", "rk_solve_adaptive_batched", "rk_solve_fixed",
+    "rk_stages", "rk_step", "solve", "symplectic_step_adjoint",
+    "symplectic_step_adjoint_lanes",
 ]

@@ -27,13 +27,24 @@ interface.  Which (stepping, saveat) cells a strategy supports is declared
 on the class as ``capabilities``; ``capability_matrix()`` assembles the
 table and every illegal combination fails with the same uniformly-shaped
 ``ValueError``.  The port offers a subset of the JAX package's cells: the
-t1 cells of these two strategies.  What is not ported yet raises a
-``ValueError`` that names its ROADMAP item: the strategies ``remat_step``,
-``remat_solve`` and ``adjoint`` (queue 1 item 7), ``SaveAt(ts=...)`` and
-dense output (item 9), and ``batch_axis=0`` (item 10).
+t1 cells of these two strategies, single and lane-batched.  What is not
+ported yet raises a ``ValueError`` that names its ROADMAP item: the
+strategies ``remat_step``, ``remat_solve`` and ``adjoint`` (queue 1 item
+7), and ``SaveAt(ts=...)`` and dense output (item 9).
 
 ``stepping`` is either an ``int`` (fixed grid, N equal steps) or an
 ``AdaptiveConfig`` (PI-controlled adaptive stepping).
+
+``batch_axis=0`` declares the leading axis of every state leaf a batch of
+INDEPENDENT trajectories: an adaptive solve then runs masked per-lane step
+control (each lane its own error norm, accept/reject and accepted grid) in
+one loop, ``stats``/``success`` become per-lane (B,) tensors on the solve's
+device, and the symplectic adjoint replays each lane's own grid, so the
+batched gradient equals the sum of single-lane gradients to rounding
+(``batched_capability_matrix()`` declares the cells).  The field is then
+evaluated once per stage over all lanes through ``torch.func.vmap``: it
+must be ``torch.func``-safe (no ``requires_grad_``/``autograd.grad`` inside;
+``torch.func.vjp`` is fine).
 """
 from __future__ import annotations
 
@@ -43,12 +54,15 @@ from typing import (Any, ClassVar, Dict, FrozenSet, Optional, Tuple, Type,
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from .backprop import odeint_backprop
 from .combine import resolve_backend
-from .rk import AdaptiveConfig, VectorField, apply_on_failure, \
-    rk_solve_adaptive
-from .symplectic import odeint_symplectic, odeint_symplectic_adaptive
+from .rk import (AdaptiveConfig, VectorField, apply_on_failure,
+                 apply_on_failure_lanes, lane_count, rk_solve_adaptive,
+                 rk_solve_adaptive_batched)
+from .symplectic import (odeint_symplectic, odeint_symplectic_adaptive,
+                         odeint_symplectic_adaptive_batched)
 from .tableau import ButcherTableau, get_tableau
 
 Pytree = Any
@@ -64,7 +78,6 @@ NOT_PORTED = {
     "adjoint": "ROADMAP queue 1 item 7",
     "ts": "ROADMAP queue 1 item 9",
     "dense": "ROADMAP queue 1 item 9",
-    "batch_axis": "ROADMAP queue 1 item 10",
 }
 
 
@@ -113,10 +126,14 @@ class Solution:
     stats       — {"n_steps", "n_fevals", "n_attempts"}: int32 scalars on
                   the CPU (the controller decides on the host).  Exact
                   static counts on fixed grids; the controller's realized
-                  counters on adaptive solves.  Never differentiated.
+                  counters on adaptive solves.  Per-lane (B,) int32 tensors
+                  on the solve's device under ``batch_axis=0``.  Never
+                  differentiated.
     success     — bool scalar on the CPU: the solve reached its target
                   time within the adaptive budgets (always True on fixed
-                  grids).
+                  grids).  Per-lane (B,) on the solve's device under
+                  ``batch_axis=0``: one lane failing does not flag (or
+                  poison) its batchmates.
     """
     ys: Pytree
     final_state: Pytree
@@ -159,16 +176,34 @@ class GradientStrategy:
     A strategy declares its legal (stepping, saveat) cells in
     ``capabilities`` and implements the hook of each stepping it claims:
     ``fixed`` (the final state) and ``adaptive_with_stats`` (the final
-    state, the stats and the success flag of ONE controller run).
-    Register it with ``@register_gradient``; ``solve`` needs no edits.
+    state, the stats and the success flag of ONE controller run).  The
+    adaptive cells it also offers under ``batch_axis=0`` go in
+    ``batched_capabilities``, with the hook ``adaptive_batched_with_stats``
+    (per-lane stats and success).  Register it with
+    ``@register_gradient``; ``solve`` needs no edits.
     """
     name: ClassVar[str]
     capabilities: ClassVar[FrozenSet[Tuple[str, str]]]
+    # adaptive cells ALSO legal under ``solve(..., batch_axis=0)``: cells
+    # for which the strategy has a masked per-lane batched driver.  Fixed
+    # cells never appear here: a fixed grid does not depend on the state,
+    # so every claimed fixed cell batches for free (``batched_cells``).
+    batched_capabilities: ClassVar[FrozenSet[Tuple[str, str]]] = frozenset()
+
+    @classmethod
+    def batched_cells(cls) -> FrozenSet[Tuple[str, str]]:
+        """(stepping, saveat) cells legal with ``batch_axis=0``: every fixed
+        cell the strategy claims plus its ``batched_capabilities``."""
+        fixed = frozenset(c for c in cls.capabilities if c[0] == "fixed")
+        return fixed | cls.batched_capabilities
 
     def fixed(self, ctx: _Ctx, x0, t0, t1, params):
         raise NotImplementedError
 
     def adaptive_with_stats(self, ctx: _Ctx, x0, t0, t1, params):
+        raise NotImplementedError
+
+    def adaptive_batched_with_stats(self, ctx: _Ctx, x0, t0, t1, params):
         raise NotImplementedError
 
 
@@ -211,6 +246,7 @@ class SymplecticAdjoint(GradientStrategy):
     O(N + s + L) memory (Algorithm 2 backward from per-step checkpoints)."""
     name: ClassVar[str] = "symplectic"
     capabilities: ClassVar[FrozenSet] = frozenset({_FIXED_T1, _ADAPT_T1})
+    batched_capabilities: ClassVar[FrozenSet] = frozenset({_ADAPT_T1})
 
     def fixed(self, ctx, x0, t0, t1, params):
         return odeint_symplectic(ctx.f, ctx.tab, ctx.n_steps, ctx.backend,
@@ -224,6 +260,11 @@ class SymplecticAdjoint(GradientStrategy):
         return (ys, *_stats(st["n_steps"], st["n_fevals"],
                             st["n_attempts"], ok))
 
+    # batched: exact per-lane gradients replaying each lane's own grid
+    def adaptive_batched_with_stats(self, ctx, x0, t0, t1, params):
+        return odeint_symplectic_adaptive_batched(
+            ctx.f, ctx.tab, ctx.adaptive, ctx.backend, x0, t0, t1, params)
+
 
 @register_gradient
 @dataclasses.dataclass(frozen=True)
@@ -233,6 +274,7 @@ class DirectBackprop(GradientStrategy):
     realized discrete map, as the symplectic adjoint's."""
     name: ClassVar[str] = "backprop"
     capabilities: ClassVar[FrozenSet] = frozenset({_FIXED_T1, _ADAPT_T1})
+    batched_capabilities: ClassVar[FrozenSet] = frozenset({_ADAPT_T1})
 
     def fixed(self, ctx, x0, t0, t1, params):
         return odeint_backprop(ctx.f, ctx.tab, ctx.n_steps, x0, t0, t1,
@@ -248,6 +290,14 @@ class DirectBackprop(GradientStrategy):
         return (ys, *_stats(sol.n_accepted, sol.n_fevals, sol.n_attempts,
                             sol.succeeded))
 
+    def adaptive_batched_with_stats(self, ctx, x0, t0, t1, params):
+        sol = rk_solve_adaptive_batched(ctx.f, ctx.tab, x0, t0, t1, params,
+                                        ctx.adaptive, ctx.backend)
+        ys = apply_on_failure_lanes(sol.x_final, sol.succeeded,
+                                    ctx.adaptive.on_failure)
+        return ys, {"n_steps": sol.n_accepted, "n_fevals": sol.n_fevals,
+                    "n_attempts": sol.n_attempts}, sol.succeeded
+
 
 # ---------------------------------------------------------------------------
 # Capability matrix
@@ -261,31 +311,52 @@ def capability_matrix() -> Dict[str, Dict[Tuple[str, str], bool]]:
             for name, cls in sorted(GRADIENT_REGISTRY.items())}
 
 
+def batched_capability_matrix() -> Dict[str, Dict[Tuple[str, str], bool]]:
+    """The same table for ``solve(..., batch_axis=0)``: every fixed cell a
+    strategy claims, plus its declared batched adaptive cells."""
+    return {name: {(sk, vk): (sk, vk) in cls.batched_cells()
+                   for sk in STEPPING_KINDS for vk in SAVEAT_KINDS}
+            for name, cls in sorted(GRADIENT_REGISTRY.items())}
+
+
 def _check_capability(gradient: GradientStrategy, stepping_kind: str,
-                      saveat_kind: str) -> None:
-    cells = type(gradient).capabilities
+                      saveat_kind: str, batched: bool = False) -> None:
+    cells = (type(gradient).batched_cells() if batched
+             else type(gradient).capabilities)
     if (stepping_kind, saveat_kind) in cells:
         return
     name = type(gradient).name
     legal = ", ".join(f"{sk}+{vk}" for sk, vk in sorted(cells))
+    where = " with batch_axis=0" if batched else ""
     todo = (f" (saveat={saveat_kind!r} is not ported yet: "
             f"{NOT_PORTED[saveat_kind]})" if saveat_kind in NOT_PORTED
             else "")
     raise ValueError(
         f"gradient {name!r} does not support stepping={stepping_kind!r} "
-        f"with saveat={saveat_kind!r}; legal (stepping+saveat) "
-        f"combinations for {name!r}: {legal}.{todo}")
+        f"with saveat={saveat_kind!r}{where}; legal (stepping+saveat) "
+        f"combinations for {name!r}{where}: {legal}.{todo}")
 
 
 # ---------------------------------------------------------------------------
 # solve
 # ---------------------------------------------------------------------------
 
-def _fixed_stats(tab: ButcherTableau, n_steps: int, n_segments: int):
+def _fixed_stats(tab: ButcherTableau, n_steps: int, n_segments: int,
+                 lanes: Optional[int] = None, device=None):
     """Fixed-grid stats are exact static counts: the drivers skip the
-    embedded error estimate, so the cost is exactly s f-evals per step."""
+    embedded error estimate, so the cost is exactly s f-evals per step.
+    With ``lanes`` (batch_axis=0) the counts are per lane, on ``device``:
+    every lane takes the same grid."""
     total = n_segments * n_steps
-    return _stats(total, total * tab.s, total, True)
+    if lanes is None:
+        return _stats(total, total * tab.s, total, True)
+
+    def full(v):
+        return torch.full((lanes,), v, dtype=torch.int32, device=device)
+
+    return ({"n_steps": full(total), "n_fevals": full(total * tab.s),
+             "n_attempts": full(total)},
+            torch.ones(lanes, dtype=torch.bool, device=device))
 
 
 def solve(f: VectorField, x0, params, *,
@@ -310,16 +381,24 @@ def solve(f: VectorField, x0, params, *,
     backend    — stage-combine dispatch: auto | torch | cuda
                  (core/combine.py).
     t0         — start time (keyword; default 0).
-    batch_axis — must be None: per-lane batching is not ported yet.
+    batch_axis — None (default): ONE trajectory; a leading batch axis in
+                 the state is part of that trajectory, so an adaptive
+                 controller pools its error norm over the whole batch
+                 (lockstep).  0: the leading axis of every state leaf
+                 indexes B INDEPENDENT trajectories (masked per-lane step
+                 control; per-lane (B,) stats and success).  Only axis 0.
     """
     tab = get_tableau(method) if isinstance(method, str) else method
     resolve_backend(backend)  # eager validation, single source
     gradient = as_gradient("symplectic" if gradient is None else gradient)
     saveat = SaveAt(t1=1.0) if saveat is None else saveat
-    if batch_axis is not None:
+    if batch_axis is not None and batch_axis != 0:
         raise ValueError(
-            f"batch_axis={batch_axis!r}: per-lane batched solving is not "
-            f"ported to PyTorch yet ({NOT_PORTED['batch_axis']})")
+            f"batch_axis={batch_axis!r}: only the leading axis "
+            "(batch_axis=0) is supported — move the trajectory axis of "
+            "every state leaf to axis 0")
+    batched = batch_axis is not None
+    lanes = lane_count(x0) if batched else None
 
     if isinstance(stepping, AdaptiveConfig):
         stepping_kind, n_steps, adaptive = "adaptive", None, stepping
@@ -334,11 +413,17 @@ def solve(f: VectorField, x0, params, *,
             "stepping must be an int (fixed-grid step count) or an "
             f"AdaptiveConfig; got {type(stepping).__name__}")
 
-    _check_capability(gradient, stepping_kind, saveat.kind)
+    _check_capability(gradient, stepping_kind, saveat.kind, batched)
     ctx = _Ctx(f, tab, n_steps, adaptive, backend)
     if stepping_kind == "fixed":
+        # the fixed grid does not depend on the state: the plain driver IS
+        # the per-lane solve, only the stats' shapes change
         ys = gradient.fixed(ctx, x0, t0, saveat.t1, params)
-        stats, success = _fixed_stats(tab, n_steps, 1)
+        stats, success = _fixed_stats(tab, n_steps, 1, lanes,
+                                      pytree.tree_leaves(x0)[0].device)
+    elif batched:
+        ys, stats, success = gradient.adaptive_batched_with_stats(
+            ctx, x0, t0, saveat.t1, params)
     else:
         ys, stats, success = gradient.adaptive_with_stats(
             ctx, x0, t0, saveat.t1, params)

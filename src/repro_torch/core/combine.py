@@ -36,6 +36,14 @@ device once per (dtype, device) and cached; rows that depend on h (the
 backward recursion's) are computed there from the device scalar h.  No
 combine reads a value back to the host.
 
+Lane form: with a step ``h`` of shape (B,) — one step size per lane of a
+lane-batched state, whose leaves carry the lane axis first (stage buffers:
+(s, B, ...)) — every row becomes one row per lane, (B, s) or (B, m, s),
+built on the device in one op per call, and both kernels take them in one
+launch for all lanes.  This is what the JAX package gets by ``vmap``-ing
+its combines over a per-lane h; here the combines are called on the
+lane-batched leaves directly (an ``autograd.Function`` has no vmap rule).
+
 For the backward recursion the h-dependence of the paper's Eq. (7)/(8)
 coefficients (btilde_j = b_j, or h_n for the I0 = {i : b_i = 0} stages) is
 factored into three h-independent numpy matrices R/P/Q precomputed per
@@ -51,7 +59,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import acc_dtype
+from repro_torch.kernels.ref import acc_dtype, lane_bcast
 from .tableau import ButcherTableau
 
 Pytree = Any
@@ -119,10 +127,18 @@ def append_stage(K: Pytree, k: Pytree) -> Pytree:
 # dbase = dout, dK[i] = hc[i] dout.  The dhc term — the only one that needs
 # the stage buffer K — is computed (and K saved) only when the coefficients
 # require a gradient, which no solver use does: K never outlives the call.
+# With one row per lane (hc (B, s) / (B, m, s)) each lane's slice of dout
+# takes its own row.
 # ---------------------------------------------------------------------------
 
+def _lane_view(t: torch.Tensor, lead: int, lanes: int) -> torch.Tensor:
+    """``t`` of shape (lead..., B, ...) viewed as (lead..., B, n_lane)."""
+    return t.reshape(t.shape[:lead] + (lanes, -1))
+
+
 class _FusedAxpy(torch.autograd.Function):
-    """base + sum_i hc[i] * K[i] in one pass (kernels/ops.py)."""
+    """base + sum_i hc[i] * K[i] in one pass (kernels/ops.py); with hc
+    (B, s), base[b] + sum_i hc[b, i] * K[i, b]."""
 
     @staticmethod
     def forward(ctx, base, K, hc):
@@ -138,6 +154,15 @@ class _FusedAxpy(torch.autograd.Function):
         dbase = dK = dhc = None
         if ctx.needs_input_grad[0]:
             dbase = dout
+        if hc.dim() == 2:                                    # (B, s) lanes
+            B, s = hc.shape
+            dl = _lane_view(d, 0, B)                         # (B, n_lane)
+            if ctx.needs_input_grad[1]:
+                dK = (hc.t()[:, :, None] * dl).reshape(
+                    (s,) + dout.shape).to(dout.dtype)
+            if ctx.needs_input_grad[2]:
+                dhc = (_lane_view(K.to(acc_dt), 1, B) * dl).sum(-1).t()
+            return dbase, dK, dhc
         if ctx.needs_input_grad[1]:
             dK = (hc.reshape((-1,) + (1,) * dout.ndim) * d).to(dout.dtype)
         if ctx.needs_input_grad[2]:
@@ -146,7 +171,9 @@ class _FusedAxpy(torch.autograd.Function):
 
 
 class _FusedAxpyRows(torch.autograd.Function):
-    """out[r] = sc[r] * x + sum_i hc[r, i] * K[i], all rows in one pass."""
+    """out[r] = sc[r] * x + sum_i hc[r, i] * K[i], all rows in one pass;
+    with hc (B, m, s), out[r, b] = sc[r] * x[b] + sum_i hc[b, r, i] *
+    K[i, b]."""
 
     @staticmethod
     def forward(ctx, x, K, hc, sc):
@@ -165,13 +192,23 @@ class _FusedAxpyRows(torch.autograd.Function):
         dx = dK = dhc = dsc = None
         if ctx.needs_input_grad[0]:
             dx = (sc @ d).reshape(shape).to(dout.dtype)
+        if ctx.needs_input_grad[3]:
+            dsc = d @ x.to(acc_dt).reshape(-1)
+        if hc.dim() == 3:                                    # (B, m, s) lanes
+            B, s = hc.shape[0], hc.shape[2]
+            dl = _lane_view(d, 1, B)                         # (m, B, n_lane)
+            if ctx.needs_input_grad[1]:
+                dK = torch.einsum("bri,rbn->ibn", hc, dl).reshape(
+                    (s,) + tuple(shape)).to(dout.dtype)
+            if ctx.needs_input_grad[2]:
+                dhc = torch.einsum("rbn,ibn->bri", dl,
+                                   _lane_view(K.to(acc_dt), 1, B))
+            return dx, dK, dhc, dsc
         if ctx.needs_input_grad[1]:
             dK = (hc.t() @ d).reshape((hc.shape[1],) + tuple(shape)) \
                 .to(dout.dtype)
         if ctx.needs_input_grad[2]:
             dhc = d @ K.to(acc_dt).reshape(K.shape[0], -1).t()
-        if ctx.needs_input_grad[3]:
-            dsc = d @ x.to(acc_dt).reshape(-1)
         return dx, dK, dhc, dsc
 
 
@@ -236,13 +273,20 @@ class StageCombiner:
         return row
 
     def _hc(self, coefs, h, acc_dt, device) -> torch.Tensor:
-        """h * coefs in the accumulation dtype, on the device."""
+        """h * coefs in the accumulation dtype, on the device.  A (B,) step
+        gives one row per lane, (B,) + coefs.shape; a tensor ``coefs``
+        with a (B,) step is one row per lane already."""
         if isinstance(coefs, np.ndarray):
             row = self._device_row(coefs, acc_dt, device)
+            per_lane = False
         else:
             row = coefs.to(acc_dt)
+            per_lane = True
         if isinstance(h, torch.Tensor):
-            return h.to(acc_dt) * row
+            h = h.to(acc_dt)
+            if h.dim():
+                h = h.reshape(h.shape + (1,) * (row.dim() - per_lane))
+            return h * row
         return row if h == 1.0 else row * h
 
     def uses_kernel(self, tree: Pytree) -> bool:
@@ -261,7 +305,8 @@ class StageCombiner:
         rows).  ``idx`` (plain path only) maps coefficient positions to
         buffer rows, so callers with an h-dependent but statically sparse
         row skip the dead slope rows; when omitted, coefs aligns with K's
-        leading dim.
+        leading dim.  With a (B,) ``h`` (or a per-lane (B, s) tensor row)
+        each lane b of the leaves combines with its own row.
         """
         if int(coefs.shape[0]) == 0:
             return base
@@ -294,7 +339,7 @@ class StageCombiner:
             pairs = [(p, p) for p in range(K.shape[0])]
         acc = base.to(acc_dt)
         for p, col in pairs:
-            acc = acc + hc[p] * K[col].to(acc_dt)
+            acc = acc + lane_bcast(hc[..., p], base) * K[col].to(acc_dt)
         return acc.to(base.dtype)
 
     def combine_rows(self, x: Pytree, K: Pytree, rows: np.ndarray,
@@ -303,7 +348,7 @@ class StageCombiner:
 
         One read of (x, K) produces all m outputs — used to fuse the step
         update and the embedded error estimate into a single pass.  Returns
-        a list of m pytrees.
+        a list of m pytrees.  A (B,) ``h`` gives each lane its own rows.
         """
         m = int(rows.shape[0])
         leaves_x, spec = pytree.tree_flatten(x)
@@ -323,7 +368,8 @@ class StageCombiner:
             for r in range(m):
                 acc = sc[r] * xf
                 for i in np.nonzero(rows[r])[0]:
-                    acc = acc + hc[r, i] * lk[i].to(acc_dt)
+                    acc = acc + lane_bcast(hc[..., r, i], lx) * \
+                        lk[i].to(acc_dt)
                 outs[r].append(acc.to(lx.dtype))
         return [pytree.tree_unflatten(o, spec) for o in outs]
 
@@ -377,9 +423,10 @@ class StageCombiner:
             # structurally-dead adjoint-slope rows from the read.
             nz = np.nonzero((R != 0.0) | (P != 0.0) | (Q != 0.0))[0]
             R, P, Q = R[nz], P[nz], Q[nz]
+        hh = h[:, None] if h.dim() else h     # a (B,) step: a row per lane
         row = (self._device_row(R, h.dtype, h.device)
-               + h * self._device_row(P, h.dtype, h.device)
-               + (h * h) * self._device_row(Q, h.dtype, h.device))
+               + hh * self._device_row(P, h.dtype, h.device)
+               + (hh * hh) * self._device_row(Q, h.dtype, h.device))
         if self.uses_kernel(lam_next):
             # the kernel reads the whole suffix in its single pass anyway
             return self.combine(base, stage_suffix(L, i + 1), row, 1.0)
@@ -388,8 +435,9 @@ class StageCombiner:
     def lambda_update(self, lam_next: Pytree, L: Pytree,
                       h: torch.Tensor) -> Pytree:
         """lambda_n = lambda_{n+1} - h sum_i btilde_i l_{n,i}."""
+        hh = h[:, None] if h.dim() else h     # a (B,) step: a row per lane
         coefs = -(self._device_row(self.b_np, h.dtype, h.device)
-                  + h * self._device_row(self.i0_np, h.dtype, h.device))
+                  + hh * self._device_row(self.i0_np, h.dtype, h.device))
         return self.combine(lam_next, L, coefs, h)
 
 

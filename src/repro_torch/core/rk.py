@@ -1,6 +1,6 @@
 """Explicit Runge-Kutta integration over arbitrary pytree states.
 
-Two drivers, both thin loops over the stepper state machine in
+Three drivers, all thin loops over the stepper state machine in
 core/stepper.py (``init_state -> advance* -> finalize``):
 
   * ``rk_solve_fixed``    — N equal steps (``FixedStepper``); autograd can
@@ -9,6 +9,9 @@ core/stepper.py (``init_state -> advance* -> finalize``):
   * ``rk_solve_adaptive`` — PI-controlled adaptive stepping
                             (``AdaptiveStepper``), keeping the accepted
                             checkpoints.
+  * ``rk_solve_adaptive_batched`` — B independent trajectories (lane axis
+                            0 of every leaf), each with its own controller,
+                            in one loop.
 
 Both record the step checkpoints {x_n, t_n, h_n} that Algorithm 1 of the
 paper retains; which computation graphs survive is the gradient strategy's
@@ -24,7 +27,8 @@ from torch.utils import _pytree as pytree
 from .tableau import ButcherTableau
 from .stepper import (  # noqa: F401  (re-exports: the step-level surface)
     ON_FAILURE_POLICIES, AdaptiveConfig, AdaptiveSolution, AdaptiveStepper,
-    FixedSolution, FixedStepper, Pytree, VectorField, rk_stages, rk_step)
+    BatchedAdaptiveSolution, FixedSolution, FixedStepper, Pytree,
+    VectorField, lane_bcast, lane_count, rk_stages, rk_step)
 
 
 def rk_solve_fixed(f: VectorField, tab: ButcherTableau, x0, t0, t1,
@@ -68,3 +72,49 @@ def apply_on_failure(x_final: Pytree, succeeded: bool,
         return torch.where(keep, l, torch.full_like(l, float("nan")))
 
     return pytree.tree_map(poison, x_final)
+
+
+def apply_on_failure_lanes(x_final: Pytree, succeeded: torch.Tensor,
+                           on_failure: str) -> Pytree:
+    """``apply_on_failure`` per lane: ``succeeded`` is (B,) bool on the
+    device and lane axis 0 of every leaf indexes the trajectories.  "nan"
+    poisons exactly the failed lanes (no host read); "raise" reads whether
+    every lane succeeded and raises if not."""
+    if on_failure == "ignore":
+        return x_final
+    if on_failure == "raise":
+        if not bool(succeeded.all()):
+            raise RuntimeError(
+                "solve: adaptive solver exhausted max_steps/max_attempts "
+                "without reaching t1 in some lane "
+                "(AdaptiveConfig(on_failure='raise'))")
+        return x_final
+
+    def poison(l):
+        if not l.is_floating_point():
+            return l
+        return torch.where(lane_bcast(succeeded, l), l,
+                           torch.full_like(l, float("nan")))
+
+    return pytree.tree_map(poison, x_final)
+
+
+def rk_solve_adaptive_batched(f: VectorField, tab: ButcherTableau, x0, t0,
+                              t1, params, cfg: AdaptiveConfig,
+                              combine_backend: str = "auto",
+                              h0=None) -> BatchedAdaptiveSolution:
+    """Adaptive solve of B independent trajectories in ONE loop.
+
+    ``x0`` is lane-batched (lane axis 0 of every leaf).  Each lane carries
+    its own (t, h, n_accepted, n_attempts), its own error norm (never
+    pooled across the batch) and its own accept/reject; finished and
+    rejected lanes are masked on commit, so no lane's stiffness perturbs
+    another's accepted grid.  The loop runs until every lane lands or
+    exhausts its budgets; each attempt evaluates f once per stage over the
+    whole batch, so lanes that are already done spend wasted slots.  Every
+    controller rule is ``rk_solve_adaptive``'s, per lane.  ``t0``/``t1``/
+    ``h0`` may be scalars (shared) or (B,) tensors.
+    """
+    stepper = AdaptiveStepper(f, tab, cfg, combine_backend)
+    state = stepper.init_state(x0, t0, t1, h0, lanes=lane_count(x0))
+    return stepper.finalize(stepper.run(state, params))

@@ -21,10 +21,22 @@ accepted steps.  The controller sees detached values, so the accepted grid
 is data to autograd — the gradient of a solve is the gradient of its
 realized discrete map (the paper's setting; times are not differentiated).
 
+Lane-batched states (``solve(..., batch_axis=0)``, ``init_state(...,
+lanes=B)``): every leaf carries B independent trajectories on its leading
+axis, and t, h, the counters and liveness are (B,) tensors on the device.
+Each lane has its own error norm, accept/reject and accepted grid; an
+attempt evaluates f ONCE per stage over all lanes (``torch.func.vmap`` of
+the single-trajectory field, so f must be ``torch.func``-safe) and combines
+with one coefficient row per lane.  The checkpoints go into preallocated
+(max_steps + 1, B, ...) buffers: a lane that accepts writes row
+n_accepted[b], every other lane writes the scratch row max_steps.  The host
+reads ONE value per attempt: whether any lane is still live.  Every
+controller rule is the single-trajectory one applied per lane, so lane b of
+a batched solve takes the accepted grid of its own single solve.
+
 This module also owns the step-level primitives the steppers are built from
-(``rk_step``, ``rk_stages``, the error norm, ``AdaptiveConfig`` and the
-solution tuples).  Lane-batched states (``solve(..., batch_axis=0)``) are
-not ported yet (ROADMAP queue 1 item 10).
+(``rk_step``, ``rk_stages``, the error norms, ``AdaptiveConfig`` and the
+solution tuples).
 """
 from __future__ import annotations
 
@@ -34,6 +46,7 @@ from typing import Any, Callable, List, NamedTuple, Optional
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.kernels.ref import lane_bcast
 from .combine import (StageCombiner, alloc_stages, append_stage,
                       get_combiner, set_stage)
 from .tableau import ButcherTableau
@@ -67,6 +80,33 @@ def _device_of(x: Pytree) -> torch.device:
 
 def _detach(tree: Pytree) -> Pytree:
     return pytree.tree_map(lambda l: l.detach(), tree)
+
+
+def lane_count(x0: Pytree) -> int:
+    """Lane count B of a lane-batched state: every leaf must carry the same
+    leading lane axis (``solve(..., batch_axis=0)``)."""
+    leaves = pytree.tree_leaves(x0)
+    if not leaves:
+        raise ValueError("batched solve needs a non-empty state pytree")
+    sizes = set()
+    for l in leaves:
+        if l.dim() < 1:
+            raise ValueError(
+                "batch_axis=0 requires every state leaf to carry a leading "
+                f"lane axis; got a rank-0 leaf {l!r}")
+        sizes.add(l.shape[0])
+    if len(sizes) != 1:
+        raise ValueError(
+            "batch_axis=0 requires every state leaf to share the same "
+            f"leading lane-axis size; got sizes {sorted(sizes)}")
+    return sizes.pop()
+
+
+def lane_field(f: VectorField) -> VectorField:
+    """``f`` over lane-batched states: ONE evaluation over all lanes, each
+    lane seeing its own state (lane axis removed) and its own time, and the
+    shared params — the JAX package's ``vmap`` of the field."""
+    return torch.func.vmap(f, in_dims=(0, 0, None))
 
 
 # ---------------------------------------------------------------------------
@@ -155,6 +195,16 @@ def _tol_like(v, leaf):
     return v.to(leaf.dtype) if isinstance(v, torch.Tensor) else v
 
 
+def _scaled_sq(e, a, b, rtol, atol) -> torch.Tensor:
+    """(err / (atol + rtol max(|x|, |x_next|)))^2 for one leaf, accumulated
+    in >= f32 but NEVER below the state dtype: an f32 norm quantizes the
+    accept/reject decisions of an f64 solve."""
+    scale = _tol_like(atol, a) \
+        + _tol_like(rtol, a) * torch.maximum(a.abs(), b.abs())
+    r = (e / scale).to(torch.promote_types(e.dtype, torch.float32))
+    return r * r
+
+
 def _error_norm(err, x, x_next, rtol, atol) -> torch.Tensor:
     """RMS of err / (atol + rtol max(|x|, |x_next|)) over all leaves, as a
     0-dim device tensor."""
@@ -162,13 +212,23 @@ def _error_norm(err, x, x_next, rtol, atol) -> torch.Tensor:
                  pytree.tree_leaves(x_next))
     total, count = 0.0, 0
     for e, a, b in leaves:
-        scale = _tol_like(atol, a) \
-            + _tol_like(rtol, a) * torch.maximum(a.abs(), b.abs())
-        # accumulate in >= f32 but NEVER below the state dtype: an f32 norm
-        # quantizes the accept/reject decisions of an f64 solve.
-        r = (e / scale).to(torch.promote_types(e.dtype, torch.float32))
-        total = total + torch.sum(r * r)
-        count += r.numel()
+        r2 = _scaled_sq(e, a, b, rtol, atol)
+        total = total + torch.sum(r2)
+        count += r2.numel()
+    return torch.sqrt(total / count)
+
+
+def _error_norm_lanes(err, x, x_next, rtol, atol) -> torch.Tensor:
+    """Per-lane error norms of lane-batched states, shape (B,): lane b's is
+    ``_error_norm`` of lane b alone — the same per-leaf scale and the same
+    element-count weighting across leaves, never pooled over the batch."""
+    leaves = zip(pytree.tree_leaves(err), pytree.tree_leaves(x),
+                 pytree.tree_leaves(x_next))
+    total, count = 0.0, 0
+    for e, a, b in leaves:
+        r2 = _scaled_sq(e, a, b, rtol, atol)
+        total = total + r2.reshape(r2.shape[0], -1).sum(1)
+        count += r2[0].numel()
     return torch.sqrt(total / count)
 
 
@@ -204,6 +264,25 @@ class AdaptiveSolution(NamedTuple):
     n_attempts: int             # total trial steps (acc + rej)
 
 
+class BatchedAdaptiveSolution(NamedTuple):
+    """Per-lane results of a lane-batched adaptive solve (lane count B),
+    all on the solve's device.  The checkpoint buffers keep the step axis
+    LEADING — ``xs`` leaves are (max_steps + 1, B, ...), ``ts``/``hs`` are
+    (max_steps + 1, B); row n of lane b is its n-th accepted checkpoint for
+    n < n_accepted[b], and the last row is scratch — so the symplectic
+    backward walks step rows as the single-trajectory one does, masking
+    each lane by its own n_accepted."""
+    x_final: Pytree             # per-lane final states (lane axis 0)
+    xs: Pytree
+    ts: torch.Tensor
+    hs: torch.Tensor
+    n_accepted: torch.Tensor    # (B,) int32
+    n_fevals: torch.Tensor      # (B,) int32
+    succeeded: torch.Tensor     # (B,) bool: lane reached t1 within budgets
+    h_final: torch.Tensor       # (B,) unclamped controller step at exit
+    n_attempts: torch.Tensor    # (B,) int32: per-lane trial steps
+
+
 # ---------------------------------------------------------------------------
 # SolverState: the full between-steps state of an adaptive solve.
 # ---------------------------------------------------------------------------
@@ -233,6 +312,44 @@ class SolverState(NamedTuple):
     active: bool
 
 
+class BatchedSolverState(NamedTuple):
+    """The between-attempts state of a lane-batched adaptive solve: every
+    field but ``active`` is a device tensor, and the time-like fields and
+    counters are per lane.
+
+    t0, t1, t, h — (B,) in the time dtype; h is each lane's UNCLAMPED step.
+    x            — the lane-batched state pytree (lane axis 0).
+    n_accepted, n_attempts, n_fevals — (B,) int32 counters.
+    xs, ts, hs   — (max_steps + 1, B, ...) checkpoint buffers; the last row
+                   is where lanes that do not commit write.
+    lanes        — arange(B), the lane index of the buffers' commit.
+    live         — (B,) bool: the lane goes on (``lanes_active``).
+    active       — the host's copy of live.any(), read once per attempt.
+    """
+    t0: torch.Tensor
+    t1: torch.Tensor
+    t: torch.Tensor
+    x: Pytree
+    h: torch.Tensor
+    n_accepted: torch.Tensor
+    n_attempts: torch.Tensor
+    n_fevals: torch.Tensor
+    xs: Pytree
+    ts: torch.Tensor
+    hs: torch.Tensor
+    lanes: torch.Tensor
+    live: torch.Tensor
+    active: bool
+
+
+def _commit_lanes(buf: torch.Tensor, val: torch.Tensor, row: torch.Tensor,
+                  lanes: torch.Tensor) -> None:
+    """Write lane b of ``val`` into row ``row[b]`` of the (max_steps + 1,
+    B, ...) buffer, in place: one indexed write per buffer, no read.  The
+    caller points lanes that do not commit at the scratch row."""
+    buf[row, lanes] = val.detach().to(buf.dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class AdaptiveStepper:
     """The PI-controlled adaptive solver as an explicit state machine.
@@ -258,10 +375,14 @@ class AdaptiveStepper:
         return get_combiner(self.tab, self.combine_backend)
 
     # -- lifecycle ----------------------------------------------------------
-    def init_state(self, x0, t0, t1, h0=None) -> SolverState:
+    def init_state(self, x0, t0, t1, h0=None, *, lanes: Optional[int] = None
+                   ) -> SolverState:
         """Fresh state at t0.  ``h0`` seeds the controller with a step
         MAGNITUDE, falling back to ``cfg.initial_step`` when absent or
-        zero."""
+        zero.  ``lanes=B`` builds a lane-batched state (x0 leaves carry lane
+        axis 0; t0, t1 and h0 may be scalars or (B,))."""
+        if lanes is not None:
+            return self._init_lanes(x0, t0, t1, h0, lanes)
         cfg = self.cfg
         dtype, device = time_dtype(x0), _device_of(x0)
         t0 = as_time(t0, dtype, device)
@@ -278,6 +399,46 @@ class AdaptiveStepper:
             active=self._budget_left(state)
             and bool(self._clock_live(state, state.t, state.h)))
 
+    def _init_lanes(self, x0, t0, t1, h0, B: int) -> BatchedSolverState:
+        cfg = self.cfg
+        dtype, device = time_dtype(x0), _device_of(x0)
+
+        def per_lane(v):
+            v = v.to(dtype=dtype, device=device) \
+                if isinstance(v, torch.Tensor) else \
+                torch.full((), float(v), dtype=dtype, device=device)
+            return v.expand(B).contiguous()
+
+        t0, t1 = per_lane(t0), per_lane(t1)
+        h0_abs = per_lane(cfg.initial_step if h0 is None else h0).abs()
+        h = torch.sign(t1 - t0) * torch.where(
+            h0_abs > 0, h0_abs, as_time(cfg.initial_step, dtype, device))
+        rows = cfg.max_steps + 1
+        counter = torch.zeros(B, dtype=torch.int32, device=device)
+        state = BatchedSolverState(
+            t0=t0, t1=t1, t=t0, x=x0, h=h, n_accepted=counter,
+            n_attempts=counter, n_fevals=counter,
+            xs=pytree.tree_map(
+                lambda l: torch.zeros((rows,) + tuple(l.shape),
+                                      dtype=l.dtype, device=device), x0),
+            ts=torch.zeros((rows, B), dtype=dtype, device=device),
+            hs=torch.zeros((rows, B), dtype=dtype, device=device),
+            lanes=torch.arange(B, device=device), live=counter.bool(),
+            active=True)
+        # no host read here: if no lane is live, the first attempt leaves
+        # every lane as it is and reads that back
+        return state._replace(live=self.lanes_active(state))
+
+    def lanes_active(self, state: BatchedSolverState) -> torch.Tensor:
+        """Per-lane liveness, (B,) bool on the device: a lane goes on until
+        it lands within the dtype-aware resolution of t1, exhausts a
+        budget, or its h carry goes non-finite (a NaN-poisoned lane costs
+        one doomed trial, then drops out)."""
+        cfg = self.cfg
+        return self._clock_live(state, state.t, state.h) \
+            & (state.n_accepted < cfg.max_steps) \
+            & (state.n_attempts < cfg.max_attempts)
+
     def _budget_left(self, state: SolverState) -> bool:
         return state.n_accepted < self.cfg.max_steps \
             and state.n_attempts < self.cfg.max_attempts
@@ -293,25 +454,22 @@ class AdaptiveStepper:
     def is_done(self, state: SolverState) -> bool:
         return not state.active
 
-    def advance(self, state: SolverState, params) -> SolverState:
-        """ONE attempted step: trial at the clamped step, error norm,
-        accept/reject, commit of an accepted checkpoint, controller update.
-        An inactive state passes through untouched."""
-        if not state.active:
-            return state
+    def _trial(self, state, params, f, error_norm):
+        """The controller arithmetic of one attempt, the same for one
+        trajectory and per lane: the trial step at h_eff = min(|h|, |t1 -
+        t|) (so the solve lands exactly on t1), its error norm, and the
+        PI-updated carry.  Returns (x_next, h_eff, accept, h_new)."""
         cfg, tab = self.cfg, self.tab
         err_exp = -1.0 / (tab.err_order + 1.0)
         direction = torch.sign(state.t1 - state.t0)
         t, x, h = state.t, state.x, state.h
-        # clamp the TRIAL step so we land exactly on t1; the carried h
-        # stays unclamped.
         gap = (state.t1 - t).abs()
         clamped = h.abs() > gap
         h_eff = direction * torch.minimum(h.abs(), gap)
-        x_next, err = rk_step(self.f, tab, x, t, h_eff, params,
-                              self.combiner, with_error=True)
-        enorm = _error_norm(_detach(err), _detach(x), _detach(x_next),
-                            cfg.rtol, cfg.atol)
+        x_next, err = rk_step(f, tab, x, t, h_eff, params, self.combiner,
+                              with_error=True)
+        enorm = error_norm(_detach(err), _detach(x), _detach(x_next),
+                           cfg.rtol, cfg.atol)
         accept = enorm <= 1.0
         factor = torch.clamp(
             cfg.safety * torch.pow(torch.clamp_min(enorm, 1e-10), err_exp),
@@ -319,12 +477,26 @@ class AdaptiveStepper:
         # clamped landing steps never contaminate the carried step: an
         # ACCEPTED one keeps the natural h, a REJECTED one shrinks from the
         # unclamped h (not from h_eff).
-        h = torch.where(accept & clamped, h, h * factor)
+        return x_next, h_eff, accept, torch.where(accept & clamped, h,
+                                                  h * factor)
+
+    def advance(self, state: SolverState, params) -> SolverState:
+        """ONE attempted step: trial at the clamped step, error norm,
+        accept/reject, commit of an accepted checkpoint, controller update.
+        An inactive state passes through untouched; in a lane-batched state
+        so does every inactive lane."""
+        if not state.active:
+            return state
+        if isinstance(state, BatchedSolverState):
+            return self._advance_lanes(state, params)
+        t, x = state.t, state.x
+        x_next, h_eff, accept, h = self._trial(state, params, self.f,
+                                               _error_norm)
         t_new = torch.where(accept, t + h_eff, t)
         # the one device-to-host read of the attempt
         ok, live = torch.stack(
             [accept, self._clock_live(state, t_new, h)]).tolist()
-        fevals = tab.s + (1 if tab.err_uses_fsal else 0)
+        fevals = self.tab.s + (1 if self.tab.err_uses_fsal else 0)
         state = state._replace(h=h, n_attempts=state.n_attempts + 1,
                                n_fevals=state.n_fevals + fevals)
         if ok:
@@ -333,23 +505,60 @@ class AdaptiveStepper:
                 xs=state.xs + [x], ts=state.ts + [t], hs=state.hs + [h_eff])
         return state._replace(active=live and self._budget_left(state))
 
+    def _advance_lanes(self, state: BatchedSolverState,
+                       params) -> BatchedSolverState:
+        """The lane-batched attempt: every lane steps from its own (t, h),
+        f once per stage over all lanes, and the lanes that are active and
+        accept commit.  The one host read is whether any lane is live."""
+        t, x, active = state.t, state.x, state.live
+        x_next, h_eff, accept, h_new = self._trial(
+            state, params, lane_field(self.f), _error_norm_lanes)
+        h = torch.where(active, h_new, state.h)  # inactive lanes keep theirs
+        do = active & accept
+        n_acc = state.n_accepted
+        row = torch.where(do, n_acc, self.cfg.max_steps)
+        with torch.no_grad():
+            for buf, val in zip(pytree.tree_leaves(state.xs),
+                                pytree.tree_leaves(x)):
+                _commit_lanes(buf, val, row, state.lanes)
+            _commit_lanes(state.ts, t, row, state.lanes)
+            _commit_lanes(state.hs, h_eff, row, state.lanes)
+        x = pytree.tree_map(
+            lambda a, b: torch.where(lane_bcast(do, a), b, a), x, x_next)
+        fevals = self.tab.s + (1 if self.tab.err_uses_fsal else 0)
+        state = state._replace(
+            t=torch.where(do, t + h_eff, t), x=x, h=h,
+            n_accepted=n_acc + do.int(),
+            n_attempts=state.n_attempts + active.int(),
+            n_fevals=state.n_fevals + active.int() * fevals)
+        live = self.lanes_active(state)
+        # the one device-to-host read of the attempt
+        return state._replace(live=live, active=bool(live.any()))
+
     def run(self, state: SolverState, params) -> SolverState:
         """Drive ``advance`` until ``is_done``."""
         while state.active:
             state = self.advance(state, params)
         return state
 
-    def succeeded(self, state: SolverState) -> bool:
+    def succeeded(self, state: SolverState):
+        """Whether the clock reached t1: a host bool, or a (B,) bool tensor
+        on the device for a lane-batched state."""
         direction = torch.sign(state.t1 - state.t0)
         t_res = _time_resolution(state.t0, state.t1, state.t.dtype)
-        return not bool(direction * (state.t1 - state.t) > t_res)
+        short = direction * (state.t1 - state.t) > t_res
+        if isinstance(state, BatchedSolverState):
+            return ~short
+        return not bool(short)
 
-    def finalize(self, state: SolverState) -> AdaptiveSolution:
-        """Freeze a state into the solution tuple the drivers return."""
-        return AdaptiveSolution(state.x, state.xs, state.ts, state.hs,
-                                state.n_accepted, state.n_fevals,
-                                self.succeeded(state), state.h,
-                                state.n_attempts)
+    def finalize(self, state: SolverState):
+        """Freeze a state into the solution tuple the drivers return
+        (``BatchedAdaptiveSolution`` for a lane-batched state)."""
+        cls = BatchedAdaptiveSolution \
+            if isinstance(state, BatchedSolverState) else AdaptiveSolution
+        return cls(state.x, state.xs, state.ts, state.hs, state.n_accepted,
+                   state.n_fevals, self.succeeded(state), state.h,
+                   state.n_attempts)
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,16 @@ solve uses, with the h-dependent Eq. (7)/(8) rows computed on the device.
 
 The drivers are ``torch.autograd.Function``s whose inputs are the
 flattened leaves of (x0, params); times are not differentiated.
+
+Lane-batched solves (``odeint_symplectic_adaptive_batched``): every lane
+realizes its own accepted grid, so the backward walks the shared
+(max_steps + 1, B) checkpoint rows once, runs one lane-batched Algorithm 2
+step per row (stages recomputed for all lanes at once, one VJP over all
+lanes per stage through ``torch.func``) and masks each lane by its own
+n_accepted: a lane carries its lambda unchanged through the rows past its
+count and adds nothing to the parameter gradient there.  Theorem 2 then
+holds per lane, so the batched gradient equals the sum of the single-lane
+gradients to rounding.
 """
 from __future__ import annotations
 
@@ -45,7 +55,9 @@ from torch.utils import _pytree as pytree
 
 from .combine import StageCombiner, alloc_stages, get_combiner, set_stage
 from .rk import (AdaptiveConfig, VectorField, apply_on_failure,
-                 rk_solve_adaptive, rk_solve_fixed, rk_stages)
+                 apply_on_failure_lanes, lane_bcast, rk_solve_adaptive,
+                 rk_solve_adaptive_batched, rk_solve_fixed, rk_stages)
+from .stepper import lane_field
 from .tableau import ButcherTableau
 
 Pytree = Any
@@ -109,6 +121,96 @@ def symplectic_step_adjoint(f: VectorField, tab: ButcherTableau,
     # grad_theta step contribution: + h sum_i btilde_i (df/dtheta)^T Lambda_i
     gtheta = pytree.tree_map(lambda g: h.to(g.dtype) * g, gtheta)
     return lam_n, gtheta
+
+
+def _stage_vjp_lanes(lane_f: VectorField, X: Pytree, t: torch.Tensor,
+                     params: Pytree, cot: Pytree, cot_theta: Pytree):
+    """One stage's VJP over all lanes, from one graph built and freed inside
+    this call: f is evaluated once over the lanes (``lane_f``), and its
+    backward runs twice — with ``cot`` for the per-lane state part xbar,
+    and with ``cot_theta`` for the parameter part, which comes out summed
+    over the lanes (never B copies of the parameters).  Returns (xbar,
+    thbar)."""
+    _, vjp_fn = torch.func.vjp(lambda X_, th: lane_f(X_, t, th), X, params)
+    xbar, _ = vjp_fn(cot)
+    _, thbar = vjp_fn(cot_theta)
+    return xbar, thbar
+
+
+@torch.no_grad()
+def symplectic_step_adjoint_lanes(f: VectorField, tab: ButcherTableau,
+                                  x_n, t_n, h_n, params, lam_next, valid,
+                                  combiner: Optional[StageCombiner] = None):
+    """One backward step of Algorithm 2 for all lanes at once.
+
+    ``x_n``/``lam_next`` are lane-batched (lane axis 0), ``t_n``/``h_n``/
+    ``valid`` are (B,); ``valid[b]`` says whether this row is one of lane
+    b's accepted steps, and at least one lane must be valid.  The stages
+    are recomputed with f once per stage over all lanes, the Eq. (7)/(8)
+    rows are per lane, and one stage's VJP graph is live at a time.
+
+    Returns (lambda_n, grad_theta_step): lambda_n for every lane (only the
+    valid lanes' are meaningful) and grad_theta_step summed over the valid
+    lanes.  The JAX package returns the per-lane parameter gradients,
+    (B,) + param shape, and masks them with a ``where`` before the sum;
+    here the mask goes in before the VJP, which keeps B copies of the
+    parameters out of memory: an invalid lane's checkpoint, time and step
+    are replaced by those of a valid lane (finite by construction: the
+    forward accepted that step) and its parameter cotangent by an exact
+    zero, so a poisoned lane contributes 0, never 0 * NaN."""
+    combiner = combiner or get_combiner(tab)
+    s = tab.s
+    b, c = tab.b, tab.c
+    lane_f = lane_field(f)
+    ref = torch.argmax(valid.to(torch.int32)).reshape(1)   # a valid lane
+
+    def safe(l):            # a gather on the device: no host read
+        return torch.where(lane_bcast(valid, l), l, l.index_select(0, ref))
+
+    x_n = pytree.tree_map(safe, x_n)
+    t_n, h_n = safe(t_n), safe(h_n)
+    Xs, _K = rk_stages(lane_f, tab, x_n, t_n, h_n, params, combiner)
+    del _K
+    L = alloc_stages(s, lam_next)
+    gtheta = None
+    for i in reversed(range(s)):
+        Lam_i = combiner.lambda_stage(lam_next, L, h_n, i)
+        # the parameter weight of stage i, per lane: h_n btilde_i, with
+        # btilde_i = b_i, or h_n where b_i = 0 (Eq. 8)
+        w = h_n * (h_n if b[i] == 0.0 else b[i])
+        cot_theta = pytree.tree_map(
+            lambda l: torch.where(lane_bcast(valid, l),
+                                  lane_bcast(w, l).to(l.dtype) * l,
+                                  torch.zeros((), dtype=l.dtype,
+                                              device=l.device)), Lam_i)
+        xbar, thbar = _stage_vjp_lanes(lane_f, Xs[i], t_n + c[i] * h_n,
+                                       params, Lam_i, cot_theta)
+        Xs[i] = None                  # the stage state is not needed again
+        set_stage(L, i, pytree.tree_map(torch.neg, xbar))
+        gtheta = thbar if gtheta is None else _tree_add(gtheta, thbar)
+    lam_n = combiner.lambda_update(lam_next, L, h_n)
+    return lam_n, gtheta
+
+
+@torch.no_grad()
+def _masked_lanes_alg2_scan(f, tab, combiner, params, xs, ts, hs, n_acc,
+                            lam, gtheta):
+    """Reverse Algorithm 2 sweep over (max_steps + 1, B) checkpoint rows.
+
+    ``n_acc`` is (B,); row n is valid for the lanes with n < n_acc[b].
+    Rows at or past a lane's count leave that lane's lambda unchanged (a
+    ``where``) and add nothing to the parameter gradient.  The sweep starts
+    at max(n_acc) - 1 (one host read): every row it visits is valid for at
+    least one lane."""
+    for n in reversed(range(int(n_acc.max()))):
+        valid = n < n_acc
+        x_n = pytree.tree_map(lambda buf: buf[n], xs)
+        lam2, gstep = symplectic_step_adjoint_lanes(
+            f, tab, x_n, ts[n], hs[n], params, lam, valid, combiner)
+        lam = pytree.tree_map(
+            lambda a, b: torch.where(lane_bcast(valid, a), b, a), lam, lam2)
+        gtheta = _tree_add(gtheta, gstep)
+    return lam, gtheta
 
 
 @torch.no_grad()
@@ -186,12 +288,51 @@ class _SymplecticSolve(torch.autograd.Function):
         return (None, *pytree.tree_leaves(lam0), *pytree.tree_leaves(gtheta))
 
 
-def _solve(f, tab, stepping, backend, x0, t0, t1, params):
+class _SymplecticSolveLanes(torch.autograd.Function):
+    """x_final of a lane-batched adaptive solve, with the masked per-lane
+    Algorithm 2 backward.  The residuals are the checkpoint buffers, ts,
+    hs and n_accepted, and the params."""
+
+    @staticmethod
+    def forward(ctx, prob: _Problem, *leaves):
+        x0, params = prob.split(leaves)
+        cfg = prob.stepping
+        sol = rk_solve_adaptive_batched(prob.f, prob.tab, x0, prob.t0,
+                                        prob.t1, params, cfg, prob.backend)
+        prob.stats = {"n_steps": sol.n_accepted, "n_fevals": sol.n_fevals,
+                      "n_attempts": sol.n_attempts}
+        prob.succeeded = sol.succeeded
+        x_final = apply_on_failure_lanes(sol.x_final, sol.succeeded,
+                                         cfg.on_failure)
+        ctx.prob, ctx.xs, ctx.ts, ctx.hs = prob, sol.xs, sol.ts, sol.hs
+        ctx.n_acc = sol.n_accepted
+        ctx.save_for_backward(*leaves[prob.n_x:])
+        out = pytree.tree_leaves(x_final)
+        ctx.out_meta = [(o.shape, o.dtype, o.device) for o in out]
+        return tuple(out)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *grads):
+        prob = ctx.prob
+        params = pytree.tree_unflatten(list(ctx.saved_tensors), prob.p_spec)
+        lam = pytree.tree_unflatten(
+            [torch.zeros(s, dtype=d, device=v) if g is None else g
+             for g, (s, d, v) in zip(grads, ctx.out_meta)], prob.x_spec)
+        combiner = get_combiner(prob.tab, prob.backend)
+        lam0, gtheta = _masked_lanes_alg2_scan(
+            prob.f, prob.tab, combiner, params, ctx.xs, ctx.ts, ctx.hs,
+            ctx.n_acc, lam, pytree.tree_map(torch.zeros_like, params))
+        return (None, *pytree.tree_leaves(lam0), *pytree.tree_leaves(gtheta))
+
+
+def _solve(f, tab, stepping, backend, x0, t0, t1, params, lanes=False):
     x_leaves, x_spec = pytree.tree_flatten(x0)
     p_leaves, p_spec = pytree.tree_flatten(params)
     prob = _Problem(f, tab, stepping, backend, t0, t1, x_spec,
                     len(x_leaves), p_spec)
-    out = _SymplecticSolve.apply(prob, *x_leaves, *p_leaves)
+    fn = _SymplecticSolveLanes if lanes else _SymplecticSolve
+    out = fn.apply(prob, *x_leaves, *p_leaves)
     return pytree.tree_unflatten(list(out), x_spec), prob
 
 
@@ -208,4 +349,16 @@ def odeint_symplectic_adaptive(f: VectorField, tab: ButcherTableau,
     accepted grid.  Returns (x_final, stats, succeeded): the controller's
     counters of the same run."""
     x, prob = _solve(f, tab, cfg, combine_backend, x0, t0, t1, params)
+    return x, prob.stats, prob.succeeded
+
+
+def odeint_symplectic_adaptive_batched(f: VectorField, tab: ButcherTableau,
+                                       cfg: AdaptiveConfig,
+                                       combine_backend: str, x0, t0, t1,
+                                       params):
+    """x(t1) of a lane-batched adaptive solve (lane axis 0); gradient by
+    Algorithm 2 replaying each lane's own accepted grid.  Returns (x_final,
+    stats, succeeded) with per-lane (B,) stats and success on the device."""
+    x, prob = _solve(f, tab, cfg, combine_backend, x0, t0, t1, params,
+                     lanes=True)
     return x, prob.stats, prob.succeeded

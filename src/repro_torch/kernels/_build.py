@@ -2,9 +2,10 @@
 
 Each source in ``csrc/`` is compiled with ``nvcc`` for Hopper (``sm_90a``)
 into its own shared library with a plain C interface, at first use, under
-``repro_torch/_build/`` (named by a hash of the source and the flags, so an
-edited source rebuilds), and loaded with ``ctypes``.  No PyTorch headers are
-included, so a build takes seconds.  A failed build raises.
+``repro_torch/_build/`` (named by a hash of the source, the ``csrc/``
+headers it includes and the flags, so an edited source or header rebuilds
+what reads it and nothing else), and loaded with ``ctypes``.  No PyTorch
+headers are included, so a build takes seconds.  A failed build raises.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -42,8 +44,28 @@ def _nvcc() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _with_local_headers(source: pathlib.Path) -> bytes:
+    """The source's text followed by that of every ``#include "..."`` it
+    reaches in its own directory (each once, depth first): what a build of
+    it reads from ``csrc/``."""
+    seen, out, todo = set(), [], [source]
+    while todo:
+        path = todo.pop()
+        if path in seen or not path.exists():
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        out.append(text)
+        todo.extend(path.parent / m.decode()
+                    for m in reversed(_LOCAL_INCLUDE.findall(text)))
+    return b"".join(out)
+
+
 def _compile(source: pathlib.Path):
-    src = source.read_bytes()
+    src = _with_local_headers(source)
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"{source.stem}_{tag}.so"
     if so.exists():

@@ -11,7 +11,8 @@ True takes the kernel, which raises for a CPU tensor.
 
 ``hc``/``sc`` of the combines are the final coefficient rows, already
 multiplied by the step size, in ``promote(x.dtype, float32)`` on x's
-device.
+device: one row for the whole buffer, or one row per lane (the leading
+axis of x) for a lane-batched solve.
 """
 from __future__ import annotations
 

@@ -24,38 +24,48 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
+def lane_bcast(v: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """A per-lane vector (B,) shaped to broadcast against a lane-batched
+    leaf (B, ...); a 0-dim ``v`` becomes all-singleton dims, so one code
+    path serves one coefficient row and one row per lane."""
+    return v.reshape(v.shape + (1,) * (leaf.dim() - 1))
+
+
 def butcher_combine_ref(x: torch.Tensor, ks: torch.Tensor, coefs,
                         h) -> torch.Tensor:
-    """x + h * sum_i coefs[i] * ks[i].
+    """x + h * sum_i coefs[i] * ks[i], or per lane b (the leading axis of
+    x) x[b] + h * sum_i coefs[b, i] * ks[i, b].
 
-    x: (...,), ks: (s, ...), coefs: (s,).  Accumulates in
-    promote(x.dtype, float32), strictly in stage order.
+    x: (...,), ks: (s, ...), coefs: (s,) or (B, s) with B = x.shape[0].
+    Accumulates in promote(x.dtype, float32), strictly in stage order.
     """
     acc_dt = acc_dtype(x.dtype)
     hc = torch.as_tensor(h * coefs).to(acc_dt)
     acc = x.to(acc_dt)
     for i in range(ks.shape[0]):
-        acc = acc + hc[i] * ks[i].to(acc_dt)
+        acc = acc + lane_bcast(hc[..., i], x) * ks[i].to(acc_dt)
     return acc.to(x.dtype)
 
 
 def butcher_combine_rows_ref(x: torch.Tensor, ks: torch.Tensor, coefs,
                              base_scale, h) -> torch.Tensor:
-    """Multi-row combine: out[r] = base_scale[r]*x + h*sum_i coefs[r,i]*ks[i].
+    """Multi-row combine: out[r] = base_scale[r]*x + h*sum_i coefs[r,i]*ks[i],
+    or per lane b out[r, b] = base_scale[r]*x[b] + h*sum_i
+    coefs[b,r,i]*ks[i, b].
 
-    x: (...,), ks: (s, ...), coefs: (m, s), base_scale: (m,).  Returns
-    (m,) + x.shape, with the same accumulation dtype and order as
-    ``butcher_combine_ref``.
+    x: (...,), ks: (s, ...), coefs: (m, s) or (B, m, s) with B =
+    x.shape[0], base_scale: (m,).  Returns (m,) + x.shape, with the same
+    accumulation dtype and order as ``butcher_combine_ref``.
     """
     acc_dt = acc_dtype(x.dtype)
     hc = torch.as_tensor(h * coefs).to(acc_dt)
     sc = torch.as_tensor(base_scale).to(acc_dt)
     xf = x.to(acc_dt)
     outs = []
-    for r in range(hc.shape[0]):
+    for r in range(hc.shape[-2]):
         acc = sc[r] * xf
         for i in range(ks.shape[0]):
-            acc = acc + hc[r, i] * ks[i].to(acc_dt)
+            acc = acc + lane_bcast(hc[..., r, i], x) * ks[i].to(acc_dt)
         outs.append(acc.to(x.dtype))
     return torch.stack(outs)
 

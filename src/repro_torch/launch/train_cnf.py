@@ -5,7 +5,8 @@ synthetic stand-ins for the paper's UCI datasets (data/tabular.py), at the
 widths of the JAX package's ``examples/cnf_tabular.py``:
 
     PYTHONPATH=src python -m repro_torch.launch.train_cnf \\
-        --dataset miniboone --steps 200 [--adaptive] [--device cpu]
+        --dataset miniboone --steps 200 [--adaptive [--per-sample]] \\
+        [--device cpu]
 
 Runs on ``cuda`` unless ``--device`` says otherwise.  ``main`` returns the
 per-step history (loss, gradient norm, seconds) it prints.
@@ -25,14 +26,17 @@ from repro_torch.models.cnf import CNFConfig, cnf_nll, init_cnf
 
 def make_config(dataset: str, *, grad_mode: str = "symplectic",
                 adaptive: bool = False, n_steps: int = 8,
-                hidden: Sequence[int] = (64, 64)) -> CNFConfig:
+                hidden: Sequence[int] = (64, 64),
+                per_sample: bool = False) -> CNFConfig:
     """The example's configuration for ``dataset``: dopri5 with the
     Hutchinson trace, fixed grid of ``n_steps`` or adaptive rtol 1e-4 /
-    atol 1e-6 / max_steps 48."""
+    atol 1e-6 / max_steps 48 (with ``per_sample``, a controller per
+    sample)."""
     return CNFConfig(dim=PAPER_DIMS[dataset], hidden=tuple(hidden),
                      n_components=PAPER_M[dataset], trace="hutchinson",
                      method="dopri5", grad_mode=grad_mode, n_steps=n_steps,
-                     adaptive=adaptive, rtol=1e-4, atol=1e-6, max_steps=48)
+                     adaptive=adaptive, rtol=1e-4, atol=1e-6, max_steps=48,
+                     per_sample=per_sample)
 
 
 def train(cfg: CNFConfig, data, *, steps: int, batch: int, lr: float,
@@ -84,6 +88,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, float]]:
                     help="dopri5 adaptive stepping (the paper's setting)")
     ap.add_argument("--n-steps", type=int, default=8,
                     help="fixed-grid steps (without --adaptive)")
+    ap.add_argument("--per-sample", action="store_true",
+                    help="with --adaptive: a step controller per sample "
+                         "(solve(..., batch_axis=0))")
     ap.add_argument("--hidden", type=int, nargs="+", default=[64, 64])
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--device", default="cuda")
@@ -91,7 +98,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, float]]:
 
     cfg = make_config(args.dataset, grad_mode=args.grad_mode,
                       adaptive=args.adaptive, n_steps=args.n_steps,
-                      hidden=args.hidden)
+                      hidden=args.hidden, per_sample=args.per_sample)
     data = make_tabular_dataset(args.dataset, n=args.batch * 8)
     history = train(cfg, data, steps=args.steps, batch=args.batch,
                     lr=args.lr, device=args.device,

@@ -7,6 +7,13 @@ state with zero dynamics so every gradient mode — including the symplectic
 adjoint — sees a plain augmented ODE).  ``trace="exact"`` uses the exact
 jacobian trace for small dims (tests).
 
+``per_sample=True`` (adaptive only) gives every sample its own step
+controller (``solve(..., batch_axis=0)``, models/per_sample.py).  The
+lane-batched driver evaluates the field under ``torch.func.vmap``, where a
+leaf cannot be made to require grad, so that mode takes the fields' inner
+VJP with ``torch.func.vjp``; the lockstep mode takes it with
+``torch.autograd.grad``, which costs the host less (``_field_vjp``).
+
 Dynamics network: concatsquash MLP (FFJORD's layer: W x * sigmoid(gate(t))
 + bias(t)), tanh nonlinearities.
 
@@ -19,6 +26,7 @@ into this layout, so both packages can run on the same weights.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Tuple
 
@@ -47,7 +55,11 @@ class CNFConfig:
     rtol: float = 1e-6
     atol: float = 1e-8
     max_steps: int = 64
-    # per-sample adaptive step control: not ported yet (models/per_sample.py)
+    # per-sample adaptive step control (solve(..., batch_axis=0)): each data
+    # point gets its own accepted grid, error norm and accept/reject, so one
+    # hard sample does not drag the whole batch's f-eval count, and each
+    # sample's likelihood is tolerance-controlled on its own.  Adaptive
+    # solves only.
     per_sample: bool = False
 
 
@@ -109,51 +121,68 @@ def _dynamics(net, x, t):
     return h
 
 
-def _differentiated(x, net) -> bool:
-    """True when the caller builds a graph through this field evaluation
-    (the symplectic backward's per-stage VJP, or DirectBackprop): the
-    inner derivative must then itself be differentiable."""
-    return torch.is_grad_enabled() and (
+def _field_vjp(net, x, t, func: bool):
+    """(f(x), vjp_fn) of the dynamics at (x, t), as ``torch.func.vjp``
+    returns them.  ``func=True`` takes ``torch.func.vjp`` itself: safe under
+    ``torch.func`` transforms (the lane-batched driver's vmap).  Otherwise
+    ``torch.autograd.grad`` on a leaf made here, which costs the host less
+    per call (the lockstep solves are host-bound); f and the
+    cotangents are then differentiable exactly when the caller builds a
+    graph through this evaluation (the symplectic backward's per-stage VJP,
+    or DirectBackprop), and the VJP runs even under no_grad."""
+    fn = functools.partial(_dynamics, net, t=t)
+    if func:
+        return torch.func.vjp(fn, x)
+    graph = torch.is_grad_enabled() and (
         x.requires_grad
         or any(p.requires_grad for p in pytree.tree_leaves(net)))
+    with torch.enable_grad():
+        xx = x if x.requires_grad else x.detach().requires_grad_()
+        fx = fn(xx)
+
+    def vjp_fn(v):
+        with torch.enable_grad():
+            g = torch.autograd.grad(fx, xx, v, create_graph=graph,
+                                    retain_graph=True)
+        return g if graph else tuple(gi.detach() for gi in g)
+    return (fx if graph else fx.detach()), vjp_fn
 
 
-def _aug_field_hutch(state, t, net):
+def _aug_field_hutch(state, t, net, func: bool = False):
     x, _, eps = state
     e = eps.detach()
-    graph = _differentiated(x, net)
-    with torch.enable_grad():  # the trace needs a VJP even under no_grad
-        xx = x if x.requires_grad else x.detach().requires_grad_()
-        fx = _dynamics(net, xx, t)
-        (etJ,) = torch.autograd.grad(fx, xx, e, create_graph=graph)
-    if not graph:
-        fx, etJ = fx.detach(), etJ.detach()
+    fx, vjp_fn = _field_vjp(net, x, t, func)
+    (etJ,) = vjp_fn(e)
     tr_est = torch.sum(etJ * e, dim=-1)           # eps^T J eps per sample
     return (fx, -tr_est, torch.zeros_like(eps))
 
 
-def _aug_field_exact(state, t, net):
+def _aug_field_exact(state, t, net, func: bool = False):
     x, _, eps = state
-    graph = _differentiated(x, net)
-    with torch.enable_grad():
-        xx = x if x.requires_grad else x.detach().requires_grad_()
-        fx = _dynamics(net, xx, t)
-        tr = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
-        for j in range(x.shape[-1]):              # column j of the jacobian
-            (gj,) = torch.autograd.grad(fx[:, j].sum(), xx,
-                                        create_graph=graph,
-                                        retain_graph=True)
-            tr = tr + gj[:, j]
-    if not graph:
-        fx, tr = fx.detach(), tr.detach()
+    fx, vjp_fn = _field_vjp(net, x, t, func)
+    eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+    tr = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    for j in range(x.shape[-1]):                  # column j of the jacobian
+        (gj,) = vjp_fn(eye[j].expand_as(fx))
+        tr = tr + gj[:, j]
     return (fx, -tr, torch.zeros_like(eps))
+
+
+def cnf_field(cfg: CNFConfig):
+    """The augmented field ``cnf_forward`` solves for ``cfg``: the
+    Hutchinson or the exact trace, with the ``torch.func`` VJP in
+    per-sample mode."""
+    field = _aug_field_hutch if cfg.trace == "hutchinson" else \
+        _aug_field_exact
+    return functools.partial(field, func=True) if per_sample_mode(cfg) \
+        else field
 
 
 def cnf_forward(params, u, eps, cfg: CNFConfig):
     """u: (B, dim) data; eps: (B, dim) Hutchinson noise.
     Returns (z, delta_logp) with log p(u) = log N(z) - delta_logp."""
-    field = _aug_field_hutch if cfg.trace == "hutchinson" else \
-        _aug_field_exact
+    per_sample = per_sample_mode(cfg)
+    field = cnf_field(cfg)
     # dlp rides in the solve state: it must share u's dtype, or a mixed
     # f64/f32 state corrupts the adaptive error norm.
     dlp = torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
@@ -164,7 +193,7 @@ def cnf_forward(params, u, eps, cfg: CNFConfig):
     for m in range(cfg.n_components):
         x, dlp_m, _ = model_solve_ys(
             field, (x, torch.zeros_like(dlp), eps), component(params, m),
-            per_sample=per_sample_mode(cfg),
+            per_sample=per_sample,
             saveat=SaveAt(t1=cfg.t1), method=cfg.method,
             gradient=as_gradient(cfg.grad_mode),
             stepping=adaptive if adaptive is not None else cfg.n_steps,

@@ -1,13 +1,19 @@
 """Per-sample adaptive solving, shared by the model workloads.
 
-In the JAX package ``per_sample=True`` gives every sample its own step
-controller (``solve(..., batch_axis=0)``).  Lane batching is not ported yet
-(ROADMAP queue 1 item 10), so here only the lockstep solve exists and
-``per_sample=True`` raises.
+The model nets (the CNF's concatsquash MLP) are written against a
+``(batch, ...)`` state layout, so giving every sample its OWN step
+controller (``solve(..., batch_axis=0)``) wraps each batch element as a
+lane holding a singleton batch: ``(B, ...)`` becomes ``(B, 1, ...)``, the
+net still sees a batch axis per lane under the driver's per-lane
+``torch.func.vmap``, and the observed ``ys`` drop the singleton axis on the
+way out.  This module is the one place that wrap/unwrap axis arithmetic
+lives.
 """
 from __future__ import annotations
 
-from repro_torch.core import NOT_PORTED, SaveAt, solve
+from torch.utils import _pytree as pytree
+
+from repro_torch.core import SaveAt, solve
 
 
 def per_sample_mode(cfg) -> bool:
@@ -19,9 +25,17 @@ def per_sample_mode(cfg) -> bool:
 
 def model_solve_ys(field, state, params, *, per_sample: bool,
                    saveat: SaveAt, **solve_kw):
-    """``solve(...).ys``: a plain (lockstep) solve of the batch."""
-    if per_sample:
-        raise ValueError(
-            "per_sample=True needs per-lane batched solving, which is not "
-            f"ported to PyTorch yet ({NOT_PORTED['batch_axis']})")
-    return solve(field, state, params, saveat=saveat, **solve_kw).ys
+    """``solve(...).ys`` with optional per-sample step control.
+
+    ``state`` leaves are ``(B, ...)`` with the model's data batch leading.
+    ``per_sample=False`` is a plain (lockstep) solve; ``per_sample=True``
+    wraps each element as a ``(B, 1, ...)`` singleton-batch lane, solves
+    under ``batch_axis=0`` (the field must be ``torch.func``-safe), and
+    removes the singleton axis from ``ys``.
+    """
+    if not per_sample:
+        return solve(field, state, params, saveat=saveat, **solve_kw).ys
+    wrapped = pytree.tree_map(lambda l: l[:, None], state)
+    sol = solve(field, wrapped, params, saveat=saveat, batch_axis=0,
+                **solve_kw)
+    return pytree.tree_map(lambda l: l.squeeze(1), sol.ys)

@@ -118,15 +118,51 @@ def test_params_from_jax_keeps_layout_and_values():
     assert abs(float(w.std()) * math.sqrt(DIM) - 0.88) < 0.15
 
 
-def test_per_sample_names_its_roadmap_item():
-    u, eps = _data()
-    cfg = _cfg(tcnf, adaptive=True, per_sample=True)
-    params = tcnf.params_from_jax(_jax_params(), device="cpu")
-    with pytest.raises(ValueError, match="item 10"):
-        tcnf.cnf_nll(params, torch.tensor(u), torch.tensor(eps), cfg)
+PS_DIM, PS_BATCH = 4, 4             # the per-sample case: dim 4, batch 4
 
 
-@pytest.mark.parametrize("extra", [[], ["--adaptive"]])
+@functools.lru_cache(maxsize=None)
+def _per_sample_case(trace):
+    """JAX's ``cnf_nll(per_sample=True)`` value and gradients (float64) on
+    its own weights, with the inputs from a numpy seed."""
+    rng = np.random.default_rng(11)
+    u, eps = (rng.normal(size=(PS_BATCH, PS_DIM)) for _ in range(2))
+    kw = dict(dim=PS_DIM, hidden=HIDDEN, n_components=1, method="dopri5",
+              rtol=1e-6, atol=1e-8, max_steps=32, adaptive=True,
+              per_sample=True, trace=trace)
+    cfg = jcnf.CNFConfig(**kw, combine_backend="jnp")
+    params = jax.tree_util.tree_map(np.asarray, jax.jit(
+        jcnf.init_cnf, static_argnums=(1, 2))(jax.random.PRNGKey(1), cfg,
+                                              jnp.float64))
+    val, g = jax.jit(jax.value_and_grad(jcnf.cnf_nll), static_argnums=3)(
+        jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(u),
+        jnp.asarray(eps), cfg)
+    return kw, u, eps, params, float(val), jax.tree_util.tree_map(
+        np.asarray, g)
+
+
+@pytest.mark.parametrize("grad_mode", ["symplectic", "backprop"])
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+@pytest.mark.parametrize("trace", ["hutchinson", "exact"])
+def test_per_sample_cnf_matches_jax(trace, backend, grad_mode):
+    """per_sample=True: a step controller per sample (solve(...,
+    batch_axis=0)), the field's inner VJP in its torch.func form; value and
+    gradients against JAX's per-sample cnf_nll at RTOL, ATOL."""
+    kw, u, eps, jparams, vj, gj = _per_sample_case(trace)
+    cfg = tcnf.CNFConfig(**kw, grad_mode=grad_mode, combine_backend=backend)
+    params = tcnf.params_from_jax(jparams, device="cpu")
+    leaves = pytree.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    val = tcnf.cnf_nll(params, torch.tensor(u), torch.tensor(eps), cfg)
+    grads = torch.autograd.grad(val, leaves)
+    np.testing.assert_allclose(float(val.detach()), vj, rtol=RTOL, atol=ATOL)
+    for a, b in zip(grads, jax.tree_util.tree_leaves(gj)):
+        np.testing.assert_allclose(a.numpy(), b, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("extra", [[], ["--adaptive"],
+                                   ["--adaptive", "--per-sample"]])
 def test_trainer_two_steps_on_cpu(extra):
     hist = train_cnf.main(["--dataset", "power", "--steps", "2", "--batch",
                            "8", "--hidden", "8", "8", "--n-steps", "2",

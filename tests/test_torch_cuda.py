@@ -196,3 +196,82 @@ def test_butcher_combine_kernel_paths_match_plain_on_card(dtype, n, offset):
         want = tref.butcher_combine_ref(x, ks, hc, 1.0)
         mag = x.to(acc).abs() + hc.abs() @ ks.to(acc).abs()
         assert combine_close(got, want, mag, tdt), f"s={s}"
+
+
+def rows_close(got, want, mag, dtype):
+    """``combine_close`` where the output ulp is the true one: below the
+    smallest normal number of a 16-bit type the spacing is fixed (2^-24 in
+    float16), not eps * |want|.  A random base scale sc lets a row cancel
+    into that range while its term magnitudes stay small."""
+    if dtype not in (torch.bfloat16, torch.float16):
+        return combine_close(got, want, mag, dtype)
+    fi = torch.finfo(dtype)
+    return combine_close(got, want, mag, dtype) or bool(torch.all(
+        (got.float() - want.float()).abs()
+        <= 1e-6 * mag + torch.clamp_min(want.float().abs(),
+                                        fi.smallest_normal) * fi.eps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 3, 11008, 1000003, 4000000])
+@pytest.mark.parametrize("dtype", sorted(ALL_DTYPES))
+def test_butcher_combine_rows_kernel_paths_match_plain_on_card(dtype, n,
+                                                               offset):
+    """The rows kernel with one (m, s) block of rows: s = 1..13 and m = 1,
+    2 (the solver's, all coefficients loaded up front) and 13, on the
+    16-byte path and the scalar one."""
+    dev = _on_card()
+    tdt = ALL_DTYPES[dtype]
+    acc = torch.promote_types(tdt, torch.float32)
+    g = torch.Generator(device=dev).manual_seed(n + offset + 7)
+    for s in range(1, combine_kern.MAX_STAGES + 1):
+        x = _misaligned((n,), offset, tdt, g, dev)
+        ks = _misaligned((s, n), offset, tdt, g, dev)
+        for m in (1, 2, combine_kern.MAX_ROWS):
+            hc = torch.randn((m, s), generator=g, device=dev,
+                             dtype=torch.float64).to(acc)
+            sc = torch.randn(m, generator=g, device=dev,
+                             dtype=torch.float64).to(acc)
+            got = combine_kern.butcher_combine_rows(x, ks, hc, sc)
+            want = tref.butcher_combine_rows_ref(x, ks, hc, sc, 1.0)
+            mag = sc.abs()[:, None] * x.to(acc).abs() + \
+                hc.abs() @ ks.to(acc).abs()
+            assert rows_close(got, want, mag, tdt), f"s={s} m={m}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n_lane", [1, 3, 43, 44, 4096])
+@pytest.mark.parametrize("lanes", [1, 3, 256])
+@pytest.mark.parametrize("dtype", sorted(ALL_DTYPES))
+def test_butcher_combine_lane_forms_match_plain_on_card(dtype, lanes, n_lane,
+                                                        offset):
+    """Both kernels with one coefficient row per lane (x (B, n_lane), ks
+    (s, B, n_lane)): lanes shorter than a vector (the scalar path), lanes
+    whose boundaries fall inside a 16-byte vector (n_lane 43 in float32:
+    the per-sample CNF's), s = 1..13, and m = 1, 2, 13 rows."""
+    dev = _on_card()
+    tdt = ALL_DTYPES[dtype]
+    acc = torch.promote_types(tdt, torch.float32)
+    g = torch.Generator(device=dev).manual_seed(lanes * n_lane + offset)
+    for s in range(1, combine_kern.MAX_STAGES + 1):
+        x = _misaligned((lanes, n_lane), offset, tdt, g, dev)
+        ks = _misaligned((s, lanes, n_lane), offset, tdt, g, dev)
+        ka = ks.to(acc).abs()
+        hc = torch.randn((lanes, s), generator=g, device=dev,
+                         dtype=torch.float64).to(acc)
+        got = combine_kern.butcher_combine(x, ks, hc)
+        mag = x.to(acc).abs() + torch.einsum("bi,ibn->bn", hc.abs(), ka)
+        assert combine_close(got, tref.butcher_combine_ref(x, ks, hc, 1.0),
+                             mag, tdt), f"s={s}"
+        for m in (1, 2, combine_kern.MAX_ROWS):
+            hm = torch.randn((lanes, m, s), generator=g, device=dev,
+                             dtype=torch.float64).to(acc)
+            sc = torch.randn(m, generator=g, device=dev,
+                             dtype=torch.float64).to(acc)
+            got = combine_kern.butcher_combine_rows(x, ks, hm, sc)
+            want = tref.butcher_combine_rows_ref(x, ks, hm, sc, 1.0)
+            mag = sc.abs()[:, None, None] * x.to(acc).abs() + \
+                torch.einsum("bri,ibn->rbn", hm.abs(), ka)
+            assert rows_close(got, want, mag, tdt), f"s={s} m={m}"

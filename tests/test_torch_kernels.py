@@ -127,14 +127,46 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         kern.butcher_combine_rows(xt, kt, hc, torch.tensor(sc))
     with pytest.raises(ValueError, match=r"\(m, s\)"):
         kern.butcher_combine_rows(xt, kt, hc[0], torch.tensor(sc))
+    # the rows wrapper takes s from hc: a row with more or fewer stages
+    # than ks holds is refused (the kernel would read past ks, or drop
+    # stages), one row or one per lane, before the device is looked at
+    for s_hc in (2, 4):
+        for lead in ((), (3,)):
+            bad = torch.ones(lead + (2, s_hc), dtype=torch.float64)
+            with pytest.raises(ValueError, match="s = 4 stages"
+                               if s_hc == 4 else "s = 2 stages"):
+                kern.butcher_combine_rows(xt, kt, bad, torch.tensor(sc))
 
 
 def test_kernel_source_is_in_the_package():
-    src = kern.SOURCE.read_text()
-    for entry in ("butcher_combine_launch", "butcher_combine_rows_launch"):
-        assert f'extern "C" int {entry}' in src
+    for source, entry in ((kern.SOURCE, "butcher_combine_launch"),
+                          (kern.ROWS_SOURCE, "butcher_combine_rows_launch")):
+        assert f'extern "C" int {entry}' in source.read_text()
+        assert '#include "butcher_combine.cuh"' in source.read_text()
+    assert (kern.SOURCE.parent / "butcher_combine.cuh").exists()
     assert "arch=compute_90a,code=sm_90a" in kern.NVCC_FLAGS
     assert kern.BUILD_DIR.parent == kern.SOURCE.parent.parent
+
+
+def test_build_tag_reads_only_the_headers_a_source_includes(tmp_path):
+    """A source's build tag covers the ``csrc/`` headers it includes, so an
+    edit to the combines' shared header rebuilds the combines and not the
+    other kernels."""
+    from repro_torch.kernels import _build
+    header = (_build.CSRC / "butcher_combine.cuh").read_bytes()
+    for source in (kern.SOURCE, kern.ROWS_SOURCE):
+        assert _build._with_local_headers(source) == \
+            source.read_bytes() + header
+    for name in ("rmsnorm.cu", "flash_attention.cu"):
+        source = _build.CSRC / name
+        assert _build._with_local_headers(source) == source.read_bytes()
+    # nested and repeated includes are read once each, in include order
+    (tmp_path / "a.cu").write_text('#include "b.cuh"\n#include "c.cuh"\n')
+    (tmp_path / "b.cuh").write_text('#include "c.cuh"\n// b\n')
+    (tmp_path / "c.cuh").write_text("// c\n")
+    assert _build._with_local_headers(tmp_path / "a.cu") == (
+        b'#include "b.cuh"\n#include "c.cuh"\n'
+        b'#include "c.cuh"\n// b\n// c\n')
 
 
 @pytest.mark.cuda

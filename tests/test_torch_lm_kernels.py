@@ -212,17 +212,21 @@ def test_wrappers_check_their_inputs():
             1, 4, 8, 64), kv, kv)
 
 
-@pytest.mark.parametrize("module,entries", [
-    (rms_kern, ["rms_norm_launch"]),
-    (flash_kern, ["flash_attention_launch"]),
-    (combine_kern, ["butcher_combine_launch", "butcher_combine_rows_launch"]),
+@pytest.mark.parametrize("module,library,source,entries", [
+    (rms_kern, "LIBRARY", "SOURCE", ["rms_norm_launch"]),
+    (flash_kern, "LIBRARY", "SOURCE", ["flash_attention_launch"]),
+    (combine_kern, "LIBRARY", "SOURCE", ["butcher_combine_launch"]),
+    (combine_kern, "ROWS_LIBRARY", "ROWS_SOURCE",
+     ["butcher_combine_rows_launch"]),
 ])
-def test_kernel_sources_build_through_one_helper(module, entries):
-    src = module.SOURCE.read_text()
-    assert module.LIBRARY.source == module.SOURCE
-    assert module.SOURCE.parent == _build.CSRC
+def test_kernel_sources_build_through_one_helper(module, library, source,
+                                                 entries):
+    lib, path = getattr(module, library), getattr(module, source)
+    src = path.read_text()
+    assert lib.source == path
+    assert path.parent == _build.CSRC
     for entry in entries:
         assert f'extern "C" int {entry}' in src
-        assert entry in module.LIBRARY.entries
+        assert entry in lib.entries
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "replaces repro/kernels/" in src

@@ -240,8 +240,14 @@ def test_unported_cells_name_their_roadmap_item():
             T.solve(field_torch, xt, pt, gradient=name)
     with pytest.raises(ValueError, match="item 9"):
         T.solve(field_torch, xt, pt, saveat=T.SaveAt(ts=[0.5, 1.0]))
-    with pytest.raises(ValueError, match="item 10"):
-        T.solve(field_torch, xt, pt, batch_axis=0)
+    # lane-batched (batch_axis=0): the missing cells name their items too
+    xb = tuple(l.expand((2,) + l.shape) for l in xt)
+    for name in ("remat_step", "remat_solve", "adjoint"):
+        with pytest.raises(ValueError, match="ROADMAP queue 1 item 7"):
+            T.solve(field_torch, xb, pt, gradient=name, batch_axis=0)
+    with pytest.raises(ValueError, match="batch_axis=0.*item 9"):
+        T.solve(field_torch, xb, pt, saveat=T.SaveAt(ts=[0.5, 1.0]),
+                batch_axis=0)
     with pytest.raises(ValueError, match="unknown gradient strategy"):
         T.solve(field_torch, xt, pt, gradient="nope")
     # every cell the port offers is one the JAX package offers
