@@ -108,7 +108,36 @@ per sample, the lane forms of both combines):
                and launches per per-sample attempt.
  18. profile — one per-sample loss+gradient under torch.profiler.
 
-The card's name and power limit are printed early; the last line is
+The paper's baselines (``RematStep``, ``RematSolve``, ``ContinuousAdjoint``
+beside the symplectic adjoint and DirectBackprop):
+
+ 19. Table 1 — one float32 MiniBooNE loss+gradient (batch 256, Hutchinson)
+               for all five strategies, dopri5 at N = 8 and 32 and bosh3 /
+               dopri8 at N = 8: peak allocated bytes and both combines'
+               launches of the first (warm-up) call, then the median ms of
+               2 or 3 synchronised calls; one line per case and a table.
+               Fatal: at N = 32 symplectic < remat_step < remat_solve,
+               remat_step < backprop and adjoint < remat_step in peak
+               bytes; the adjoint's peak at N = 32 within 1.2x of N = 8.
+ 20. baselines exactness — float64, fixed 8 steps, batch 256: remat_step
+               and remat_solve equal DirectBackprop to rtol 1e-9 (phase 4's
+               rule); the adjoint's error against it is printed (finite,
+               non-zero); at batch 16 the adjoint on the card equals the
+               port's CPU result to 1e-9, fixed and adaptive.
+ 21. baselines train — the main path of this slice: 2 float32 SGD steps
+               of the trainer for ``--grad-mode remat_step``,
+               ``remat_solve``, ``adjoint`` and ``adjoint --adaptive``:
+               loss and gradient finite, butcher_combine launched (and the
+               rows kernel for the adaptive adjoint), counted from 0
+               around each run.
+ 22. per-sample adjoint memory — peak bytes of one float32 B 256
+               ``--adaptive --per-sample --grad-mode adjoint``
+               loss+gradient at max_steps 48 and 96: within 5 % of each
+               other (neither adjoint solve records its steps), printed
+               beside phase 16's symplectic and DirectBackprop.
+
+The combines' ``launches`` in the ``kernels`` line sum phases 3 and 21
+(``launches_by_path`` splits them).  The card's name and power limit are printed early; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -361,20 +390,37 @@ def exactness():
     print(f"symplectic == backprop (fixed 8 steps, batch 256): worst leaf "
           f"rel err {worst:.3e}")
     for adaptive in (False, True):
-        cfg = dataclasses.replace(base, adaptive=adaptive)
-        us, es = u[:16], eps[:16]
-        v_gpu, g_gpu = _loss_and_grads(cfg, params, us, es)
-        cpu = {k: [{n: t.detach().cpu() for n, t in layer.items()}
-                   for layer in v] for k, v in params.items()}
-        v_cpu, g_cpu = _loss_and_grads(cfg, cpu, us.cpu(), es.cpu())
-        worst = max(float((a.cpu() - b).abs().max() / b.abs().max())
-                    for a, b in zip(g_gpu, g_cpu))
-        check(_rel_close(v_gpu.cpu(), v_cpu, 1e-9) and
-              all(_rel_close(a.cpu(), b, 1e-9)
-                  for a, b in zip(g_gpu, g_cpu)),
-              f"card != CPU reference (adaptive={adaptive}): {worst}")
-        print(f"card == CPU reference (batch 16, adaptive={adaptive}): "
-              f"loss {float(v_gpu):.12f} worst leaf rel err {worst:.3e}")
+        _card_vs_cpu(dataclasses.replace(base, adaptive=adaptive), params,
+                     u[:16], eps[:16])
+
+
+def _card_vs_cpu(cfg, params, us, es):
+    """The loss and gradient on the card equal the port's CPU result on
+    the same inputs to rtol 1e-9 (phase 4's rule)."""
+    v_gpu, g_gpu = _loss_and_grads(cfg, params, us, es)
+    cpu = {k: [{n: t.detach().cpu() for n, t in layer.items()}
+               for layer in v] for k, v in params.items()}
+    v_cpu, g_cpu = _loss_and_grads(cfg, cpu, us.cpu(), es.cpu())
+    worst = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                for a, b in zip(g_gpu, g_cpu))
+    label = f"{cfg.grad_mode}, adaptive={cfg.adaptive}"
+    check(_rel_close(v_gpu.cpu(), v_cpu, 1e-9) and
+          all(_rel_close(a.cpu(), b, 1e-9) for a, b in zip(g_gpu, g_cpu)),
+          f"card != CPU reference ({label}): {worst}")
+    print(f"card == CPU reference (batch {us.shape[0]}, {label}): "
+          f"loss {float(v_gpu):.12f} worst leaf rel err {worst:.3e}")
+
+
+def _peak_bytes(fn):
+    """Peak allocated bytes of ``fn()`` above what was allocated before,
+    from an emptied cache."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - before
 
 
 def memory():
@@ -391,13 +437,8 @@ def memory():
             params = init_cnf(cfg, seed=0, device=dev)
             u = torch.randn((256, cfg.dim), generator=g, device=dev)
             eps = torch.randn(u.shape, generator=g, device=dev)
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            before = torch.cuda.memory_allocated()
-            _loss_and_grads(cfg, params, u, eps)
-            torch.cuda.synchronize()
-            out[(n_steps, mode)] = torch.cuda.max_memory_allocated() - before
+            out[(n_steps, mode)] = _peak_bytes(
+                lambda: _loss_and_grads(cfg, params, u, eps))
         sym, bp = out[(n_steps, "symplectic")], out[(n_steps, "backprop")]
         print(f"peak_bytes n_steps={n_steps}: symplectic {sym} backprop {bp}"
               f" (ratio {bp / sym:.2f})")
@@ -1096,18 +1137,13 @@ def per_sample_memory():
     for mode in ("symplectic", "backprop"):
         cfg, params, u, eps = _per_sample_inputs(256)
         cfg = dataclasses.replace(cfg, grad_mode=mode)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
-        _loss_and_grads(cfg, params, u, eps)
-        torch.cuda.synchronize()
-        out[mode] = torch.cuda.max_memory_allocated() - before
+        out[mode] = _peak_bytes(lambda: _loss_and_grads(cfg, params, u, eps))
     sym, bp = out["symplectic"], out["backprop"]
     print(f"per-sample peak_bytes: symplectic {sym} backprop {bp} (ratio "
           f"{bp / sym:.2f})")
     check(sym < bp, f"per-sample: symplectic peak {sym} not below "
                     f"backprop {bp}")
+    return out
 
 
 def lane_report(max_err, ps):
@@ -1201,6 +1237,184 @@ def per_sample_profile():
               f"{ev.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# The paper's baselines: RematStep, RematSolve, ContinuousAdjoint
+
+TABLE1_MODES = ("symplectic", "backprop", "remat_step", "remat_solve",
+                "adjoint")
+# (method, N, timed calls after the warm-up): dopri5 over N, and over s at
+# N = 8 with bosh3 (s 4) and dopri8 (s 12)
+TABLE1_CASES = (("dopri5", 8, 3), ("dopri5", 32, 2), ("bosh3", 8, 3),
+                ("dopri8", 8, 2))
+
+
+def table1():
+    """The paper's Table 1 on the card: peak bytes, ms and combine launches
+    of one float32 loss+gradient of the MiniBooNE CNF for all five
+    gradient strategies, over N (dopri5) and over s (N = 8)."""
+    import dataclasses
+    import statistics
+    from repro_torch.launch.train_cnf import make_config
+    from repro_torch.models.cnf import init_cnf
+    phase("19 Table 1 on the card (float32, one loss+gradient, batch 256)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+    out = {}
+    for method, n, repeats in TABLE1_CASES:
+        for mode in TABLE1_MODES:
+            cfg = dataclasses.replace(
+                make_config("miniboone", n_steps=n, grad_mode=mode),
+                method=method)
+            params = init_cnf(cfg, seed=0, device=dev)
+            u = torch.randn((256, cfg.dim), generator=g, device=dev)
+            eps = torch.randn(u.shape, generator=g, device=dev)
+            _zero_combine_counts()
+            # the warm-up call: peak bytes and launches per loss+gradient
+            peak = _peak_bytes(lambda: _loss_and_grads(cfg, params, u, eps))
+            one, rows = _combine_counts()
+            times = []
+            for _ in range(repeats):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                _loss_and_grads(cfg, params, u, eps)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            ms = statistics.median(times)
+            out[(mode, method, n)] = {"peak_bytes": peak, "ms": ms,
+                                      "butcher_combine": one,
+                                      "butcher_combine_rows": rows}
+            print(f"table1 {mode:11s} {method} N={n:2d}: peak_bytes {peak} "
+                  f"ms {ms:.3f} (median of {repeats} synchronised calls "
+                  f"after one warm-up: "
+                  f"{', '.join(f'{x:.3f}' for x in times)}) launches "
+                  f"butcher_combine {one} butcher_combine_rows {rows}")
+    cols = [f"{m} N={n}" for m, n, _ in TABLE1_CASES]
+    print("table1 peak MB / ms per loss+gradient:")
+    print("  " + f"{'strategy':11s}" + "".join(f" | {c:>17s}" for c in cols))
+    for mode in TABLE1_MODES:
+        cells = [out[(mode, m, n)] for m, n, _ in TABLE1_CASES]
+        print("  " + f"{mode:11s}" + "".join(
+            f" | {c['peak_bytes'] / 2 ** 20:7.2f} / {c['ms']:7.1f}"
+            for c in cells))
+    peak = {mode: out[(mode, "dopri5", 32)]["peak_bytes"]
+            for mode in TABLE1_MODES}
+    check(peak["symplectic"] < peak["remat_step"] < peak["remat_solve"]
+          and peak["remat_step"] < peak["backprop"],
+          f"N=32: not symplectic < remat_step < remat_solve and remat_step "
+          f"< backprop in peak bytes: {peak}")
+    check(peak["adjoint"] < peak["remat_step"],
+          f"N=32: adjoint peak {peak['adjoint']} not below remat_step's "
+          f"{peak['remat_step']}")
+    adj8 = out[("adjoint", "dopri5", 8)]["peak_bytes"]
+    check(peak["adjoint"] <= 1.2 * adj8,
+          f"adjoint peak grows with N: {adj8} at N=8, {peak['adjoint']} at "
+          f"N=32")
+    print(f"table1 checks: at N=32 symplectic < remat_step < remat_solve, "
+          f"remat_step < backprop, adjoint < remat_step; adjoint peak N=32 "
+          f"/ N=8 {peak['adjoint'] / adj8:.3f}")
+    return out
+
+
+def baselines_exactness():
+    """float64: the remat strategies equal autograd through the solver; the
+    adjoint's error against it is printed; the adjoint on the card equals
+    the port's CPU result."""
+    import dataclasses
+    from repro_torch.launch.train_cnf import make_config
+    from repro_torch.models.cnf import init_cnf
+    phase("20 baselines exactness (float64)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(20)
+    base = make_config("miniboone", n_steps=8)
+    u = torch.randn((256, base.dim), generator=g, device=dev,
+                    dtype=torch.float64)
+    eps = torch.randn(u.shape, generator=g, device=dev, dtype=torch.float64)
+    params = init_cnf(base, seed=3, device=dev, dtype=torch.float64)
+    v_bp, g_bp = _loss_and_grads(
+        dataclasses.replace(base, grad_mode="backprop"), params, u, eps)
+    for mode in ("remat_step", "remat_solve", "adjoint"):
+        v, gr = _loss_and_grads(dataclasses.replace(base, grad_mode=mode),
+                                params, u, eps)
+        worst = max(float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(gr, g_bp))
+        if mode == "adjoint":
+            check(math.isfinite(worst) and worst > 0,
+                  f"adjoint vs backprop: rel err {worst}")
+            print(f"adjoint vs backprop (fixed 8 steps, batch 256): worst "
+                  f"leaf rel err {worst:.3e} (the continuous adjoint is "
+                  f"not the discrete map's gradient)")
+            continue
+        check(_rel_close(v, v_bp, 1e-9) and
+              all(_rel_close(a, b, 1e-9) for a, b in zip(gr, g_bp)),
+              f"{mode} != backprop: worst leaf rel err {worst}")
+        print(f"{mode} == backprop (fixed 8 steps, batch 256): worst leaf "
+              f"rel err {worst:.3e}")
+    for adaptive in (False, True):
+        _card_vs_cpu(dataclasses.replace(base, grad_mode="adjoint",
+                                         adaptive=adaptive),
+                     params, u[:16], eps[:16])
+
+
+def baselines_main_path():
+    """This slice's main path: 2 float32 SGD steps of the trainer for each
+    new --grad-mode; returns the combine launches of all four runs."""
+    from repro_torch.launch import train_cnf
+    phase("21 baselines train (main path): MiniBooNE CNF, batch 256")
+    steps = 2
+    total = {"butcher_combine": 0, "butcher_combine_rows": 0}
+    for extra in (["--grad-mode", "remat_step"],
+                  ["--grad-mode", "remat_solve"],
+                  ["--grad-mode", "adjoint"],
+                  ["--grad-mode", "adjoint", "--adaptive"]):
+        label = " ".join(extra)
+        _zero_combine_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hist = train_cnf.main(["--dataset", "miniboone", "--steps",
+                               str(steps), "--batch", "256", "--n-steps",
+                               "8", "--device", "cuda"] + extra)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        one, rows = _combine_counts()
+        for rec in hist:
+            check(math.isfinite(rec["nll"]) and
+                  math.isfinite(rec["grad_norm"]) and rec["grad_norm"] > 0,
+                  f"train {label}: non-finite loss or gradient {rec}")
+        print(f"train {label}: {steps} steps in {secs:.3f}s nll "
+              f"{[round(r['nll'], 5) for r in hist]} launches "
+              f"butcher_combine {one} ({one / steps:.1f}/step) "
+              f"butcher_combine_rows {rows} ({rows / steps:.1f}/step)")
+        check(one > 0, f"train {label}: butcher_combine never launched")
+        if "--adaptive" in extra:
+            check(rows > 0,
+                  f"train {label}: butcher_combine_rows never launched")
+        total["butcher_combine"] += one
+        total["butcher_combine_rows"] += rows
+    return total
+
+
+def per_sample_adjoint_memory(ps_mem):
+    """The per-sample adjoint records no per-step state: its peak bytes do
+    not move with max_steps (the checkpoint buffers' row count)."""
+    import dataclasses
+    phase("22 per-sample adjoint memory (float32, B 256, one "
+          "loss+gradient)")
+    out = {}
+    for max_steps in (48, 96):
+        cfg, params, u, eps = _per_sample_inputs(256)
+        cfg = dataclasses.replace(cfg, grad_mode="adjoint",
+                                  max_steps=max_steps)
+        out[max_steps] = _peak_bytes(
+            lambda: _loss_and_grads(cfg, params, u, eps))
+    a48, a96 = out[48], out[96]
+    print(f"per-sample peak_bytes: adjoint {a48} (max_steps 48) {a96} "
+          f"(max_steps 96), ratio {a96 / a48:.4f}; symplectic "
+          f"{ps_mem['symplectic']} backprop {ps_mem['backprop']} (phase 16)")
+    check(abs(a96 - a48) <= 0.05 * a48,
+          f"per-sample adjoint peak moves with max_steps: {out}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -1231,9 +1445,20 @@ def main():
     profile_serve(params)
     ps = per_sample_main_path()
     per_sample_exactness()
-    per_sample_memory()
+    ps_mem = per_sample_memory()
     rows += lane_report(max_err, ps)
     per_sample_profile()
+    table1()
+    baselines_exactness()
+    base_launches = baselines_main_path()
+    per_sample_adjoint_memory(ps_mem)
+    # the combines' launches: the CNF main path (phase 3) and this slice's
+    # baselines trainers (phase 21), each counted from 0 around its run
+    for row in rows[:2]:
+        by_path = {"train": row["launches"],
+                   "baselines_train": base_launches[row["name"]]}
+        row["launches_by_path"] = by_path
+        row["launches"] = sum(by_path.values())
     print(f"total_seconds {time.perf_counter() - t0:.1f}")
     print(smi.splitlines()[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"kernels": rows}))

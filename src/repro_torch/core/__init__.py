@@ -1,9 +1,13 @@
 """Core solver library: tableaus, stage combines, steppers, the symplectic
-adjoint, and the ``solve`` API."""
-from .api import (GRADIENT_REGISTRY, NOT_PORTED, DirectBackprop,
-                  GradientStrategy, SaveAt, Solution, SymplecticAdjoint,
-                  as_gradient, batched_capability_matrix, capability_matrix,
+adjoint, the paper's baseline gradient strategies, and the ``solve`` API."""
+from .adjoint import (odeint_adjoint, odeint_adjoint_adaptive,
+                      odeint_adjoint_adaptive_batched)
+from .api import (GRADIENT_REGISTRY, NOT_PORTED, ContinuousAdjoint,
+                  DirectBackprop, GradientStrategy, RematSolve, RematStep,
+                  SaveAt, Solution, SymplecticAdjoint, as_gradient,
+                  batched_capability_matrix, capability_matrix,
                   register_gradient, solve)
+from .backprop import odeint_backprop, odeint_remat_solve, odeint_remat_step
 from .combine import COMBINE_BACKENDS, StageCombiner, get_combiner
 from .rk import (AdaptiveConfig, AdaptiveSolution, BatchedAdaptiveSolution,
                  FixedSolution, apply_on_failure, apply_on_failure_lanes,
@@ -20,13 +24,15 @@ from .tableau import HERMITE_DENSE_W, TABLEAUS, ButcherTableau, get_tableau
 __all__ = [
     "AdaptiveConfig", "AdaptiveSolution", "AdaptiveStepper",
     "BatchedAdaptiveSolution", "BatchedSolverState", "ButcherTableau",
-    "COMBINE_BACKENDS", "DirectBackprop", "FixedSolution", "FixedStepper",
+    "COMBINE_BACKENDS", "ContinuousAdjoint", "DirectBackprop", "FixedSolution", "FixedStepper",
     "GRADIENT_REGISTRY", "GradientStrategy", "HERMITE_DENSE_W", "NOT_PORTED",
-    "SaveAt", "Solution", "SolverState", "StageCombiner",
+    "RematSolve", "RematStep", "SaveAt", "Solution", "SolverState", "StageCombiner",
     "SymplecticAdjoint", "TABLEAUS", "apply_on_failure",
     "apply_on_failure_lanes", "as_gradient", "batched_capability_matrix",
     "capability_matrix", "get_combiner", "get_tableau", "lane_count",
-    "odeint_symplectic", "odeint_symplectic_adaptive",
+    "odeint_adjoint", "odeint_adjoint_adaptive",
+    "odeint_adjoint_adaptive_batched", "odeint_backprop",
+    "odeint_remat_solve", "odeint_remat_step", "odeint_symplectic", "odeint_symplectic_adaptive",
     "odeint_symplectic_adaptive_batched", "register_gradient",
     "rk_solve_adaptive", "rk_solve_adaptive_batched", "rk_solve_fixed",
     "rk_stages", "rk_step", "solve", "symplectic_step_adjoint",

@@ -14,23 +14,29 @@ the observation scheme.  One entry point:
     sol.success      # bool tensor on the CPU: the adaptive budgets sufficed
     sol.final_state  # the state at the end of integration
 
-Gradient strategies are frozen dataclasses:
+Gradient strategies are frozen dataclasses carrying their own knobs:
 
-    SymplecticAdjoint()  — the paper: exact gradient, memory O(N + s + L)
-                                                                  [default]
-    DirectBackprop()     — autograd through the solver: exact gradient,
-                           memory O(N s L)
+    SymplecticAdjoint()                  — the paper: exact gradient,
+                                           memory O(N + s + L)    [default]
+    DirectBackprop()                     — autograd through the solver:
+                                           exact gradient, memory O(N s L)
+    RematStep()                          — one rematerialization per step:
+                                           exact gradient, memory O(N + s L)
+    RematSolve()                         — whole-solve rematerialization:
+                                           exact, memory O(N s L) in bwd
+    ContinuousAdjoint(steps_multiplier=...,
+                      bwd_adaptive=...)  — Chen et al. 2018: approximate
+                                           gradient, memory O(L)
 
 Each registers itself in ``GRADIENT_REGISTRY`` under a short name
 (``register_gradient``); ``solve`` dispatches purely through the strategy
 interface.  Which (stepping, saveat) cells a strategy supports is declared
 on the class as ``capabilities``; ``capability_matrix()`` assembles the
 table and every illegal combination fails with the same uniformly-shaped
-``ValueError``.  The port offers a subset of the JAX package's cells: the
-t1 cells of these two strategies, single and lane-batched.  What is not
-ported yet raises a ``ValueError`` that names its ROADMAP item: the
-strategies ``remat_step``, ``remat_solve`` and ``adjoint`` (queue 1 item
-7), and ``SaveAt(ts=...)`` and dense output (item 9).
+``ValueError``.  The port offers the JAX package's ``t1`` cells of all five
+strategies, single and lane-batched; ``SaveAt(ts=...)`` and dense output
+are not ported yet and raise a ``ValueError`` that names their ROADMAP
+item (queue 1 item 9).
 
 ``stepping`` is either an ``int`` (fixed grid, N equal steps) or an
 ``AdaptiveConfig`` (PI-controlled adaptive stepping).
@@ -56,7 +62,9 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from .backprop import odeint_backprop
+from .adjoint import (odeint_adjoint, odeint_adjoint_adaptive,
+                      odeint_adjoint_adaptive_batched)
+from .backprop import odeint_backprop, odeint_remat_solve, odeint_remat_step
 from .combine import resolve_backend
 from .rk import (AdaptiveConfig, VectorField, apply_on_failure,
                  apply_on_failure_lanes, lane_count, rk_solve_adaptive,
@@ -70,12 +78,9 @@ Pytree = Any
 STEPPING_KINDS = ("fixed", "adaptive")
 SAVEAT_KINDS = ("t1", "ts", "dense")
 
-# Parts of the JAX package's solve() that this package does not have yet,
-# and the ROADMAP item (queue 1) that ports each.
+# SaveAt kinds of the JAX package's solve() that this package does not have
+# yet, and the ROADMAP item (queue 1) that ports them.
 NOT_PORTED = {
-    "remat_step": "ROADMAP queue 1 item 7",
-    "remat_solve": "ROADMAP queue 1 item 7",
-    "adjoint": "ROADMAP queue 1 item 7",
     "ts": "ROADMAP queue 1 item 9",
     "dense": "ROADMAP queue 1 item 9",
 }
@@ -224,11 +229,6 @@ def as_gradient(spec: Union[str, GradientStrategy,
     if isinstance(spec, type) and issubclass(spec, GradientStrategy):
         return spec()
     if isinstance(spec, str):
-        if spec in NOT_PORTED:
-            raise ValueError(
-                f"gradient strategy {spec!r} is not ported to PyTorch yet "
-                f"({NOT_PORTED[spec]}); registered strategies: "
-                f"{sorted(GRADIENT_REGISTRY)}")
         if spec not in GRADIENT_REGISTRY:
             raise ValueError(
                 f"unknown gradient strategy {spec!r}; registered strategies: "
@@ -297,6 +297,83 @@ class DirectBackprop(GradientStrategy):
                                     ctx.adaptive.on_failure)
         return ys, {"n_steps": sol.n_accepted, "n_fevals": sol.n_fevals,
                     "n_attempts": sol.n_attempts}, sol.succeeded
+
+
+@register_gradient
+@dataclasses.dataclass(frozen=True)
+class RematStep(GradientStrategy):
+    """ANODE/ACA-style per-step rematerialization (exact; O(N + s L))."""
+    name: ClassVar[str] = "remat_step"
+    capabilities: ClassVar[FrozenSet] = frozenset({_FIXED_T1})
+
+    def fixed(self, ctx, x0, t0, t1, params):
+        return odeint_remat_step(ctx.f, ctx.tab, ctx.n_steps, x0, t0, t1,
+                                 params, ctx.backend)
+
+
+@register_gradient
+@dataclasses.dataclass(frozen=True)
+class RematSolve(GradientStrategy):
+    """Whole-solve rematerialization, the paper's baseline scheme (exact;
+    O(M) after the forward, O(N s L) inside the backward)."""
+    name: ClassVar[str] = "remat_solve"
+    capabilities: ClassVar[FrozenSet] = frozenset({_FIXED_T1})
+
+    def fixed(self, ctx, x0, t0, t1, params):
+        return odeint_remat_solve(ctx.f, ctx.tab, ctx.n_steps, x0, t0, t1,
+                                  params, ctx.backend)
+
+
+@register_gradient
+@dataclasses.dataclass(frozen=True)
+class ContinuousAdjoint(GradientStrategy):
+    """Chen et al. 2018 continuous adjoint: O(L) memory, approximate
+    gradient (O(h^p) backward-integration error).
+
+    steps_multiplier — fixed-grid backward solves take
+                       ``n_steps * steps_multiplier`` steps (must be >= 1:
+                       a zero-step backward solve silently returns garbage
+                       gradients).
+    bwd_adaptive     — controller for the adaptive backward solve of the
+                       augmented system (defaults to the forward config).
+    """
+    name: ClassVar[str] = "adjoint"
+    capabilities: ClassVar[FrozenSet] = frozenset({_FIXED_T1, _ADAPT_T1})
+    batched_capabilities: ClassVar[FrozenSet] = frozenset({_ADAPT_T1})
+
+    steps_multiplier: int = 1
+    bwd_adaptive: Optional[AdaptiveConfig] = None
+
+    def __post_init__(self):
+        if not isinstance(self.steps_multiplier, (int, np.integer)) \
+                or isinstance(self.steps_multiplier, bool) \
+                or self.steps_multiplier < 1:
+            raise ValueError(
+                "ContinuousAdjoint.steps_multiplier must be an int >= 1 "
+                "(a zero-step backward solve returns garbage gradients); "
+                f"got {self.steps_multiplier!r}")
+        object.__setattr__(self, "steps_multiplier",
+                           int(self.steps_multiplier))
+
+    def fixed(self, ctx, x0, t0, t1, params):
+        return odeint_adjoint(ctx.f, ctx.tab, ctx.n_steps,
+                              self.steps_multiplier, ctx.backend,
+                              x0, t0, t1, params)
+
+    # value and stats come from the forward's one controller run
+    def adaptive_with_stats(self, ctx, x0, t0, t1, params):
+        ys, st, ok = odeint_adjoint_adaptive(
+            ctx.f, ctx.tab, ctx.adaptive, self.bwd_adaptive or ctx.adaptive,
+            ctx.backend, x0, t0, t1, params)
+        return (ys, *_stats(st["n_steps"], st["n_fevals"],
+                            st["n_attempts"], ok))
+
+    # per-lane forward AND backward grids; the backward augmented state
+    # carries a per-lane parameter-gradient accumulator: O(B L) memory
+    def adaptive_batched_with_stats(self, ctx, x0, t0, t1, params):
+        return odeint_adjoint_adaptive_batched(
+            ctx.f, ctx.tab, ctx.adaptive, self.bwd_adaptive or ctx.adaptive,
+            ctx.backend, x0, t0, t1, params)
 
 
 # ---------------------------------------------------------------------------

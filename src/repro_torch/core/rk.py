@@ -32,9 +32,11 @@ from .stepper import (  # noqa: F401  (re-exports: the step-level surface)
 
 
 def rk_solve_fixed(f: VectorField, tab: ButcherTableau, x0, t0, t1,
-                   n_steps: int, params,
-                   combine_backend: str = "auto") -> FixedSolution:
-    stepper = FixedStepper(f, tab, n_steps, combine_backend)
+                   n_steps: int, params, combine_backend: str = "auto", *,
+                   checkpoints: bool = True) -> FixedSolution:
+    """N equal steps on [t0, t1]; ``checkpoints=False`` records no
+    checkpoints (``xs``/``ts`` come back empty)."""
+    stepper = FixedStepper(f, tab, n_steps, combine_backend, checkpoints)
     state = stepper.run(stepper.init_state(x0, t0, t1), params)
     return stepper.finalize(state)
 
@@ -42,14 +44,16 @@ def rk_solve_fixed(f: VectorField, tab: ButcherTableau, x0, t0, t1,
 def rk_solve_adaptive(f: VectorField, tab: ButcherTableau, x0, t0, t1,
                       params, cfg: AdaptiveConfig,
                       combine_backend: str = "auto",
-                      h0=None) -> AdaptiveSolution:
+                      h0=None, *, checkpoints: bool = True
+                      ) -> AdaptiveSolution:
     """PI-controlled adaptive solve on [t0, t1].
 
     ``h0`` (optional) seeds the controller with a step MAGNITUDE and falls
     back to ``cfg.initial_step`` when absent or zero.  The controller rules
-    live in ``AdaptiveStepper.advance``.
+    live in ``AdaptiveStepper.advance``.  ``checkpoints=False`` records no
+    accepted checkpoints (``xs``/``ts``/``hs`` come back empty).
     """
-    stepper = AdaptiveStepper(f, tab, cfg, combine_backend)
+    stepper = AdaptiveStepper(f, tab, cfg, combine_backend, checkpoints)
     state = stepper.init_state(x0, t0, t1, h0)
     return stepper.finalize(stepper.run(state, params))
 
@@ -102,7 +106,8 @@ def apply_on_failure_lanes(x_final: Pytree, succeeded: torch.Tensor,
 def rk_solve_adaptive_batched(f: VectorField, tab: ButcherTableau, x0, t0,
                               t1, params, cfg: AdaptiveConfig,
                               combine_backend: str = "auto",
-                              h0=None) -> BatchedAdaptiveSolution:
+                              h0=None, *, checkpoints: bool = True
+                              ) -> BatchedAdaptiveSolution:
     """Adaptive solve of B independent trajectories in ONE loop.
 
     ``x0`` is lane-batched (lane axis 0 of every leaf).  Each lane carries
@@ -113,8 +118,9 @@ def rk_solve_adaptive_batched(f: VectorField, tab: ButcherTableau, x0, t0,
     exhausts its budgets; each attempt evaluates f once per stage over the
     whole batch, so lanes that are already done spend wasted slots.  Every
     controller rule is ``rk_solve_adaptive``'s, per lane.  ``t0``/``t1``/
-    ``h0`` may be scalars (shared) or (B,) tensors.
+    ``h0`` may be scalars (shared) or (B,) tensors.  ``checkpoints=False``
+    allocates no checkpoint buffers (``xs``/``ts``/``hs`` come back None).
     """
-    stepper = AdaptiveStepper(f, tab, cfg, combine_backend)
+    stepper = AdaptiveStepper(f, tab, cfg, combine_backend, checkpoints)
     state = stepper.init_state(x0, t0, t1, h0, lanes=lane_count(x0))
     return stepper.finalize(stepper.run(state, params))

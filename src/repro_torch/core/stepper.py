@@ -34,6 +34,11 @@ reads ONE value per attempt: whether any lane is still live.  Every
 controller rule is the single-trajectory one applied per lane, so lane b of
 a batched solve takes the accepted grid of its own single solve.
 
+A stepper built with ``checkpoints=False`` records none of them (no lists,
+no buffers): the continuous adjoint's solves need only the final state, and
+its augmented backward state is as large as the parameters (per lane in the
+lane-batched form), so a record of it would cost O(N L) or O(max_steps B L).
+
 This module also owns the step-level primitives the steppers are built from
 (``rk_step``, ``rk_stages``, the error norms, ``AdaptiveConfig`` and the
 solution tuples).
@@ -364,6 +369,9 @@ class AdaptiveStepper:
     tab: ButcherTableau
     cfg: AdaptiveConfig
     combine_backend: str = "auto"
+    # False: record no checkpoints (xs/ts/hs stay empty, or None for a
+    # lane-batched state) — for drivers that need only the final state
+    checkpoints: bool = True
 
     def __post_init__(self):
         if self.tab.b_err is None:
@@ -415,14 +423,16 @@ class AdaptiveStepper:
             h0_abs > 0, h0_abs, as_time(cfg.initial_step, dtype, device))
         rows = cfg.max_steps + 1
         counter = torch.zeros(B, dtype=torch.int32, device=device)
+        xs = ts = hs = None
+        if self.checkpoints:
+            xs = pytree.tree_map(
+                lambda l: torch.zeros((rows,) + tuple(l.shape),
+                                      dtype=l.dtype, device=device), x0)
+            ts = torch.zeros((rows, B), dtype=dtype, device=device)
+            hs = torch.zeros((rows, B), dtype=dtype, device=device)
         state = BatchedSolverState(
             t0=t0, t1=t1, t=t0, x=x0, h=h, n_accepted=counter,
-            n_attempts=counter, n_fevals=counter,
-            xs=pytree.tree_map(
-                lambda l: torch.zeros((rows,) + tuple(l.shape),
-                                      dtype=l.dtype, device=device), x0),
-            ts=torch.zeros((rows, B), dtype=dtype, device=device),
-            hs=torch.zeros((rows, B), dtype=dtype, device=device),
+            n_attempts=counter, n_fevals=counter, xs=xs, ts=ts, hs=hs,
             lanes=torch.arange(B, device=device), live=counter.bool(),
             active=True)
         # no host read here: if no lane is live, the first attempt leaves
@@ -500,9 +510,11 @@ class AdaptiveStepper:
         state = state._replace(h=h, n_attempts=state.n_attempts + 1,
                                n_fevals=state.n_fevals + fevals)
         if ok:
-            state = state._replace(
-                t=t_new, x=x_next, n_accepted=state.n_accepted + 1,
-                xs=state.xs + [x], ts=state.ts + [t], hs=state.hs + [h_eff])
+            state = state._replace(t=t_new, x=x_next,
+                                   n_accepted=state.n_accepted + 1)
+            if self.checkpoints:
+                state = state._replace(xs=state.xs + [x], ts=state.ts + [t],
+                                       hs=state.hs + [h_eff])
         return state._replace(active=live and self._budget_left(state))
 
     def _advance_lanes(self, state: BatchedSolverState,
@@ -516,13 +528,14 @@ class AdaptiveStepper:
         h = torch.where(active, h_new, state.h)  # inactive lanes keep theirs
         do = active & accept
         n_acc = state.n_accepted
-        row = torch.where(do, n_acc, self.cfg.max_steps)
-        with torch.no_grad():
-            for buf, val in zip(pytree.tree_leaves(state.xs),
-                                pytree.tree_leaves(x)):
-                _commit_lanes(buf, val, row, state.lanes)
-            _commit_lanes(state.ts, t, row, state.lanes)
-            _commit_lanes(state.hs, h_eff, row, state.lanes)
+        if self.checkpoints:
+            row = torch.where(do, n_acc, self.cfg.max_steps)
+            with torch.no_grad():
+                for buf, val in zip(pytree.tree_leaves(state.xs),
+                                    pytree.tree_leaves(x)):
+                    _commit_lanes(buf, val, row, state.lanes)
+                _commit_lanes(state.ts, t, row, state.lanes)
+                _commit_lanes(state.hs, h_eff, row, state.lanes)
         x = pytree.tree_map(
             lambda a, b: torch.where(lane_bcast(do, a), b, a), x, x_next)
         fevals = self.tab.s + (1 if self.tab.err_uses_fsal else 0)
@@ -583,6 +596,7 @@ class FixedStepper:
     tab: ButcherTableau
     n_steps: int
     combine_backend: str = "auto"
+    checkpoints: bool = True      # False: xs/ts stay empty
 
     @property
     def combiner(self) -> StageCombiner:
@@ -604,6 +618,8 @@ class FixedStepper:
         t = state.t0 + state.n * state.h
         x_next, _ = rk_step(self.f, self.tab, state.x, t, state.h, params,
                             self.combiner, with_error=False)
+        if not self.checkpoints:
+            return state._replace(x=x_next, n=state.n + 1)
         return state._replace(x=x_next, n=state.n + 1,
                               xs=state.xs + [state.x], ts=state.ts + [t])
 

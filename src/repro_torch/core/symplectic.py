@@ -71,6 +71,13 @@ def _stage_vjp(f: VectorField, X: Pytree, t, params: Pytree,
                cot: Pytree):
     """(d f(X, t, params) / d(X, params))^T cot, from one graph that is
     built and freed inside this call.  Returns (xbar, thbar) pytrees."""
+    return _value_and_vjp(f, X, t, params, cot)[1:]
+
+
+def _value_and_vjp(f: VectorField, X: Pytree, t, params: Pytree,
+                   cot: Pytree):
+    """``_stage_vjp`` that also returns f(X, t, params), as evaluated on
+    the detached copies (it holds their graph): (f, xbar, thbar)."""
     x_leaves, x_spec = pytree.tree_flatten(X)
     p_leaves, p_spec = pytree.tree_flatten(params)
     with torch.enable_grad():
@@ -87,7 +94,7 @@ def _stage_vjp(f: VectorField, X: Pytree, t, params: Pytree,
             allow_unused=True) if pairs else [None] * len(inputs)
     grads = [torch.zeros_like(i) if g is None else g
              for g, i in zip(grads, inputs)]
-    return (pytree.tree_unflatten(grads[:len(xd)], x_spec),
+    return (out, pytree.tree_unflatten(grads[:len(xd)], x_spec),
             pytree.tree_unflatten(grads[len(xd):], p_spec))
 
 

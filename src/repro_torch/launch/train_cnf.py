@@ -1,11 +1,13 @@
 """Train a continuous normalizing flow on tabular data (paper Sec. 5.1).
 
-FFJORD-style CNF with dopri5 and the symplectic adjoint, plain SGD, on the
-synthetic stand-ins for the paper's UCI datasets (data/tabular.py), at the
-widths of the JAX package's ``examples/cnf_tabular.py``:
+FFJORD-style CNF with dopri5 and the symplectic adjoint (or any other
+registered gradient strategy: ``--grad-mode``), plain SGD, on the synthetic
+stand-ins for the paper's UCI datasets (data/tabular.py), at the widths of
+the JAX package's ``examples/cnf_tabular.py``:
 
     PYTHONPATH=src python -m repro_torch.launch.train_cnf \\
         --dataset miniboone --steps 200 [--adaptive [--per-sample]] \\
+        [--grad-mode symplectic|backprop|remat_step|remat_solve|adjoint] \\
         [--device cpu]
 
 Runs on ``cuda`` unless ``--device`` says otherwise.  ``main`` returns the
@@ -21,6 +23,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.core import GRADIENT_REGISTRY
 from repro_torch.data.tabular import PAPER_DIMS, PAPER_M, make_tabular_dataset
 from repro_torch.models.cnf import CNFConfig, cnf_nll, init_cnf
 
@@ -83,7 +86,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, float]]:
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--grad-mode", default="symplectic",
-                    choices=["symplectic", "backprop"])
+                    choices=sorted(GRADIENT_REGISTRY),
+                    help="gradient strategy (core/api.py; remat_step and "
+                         "remat_solve take a fixed grid only)")
     ap.add_argument("--adaptive", action="store_true",
                     help="dopri5 adaptive stepping (the paper's setting)")
     ap.add_argument("--n-steps", type=int, default=8,

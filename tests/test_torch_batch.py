@@ -445,23 +445,32 @@ def test_apply_on_failure_lanes_policies():
 # ---------------------------------------------------------------------------
 
 def test_batched_capability_matrix_and_missing_cells():
+    """Under batch_axis=0 the port's table equals the JAX package's on
+    every t1 cell for all five strategies (the adjoint's adaptive cell
+    included); the SaveAt cells name ROADMAP item 9 for every strategy."""
     jm, tm = J.batched_capability_matrix(), T.batched_capability_matrix()
+    assert sorted(tm) == sorted(jm)
     for name, cells in tm.items():
         for cell, ok in cells.items():
             assert not ok or jm[name][cell], (name, cell)
-    for name in ("symplectic", "backprop"):
+            if cell[1] == "t1":
+                assert ok == jm[name][cell], (name, cell)
+    for name in ("symplectic", "backprop", "adjoint"):
         assert tm[name][("adaptive", "t1")] and tm[name][("fixed", "t1")]
+    for name in ("remat_step", "remat_solve"):
+        assert tm[name][("fixed", "t1")] and not tm[name][("adaptive", "t1")]
     x0, params = _problem()
     xt, pt = _torch_inputs(x0, params)
-    for name in ("remat_step", "remat_solve", "adjoint"):
-        with pytest.raises(ValueError, match="ROADMAP queue 1 item 7"):
+    for name in ("remat_step", "remat_solve"):
+        with pytest.raises(ValueError, match="batch_axis=0.*fixed\\+t1"):
             T.solve(osc_torch, xt, pt, gradient=name, stepping=_cfg(T),
                     batch_axis=0)
-    for saveat in (T.SaveAt(ts=[0.5, 1.0]),
-                   T.SaveAt(ts=[0.5, 1.0], dense=True)):
-        with pytest.raises(ValueError, match="batch_axis=0.*item 9"):
-            T.solve(osc_torch, xt, pt, saveat=saveat, stepping=_cfg(T),
-                    gradient="backprop", batch_axis=0)
+    for name in sorted(tm):
+        for saveat in (T.SaveAt(ts=[0.5, 1.0]),
+                       T.SaveAt(ts=[0.5, 1.0], dense=True)):
+            with pytest.raises(ValueError, match="batch_axis=0.*item 9"):
+                T.solve(osc_torch, xt, pt, saveat=saveat, stepping=_cfg(T),
+                        gradient=name, batch_axis=0)
 
 
 def test_batch_axis_validation():

@@ -50,9 +50,9 @@ def _jax_params():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_value_and_grad(trace, adaptive):
+def _jax_value_and_grad(trace, adaptive, grad_mode="symplectic"):
     u, eps = _data()
-    cfg = _cfg(jcnf, trace=trace, adaptive=adaptive)
+    cfg = _cfg(jcnf, trace=trace, adaptive=adaptive, grad_mode=grad_mode)
     params = jax.tree_util.tree_map(jnp.asarray, _jax_params())
     # jitted: one compile of the whole loss is cheaper than eager dispatch
     val, g = jax.jit(jax.value_and_grad(jcnf.cnf_nll), static_argnums=3)(
@@ -75,11 +75,26 @@ def _torch_value_and_grad(trace, adaptive, grad_mode="symplectic",
         list(grads), pytree.tree_structure(params))
 
 
-@pytest.mark.parametrize("trace,adaptive", [("hutchinson", True),
-                                            ("exact", False)])
-def test_cnf_nll_and_gradient_match_jax(trace, adaptive):
-    vj, gj = _jax_value_and_grad(trace, adaptive)
-    vt, gt = _torch_value_and_grad(trace, adaptive)
+# every gradient strategy on the fixed grid, and the adjoint's adaptive
+# cell; the first two cases keep the ids they had with the symplectic
+# adjoint alone
+CNF_CASES = [
+    pytest.param("hutchinson", True, "symplectic", id="hutchinson-True"),
+    pytest.param("exact", False, "symplectic", id="exact-False"),
+] + [pytest.param("hutchinson", False, mode, id=f"hutchinson-False-{mode}")
+     for mode in ("symplectic", "backprop", "remat_step", "remat_solve",
+                  "adjoint")] + [
+    pytest.param("hutchinson", True, "adjoint", id="hutchinson-True-adjoint"),
+]
+
+
+@pytest.mark.parametrize("trace,adaptive,grad_mode", CNF_CASES)
+def test_cnf_nll_and_gradient_match_jax(trace, adaptive, grad_mode):
+    """The JAX package's same strategy on the same weights: for the exact
+    strategies a VJP of the Hutchinson VJP through the solver, for the
+    adjoint the augmented backward solve of that field."""
+    vj, gj = _jax_value_and_grad(trace, adaptive, grad_mode)
+    vt, gt = _torch_value_and_grad(trace, adaptive, grad_mode)
     np.testing.assert_allclose(vt, vj, rtol=RTOL, atol=ATOL)
     for lj, lt in zip(gj["components"], gt["components"]):
         assert sorted(lj) == sorted(lt)
@@ -122,15 +137,16 @@ PS_DIM, PS_BATCH = 4, 4             # the per-sample case: dim 4, batch 4
 
 
 @functools.lru_cache(maxsize=None)
-def _per_sample_case(trace):
+def _per_sample_case(trace, grad_mode="symplectic"):
     """JAX's ``cnf_nll(per_sample=True)`` value and gradients (float64) on
-    its own weights, with the inputs from a numpy seed."""
+    its own weights, with the inputs from a numpy seed.  The exact
+    strategies share one JAX run (symplectic): they agree to rounding."""
     rng = np.random.default_rng(11)
     u, eps = (rng.normal(size=(PS_BATCH, PS_DIM)) for _ in range(2))
     kw = dict(dim=PS_DIM, hidden=HIDDEN, n_components=1, method="dopri5",
               rtol=1e-6, atol=1e-8, max_steps=32, adaptive=True,
               per_sample=True, trace=trace)
-    cfg = jcnf.CNFConfig(**kw, combine_backend="jnp")
+    cfg = jcnf.CNFConfig(**kw, combine_backend="jnp", grad_mode=grad_mode)
     params = jax.tree_util.tree_map(np.asarray, jax.jit(
         jcnf.init_cnf, static_argnums=(1, 2))(jax.random.PRNGKey(1), cfg,
                                               jnp.float64))
@@ -141,14 +157,18 @@ def _per_sample_case(trace):
         np.asarray, g)
 
 
-@pytest.mark.parametrize("grad_mode", ["symplectic", "backprop"])
+@pytest.mark.parametrize("grad_mode", ["symplectic", "backprop",
+                                       "adjoint"])
 @pytest.mark.parametrize("backend", ["torch", "cuda"])
 @pytest.mark.parametrize("trace", ["hutchinson", "exact"])
 def test_per_sample_cnf_matches_jax(trace, backend, grad_mode):
     """per_sample=True: a step controller per sample (solve(...,
     batch_axis=0)), the field's inner VJP in its torch.func form; value and
-    gradients against JAX's per-sample cnf_nll at RTOL, ATOL."""
-    kw, u, eps, jparams, vj, gj = _per_sample_case(trace)
+    gradients against JAX's per-sample cnf_nll at RTOL, ATOL (the
+    adjoint's against JAX's lane-batched adjoint, each lane on its own
+    backward grid)."""
+    kw, u, eps, jparams, vj, gj = _per_sample_case(
+        trace, "adjoint" if grad_mode == "adjoint" else "symplectic")
     cfg = tcnf.CNFConfig(**kw, grad_mode=grad_mode, combine_backend=backend)
     params = tcnf.params_from_jax(jparams, device="cpu")
     leaves = pytree.tree_leaves(params)
@@ -162,7 +182,8 @@ def test_per_sample_cnf_matches_jax(trace, backend, grad_mode):
 
 
 @pytest.mark.parametrize("extra", [[], ["--adaptive"],
-                                   ["--adaptive", "--per-sample"]])
+                                   ["--adaptive", "--per-sample"],
+                                   ["--grad-mode", "adjoint"]])
 def test_trainer_two_steps_on_cpu(extra):
     hist = train_cnf.main(["--dataset", "power", "--steps", "2", "--batch",
                            "8", "--hidden", "8", "8", "--n-steps", "2",

@@ -275,3 +275,59 @@ def test_butcher_combine_lane_forms_match_plain_on_card(dtype, lanes, n_lane,
             mag = sc.abs()[:, None, None] * x.to(acc).abs() + \
                 torch.einsum("bri,ibn->rbn", hm.abs(), ka)
             assert rows_close(got, want, mag, tdt), f"s={s} m={m}"
+
+
+# ---------------------------------------------------------------------------
+# The gradient strategies on the kernel path (backend "cuda") against the
+# plain path (backend "torch"), both on the card, float64.  The kernels fuse
+# a*b+c into one rounding, so the two differ at float64 rounding carried
+# through the solves: chip_smoke's phase-4 rule, rtol 1e-9 of the largest
+# entry per leaf.
+
+def _strategy_field(state, t, p):
+    x, v = state
+    h = torch.tanh(x @ p["w1"] + p["b1"] + t)
+    return (h @ p["w2"] + p["b2"], -v * p["c"] + torch.sin(t) * x[..., :3])
+
+
+def _strategy_case(lanes, dev):
+    rng = np.random.default_rng(21)
+    lead = (3,) if lanes else ()
+    x0 = (rng.normal(size=lead + (4,)), rng.normal(size=lead + (3,)))
+    params = {"w1": rng.normal(size=(4, 6)) * 0.6, "b1": rng.normal(size=6),
+              "w2": rng.normal(size=(6, 4)) * 0.6, "b2": rng.normal(size=4),
+              "c": rng.normal(size=3) * 0.5}
+    return ([torch.tensor(l, device=dev, requires_grad=True) for l in x0],
+            {k: torch.tensor(v, device=dev, requires_grad=True)
+             for k, v in params.items()})
+
+
+STRATEGY_CASES = ["remat_step", "remat_solve", "adjoint_fixed",
+                  "adjoint_adaptive", "adjoint_lanes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STRATEGY_CASES)
+def test_strategies_kernel_path_matches_plain_on_card(case):
+    from repro_torch.core import AdaptiveConfig, solve
+    dev = _on_card()
+    lanes = case == "adjoint_lanes"
+    gradient = "adjoint" if case.startswith("adjoint") else case
+    stepping = 6 if case in ("remat_step", "remat_solve", "adjoint_fixed") \
+        else AdaptiveConfig(rtol=1e-7, atol=1e-9, initial_step=0.1)
+    grads = []
+    for backend in ("cuda", "torch"):
+        x0, params = _strategy_case(lanes, dev)
+        sol = solve(_strategy_field, tuple(x0), params, gradient=gradient,
+                    stepping=stepping, backend=backend,
+                    batch_axis=0 if lanes else None)
+        loss = torch.sum(torch.tanh(sol.ys[0]) ** 2) + torch.sum(
+            sol.ys[1] ** 3)
+        grads.append(torch.autograd.grad(loss, x0 + list(params.values())))
+        if not isinstance(stepping, int):
+            grads[-1] += tuple(v.to(dev).double()
+                               for v in sol.stats.values())
+    for a, b in zip(*grads):
+        assert a.device.type == "cuda"
+        err = float((a - b).abs().max())
+        assert err <= 1e-9 * max(float(b.abs().max()), 1e-3), err

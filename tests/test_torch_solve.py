@@ -232,31 +232,42 @@ def test_adaptive_symplectic_equals_grid_replay(backend):
 
 
 def test_unported_cells_name_their_roadmap_item():
+    """All five strategies' t1 cells are the JAX package's, single and
+    lane-batched; the SaveAt cells not ported yet (ts, dense) name ROADMAP
+    item 9 for every strategy."""
     x0, params = _problem()
     xt = tuple(torch.tensor(l) for l in x0)
     pt = {k: torch.tensor(v) for k, v in params.items()}
-    for name in ("remat_step", "remat_solve", "adjoint"):
-        with pytest.raises(ValueError, match="ROADMAP queue 1 item 7"):
-            T.solve(field_torch, xt, pt, gradient=name)
-    with pytest.raises(ValueError, match="item 9"):
-        T.solve(field_torch, xt, pt, saveat=T.SaveAt(ts=[0.5, 1.0]))
-    # lane-batched (batch_axis=0): the missing cells name their items too
     xb = tuple(l.expand((2,) + l.shape) for l in xt)
-    for name in ("remat_step", "remat_solve", "adjoint"):
-        with pytest.raises(ValueError, match="ROADMAP queue 1 item 7"):
-            T.solve(field_torch, xb, pt, gradient=name, batch_axis=0)
-    with pytest.raises(ValueError, match="batch_axis=0.*item 9"):
-        T.solve(field_torch, xb, pt, saveat=T.SaveAt(ts=[0.5, 1.0]),
-                batch_axis=0)
+    names = ("symplectic", "backprop", "remat_step", "remat_solve",
+             "adjoint")
+    ts = T.SaveAt(ts=[0.5, 1.0])
+    for name in names:
+        with pytest.raises(ValueError, match="item 9"):
+            T.solve(field_torch, xt, pt, gradient=name, saveat=ts,
+                    stepping=3)
+        with pytest.raises(ValueError, match="item 9"):
+            T.solve(field_torch, xt, pt, gradient=name,
+                    saveat=T.SaveAt(ts=[0.5, 1.0], dense=True),
+                    stepping=_cfg(T))
+        # lane-batched (batch_axis=0): the missing cells name item 9 too
+        with pytest.raises(ValueError, match="batch_axis=0.*item 9"):
+            T.solve(field_torch, xb, pt, gradient=name, saveat=ts,
+                    stepping=3, batch_axis=0)
     with pytest.raises(ValueError, match="unknown gradient strategy"):
         T.solve(field_torch, xt, pt, gradient="nope")
-    # every cell the port offers is one the JAX package offers
+    # the port's table equals the JAX package's on every t1 cell, and
+    # offers no cell that JAX lacks
     jm, tm = J.capability_matrix(), T.capability_matrix()
+    assert sorted(tm) == sorted(jm) == sorted(names)
     for name, cells in tm.items():
         for cell, ok in cells.items():
             assert not ok or jm[name][cell], (name, cell)
-    assert tm["symplectic"][("fixed", "t1")]
-    assert tm["backprop"][("adaptive", "t1")]
+            if cell[1] == "t1":
+                assert ok == jm[name][cell], (name, cell)
+    assert tm["remat_step"][("fixed", "t1")]
+    assert not tm["remat_solve"][("adaptive", "t1")]
+    assert tm["adjoint"][("adaptive", "t1")]
 
 
 def test_symplectic_forward_keeps_no_stage_graph():
