@@ -136,8 +136,64 @@ beside the symplectic adjoint and DirectBackprop):
                other (neither adjoint solve records its steps), printed
                beside phase 16's symplectic and DirectBackprop.
 
-The combines' ``launches`` in the ``kernels`` line sum phases 3 and 21
-(``launches_by_path`` splits them).  The card's name and power limit are printed early; the last line is
+SaveAt (observations at user times) and the models that observe through
+it (the physics workload of the paper's Table 4, the CNF flow path):
+
+ 23. physics train — the main path of this slice: 3 float32 SGD steps of
+               ``repro_torch.launch.train_physics`` at the example's full
+               settings (KdV, grid 64, dx 0.5, channels 16, hidden 64,
+               dopri8, 4 steps per snapshot interval, 6 trajectories x 16
+               snapshots of 80 substeps, batch 32, lr 3e-3, symplectic),
+               then its held-out rollout (one SaveAt(ts) solve, horizon 7):
+               seconds per step, losses and rollout MSE finite, the
+               combines' launches of the run (zeroed just before, > 0) and
+               of one loss+gradient alone, and that loss+gradient under
+               torch.profiler (busy share, top kernels).
+ 24. SaveAt cells — one float32 ``rollout_loss`` loss+gradient (horizon 8:
+               32 windows of 9 consecutive snapshots of phase 23's
+               trajectories; KdV, dopri8, fixed 4 steps per interval) for
+               all five strategies, then the adaptive ts cells (symplectic,
+               backprop, adjoint; rtol 1e-6, atol 1e-8, max_steps 64)
+               single and ``per_sample=True``: peak allocated bytes and
+               combine launches of the first call, median ms of 3 more;
+               then the one-row kernel's ms at the new call shapes
+               (dopri8's s 12 and 13 at n 32 x 64, the Hermite lane rows)
+               beside its plain version, addmv / baddbmm and the bound.
+ 25. SaveAt exactness (float64) — the symplectic ts gradient equals
+               DirectBackprop's (fixed, adaptive, per-sample; rtol 1e-9 of
+               the largest entry per leaf); the card equals the port's CPU
+               result on the same inputs (values, gradients rtol 1e-9,
+               integer stats equal) for the threaded ts cells; dense
+               output: stats equal, values rtol 1e-9, and values and
+               gradients rtol 1e-9 against a CPU replay of the card's
+               accepted grid (each device's grid moves at rounding level
+               and the Hermite interpolant with it: the CPU's own change
+               under a 1e-15 change of the input is printed); Hermite
+               dense output at the accepted steps' start times equals the
+               checkpoints (rtol 1e-12).
+ 26. SaveAt memory on the CNF — MiniBooNE, dim 43, hidden (64, 64), batch
+               256, dopri5, float32: the symplectic SaveAt(ts) flow path
+               with 8 equal segments x 4 steps against SaveAt(t1) with N 32
+               (the same 32 checkpoints), each peak from a second call:
+               peaks within 10 % of the t1 peak plus the 8 observations'
+               bytes; DirectBackprop printed the
+               same way; per-sample adaptive ts against t1 printed, with
+               the lane driver's residual rows.
+ 27. CNF flow path — ``cnf_flow_path`` at MiniBooNE width, batch 256, 8
+               observation times ending at t1, fixed (1 step per segment,
+               the grid of cnf_forward's 8 steps) and per-sample: the
+               endpoint equals ``cnf_forward`` (float32 rtol 1e-5, float64
+               rtol 1e-12; per-sample with ts = [t1]); ms and launches.
+
+Phase 2 also holds the kernels against their plain versions at this
+slice's new call shapes: the Hermite lane rows (s 3, 8 lanes, the CNF's and
+the physics' leaves) and dopri8's s 12 (and 13 with the FSAL error slope)
+one-row and rows calls at the physics shape (n 32 x 64).
+
+The combines' ``launches`` in the ``kernels`` line sum phases 3, 21, 23,
+24 and 27 (``launches_by_path`` splits them; the lane forms' rows sum
+phase 14 and the per-sample cells of phases 24 and 27).  The card's
+name and power limit are printed early; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -249,6 +305,7 @@ def kernels_vs_plain():
                         max_err["butcher_combine_rows"], e2, e3)
                 n_cases += 2
     n_cases += _lane_cases(kern, ref, dev, max_err)
+    n_cases += _saveat_shape_cases(kern, ref, dev, max_err)
     torch.cuda.synchronize()
     print(f"kernel cases {n_cases} all within tolerance; float32 max abs "
           f"err {max_err}")
@@ -316,6 +373,67 @@ def _lane_cases(kern, ref, dev, max_err):
     return n_cases
 
 
+# this slice's new call shapes: the Hermite lane rows (s 3, one lane per
+# observation) over the CNF's leaves (x, eps (256, 43), dlp (256,)) and the
+# physics state (32, 64); dopri8's s 12 rows and s 13 error combine at the
+# physics shape
+HERMITE_LEAVES = ((256, 43), (256,), (32, 64))
+PHYS_N = 32 * 64
+
+
+def _saveat_shape_cases(kern, ref, dev, max_err):
+    n_cases = 0
+    for dtype in (torch.float32, torch.float64):
+        acc = torch.promote_types(dtype, torch.float32)
+        for leaf in HERMITE_LEAVES:
+            g = torch.Generator(device=dev).manual_seed(sum(leaf))
+            x = torch.randn((8,) + leaf, generator=g, device=dev).to(dtype)
+            ks = torch.randn((3, 8) + leaf, generator=g, device=dev).to(dtype)
+            hc = torch.rand((8, 3), generator=g, device=dev,
+                            dtype=torch.float64).to(acc)
+            got = kern.butcher_combine(x, ks, hc)
+            mag = x.to(acc).abs() + torch.einsum(
+                "bi,ib...->b...", hc.abs(), ks.to(acc).abs())
+            ok, e = _close(got, ref.butcher_combine_ref(x, ks, hc, 1.0), mag,
+                           dtype)
+            check(ok, f"hermite lane rows {dtype} leaf {leaf}: max err {e}")
+            if dtype == torch.float32:
+                max_err["butcher_combine_lanes"] = max(
+                    max_err["butcher_combine_lanes"], e)
+            n_cases += 1
+        for s in (12, 13):
+            g = torch.Generator(device=dev).manual_seed(s)
+            x = torch.randn((32, 64), generator=g, device=dev).to(dtype)
+            ks = torch.randn((s, 32, 64), generator=g, device=dev).to(dtype)
+            hc = (0.1 * torch.randn((2, s), generator=g, device=dev,
+                                    dtype=torch.float64)).to(acc)
+            sc = torch.tensor([1.0, 0.0], dtype=acc, device=dev)
+            kmag = torch.einsum("ri,i...->r...", hc.abs(),
+                                ks.to(acc).abs())
+            xmag = x.to(acc).abs()
+            ok, e1 = _close(kern.butcher_combine(x, ks, hc[0]),
+                            ref.butcher_combine_ref(x, ks, hc[0], 1.0),
+                            xmag + kmag[0], dtype)
+            check(ok, f"butcher_combine {dtype} physics n={PHYS_N} s={s}: "
+                      f"max err {e1}")
+            rows = kern.butcher_combine_rows(x, ks, hc, sc)
+            want = ref.butcher_combine_rows_ref(x, ks, hc, sc, 1.0)
+            ok0, e2 = _close(rows[0], want[0], xmag + kmag[0], dtype)
+            ok1, e3 = _close(rows[1], want[1], kmag[1], dtype)
+            check(ok0 and ok1, f"butcher_combine_rows {dtype} physics "
+                               f"n={PHYS_N} s={s}: max err {max(e2, e3)}")
+            if dtype == torch.float32:
+                max_err["butcher_combine"] = max(max_err["butcher_combine"],
+                                                 e1)
+                max_err["butcher_combine_rows"] = max(
+                    max_err["butcher_combine_rows"], e2, e3)
+            n_cases += 2
+    print(f"SaveAt call shapes: Hermite lane rows (s 3, 8 lanes) at leaves "
+          f"{HERMITE_LEAVES}, dopri8 s 12/13 one-row and rows (m 2) at n "
+          f"{PHYS_N}: {n_cases} cases within tolerance")
+    return n_cases
+
+
 def train_main_path():
     from repro_torch.kernels import butcher_combine as kern
     from repro_torch.launch import train_cnf
@@ -353,14 +471,19 @@ def train_main_path():
     return launches
 
 
-def _loss_and_grads(cfg, params, u, eps):
+def _value_and_grads(loss_fn, params, *args):
+    """(loss, parameter gradients) of one ``loss_fn(params, *args)``."""
     from torch.utils import _pytree as pytree
-    from repro_torch.models.cnf import cnf_nll
     leaves = pytree.tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    val = cnf_nll(params, u, eps, cfg)
+    val = loss_fn(params, *args)
     return val.detach(), torch.autograd.grad(val, leaves)
+
+
+def _loss_and_grads(cfg, params, u, eps):
+    from repro_torch.models.cnf import cnf_nll
+    return _value_and_grads(cnf_nll, params, u, eps, cfg)
 
 
 def _rel_close(a, b, rtol):
@@ -589,7 +712,6 @@ def profile_step():
     fixed-grid MiniBooNE CNF under torch.profiler (after a warm-up step):
     wall time, summed kernel time, the device's busy share, and the kernels
     that take the most device time."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.train_cnf import make_config
     from repro_torch.models.cnf import init_cnf
     phase("7 profile (one fixed-grid loss+gradient, float32)")
@@ -600,12 +722,20 @@ def profile_step():
     u = torch.randn((256, cfg.dim), generator=g, device=dev)
     eps = torch.randn(u.shape, generator=g, device=dev)
     _loss_and_grads(cfg, params, u, eps)
+    _profile_once("step", lambda: _loss_and_grads(cfg, params, u, eps))
+
+
+def _profile_once(label, fn):
+    """One call of ``fn`` under torch.profiler (warm it up first): wall
+    time, summed kernel time, the device's busy share, kernel launches and
+    the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            _loss_and_grads(cfg, params, u, eps)
+            fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t) * 1e6
     except RuntimeError as exc:     # CUPTI unavailable: report, don't guess
@@ -617,10 +747,10 @@ def profile_step():
                if str(ev.device_type).endswith("CUDA")
                and _self_device_us(ev) > 0]
     busy_us = sum(_self_device_us(ev) for ev in kernels)
-    launches = sum(ev.count for ev in kernels)
-    print(f"step wall {wall_us / 1e3:.3f} ms, kernel time "
+    print(f"{label} wall {wall_us / 1e3:.3f} ms, kernel time "
           f"{busy_us / 1e3:.3f} ms, device busy share "
-          f"{busy_us / wall_us:.4f}, kernel launches {launches}")
+          f"{busy_us / wall_us:.4f}, kernel launches "
+          f"{sum(ev.count for ev in kernels)}")
     for ev in sorted(kernels, key=_self_device_us, reverse=True)[:8]:
         print(f"  {_self_device_us(ev) / 1e3:9.3f} ms  x{ev.count:6d}  "
               f"{ev.key[:90]}")
@@ -948,7 +1078,6 @@ def lm_report(max_err, launches):
 def profile_serve(params):
     """Where a serving step's time goes: one full-width prefill and one
     decode step under torch.profiler (after a warm-up of each)."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_arch
     from repro_torch.data.tokens import synthetic_lm_batch
     from repro_torch.train import make_decode_step, make_prefill_step
@@ -961,33 +1090,9 @@ def profile_serve(params):
     decode = make_decode_step(cfg)
     logits, caches = prefill(params, {"tokens": toks})
     decode(params, caches, _greedy(logits), S)
-    torch.cuda.synchronize()
-
-    def one(label, fn):
-        try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t) * 1e6
-        except RuntimeError as exc:  # CUPTI unavailable: report, don't guess
-            print(f"  profiler unavailable: {exc}")
-            return
-        kernels = [ev for ev in prof.key_averages()
-                   if str(ev.device_type).endswith("CUDA")
-                   and _self_device_us(ev) > 0]
-        busy_us = sum(_self_device_us(ev) for ev in kernels)
-        print(f"{label}: wall {wall_us / 1e3:.3f} ms, kernel time "
-              f"{busy_us / 1e3:.3f} ms, device busy share "
-              f"{busy_us / wall_us:.4f}, kernel launches "
-              f"{sum(ev.count for ev in kernels)}")
-        for ev in sorted(kernels, key=_self_device_us, reverse=True)[:8]:
-            print(f"  {_self_device_us(ev) / 1e3:9.3f} ms  x{ev.count:6d}  "
-                  f"{ev.key[:90]}")
-
-    one("prefill", lambda: prefill(params, {"tokens": toks}))
-    one("decode step", lambda: decode(params, caches, _greedy(logits), S))
+    _profile_once("prefill:", lambda: prefill(params, {"tokens": toks}))
+    _profile_once("decode step:",
+                  lambda: decode(params, caches, _greedy(logits), S))
 
 
 # ---------------------------------------------------------------------------
@@ -1209,32 +1314,11 @@ def lane_report(max_err, ps):
 def per_sample_profile():
     """Where a per-sample training step's time goes: one float32 B 256
     loss+gradient under torch.profiler (after a warm-up)."""
-    from torch.profiler import ProfilerActivity, profile
     phase("18 profile (one per-sample loss+gradient, float32, B 256)")
     cfg, params, u, eps = _per_sample_inputs(256)
     _loss_and_grads(cfg, params, u, eps)
-    torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            _loss_and_grads(cfg, params, u, eps)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t) * 1e6
-    except RuntimeError as exc:     # CUPTI unavailable: report, don't guess
-        print(f"  profiler unavailable: {exc}")
-        return
-    kernels = [ev for ev in prof.key_averages()
-               if str(ev.device_type).endswith("CUDA")
-               and _self_device_us(ev) > 0]
-    busy_us = sum(_self_device_us(ev) for ev in kernels)
-    print(f"per-sample step wall {wall_us / 1e3:.3f} ms, kernel time "
-          f"{busy_us / 1e3:.3f} ms, device busy share "
-          f"{busy_us / wall_us:.4f}, kernel launches "
-          f"{sum(ev.count for ev in kernels)}")
-    for ev in sorted(kernels, key=_self_device_us, reverse=True)[:8]:
-        print(f"  {_self_device_us(ev) / 1e3:9.3f} ms  x{ev.count:6d}  "
-              f"{ev.key[:90]}")
+    _profile_once("per-sample step",
+                  lambda: _loss_and_grads(cfg, params, u, eps))
 
 
 # ---------------------------------------------------------------------------
@@ -1415,6 +1499,483 @@ def per_sample_adjoint_memory(ps_mem):
     return out
 
 
+# ---------------------------------------------------------------------------
+# SaveAt: observations at user times, the physics workload, the CNF path
+
+PHYS_TRAJ = dict(n_traj=6, grid=64, n_snapshots=16, substeps=80)
+SAVEAT_ADAPTIVE = dict(adaptive=True, rtol=1e-6, atol=1e-8, max_steps=64)
+
+
+_TRAJS = {}
+
+
+def _physics_windows(B, horizon=8, dtype=torch.float32, device="cuda"):
+    """(horizon + 1, B, 64): B windows of horizon + 1 consecutive snapshots
+    of phase 23's trajectories (the trainer's settings and seed)."""
+    import numpy as np
+    from repro_torch.data.physics_gen import generate_trajectories
+    if "kdv" not in _TRAJS:
+        _TRAJS["kdv"] = generate_trajectories("kdv", **PHYS_TRAJ)
+    trajs = _TRAJS["kdv"]
+    n_snap = trajs.shape[1]
+    windows = [trajs[t, s:s + horizon + 1] for t in range(trajs.shape[0])
+               for s in range(n_snap - horizon)]
+    check(len(windows) >= B, f"only {len(windows)} windows for batch {B}")
+    return torch.as_tensor(np.stack(windows[:B], axis=1), dtype=dtype,
+                           device=device)
+
+
+def physics_main_path():
+    """The slice's main path: the physics trainer CLI at the example's full
+    settings, 3 steps, then its held-out SaveAt(ts) rollout."""
+    from repro_torch.launch import train_physics
+    from repro_torch.models import physics
+    phase("23 physics train (main path): KdV HNN++, dopri8, full width")
+    steps = 3
+    _zero_combine_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = train_physics.main(["--steps", str(steps), "--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    one, rows = _combine_counts()
+    hist = out["history"]
+    for rec in hist:
+        check(math.isfinite(rec["mse"]) and math.isfinite(rec["grad_norm"])
+              and rec["grad_norm"] > 0,
+              f"physics train: non-finite loss or gradient {rec}")
+    check(len(out["rollout_mse"]) == 7 and
+          all(math.isfinite(e) for e in out["rollout_mse"]),
+          f"physics rollout: {out['rollout_mse']}")
+    per_step = [round(b["seconds"] - a, 4) for a, b in
+                zip([0.0] + [r["seconds"] for r in hist[:-1]], hist)]
+    print(f"physics train: {steps} steps + rollout in {secs:.3f}s (seconds "
+          f"per step {per_step}) mse {[round(r['mse'], 7) for r in hist]}; "
+          f"rollout MSE per horizon "
+          f"{[round(e, 6) for e in out['rollout_mse']]}; launches "
+          f"butcher_combine {one} butcher_combine_rows {rows}")
+    check(one > 0, "physics train: butcher_combine never launched")
+    # one loss+gradient alone: the launches of a training step
+    cfg = physics.PhysicsConfig()
+    params = physics.init_energy_net(cfg, seed=1, device="cuda")
+    u = _physics_windows(32, horizon=1)
+    _zero_combine_counts()
+    _value_and_grads(physics.physics_loss, params, u[0], u[1], cfg)
+    step_one, step_rows = _combine_counts()
+    print(f"physics: one loss+gradient (batch 32) launches butcher_combine "
+          f"{step_one} butcher_combine_rows {step_rows}")
+    _profile_once("physics step", lambda: _value_and_grads(
+        physics.physics_loss, params, u[0], u[1], cfg))
+    return {"butcher_combine": one, "butcher_combine_rows": rows,
+            "per_step": (step_one, step_rows), "seconds_per_step": per_step}
+
+
+def _cell_measure(fn, repeats=3):
+    """Peak bytes and combine launches of the first (warm-up) call, then
+    the median ms of ``repeats`` synchronised calls."""
+    import statistics
+    _zero_combine_counts()
+    peak = _peak_bytes(fn)
+    one, rows = _combine_counts()
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return {"peak_bytes": peak, "ms": statistics.median(times),
+            "times": times, "butcher_combine": one,
+            "butcher_combine_rows": rows}
+
+
+def saveat_cells():
+    """One rollout_loss loss+gradient per SaveAt cell on the card."""
+    import dataclasses
+    from repro_torch.models import physics
+    phase("24 SaveAt cells (float32, rollout_loss, horizon 8, batch 32, "
+          "dopri8)")
+    u = _physics_windows(32)
+    base = physics.PhysicsConfig()
+    params = physics.init_energy_net(base, seed=0, device="cuda")
+    cells = [(mode, "fixed", dataclasses.replace(base, grad_mode=mode))
+             for mode in TABLE1_MODES]
+    cells += [(mode, "per_sample" if ps else "adaptive",
+               dataclasses.replace(base, grad_mode=mode, per_sample=ps,
+                                   **SAVEAT_ADAPTIVE))
+              for ps in (False, True)
+              for mode in ("symplectic", "backprop", "adjoint")]
+    out = {}
+    for mode, kind, cfg in cells:
+        res = _cell_measure(lambda: _value_and_grads(
+            physics.rollout_loss, params, u, cfg))
+        val, grads = _value_and_grads(physics.rollout_loss, params, u,
+                                         cfg)
+        check(math.isfinite(float(val)) and
+              all(bool(torch.isfinite(g).all()) for g in grads),
+              f"SaveAt cell {mode} {kind}: non-finite loss or gradient")
+        check(res["butcher_combine"] > 0,
+              f"SaveAt cell {mode} {kind}: butcher_combine never launched")
+        out[(mode, kind)] = res
+        print(f"saveat {mode:11s} {kind:10s}: peak_bytes "
+              f"{res['peak_bytes']} ms {res['ms']:.3f} (median of 3 after "
+              f"one warm-up: {', '.join(f'{x:.3f}' for x in res['times'])})"
+              f" launches butcher_combine {res['butcher_combine']} "
+              f"butcher_combine_rows {res['butcher_combine_rows']} loss "
+              f"{float(val):.7f}")
+    _saveat_shape_times()
+    return out
+
+
+def _saveat_shape_times():
+    """float32 ms per call of the one-row kernel at this slice's new call
+    shapes, beside its plain version, one library call and the bound:
+    dopri8's stage and update rows (s 12) and its FSAL error row (s 13) at
+    the physics state (n 32 x 64), and the Hermite lane rows (s 3, 8
+    lanes, one per observation) at the physics and CNF states."""
+    from repro_torch.kernels import butcher_combine as kern
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(24)
+    esize = 4
+    print("one-row kernel at the SaveAt call shapes (float32; CUDA events "
+          "over 200 calls, wrapper included; device = kernel alone from "
+          "torch.profiler; bound = bytes over 3.35 TB/s):")
+    for label, lanes, n_lane, s in (("dopri8 rows", None, PHYS_N, 12),
+                                    ("dopri8 FSAL error", None, PHYS_N, 13),
+                                    ("Hermite physics", 8, PHYS_N, 3),
+                                    ("Hermite CNF x", 8, MAIN_N, 3)):
+        lead = () if lanes is None else (lanes,)
+        x = torch.randn(lead + (n_lane,), generator=g, device=dev)
+        ks = torch.randn((s,) + lead + (n_lane,), generator=g, device=dev)
+        hc = torch.randn(lead + (s,), generator=g, device=dev)
+        if lanes is None:
+            k2 = ks.reshape(s, -1).t()
+            lib = (lambda: torch.addmv(x, k2, hc)), "addmv"
+        else:
+            xb, kb = x.view(lanes, 1, n_lane), ks.transpose(0, 1)
+            hb = hc.view(lanes, 1, s)
+            lib = (lambda: torch.baddbmm(xb, hb, kb)), "baddbmm"
+        t_k = _time_ms(lambda: kern.butcher_combine(x, ks, hc))
+        t_p = _time_ms(lambda: ref.butcher_combine_ref(x, ks, hc, 1.0))
+        t_l = _time_ms(lib[0])
+        d_k = _device_ms(lambda: kern.butcher_combine(x, ks, hc),
+                         "butcher_combine_kernel")
+        n = x.numel()
+        bound = max((s + 2) * n * esize / HBM_BYTES_PER_S,
+                    2 * s * n / F32_FLOP_PER_S) * 1e3
+        print(f"  {label} (lanes {lanes}, n_lane {n_lane}, s {s}): kernel "
+              f"{t_k:.6f} ms (device "
+              f"{d_k if d_k is None else f'{d_k:.6f}'}) plain {t_p:.6f} "
+              f"{lib[1]} {t_l:.6f} kernel/{lib[1]} {t_k / t_l:.3f} bound "
+              f"{bound:.6f}")
+
+
+def _max_rel(got, want):
+    return max(float((a.cpu() - b.cpu()).abs().max()
+                     / b.cpu().abs().max().clamp_min(1e-300))
+               for a, b in zip(got, want))
+
+
+def _ts_solve(field, u0, params, saveat, **kw):
+    """A physics SaveAt solve and its gradient: (ys, stats, grads)."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.core import solve
+    leaves = pytree.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    sol = solve(field, u0, params, saveat=saveat, method="dopri8", **kw)
+    loss = torch.sum(torch.tanh(sol.ys) ** 2)
+    grads = torch.autograd.grad(loss, leaves)
+    stats = {k: v.tolist() for k, v in sol.stats.items()}
+    return sol.ys.detach(), stats, grads
+
+
+def saveat_exactness():
+    """float64: symplectic ts == DirectBackprop ts; card == CPU; Hermite at
+    the step endpoints == the checkpoints."""
+    import dataclasses
+    import numpy as np
+    from torch.utils import _pytree as pytree
+    from repro_torch.core import AdaptiveConfig, SaveAt, get_tableau
+    from repro_torch.core.rk import hermite_observe, rk_solve_adaptive
+    from repro_torch.models import physics
+    phase("25 SaveAt exactness (float64)")
+    f64 = torch.float64
+    u = _physics_windows(8, dtype=f64)
+    base = physics.PhysicsConfig()
+    params = physics.init_energy_net(base, seed=0, device="cuda", dtype=f64)
+    for kind, kw in (("fixed", {}), ("adaptive", SAVEAT_ADAPTIVE),
+                     ("per_sample", dict(SAVEAT_ADAPTIVE, per_sample=True))):
+        got = {}
+        for mode in ("symplectic", "backprop"):
+            cfg = dataclasses.replace(base, grad_mode=mode, **kw)
+            got[mode] = _value_and_grads(physics.rollout_loss, params, u,
+                                            cfg)
+        v_s, g_s = got["symplectic"]
+        v_b, g_b = got["backprop"]
+        worst = _max_rel(g_s, g_b)
+        check(_rel_close(v_s, v_b, 1e-9) and worst <= 1e-9,
+              f"SaveAt {kind}: symplectic != backprop, worst leaf rel err "
+              f"{worst}")
+        print(f"SaveAt {kind}: symplectic ts gradient == DirectBackprop "
+              f"(rollout_loss, horizon 8, batch 8): worst leaf rel err "
+              f"{worst:.3e}")
+    # card vs CPU: the threaded ts cells (single, lanes) and dense output
+    ts = 0.1 * np.arange(1, 9)
+    cpu_params = {k: v.detach().cpu() for k, v in params.items()}
+    acfg = AdaptiveConfig(rtol=1e-6, atol=1e-8, max_steps=64)
+    func_field = physics.hnn_field("kdv", 0.5, True)
+    cases = (("ts symplectic", physics.hnn_field("kdv", 0.5), u[0],
+              dict(saveat=SaveAt(ts=ts), stepping=acfg)),
+             ("ts lanes symplectic", func_field, u[0][:, None],
+              dict(saveat=SaveAt(ts=ts), stepping=acfg, batch_axis=0)),
+             ("dense backprop", func_field, u[0],
+              dict(saveat=SaveAt(ts=ts, dense=True), stepping=acfg,
+                   gradient="backprop")))
+    for label, field, u0, kw in cases:
+        _zero_combine_counts()
+        ys, st, g = _ts_solve(field, u0, params, **kw)
+        launches = _combine_counts()
+        ys_c, st_c, g_c = _ts_solve(field, u0.cpu(), cpu_params, **kw)
+        check(st == st_c, f"card vs CPU {label}: stats {st} != {st_c}")
+        err_v, err_g = _max_rel([ys], [ys_c]), _max_rel(g, g_c)
+        print(f"card vs CPU ({label}, batch 8, dopri8, 8 observations): "
+              f"stats {st} equal; worst rel err values {err_v:.3e}, "
+              f"gradients {err_g:.3e}; launches butcher_combine "
+              f"{launches[0]} butcher_combine_rows {launches[1]}")
+        check(err_v <= 1e-9, f"card vs CPU {label}: values rel err {err_v}")
+        if not label.startswith("dense"):
+            check(err_g <= 1e-9, f"card vs CPU {label}: gradients rel err "
+                                 f"{err_g}")
+    _dense_same_grid(func_field, u[0], params, cpu_params, ts, acfg)
+    # Hermite at the accepted steps' start times: the checkpoints
+    field = physics.hnn_field("kdv", 0.5, True)
+    sol = rk_solve_adaptive(field, get_tableau("dopri8"), u[0], 0.0, 0.8,
+                            pytree.tree_map(lambda p: p.detach(), params),
+                            acfg)
+    n = sol.n_accepted
+    check(n > 2, f"Hermite: only {n} accepted steps")
+    with torch.no_grad():
+        ys = hermite_observe(field, get_tableau("dopri8"), sol, params,
+                             torch.stack(sol.ts[1:n]))
+    want = torch.stack(sol.xs[1:n])
+    err = float((ys - want).abs().max() / want.abs().max())
+    check(err <= 1e-12, f"Hermite at step endpoints: rel err {err}")
+    print(f"Hermite dense output at {n - 1} accepted step starts == the "
+          f"checkpoints: rel err {err:.3e}")
+
+
+def _dense_loss(field, sol, params, ts):
+    from repro_torch.core import get_tableau
+    from repro_torch.core.rk import hermite_observe
+    from torch.utils import _pytree as pytree
+    ys = hermite_observe(field, get_tableau("dopri8"), sol, params, ts)
+    loss = torch.sum(torch.tanh(ys) ** 2)
+    return ys.detach(), torch.autograd.grad(loss, pytree.tree_leaves(params))
+
+
+def _dense_same_grid(field, u0, params, cpu_params, ts, acfg):
+    """Dense output's gradient, card against CPU on the SAME accepted
+    grid.  Each device's controller picks its grid from an error estimate
+    that is a cancellation, so two devices' grids differ at rounding level,
+    and the Hermite interpolant (error O(h^4)) moves with the grid at first
+    order: printed here as the CPU's own change under a 1e-15 relative
+    change of the initial state.  The card's run (``rk_solve_adaptive`` +
+    ``hermite_observe``, what the dense cell does) is held against a CPU
+    replay of the card's accepted steps followed by the same Hermite
+    observation: the same function at the same grid, rtol 1e-9."""
+    from repro_torch.core import get_tableau
+    from repro_torch.core.rk import (AdaptiveSolution, rk_solve_adaptive,
+                                     rk_step)
+    tab = get_tableau("dopri8")
+    ts = torch.as_tensor(ts, dtype=u0.dtype)
+    for p in params.values():
+        p.requires_grad_(True)
+    sol = rk_solve_adaptive(field, tab, u0, 0.0, ts[-1], params, acfg)
+    ys, g = _dense_loss(field, sol, params, ts.to(u0.device))
+    grid = [(t.cpu(), h.cpu()) for t, h in zip(sol.ts, sol.hs)]
+    for p in cpu_params.values():
+        p.requires_grad_(True)
+    x, xs = u0.cpu(), []
+    for t, h in grid:
+        xs.append(x)
+        x = rk_step(field, tab, x, t, h, cpu_params, with_error=False)[0]
+    replay = AdaptiveSolution(x, xs, [t for t, _ in grid],
+                              [h for _, h in grid], len(grid), 0, True,
+                              grid[-1][1], len(grid))
+    ys_c, g_c = _dense_loss(field, replay, cpu_params, ts)
+    err = max(_max_rel([ys], [ys_c]), _max_rel(g, g_c))
+    # the CPU's own sensitivity: its independent grids from u0 and from
+    # u0 * (1 + 1e-15)
+    cpu_runs, cpu_sols = [], []
+    for scale in (1.0, 1.0 + 1e-15):
+        s_c = rk_solve_adaptive(field, tab, u0.cpu() * scale, 0.0, ts[-1],
+                                cpu_params, acfg)
+        cpu_sols.append(s_c)
+        cpu_runs.append(_dense_loss(field, s_c, cpu_params, ts))
+    sens = max(_max_rel([cpu_runs[0][0]], [cpu_runs[1][0]]),
+               _max_rel(cpu_runs[0][1], cpu_runs[1][1]))
+    # the grids themselves: the card's accepted steps against the CPU's own
+    # (u0 unscaled), over the steps both took
+    own = cpu_sols[0]
+    m = min(len(grid), own.n_accepted)
+    h_rel = max(abs(float(h) / float(own.hs[i]) - 1.0)
+                for i, (_, h) in enumerate(grid[:m]))
+    t_abs = max(abs(float(t) - float(own.ts[i]))
+                for i, (t, _) in enumerate(grid[:m]))
+    g_err = _max_rel(g, cpu_runs[0][1])
+    print(f"dense output grids: card {len(grid)} accepted steps, CPU "
+          f"{own.n_accepted}; over the first {m}: max |h_card/h_cpu - 1| "
+          f"{h_rel:.3e}, max |t_card - t_cpu| {t_abs:.3e}; gradients, card "
+          f"vs CPU on their own grids: worst rel err {g_err:.3e}")
+    print(f"dense output, card vs CPU replay of the card's {len(grid)} "
+          f"accepted steps: worst rel err of values and gradients "
+          f"{err:.3e}; the CPU's own change under a 1e-15 relative change "
+          f"of u0 (its own grids): {sens:.3e}")
+    check(err <= 1e-9, f"dense output on the same grid, card vs CPU: rel "
+                       f"err {err}")
+
+
+def _flow_nll(params, u, eps, cfg, ts):
+    """The CNF's NLL read at the flow path's last point (the t1 loss when
+    ts ends at t1)."""
+    from repro_torch.models.cnf import cnf_flow_path
+    xs, dlps = cnf_flow_path(params, u, eps, cfg, ts)
+    z, dlp = xs[-1], dlps[-1]
+    logpz = -0.5 * torch.sum(z ** 2, -1) - \
+        0.5 * cfg.dim * math.log(2 * math.pi)
+    return -torch.mean(logpz - dlp)
+
+
+def _warm_peak_bytes(fn):
+    """``_peak_bytes`` of a second call: the first call's one-time
+    allocations (a library's workspace) do not count."""
+    fn()
+    return _peak_bytes(fn)
+
+
+def saveat_memory():
+    """SaveAt(ts) against SaveAt(t1) over the same 32 checkpoints: peak
+    bytes of one float32 CNF loss+gradient."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.launch.train_cnf import make_config
+    from repro_torch.models.cnf import init_cnf
+    phase("26 SaveAt memory (float32, MiniBooNE CNF, batch 256, dopri5)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(26)
+    ts = (np.arange(1, 9) / 8.0).tolist()
+    out = {}
+    for mode in ("symplectic", "backprop"):
+        t1_cfg = make_config("miniboone", n_steps=32, grad_mode=mode)
+        ts_cfg = dataclasses.replace(t1_cfg, n_steps=4)
+        params = init_cnf(t1_cfg, seed=0, device=dev)
+        u = torch.randn((256, t1_cfg.dim), generator=g, device=dev)
+        eps = torch.randn(u.shape, generator=g, device=dev)
+        p_t1, p_ts = (_warm_peak_bytes(fn) for fn in (
+            lambda: _loss_and_grads(t1_cfg, params, u, eps),
+            lambda: _value_and_grads(_flow_nll, params, u, eps, ts_cfg,
+                                     ts)))
+        obs_bytes = len(ts) * (2 * u.numel() + u.shape[0]) * u.element_size()
+        out[mode] = (p_t1, p_ts)
+        print(f"{mode}: peak_bytes SaveAt(t1) N=32 {p_t1}, SaveAt(ts) 8 x 4 "
+              f"steps {p_ts} (ts - t1 = {p_ts - p_t1}; allowed for the "
+              f"symplectic adjoint: 10 % of t1 {0.1 * p_t1:.0f} + the 8 "
+              f"observations {obs_bytes})")
+        if mode == "symplectic":
+            check(abs(p_ts - p_t1) <= 0.1 * p_t1 + obs_bytes,
+                  f"symplectic SaveAt(ts) peak {p_ts} vs SaveAt(t1) {p_t1}")
+    # per-sample adaptive: ts (8 segments) against t1
+    cfg, params, u, eps = _per_sample_inputs(256)
+    p_t1, p_ts = (_warm_peak_bytes(fn) for fn in (
+        lambda: _loss_and_grads(cfg, params, u, eps),
+        lambda: _value_and_grads(_flow_nll, params, u, eps, cfg, ts)))
+    rows = _lane_residual_rows(cfg, params, u, eps, ts)
+    out["per_sample"] = (p_t1, p_ts)
+    print(f"per-sample symplectic: peak_bytes SaveAt(t1) {p_t1}, SaveAt(ts) "
+          f"8 segments {p_ts} (ratio {p_ts / p_t1:.3f}); residual checkpoint "
+          f"rows per segment {rows} (sum {sum(rows)}; whole buffers would "
+          f"be {len(ts)} x {cfg.max_steps + 1})")
+    return out
+
+
+def _lane_residual_rows(cfg, params, u, eps, ts):
+    """The checkpoint rows the lane SaveAt driver keeps, per segment."""
+    from repro_torch.core import AdaptiveConfig, get_tableau
+    from repro_torch.core.rk import rk_solve_adaptive_batched_saveat_stacked
+    from repro_torch.models.cnf import cnf_field, component
+    state = (u[:, None], torch.zeros((u.shape[0], 1), dtype=u.dtype,
+                                     device=u.device), eps[:, None])
+    acfg = AdaptiveConfig(rtol=cfg.rtol, atol=cfg.atol,
+                          max_steps=cfg.max_steps)
+    with torch.no_grad():
+        _, sols = rk_solve_adaptive_batched_saveat_stacked(
+            cnf_field(cfg), get_tableau(cfg.method), state, 0.0,
+            torch.tensor(ts, dtype=u.dtype, device=u.device),
+            component(params, 0), acfg)
+    return [int(s.ts.shape[0]) for s in sols]
+
+
+def cnf_flow_path_phase():
+    """cnf_flow_path at MiniBooNE width: endpoint against cnf_forward, ms
+    and launches, fixed and per-sample."""
+    import dataclasses
+    from repro_torch.launch.train_cnf import make_config
+    from repro_torch.models.cnf import cnf_flow_path, cnf_forward, init_cnf
+    phase("27 CNF flow path (MiniBooNE, batch 256, 8 observation times)")
+    dev = torch.device("cuda")
+    ts = [k / 8.0 for k in range(1, 9)]
+    out = {}
+    for kind in ("fixed", "per_sample"):
+        for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+            if kind == "fixed":
+                cfg = make_config("miniboone", n_steps=1)
+                params = init_cnf(cfg, seed=0, device=dev, dtype=dtype)
+                g = torch.Generator(device=dev).manual_seed(27)
+                u = torch.randn((256, cfg.dim), generator=g, device=dev,
+                                dtype=dtype)
+                eps = torch.randn(u.shape, generator=g, device=dev,
+                                  dtype=dtype)
+                # 8 segments of 1 step: cnf_forward's grid of 8 steps
+                ref_cfg, path_ts = dataclasses.replace(cfg, n_steps=8), ts
+            else:
+                cfg, params, u, eps = _per_sample_inputs(256, dtype)
+                ref_cfg, path_ts = cfg, [cfg.t1]
+            with torch.no_grad():
+                xs, dlps = cnf_flow_path(params, u, eps, cfg, path_ts)
+                z, dlp = cnf_forward(params, u, eps, ref_cfg)
+            n_pts = cfg.n_components * len(path_ts)
+            check(xs.shape == (n_pts,) + u.shape,
+                  f"flow path {kind}: xs shape {tuple(xs.shape)}")
+            err = max(_max_rel([xs[-1]], [z]), _max_rel([dlps[-1]], [dlp]))
+            check(err <= rtol, f"flow path {kind} {dtype}: endpoint rel err "
+                               f"{err} > {rtol}")
+            print(f"flow path {kind} {dtype}: endpoint == cnf_forward, rel "
+                  f"err {err:.3e} (rtol {rtol})")
+        # ms and launches: the 8-observation path, float32, loss+gradient
+        if kind == "per_sample":
+            cfg, params, u, eps = _per_sample_inputs(256)
+        else:
+            params = init_cnf(cfg, seed=0, device=dev)
+            u, eps = u.float(), eps.float()
+        res = _cell_measure(lambda: _value_and_grads(_flow_nll, params, u,
+                                                     eps, cfg, ts))
+        out[kind] = res
+        print(f"flow path {kind}: one loss+gradient over 8 observations: "
+              f"ms {res['ms']:.3f} (median of 3: "
+              f"{', '.join(f'{x:.3f}' for x in res['times'])}) peak_bytes "
+              f"{res['peak_bytes']} launches butcher_combine "
+              f"{res['butcher_combine']} butcher_combine_rows "
+              f"{res['butcher_combine_rows']}")
+        check(res["butcher_combine"] > 0,
+              f"flow path {kind}: butcher_combine never launched")
+        if kind == "per_sample":
+            check(res["butcher_combine_rows"] > 0,
+                  "flow path per_sample: butcher_combine_rows never launched")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -1452,11 +2013,36 @@ def main():
     baselines_exactness()
     base_launches = baselines_main_path()
     per_sample_adjoint_memory(ps_mem)
-    # the combines' launches: the CNF main path (phase 3) and this slice's
-    # baselines trainers (phase 21), each counted from 0 around its run
+    phys = physics_main_path()
+    cells = saveat_cells()
+    saveat_exactness()
+    saveat_memory()
+    path = cnf_flow_path_phase()
+
+    def summed(results, kinds, name):
+        return sum(r[name] for (mode, kind), r in results.items()
+                   if kind in kinds)
+
+    # the combines' launches, each path counted from 0 around its run: the
+    # CNF main path (phase 3), the baselines trainers (phase 21), the
+    # physics trainer (phase 23), the SaveAt cells (phase 24) and the CNF
+    # flow path (phase 27); single-trajectory and lane forms apart
     for row in rows[:2]:
+        name = row["name"]
         by_path = {"train": row["launches"],
-                   "baselines_train": base_launches[row["name"]]}
+                   "baselines_train": base_launches[name],
+                   "physics_train": phys[name],
+                   "saveat_cells": summed(cells, ("fixed", "adaptive"),
+                                          name),
+                   "cnf_flow_path": path["fixed"][name]}
+        row["launches_by_path"] = by_path
+        row["launches"] = sum(by_path.values())
+    for row in rows[4:6]:
+        name = row["name"][:-len("_lanes")]
+        by_path = {"per_sample_train": row["launches"],
+                   "saveat_cells_per_sample": summed(cells, ("per_sample",),
+                                                     name),
+                   "cnf_flow_path_per_sample": path["per_sample"][name]}
         row["launches_by_path"] = by_path
         row["launches"] = sum(by_path.values())
     print(f"total_seconds {time.perf_counter() - t0:.1f}")

@@ -40,7 +40,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from .rk import (AdaptiveConfig, VectorField, apply_on_failure,
-                 apply_on_failure_lanes, lane_count, rk_solve_adaptive,
+                 apply_on_failure_lanes, counters, lane_count, rk_solve_adaptive,
                  rk_solve_adaptive_batched, rk_solve_fixed)
 from .symplectic import _Problem, _value_and_vjp
 from .tableau import ButcherTableau
@@ -103,10 +103,7 @@ class _AdjointSolve(torch.autograd.Function):
                                  checkpoints=False)
             x_final = sol.x_final
         if not isinstance(prob.stepping, int):
-            prob.stats = {"n_steps": sol.n_accepted,
-                          "n_fevals": sol.n_fevals,
-                          "n_attempts": sol.n_attempts}
-            prob.succeeded = sol.succeeded
+            prob.stats, prob.succeeded = counters(sol)
         out = pytree.tree_leaves(x_final)
         ctx.prob = prob
         ctx.save_for_backward(*out, *leaves[prob.n_x:])

@@ -9,7 +9,8 @@ the observation scheme.  One entry point:
                 method="dopri5",
                 gradient=SymplecticAdjoint(),
                 stepping=AdaptiveConfig(rtol=1e-6, atol=1e-8))
-    sol.ys           # the final state (differentiable)
+    sol.ys           # the final state, or the observations stacked over
+                     # SaveAt(ts=...) (differentiable)
     sol.stats        # n_steps / n_fevals / n_attempts (int32, on the CPU)
     sol.success      # bool tensor on the CPU: the adaptive budgets sufficed
     sol.final_state  # the state at the end of integration
@@ -33,10 +34,18 @@ Each registers itself in ``GRADIENT_REGISTRY`` under a short name
 interface.  Which (stepping, saveat) cells a strategy supports is declared
 on the class as ``capabilities``; ``capability_matrix()`` assembles the
 table and every illegal combination fails with the same uniformly-shaped
-``ValueError``.  The port offers the JAX package's ``t1`` cells of all five
-strategies, single and lane-batched; ``SaveAt(ts=...)`` and dense output
-are not ported yet and raise a ``ValueError`` that names their ROADMAP
-item (queue 1 item 9).
+``ValueError``.  The port offers every cell of the JAX package's
+``capability_matrix()`` and ``batched_capability_matrix()``.
+
+``SaveAt(ts=...)`` observes the solution at user times: the solve is split
+into segments at ``ts`` (ending at ``ts[-1]``), ``ys`` is stacked over the
+observations (leading axis len(ts) per leaf) and ``final_state`` is the
+last one.  The symplectic adjoint and DirectBackprop thread the adaptive
+controller's step across the segment boundaries; the other strategies
+chain their plain solves over the segments (``_segmented``), restarting
+the controller in every segment.  ``SaveAt(ts=..., dense=True)`` (adaptive
+DirectBackprop only) solves once to ``ts[-1]`` and interpolates (cubic
+Hermite) at ``ts``.
 
 ``stepping`` is either an ``int`` (fixed grid, N equal steps) or an
 ``AdaptiveConfig`` (PI-controlled adaptive stepping).
@@ -67,23 +76,24 @@ from .adjoint import (odeint_adjoint, odeint_adjoint_adaptive,
 from .backprop import odeint_backprop, odeint_remat_solve, odeint_remat_step
 from .combine import resolve_backend
 from .rk import (AdaptiveConfig, VectorField, apply_on_failure,
-                 apply_on_failure_lanes, lane_count, rk_solve_adaptive,
-                 rk_solve_adaptive_batched)
+                 apply_on_failure_lanes, counters, hermite_observe,
+                 lane_count,
+                 rk_solve_adaptive, rk_solve_adaptive_batched,
+                 rk_solve_adaptive_batched_saveat_stacked,
+                 rk_solve_adaptive_saveat_stacked, segment_starts,
+                 segment_stats, tree_stack)
+from .stepper import time_dtype
 from .symplectic import (odeint_symplectic, odeint_symplectic_adaptive,
-                         odeint_symplectic_adaptive_batched)
+                         odeint_symplectic_adaptive_batched,
+                         odeint_symplectic_saveat,
+                         odeint_symplectic_saveat_adaptive,
+                         odeint_symplectic_saveat_adaptive_batched)
 from .tableau import ButcherTableau, get_tableau
 
 Pytree = Any
 
 STEPPING_KINDS = ("fixed", "adaptive")
 SAVEAT_KINDS = ("t1", "ts", "dense")
-
-# SaveAt kinds of the JAX package's solve() that this package does not have
-# yet, and the ROADMAP item (queue 1) that ports them.
-NOT_PORTED = {
-    "ts": "ROADMAP queue 1 item 9",
-    "dense": "ROADMAP queue 1 item 9",
-}
 
 
 # ---------------------------------------------------------------------------
@@ -92,9 +102,12 @@ NOT_PORTED = {
 
 @dataclasses.dataclass(frozen=True)
 class SaveAt:
-    """Observation scheme: ``t1`` (the final state).  ``ts`` and ``dense``
-    mirror the JAX package's fields; ``solve`` rejects them until SaveAt is
-    ported (ROADMAP queue 1 item 9)."""
+    """Observation scheme: exactly one of ``t1`` (final state) or ``ts``
+    (stacked observations; the solve ends at ``ts[-1]``).
+
+    ``dense=True`` selects Hermite dense-output interpolation at ``ts``
+    instead of checkpointed segmentation (adaptive solves only; the step
+    controller never sees the observation times)."""
     t1: Optional[Any] = None
     ts: Optional[Any] = None
     dense: bool = False
@@ -117,6 +130,33 @@ class SaveAt:
         return "dense" if self.dense else "ts"
 
 
+def _as_ts(ts, dtype: torch.dtype, device, t0=None) -> torch.Tensor:
+    """Validate and coerce observation times to a 1-D ``dtype`` tensor on
+    ``device``.  Duplicates are legal zero-length segments; descending ts
+    is legal reverse-time integration, but the direction must be
+    consistent across [t0, ts[0], ..., ts[-1]]."""
+    if not isinstance(ts, torch.Tensor):
+        # Python floats go through float64, not torch's float32 default
+        ts = np.asarray(ts, dtype=np.float64)
+    ts = torch.as_tensor(ts).to(dtype=dtype, device=device)
+    if ts.dim() != 1 or ts.shape[0] == 0:
+        raise ValueError("ts must be a non-empty 1-D array of observation "
+                         f"times; got shape {tuple(ts.shape)}")
+    seq = ts.detach().cpu().numpy()
+    if t0 is not None:
+        t0 = np.asarray(t0.detach().cpu() if isinstance(t0, torch.Tensor)
+                        else t0, dtype=seq.dtype)
+        seq = np.concatenate([np.reshape(t0, (1,)), seq])
+    d = np.diff(seq)
+    if not (np.all(d >= 0) or np.all(d <= 0)):
+        raise ValueError(
+            "ts must be monotone in the direction of integration "
+            "(duplicates are allowed; descending ts is reverse-time); "
+            f"got t0={None if t0 is None else t0} "
+            f"ts={ts.detach().cpu().numpy()}")
+    return ts
+
+
 # ---------------------------------------------------------------------------
 # Solution: the one return shape
 # ---------------------------------------------------------------------------
@@ -125,9 +165,12 @@ class SaveAt:
 class Solution:
     """Result of ``solve``.
 
-    ys          — the final state, differentiable under the selected
+    ys          — the observed solution: stacked over ``SaveAt.ts``
+                  (leading axis len(ts) per leaf) or the final state for
+                  ``SaveAt.t1``.  Differentiable under the selected
                   gradient strategy.
-    final_state — the state at the end of integration (== ``ys``).
+    final_state — the state at the end of integration (== ``ys`` for t1;
+                  the last observation for ts).
     stats       — {"n_steps", "n_fevals", "n_attempts"}: int32 scalars on
                   the CPU (the controller decides on the host).  Exact
                   static counts on fixed grids; the controller's realized
@@ -165,7 +208,10 @@ class _Ctx:
 
 
 _FIXED_T1 = ("fixed", "t1")
+_FIXED_TS = ("fixed", "ts")
 _ADAPT_T1 = ("adaptive", "t1")
+_ADAPT_TS = ("adaptive", "ts")
+_ADAPT_DENSE = ("adaptive", "dense")
 
 
 def _stats(n_steps: int, n_fevals: int, n_attempts: int, success: bool):
@@ -173,6 +219,20 @@ def _stats(n_steps: int, n_fevals: int, n_attempts: int, success: bool):
              "n_fevals": torch.tensor(n_fevals, dtype=torch.int32),
              "n_attempts": torch.tensor(n_attempts, dtype=torch.int32)},
             torch.tensor(bool(success)))
+
+
+def _segmented(solve_one, x0, t0, ts):
+    """Generic SaveAt segmentation: chain per-segment solves (a Python loop
+    over the segments), stacking the segment endpoints; autograd injects
+    the observation cotangents at the boundaries through the composition.
+    ``solve_one(x, a, b)`` returns (end state, *extras); returns (obs, the
+    list of each segment's extras)."""
+    x, out, extras = x0, [], []
+    for a, b in zip(segment_starts(t0, ts), ts):
+        x, *rest = solve_one(x, a, b)
+        out.append(x)
+        extras.append(rest)
+    return tree_stack(out), extras
 
 
 class GradientStrategy:
@@ -184,7 +244,10 @@ class GradientStrategy:
     state, the stats and the success flag of ONE controller run).  The
     adaptive cells it also offers under ``batch_axis=0`` go in
     ``batched_capabilities``, with the hook ``adaptive_batched_with_stats``
-    (per-lane stats and success).  Register it with
+    (per-lane stats and success).  The SaveAt hooks default to the generic
+    segmentation over those (the adaptive controller restarts in every
+    segment; the stats are summed over the segments of the same run), so a
+    strategy overrides them only to do better.  Register it with
     ``@register_gradient``; ``solve`` needs no edits.
     """
     name: ClassVar[str]
@@ -209,6 +272,30 @@ class GradientStrategy:
         raise NotImplementedError
 
     def adaptive_batched_with_stats(self, ctx: _Ctx, x0, t0, t1, params):
+        raise NotImplementedError
+
+    # -- SaveAt hooks: observations stacked over ts --------------------------
+    def fixed_saveat(self, ctx: _Ctx, x0, t0, ts, params):
+        return _segmented(
+            lambda x, a, b: (self.fixed(ctx, x, a, b, params),),
+            x0, t0, ts)[0]
+
+    def adaptive_saveat_with_stats(self, ctx: _Ctx, x0, t0, ts, params):
+        obs, per_segment = _segmented(
+            lambda x, a, b: self.adaptive_with_stats(ctx, x, a, b, params),
+            x0, t0, ts)
+        return (obs, *segment_stats(per_segment))
+
+    def adaptive_saveat_batched_with_stats(self, ctx: _Ctx, x0, t0, ts,
+                                           params):
+        obs, per_segment = _segmented(
+            lambda x, a, b: self.adaptive_batched_with_stats(
+                ctx, x, a, b, params), x0, t0, ts)
+        return (obs, *segment_stats(per_segment))
+
+    def dense_saveat_with_stats(self, ctx: _Ctx, x0, t0, ts, params):
+        """Dense-output observation: (ys, stats, success).  Unreachable
+        unless the strategy claims ('adaptive', 'dense')."""
         raise NotImplementedError
 
 
@@ -245,8 +332,10 @@ class SymplecticAdjoint(GradientStrategy):
     """The paper's method: exact gradient of the discrete forward map with
     O(N + s + L) memory (Algorithm 2 backward from per-step checkpoints)."""
     name: ClassVar[str] = "symplectic"
-    capabilities: ClassVar[FrozenSet] = frozenset({_FIXED_T1, _ADAPT_T1})
-    batched_capabilities: ClassVar[FrozenSet] = frozenset({_ADAPT_T1})
+    capabilities: ClassVar[FrozenSet] = frozenset(
+        {_FIXED_T1, _FIXED_TS, _ADAPT_T1, _ADAPT_TS})
+    batched_capabilities: ClassVar[FrozenSet] = frozenset(
+        {_ADAPT_T1, _ADAPT_TS})
 
     def fixed(self, ctx, x0, t0, t1, params):
         return odeint_symplectic(ctx.f, ctx.tab, ctx.n_steps, ctx.backend,
@@ -265,6 +354,22 @@ class SymplecticAdjoint(GradientStrategy):
         return odeint_symplectic_adaptive_batched(
             ctx.f, ctx.tab, ctx.adaptive, ctx.backend, x0, t0, t1, params)
 
+    # SaveAt: one autograd.Function over all segments, the controller's
+    # step threaded across the boundaries
+    def fixed_saveat(self, ctx, x0, t0, ts, params):
+        return odeint_symplectic_saveat(ctx.f, ctx.tab, ctx.n_steps,
+                                        ctx.backend, x0, t0, ts, params)
+
+    def adaptive_saveat_with_stats(self, ctx, x0, t0, ts, params):
+        ys, st, ok = odeint_symplectic_saveat_adaptive(
+            ctx.f, ctx.tab, ctx.adaptive, ctx.backend, x0, t0, ts, params)
+        return (ys, *_stats(st["n_steps"], st["n_fevals"],
+                            st["n_attempts"], ok))
+
+    def adaptive_saveat_batched_with_stats(self, ctx, x0, t0, ts, params):
+        return odeint_symplectic_saveat_adaptive_batched(
+            ctx.f, ctx.tab, ctx.adaptive, ctx.backend, x0, t0, ts, params)
+
 
 @register_gradient
 @dataclasses.dataclass(frozen=True)
@@ -273,8 +378,10 @@ class DirectBackprop(GradientStrategy):
     adaptive solve the accepted grid is data: the gradient is that of the
     realized discrete map, as the symplectic adjoint's."""
     name: ClassVar[str] = "backprop"
-    capabilities: ClassVar[FrozenSet] = frozenset({_FIXED_T1, _ADAPT_T1})
-    batched_capabilities: ClassVar[FrozenSet] = frozenset({_ADAPT_T1})
+    capabilities: ClassVar[FrozenSet] = frozenset(
+        {_FIXED_T1, _FIXED_TS, _ADAPT_T1, _ADAPT_TS, _ADAPT_DENSE})
+    batched_capabilities: ClassVar[FrozenSet] = frozenset(
+        {_ADAPT_T1, _ADAPT_TS})
 
     def fixed(self, ctx, x0, t0, t1, params):
         return odeint_backprop(ctx.f, ctx.tab, ctx.n_steps, x0, t0, t1,
@@ -295,8 +402,34 @@ class DirectBackprop(GradientStrategy):
                                         ctx.adaptive, ctx.backend)
         ys = apply_on_failure_lanes(sol.x_final, sol.succeeded,
                                     ctx.adaptive.on_failure)
-        return ys, {"n_steps": sol.n_accepted, "n_fevals": sol.n_fevals,
-                    "n_attempts": sol.n_attempts}, sol.succeeded
+        return (ys, *counters(sol))
+
+    # SaveAt: autograd through the threaded segmented solve; value and
+    # stats from its one run
+    def adaptive_saveat_with_stats(self, ctx, x0, t0, ts, params):
+        obs, sols = rk_solve_adaptive_saveat_stacked(
+            ctx.f, ctx.tab, x0, t0, ts, params, ctx.adaptive, ctx.backend)
+        st, ok = segment_stats(map(counters, sols))
+        return (obs, *_stats(st["n_steps"], st["n_fevals"],
+                             st["n_attempts"], ok))
+
+    def adaptive_saveat_batched_with_stats(self, ctx, x0, t0, ts, params):
+        obs, sols = rk_solve_adaptive_batched_saveat_stacked(
+            ctx.f, ctx.tab, x0, t0, ts, params, ctx.adaptive, ctx.backend)
+        return (obs, *segment_stats(map(counters, sols)))
+
+    def dense_saveat_with_stats(self, ctx, x0, t0, ts, params):
+        # ONE unsegmented solve + Hermite interpolation: value and stats
+        # from the same controller run (2 extra f-evals per observation
+        # for the endpoint slopes)
+        cfg = ctx.adaptive
+        sol = rk_solve_adaptive(ctx.f, ctx.tab, x0, t0, ts[-1], params,
+                                cfg, ctx.backend)
+        obs = hermite_observe(ctx.f, ctx.tab, sol, params, ts, ctx.backend)
+        ys = apply_on_failure(obs, sol.succeeded, cfg.on_failure)
+        return (ys, *_stats(sol.n_accepted,
+                            sol.n_fevals + 2 * ts.shape[0],
+                            sol.n_attempts, sol.succeeded))
 
 
 @register_gradient
@@ -304,7 +437,7 @@ class DirectBackprop(GradientStrategy):
 class RematStep(GradientStrategy):
     """ANODE/ACA-style per-step rematerialization (exact; O(N + s L))."""
     name: ClassVar[str] = "remat_step"
-    capabilities: ClassVar[FrozenSet] = frozenset({_FIXED_T1})
+    capabilities: ClassVar[FrozenSet] = frozenset({_FIXED_T1, _FIXED_TS})
 
     def fixed(self, ctx, x0, t0, t1, params):
         return odeint_remat_step(ctx.f, ctx.tab, ctx.n_steps, x0, t0, t1,
@@ -317,7 +450,7 @@ class RematSolve(GradientStrategy):
     """Whole-solve rematerialization, the paper's baseline scheme (exact;
     O(M) after the forward, O(N s L) inside the backward)."""
     name: ClassVar[str] = "remat_solve"
-    capabilities: ClassVar[FrozenSet] = frozenset({_FIXED_T1})
+    capabilities: ClassVar[FrozenSet] = frozenset({_FIXED_T1, _FIXED_TS})
 
     def fixed(self, ctx, x0, t0, t1, params):
         return odeint_remat_solve(ctx.f, ctx.tab, ctx.n_steps, x0, t0, t1,
@@ -338,8 +471,10 @@ class ContinuousAdjoint(GradientStrategy):
                        augmented system (defaults to the forward config).
     """
     name: ClassVar[str] = "adjoint"
-    capabilities: ClassVar[FrozenSet] = frozenset({_FIXED_T1, _ADAPT_T1})
-    batched_capabilities: ClassVar[FrozenSet] = frozenset({_ADAPT_T1})
+    capabilities: ClassVar[FrozenSet] = frozenset(
+        {_FIXED_T1, _FIXED_TS, _ADAPT_T1, _ADAPT_TS})
+    batched_capabilities: ClassVar[FrozenSet] = frozenset(
+        {_ADAPT_T1, _ADAPT_TS})
 
     steps_multiplier: int = 1
     bwd_adaptive: Optional[AdaptiveConfig] = None
@@ -374,6 +509,8 @@ class ContinuousAdjoint(GradientStrategy):
         return odeint_adjoint_adaptive_batched(
             ctx.f, ctx.tab, ctx.adaptive, self.bwd_adaptive or ctx.adaptive,
             ctx.backend, x0, t0, t1, params)
+    # SaveAt value AND stats both come from the base class (batched and
+    # not): the generic segmentation restarts the controller per segment.
 
 
 # ---------------------------------------------------------------------------
@@ -405,13 +542,10 @@ def _check_capability(gradient: GradientStrategy, stepping_kind: str,
     name = type(gradient).name
     legal = ", ".join(f"{sk}+{vk}" for sk, vk in sorted(cells))
     where = " with batch_axis=0" if batched else ""
-    todo = (f" (saveat={saveat_kind!r} is not ported yet: "
-            f"{NOT_PORTED[saveat_kind]})" if saveat_kind in NOT_PORTED
-            else "")
     raise ValueError(
         f"gradient {name!r} does not support stepping={stepping_kind!r} "
         f"with saveat={saveat_kind!r}{where}; legal (stepping+saveat) "
-        f"combinations for {name!r}{where}: {legal}.{todo}")
+        f"combinations for {name!r}{where}: {legal}.")
 
 
 # ---------------------------------------------------------------------------
@@ -450,11 +584,14 @@ def solve(f: VectorField, x0, params, *,
                  differentiated, matching the paper's fixed-T setting.
     x0, params — pytrees of tensors, all on one device (the solve runs
                  there).
-    saveat     — observation scheme (default ``SaveAt(t1=1.0)``).
+    saveat     — observation scheme (default ``SaveAt(t1=1.0)``); the
+                 observation times are cast to the time dtype of the
+                 state (float64 if any leaf is, else float32).
     method     — tableau name or a ``ButcherTableau``.
     gradient   — a ``GradientStrategy`` (or registered name; default
                  ``SymplecticAdjoint()``).
-    stepping   — int N (fixed grid) or an ``AdaptiveConfig``.
+    stepping   — int N (fixed grid; N steps per observation segment) or
+                 an ``AdaptiveConfig`` (``max_steps`` per segment).
     backend    — stage-combine dispatch: auto | torch | cuda
                  (core/combine.py).
     t0         — start time (keyword; default 0).
@@ -492,16 +629,34 @@ def solve(f: VectorField, x0, params, *,
 
     _check_capability(gradient, stepping_kind, saveat.kind, batched)
     ctx = _Ctx(f, tab, n_steps, adaptive, backend)
-    if stepping_kind == "fixed":
-        # the fixed grid does not depend on the state: the plain driver IS
-        # the per-lane solve, only the stats' shapes change
-        ys = gradient.fixed(ctx, x0, t0, saveat.t1, params)
-        stats, success = _fixed_stats(tab, n_steps, 1, lanes,
-                                      pytree.tree_leaves(x0)[0].device)
+    device = pytree.tree_leaves(x0)[0].device
+    if saveat.kind == "t1":
+        if stepping_kind == "fixed":
+            # the fixed grid does not depend on the state: the plain driver
+            # IS the per-lane solve, only the stats' shapes change
+            ys = gradient.fixed(ctx, x0, t0, saveat.t1, params)
+            stats, success = _fixed_stats(tab, n_steps, 1, lanes, device)
+        elif batched:
+            ys, stats, success = gradient.adaptive_batched_with_stats(
+                ctx, x0, t0, saveat.t1, params)
+        else:
+            ys, stats, success = gradient.adaptive_with_stats(
+                ctx, x0, t0, saveat.t1, params)
+        return Solution(ys=ys, final_state=ys, stats=stats, success=success)
+
+    ts = _as_ts(saveat.ts, time_dtype(x0), device, t0)
+    if saveat.kind == "dense":
+        ys, stats, success = gradient.dense_saveat_with_stats(
+            ctx, x0, t0, ts, params)
+    elif stepping_kind == "fixed":
+        ys = gradient.fixed_saveat(ctx, x0, t0, ts, params)
+        stats, success = _fixed_stats(tab, n_steps, ts.shape[0], lanes,
+                                      device)
     elif batched:
-        ys, stats, success = gradient.adaptive_batched_with_stats(
-            ctx, x0, t0, saveat.t1, params)
+        ys, stats, success = gradient.adaptive_saveat_batched_with_stats(
+            ctx, x0, t0, ts, params)
     else:
-        ys, stats, success = gradient.adaptive_with_stats(
-            ctx, x0, t0, saveat.t1, params)
-    return Solution(ys=ys, final_state=ys, stats=stats, success=success)
+        ys, stats, success = gradient.adaptive_saveat_with_stats(
+            ctx, x0, t0, ts, params)
+    final = pytree.tree_map(lambda l: l[-1], ys)
+    return Solution(ys=ys, final_state=final, stats=stats, success=success)

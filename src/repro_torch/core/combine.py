@@ -10,12 +10,13 @@ combination the solvers need is a *row combine* against that buffer,
 which is memory-bound, so the question is how many passes over device
 memory it costs: one read of (base, K) and one write of out when fused.
 
-The StageCombiner routes four solver operations through that primitive:
+The StageCombiner routes five solver operations through that primitive:
 
   * forward stage states   X_i = x + h * sum_{j<i} a_ij k_j          (Eq. 5)
   * the step update        x_{n+1} = x + h * sum_i b_i k_i           (Eq. 5)
   * the embedded error     err = h * sum_i b_err_i k_i   (+ FSAL slope)
   * the backward recursion Lambda_i / lambda_n of Algorithm 2        (Eq. 7/8)
+  * Hermite dense output   x(t_n + theta h) over [f_n, f_{n+1}, x_{n+1} - x_n]
 
 and dispatches each leaf either to plain PyTorch ops (a stage-order
 accumulation that skips statically-zero coefficients) or to the kernel path
@@ -60,7 +61,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import acc_dtype, lane_bcast
-from .tableau import ButcherTableau
+from .tableau import HERMITE_DENSE_W, ButcherTableau
 
 Pytree = Any
 
@@ -402,6 +403,34 @@ class StageCombiner:
         rows = np.stack([self.b_np, self.b_err_np])
         x_next, err = self.combine_rows(x, K, rows, np.array([1.0, 0.0]), h)
         return x_next, err
+
+    # -- dense output (cubic Hermite) ----------------------------------------
+
+    def interpolate(self, x0: Pytree, x1: Pytree, f0: Pytree, f1: Pytree,
+                    h: torch.Tensor, theta: torch.Tensor) -> Pytree:
+        """Cubic-Hermite dense output x(t_n + theta h) over one step.
+
+        ``x0``/``x1`` are the step endpoints, ``f0``/``f1`` their slopes,
+        ``theta`` in [0, 1].  ONE row combine over the stacked buffer
+        [f0, f1, x1 - x0] with the row ``HERMITE_DENSE_W @ [1, theta,
+        theta^2, theta^3]``, h folded into the slope rows:
+
+            out = x0 + (h w0) f0 + (h w1) f1 + w2 (x1 - x0).
+
+        With (L,) ``h``/``theta`` the L interpolations are the lanes of
+        one combine (leaves (L, ...)): one coefficient row per lane.
+        Local error O(h^4).
+        """
+        powers = torch.stack([torch.ones_like(theta), theta,
+                              theta * theta, theta ** 3], dim=-1)
+        w = powers @ self._device_row(HERMITE_DENSE_W, theta.dtype,
+                                      theta.device).t()
+        row = torch.stack([h * w[..., 0], h * w[..., 1], w[..., 2]], dim=-1)
+        D = pytree.tree_map(
+            lambda a, b, g0, g1: torch.stack([g0.to(a.dtype),
+                                              g1.to(a.dtype), b - a]),
+            x0, x1, f0, f1)
+        return self.combine(x0, D, row, 1.0)
 
     # -- backward (Algorithm 2, Eq. 7/8) -----------------------------------
 

@@ -45,6 +45,17 @@ n_accepted: a lane carries its lambda unchanged through the rows past its
 count and adds nothing to the parameter gradient there.  Theorem 2 then
 holds per lane, so the batched gradient equals the sum of the single-lane
 gradients to rounding.
+
+SaveAt (``odeint_symplectic_saveat*``): the solve is split into segments
+at the observation times, so every observation is a segment endpoint and
+no interpolation enters the differentiated map.  The backward walks the
+segments in reverse: at each boundary the cotangent of that observation is
+added to lambda, then Algorithm 2 runs over the segment's checkpoints, and
+the parameter gradient accumulates in one buffer across all segments.
+Theorem 2 holds per segment, so the gradient of any loss over the
+observations is exact to rounding.  The residuals are the per-segment
+checkpoints and the params.  A t1 solve runs the same drivers over the one
+segment [t0, t1].
 """
 from __future__ import annotations
 
@@ -54,10 +65,11 @@ import torch
 from torch.utils import _pytree as pytree
 
 from .combine import StageCombiner, alloc_stages, get_combiner, set_stage
-from .rk import (AdaptiveConfig, VectorField, apply_on_failure,
-                 apply_on_failure_lanes, lane_bcast, rk_solve_adaptive,
-                 rk_solve_adaptive_batched, rk_solve_fixed, rk_stages)
-from .stepper import lane_field
+from .rk import (AdaptiveConfig, VectorField, counters, lane_bcast,
+                 rk_solve_adaptive_batched_saveat_stacked,
+                 rk_solve_adaptive_saveat_stacked, rk_solve_fixed, rk_stages,
+                 segment_starts, segment_stats, tree_stack)
+from .stepper import as_time, lane_field, time_dtype
 from .tableau import ButcherTableau
 
 Pytree = Any
@@ -208,7 +220,7 @@ def _masked_lanes_alg2_scan(f, tab, combiner, params, xs, ts, hs, n_acc,
     Rows at or past a lane's count leave that lane's lambda unchanged (a
     ``where``) and add nothing to the parameter gradient.  The sweep starts
     at max(n_acc) - 1 (one host read): every row it visits is valid for at
-    least one lane."""
+    least one lane.  ``gtheta`` is None while no step has contributed."""
     for n in reversed(range(int(n_acc.max()))):
         valid = n < n_acc
         x_n = pytree.tree_map(lambda buf: buf[n], xs)
@@ -216,18 +228,19 @@ def _masked_lanes_alg2_scan(f, tab, combiner, params, xs, ts, hs, n_acc,
             f, tab, x_n, ts[n], hs[n], params, lam, valid, combiner)
         lam = pytree.tree_map(
             lambda a, b: torch.where(lane_bcast(valid, a), b, a), lam, lam2)
-        gtheta = _tree_add(gtheta, gstep)
+        gtheta = gstep if gtheta is None else _tree_add(gtheta, gstep)
     return lam, gtheta
 
 
 @torch.no_grad()
-def _algorithm2(f, tab, combiner, xs, ts, hs, params, lam):
-    """Reverse sweep over the checkpoints; returns (lambda_0, grad_theta)."""
-    gtheta = pytree.tree_map(torch.zeros_like, params)
+def _algorithm2(f, tab, combiner, xs, ts, hs, params, lam, gtheta=None):
+    """Reverse sweep over the checkpoints; returns (lambda_0, grad_theta),
+    grad_theta added to ``gtheta`` when given (None while no step has
+    contributed)."""
     for n in reversed(range(len(xs))):
         lam, gstep = symplectic_step_adjoint(f, tab, xs[n], ts[n], hs[n],
                                              params, lam, combiner)
-        gtheta = _tree_add(gtheta, gstep)
+        gtheta = gstep if gtheta is None else _tree_add(gtheta, gstep)
     return lam, gtheta
 
 
@@ -238,10 +251,12 @@ class _Problem:
     (``stats``, ``succeeded``), so value and stats come from one run."""
 
     def __init__(self, f, tab, stepping, backend, t0, t1, x_spec, n_x,
-                 p_spec):
+                 p_spec, at_t1=False):
         self.f, self.tab, self.stepping = f, tab, stepping
         self.backend, self.t0, self.t1 = backend, t0, t1
         self.x_spec, self.n_x, self.p_spec = x_spec, n_x, p_spec
+        # a SaveAt Function over ts = [t1]: its one observation unstacked
+        self.at_t1 = at_t1
         self.stats = None
         self.succeeded = True
 
@@ -251,94 +266,123 @@ class _Problem:
         return x0, params
 
 
-class _SymplecticSolve(torch.autograd.Function):
-    """x_final of a fixed (int stepping) or adaptive (AdaptiveConfig)
-    solve, with the Algorithm 2 backward."""
+def _cotangents(grads, meta, spec):
+    """The output cotangents as a pytree: a zero tensor where autograd
+    passed None (an output the loss does not use)."""
+    return pytree.tree_unflatten(
+        [torch.zeros(s, dtype=d, device=v) if g is None else g
+         for g, (s, d, v) in zip(grads, meta)], spec)
+
+
+def _saveat_outputs(ctx, prob, obs, last, leaves):
+    """The forward's tail: save the params and return the output leaves —
+    the stacked observations, or a t1 solve's one observation ``last`` as
+    the solver returned it (so no select node, and no copy of its
+    cotangent, follows the Function)."""
+    ctx.prob = prob
+    ctx.save_for_backward(*leaves[prob.n_x:])
+    out = pytree.tree_leaves(last if prob.at_t1 else obs)
+    ctx.out_meta = [(o.shape, o.dtype, o.device) for o in out]
+    return tuple(out)
+
+
+def _saveat_backward(ctx, grads, sweep):
+    """The segmented Algorithm 2: walk the segments in reverse, add the
+    cotangent of the observation at each segment's end to lambda, then run
+    ``sweep`` (one segment's reverse sweep) over its checkpoints; theta's
+    gradient accumulates in one buffer across the segments."""
+    prob = ctx.prob
+    params = pytree.tree_unflatten(list(ctx.saved_tensors), prob.p_spec)
+    obs_bar = _cotangents(grads, ctx.out_meta, prob.x_spec)
+    if prob.at_t1:
+        obs_bar = pytree.tree_map(lambda g: g[None], obs_bar)
+    combiner = get_combiner(prob.tab, prob.backend)
+    # no zero buffers: lambda starts as the last cotangent and theta's
+    # gradient as the first step's contribution
+    lam, gtheta = None, None
+    for i in reversed(range(len(ctx.segs))):
+        ob = pytree.tree_map(lambda g: g[i], obs_bar)
+        lam = ob if lam is None else _tree_add(lam, ob)
+        lam, gtheta = sweep(prob, combiner, params, ctx.segs[i], lam, gtheta)
+    if gtheta is None:          # every segment had zero length
+        gtheta = pytree.tree_map(torch.zeros_like, params)
+    return (None, *pytree.tree_leaves(lam), *pytree.tree_leaves(gtheta))
+
+
+class _SymplecticSaveAt(torch.autograd.Function):
+    """The observations at ``prob.t1`` = ts (stacked, leading axis len(ts))
+    of a fixed (n_steps per segment) or adaptive (the controller threaded
+    across the segments) solve, with the segmented Algorithm 2 backward.
+    The residuals are each segment's checkpoints and the params.  A t1
+    solve is the one segment ts = [t1]."""
 
     @staticmethod
     def forward(ctx, prob: _Problem, *leaves):
         x0, params = prob.split(leaves)
+        ts = prob.t1
         if isinstance(prob.stepping, AdaptiveConfig):
-            cfg = prob.stepping
-            sol = rk_solve_adaptive(prob.f, prob.tab, x0, prob.t0, prob.t1,
-                                    params, cfg, prob.backend)
-            ctx.hs = sol.hs
-            prob.stats = {"n_steps": sol.n_accepted,
-                          "n_fevals": sol.n_fevals,
-                          "n_attempts": sol.n_attempts}
-            prob.succeeded = sol.succeeded
-            x_final = apply_on_failure(sol.x_final, sol.succeeded,
-                                       cfg.on_failure)
+            obs, sols = rk_solve_adaptive_saveat_stacked(
+                prob.f, prob.tab, x0, prob.t0, ts, params, prob.stepping,
+                prob.backend)
+            ctx.segs = [(s.xs, s.ts, s.hs) for s in sols]
+            prob.stats, prob.succeeded = segment_stats(map(counters, sols))
+            x = sols[-1].x_final
         else:
-            sol = rk_solve_fixed(prob.f, prob.tab, x0, prob.t0, prob.t1,
-                                 prob.stepping, params, prob.backend)
-            ctx.hs = [sol.h] * len(sol.xs)
-            x_final = sol.x_final
-        # Algorithm 1's checkpoints are the only residuals.
-        ctx.prob, ctx.xs, ctx.ts = prob, sol.xs, sol.ts
-        ctx.save_for_backward(*leaves[prob.n_x:])
-        out = pytree.tree_leaves(x_final)
-        ctx.out_meta = [(o.shape, o.dtype, o.device) for o in out]
-        return tuple(out)
+            x, ctx.segs, out = x0, [], []
+            for a, b in zip(segment_starts(prob.t0, ts), ts):
+                sol = rk_solve_fixed(prob.f, prob.tab, x, a, b,
+                                     prob.stepping, params, prob.backend)
+                ctx.segs.append((sol.xs, sol.ts, [sol.h] * len(sol.xs)))
+                x = sol.x_final
+                out.append(x)
+            obs = tree_stack(out)
+        return _saveat_outputs(ctx, prob, obs, x, leaves)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, *grads):
-        prob = ctx.prob
-        params = pytree.tree_unflatten(list(ctx.saved_tensors), prob.p_spec)
-        lam = pytree.tree_unflatten(
-            [torch.zeros(s, dtype=d, device=v) if g is None else g
-             for g, (s, d, v) in zip(grads, ctx.out_meta)], prob.x_spec)
-        combiner = get_combiner(prob.tab, prob.backend)
-        lam0, gtheta = _algorithm2(prob.f, prob.tab, combiner, ctx.xs,
-                                   ctx.ts, ctx.hs, params, lam)
-        return (None, *pytree.tree_leaves(lam0), *pytree.tree_leaves(gtheta))
+        return _saveat_backward(
+            ctx, grads, lambda prob, combiner, params, seg, lam, g:
+            _algorithm2(prob.f, prob.tab, combiner, *seg, params, lam, g))
 
 
-class _SymplecticSolveLanes(torch.autograd.Function):
-    """x_final of a lane-batched adaptive solve, with the masked per-lane
-    Algorithm 2 backward.  The residuals are the checkpoint buffers, ts,
-    hs and n_accepted, and the params."""
+class _SymplecticSaveAtLanes(torch.autograd.Function):
+    """The observations at the shared times ``prob.t1`` = ts (leading axis
+    len(ts), then the lanes) of a lane-batched adaptive solve, each lane's
+    controller threaded across the segments, with the segmented masked
+    per-lane Algorithm 2 backward.  The residuals are each segment's
+    checkpoint rows (only those its lanes accepted), ts, hs and
+    n_accepted, and the params.  A t1 solve is the one segment ts = [t1]."""
 
     @staticmethod
     def forward(ctx, prob: _Problem, *leaves):
         x0, params = prob.split(leaves)
-        cfg = prob.stepping
-        sol = rk_solve_adaptive_batched(prob.f, prob.tab, x0, prob.t0,
-                                        prob.t1, params, cfg, prob.backend)
-        prob.stats = {"n_steps": sol.n_accepted, "n_fevals": sol.n_fevals,
-                      "n_attempts": sol.n_attempts}
-        prob.succeeded = sol.succeeded
-        x_final = apply_on_failure_lanes(sol.x_final, sol.succeeded,
-                                         cfg.on_failure)
-        ctx.prob, ctx.xs, ctx.ts, ctx.hs = prob, sol.xs, sol.ts, sol.hs
-        ctx.n_acc = sol.n_accepted
-        ctx.save_for_backward(*leaves[prob.n_x:])
-        out = pytree.tree_leaves(x_final)
-        ctx.out_meta = [(o.shape, o.dtype, o.device) for o in out]
-        return tuple(out)
+        obs, sols = rk_solve_adaptive_batched_saveat_stacked(
+            prob.f, prob.tab, x0, prob.t0, prob.t1, params, prob.stepping,
+            prob.backend)
+        prob.stats, prob.succeeded = segment_stats(map(counters, sols))
+        ctx.segs = [(s.xs, s.ts, s.hs, s.n_accepted) for s in sols]
+        return _saveat_outputs(ctx, prob, obs, sols[-1].x_final, leaves)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, *grads):
-        prob = ctx.prob
-        params = pytree.tree_unflatten(list(ctx.saved_tensors), prob.p_spec)
-        lam = pytree.tree_unflatten(
-            [torch.zeros(s, dtype=d, device=v) if g is None else g
-             for g, (s, d, v) in zip(grads, ctx.out_meta)], prob.x_spec)
-        combiner = get_combiner(prob.tab, prob.backend)
-        lam0, gtheta = _masked_lanes_alg2_scan(
-            prob.f, prob.tab, combiner, params, ctx.xs, ctx.ts, ctx.hs,
-            ctx.n_acc, lam, pytree.tree_map(torch.zeros_like, params))
-        return (None, *pytree.tree_leaves(lam0), *pytree.tree_leaves(gtheta))
+        return _saveat_backward(
+            ctx, grads, lambda prob, combiner, params, seg, lam, g:
+            _masked_lanes_alg2_scan(prob.f, prob.tab, combiner, params,
+                                    *seg, lam, g))
 
 
-def _solve(f, tab, stepping, backend, x0, t0, t1, params, lanes=False):
+def _solve(f, tab, stepping, backend, x0, t0, ts, params, fn):
+    """Observations at ``ts`` (1-D, or a scalar t1: the one observation is
+    then returned unstacked) and the problem, which carries the stats."""
     x_leaves, x_spec = pytree.tree_flatten(x0)
     p_leaves, p_spec = pytree.tree_flatten(params)
-    prob = _Problem(f, tab, stepping, backend, t0, t1, x_spec,
-                    len(x_leaves), p_spec)
-    fn = _SymplecticSolveLanes if lanes else _SymplecticSolve
+    at_t1 = not (isinstance(ts, torch.Tensor) and ts.dim() == 1)
+    if at_t1:
+        ts = as_time(ts, time_dtype(x0), x_leaves[0].device).reshape(1)
+    prob = _Problem(f, tab, stepping, backend, t0, ts, x_spec,
+                    len(x_leaves), p_spec, at_t1)
     out = fn.apply(prob, *x_leaves, *p_leaves)
     return pytree.tree_unflatten(list(out), x_spec), prob
 
@@ -346,7 +390,8 @@ def _solve(f, tab, stepping, backend, x0, t0, t1, params, lanes=False):
 def odeint_symplectic(f: VectorField, tab: ButcherTableau, n_steps: int,
                       combine_backend: str, x0, t0, t1, params):
     """x(t1) on N equal steps; gradient by Algorithm 2."""
-    return _solve(f, tab, n_steps, combine_backend, x0, t0, t1, params)[0]
+    return _solve(f, tab, n_steps, combine_backend, x0, t0, t1, params,
+                  _SymplecticSaveAt)[0]
 
 
 def odeint_symplectic_adaptive(f: VectorField, tab: ButcherTableau,
@@ -355,7 +400,8 @@ def odeint_symplectic_adaptive(f: VectorField, tab: ButcherTableau,
     """x(t1) of an adaptive solve; gradient by Algorithm 2 replaying the
     accepted grid.  Returns (x_final, stats, succeeded): the controller's
     counters of the same run."""
-    x, prob = _solve(f, tab, cfg, combine_backend, x0, t0, t1, params)
+    x, prob = _solve(f, tab, cfg, combine_backend, x0, t0, t1, params,
+                     _SymplecticSaveAt)
     return x, prob.stats, prob.succeeded
 
 
@@ -367,5 +413,45 @@ def odeint_symplectic_adaptive_batched(f: VectorField, tab: ButcherTableau,
     Algorithm 2 replaying each lane's own accepted grid.  Returns (x_final,
     stats, succeeded) with per-lane (B,) stats and success on the device."""
     x, prob = _solve(f, tab, cfg, combine_backend, x0, t0, t1, params,
-                     lanes=True)
+                     _SymplecticSaveAtLanes)
     return x, prob.stats, prob.succeeded
+
+
+def odeint_symplectic_saveat(f: VectorField, tab: ButcherTableau,
+                             n_steps: int, combine_backend: str, x0, t0, ts,
+                             params):
+    """The solution at the times ``ts`` (stacked, leading axis len(ts)) on
+    a fixed grid of ``n_steps`` per segment; gradient by the segmented
+    Algorithm 2."""
+    return _solve(f, tab, n_steps, combine_backend, x0, t0, ts, params,
+                  _SymplecticSaveAt)[0]
+
+
+def odeint_symplectic_saveat_adaptive(f: VectorField, tab: ButcherTableau,
+                                      cfg: AdaptiveConfig,
+                                      combine_backend: str, x0, t0, ts,
+                                      params):
+    """The solution at ``ts`` of an adaptive solve, one segment per
+    interval with the controller's unclamped step threaded across the
+    boundaries; gradient by the segmented Algorithm 2 replaying each
+    segment's accepted grid.  Returns (obs, stats, succeeded): the
+    counters summed over the segments of the same run, and whether every
+    segment succeeded."""
+    obs, prob = _solve(f, tab, cfg, combine_backend, x0, t0, ts, params,
+                       _SymplecticSaveAt)
+    return obs, prob.stats, prob.succeeded
+
+
+def odeint_symplectic_saveat_adaptive_batched(f: VectorField,
+                                              tab: ButcherTableau,
+                                              cfg: AdaptiveConfig,
+                                              combine_backend: str, x0, t0,
+                                              ts, params):
+    """The lane-batched ``odeint_symplectic_saveat_adaptive`` (lane axis
+    0): each lane threads its own controller across the shared observation
+    times, and the backward replays each lane's own grid per segment.
+    Returns (obs, stats, succeeded) with per-lane (B,) stats and success
+    on the device."""
+    obs, prob = _solve(f, tab, cfg, combine_backend, x0, t0, ts, params,
+                       _SymplecticSaveAtLanes)
+    return obs, prob.stats, prob.succeeded

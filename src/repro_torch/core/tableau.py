@@ -37,8 +37,8 @@ __all__ = ["ButcherTableau", "get_tableau", "TABLEAUS", "register_tableau",
 # rows of HERMITE_DENSE_W give their monomial coefficients against
 # [1, theta, theta^2, theta^3], so the combine row for a given theta is
 # ``HERMITE_DENSE_W @ [1, theta, theta^2, theta^3]``, fed to the row-combine
-# primitive exactly like a Butcher row (dense output is not ported yet:
-# ROADMAP queue 1 item 9).  Local error is O(h^4) for
+# primitive exactly like a Butcher row (``StageCombiner.interpolate``).
+# Local error is O(h^4) for
 # any tableau of order >= 3 (the interpolant only consumes the step
 # endpoints and their slopes, so it is tableau-independent).
 # ---------------------------------------------------------------------------

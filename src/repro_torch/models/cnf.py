@@ -202,6 +202,39 @@ def cnf_forward(params, u, eps, cfg: CNFConfig):
     return x, dlp
 
 
+def cnf_flow_path(params, u, eps, cfg: CNFConfig, ts):
+    """Observe the flow (x(t), delta_logp(t)) along the likelihood path.
+
+    ``ts``: observation times within (0, cfg.t1]; ts[-1] should be cfg.t1
+    so each component hands its successor the fully transported state (the
+    solve ends at ts[-1]).  Returns (xs, dlps) stacked over
+    n_components * len(ts) path points: xs[k] is the state after the
+    (k // len(ts))-th component has flowed to ts[k % len(ts)], and dlps is
+    the CUMULATIVE log-density change up to that point — one
+    multi-observation solve per component instead of len(ts) restarts.
+    """
+    per_sample = per_sample_mode(cfg)
+    field = cnf_field(cfg)
+    dlp = torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
+    adaptive = AdaptiveConfig(rtol=cfg.rtol, atol=cfg.atol,
+                              max_steps=cfg.max_steps) \
+        if cfg.adaptive else None
+    x, xs_path, dlp_path = u, [], []
+    for m in range(cfg.n_components):
+        xo, dlpo, _ = model_solve_ys(
+            field, (x, torch.zeros_like(dlp), eps), component(params, m),
+            per_sample=per_sample,
+            saveat=SaveAt(ts=ts), method=cfg.method,
+            gradient=as_gradient(cfg.grad_mode),
+            stepping=adaptive if adaptive is not None else cfg.n_steps,
+            backend=cfg.combine_backend)
+        xs_path.append(xo)
+        dlp_path.append(dlp[None] + dlpo)
+        x, dlp = xo[-1], dlp + dlpo[-1]
+    # M x (len(ts), ...) -> (M * len(ts), ...)
+    return torch.cat(xs_path), torch.cat(dlp_path)
+
+
 def cnf_nll(params, u, eps, cfg: CNFConfig):
     """Mean negative log-likelihood in nats."""
     z, dlp = cnf_forward(params, u, eps, cfg)

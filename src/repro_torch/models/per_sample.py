@@ -1,6 +1,6 @@
 """Per-sample adaptive solving, shared by the model workloads.
 
-The model nets (the CNF's concatsquash MLP) are written against a
+The model nets (CNF concatsquash, HNN energy net) are written against a
 ``(batch, ...)`` state layout, so giving every sample its OWN step
 controller (``solve(..., batch_axis=0)``) wraps each batch element as a
 lane holding a singleton batch: ``(B, ...)`` becomes ``(B, 1, ...)``, the
@@ -31,11 +31,13 @@ def model_solve_ys(field, state, params, *, per_sample: bool,
     ``per_sample=False`` is a plain (lockstep) solve; ``per_sample=True``
     wraps each element as a ``(B, 1, ...)`` singleton-batch lane, solves
     under ``batch_axis=0`` (the field must be ``torch.func``-safe), and
-    removes the singleton axis from ``ys``.
+    removes the singleton axis from ``ys`` (axis 1 for ``SaveAt(t1=...)``;
+    axis 2, after the leading ``len(ts)`` axis, for ``SaveAt(ts=...)``).
     """
     if not per_sample:
         return solve(field, state, params, saveat=saveat, **solve_kw).ys
     wrapped = pytree.tree_map(lambda l: l[:, None], state)
     sol = solve(field, wrapped, params, saveat=saveat, batch_axis=0,
                 **solve_kw)
-    return pytree.tree_map(lambda l: l.squeeze(1), sol.ys)
+    axis = 1 if saveat.kind == "t1" else 2
+    return pytree.tree_map(lambda l: l.squeeze(axis), sol.ys)

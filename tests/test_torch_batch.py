@@ -446,19 +446,16 @@ def test_apply_on_failure_lanes_policies():
 
 def test_batched_capability_matrix_and_missing_cells():
     """Under batch_axis=0 the port's table equals the JAX package's on
-    every t1 cell for all five strategies (the adjoint's adaptive cell
-    included); the SaveAt cells name ROADMAP item 9 for every strategy."""
+    every cell for all five strategies; the cells it lacks (the remat
+    strategies' adaptive cells, dense output) fail with the uniform
+    message."""
     jm, tm = J.batched_capability_matrix(), T.batched_capability_matrix()
-    assert sorted(tm) == sorted(jm)
-    for name, cells in tm.items():
-        for cell, ok in cells.items():
-            assert not ok or jm[name][cell], (name, cell)
-            if cell[1] == "t1":
-                assert ok == jm[name][cell], (name, cell)
+    assert tm == jm
     for name in ("symplectic", "backprop", "adjoint"):
-        assert tm[name][("adaptive", "t1")] and tm[name][("fixed", "t1")]
+        assert tm[name][("adaptive", "ts")] and tm[name][("fixed", "ts")]
+        assert not tm[name][("adaptive", "dense")]
     for name in ("remat_step", "remat_solve"):
-        assert tm[name][("fixed", "t1")] and not tm[name][("adaptive", "t1")]
+        assert tm[name][("fixed", "ts")] and not tm[name][("adaptive", "t1")]
     x0, params = _problem()
     xt, pt = _torch_inputs(x0, params)
     for name in ("remat_step", "remat_solve"):
@@ -466,11 +463,10 @@ def test_batched_capability_matrix_and_missing_cells():
             T.solve(osc_torch, xt, pt, gradient=name, stepping=_cfg(T),
                     batch_axis=0)
     for name in sorted(tm):
-        for saveat in (T.SaveAt(ts=[0.5, 1.0]),
-                       T.SaveAt(ts=[0.5, 1.0], dense=True)):
-            with pytest.raises(ValueError, match="batch_axis=0.*item 9"):
-                T.solve(osc_torch, xt, pt, saveat=saveat, stepping=_cfg(T),
-                        gradient=name, batch_axis=0)
+        with pytest.raises(ValueError, match="dense.*batch_axis=0"):
+            T.solve(osc_torch, xt, pt,
+                    saveat=T.SaveAt(ts=[0.5, 1.0], dense=True),
+                    stepping=_cfg(T), gradient=name, batch_axis=0)
 
 
 def test_batch_axis_validation():
@@ -646,3 +642,167 @@ def test_float32_adaptive_matches_jax_field_rounded_alike(initial_step,
     the first error estimate is at the field's rounding level
     (initial_step 0.05), with the same stats and the same F32_ULPS bound."""
     _check_float32(initial_step, lanes, "alike", osc_torch_f64_act)
+
+
+# ---------------------------------------------------------------------------
+# SaveAt lane cells: solve(..., saveat=SaveAt(ts=...), batch_axis=0)
+# ---------------------------------------------------------------------------
+
+TS = (0.4, 0.7, 1.0)
+
+
+def _saveat_loss(mod, ys):
+    """A loss over every observation of every lane, and a cross term
+    between the first and last observation."""
+    x = ys[0]
+    if mod is J:
+        return jnp.sum(jnp.tanh(x) ** 2) + jnp.sum(x[0] * x[-1])
+    return torch.sum(torch.tanh(x) ** 2) + torch.sum(x[0] * x[-1])
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_batched_saveat(gradient):
+    x0, params = _problem()
+
+    def loss(x, p):
+        sol = J.solve(osc_jax, x, p, saveat=J.SaveAt(ts=jnp.asarray(TS)),
+                      stepping=_cfg(J), gradient=gradient, batch_axis=0,
+                      backend="jnp")
+        return _saveat_loss(J, sol.ys), sol
+
+    (_, sol), g = jax.jit(jax.value_and_grad(loss, argnums=(0, 1),
+                                             has_aux=True))(
+        tuple(jnp.asarray(l) for l in x0),
+        {k: jnp.asarray(v) for k, v in params.items()})
+    return sol.ys, _stats(sol), list(g[0]) + [g[1]["w"]]
+
+
+def _torch_batched_saveat(gradient, backend="auto", x0=None, **kw):
+    x0_, params = _problem()
+    xt, pt = _torch_inputs(x0_ if x0 is None else x0, params, grad=True)
+    sol = T.solve(osc_torch, xt, pt, saveat=T.SaveAt(ts=list(TS)),
+                  stepping=_cfg(T, **kw), gradient=gradient, batch_axis=0,
+                  backend=backend)
+    g = torch.autograd.grad(_saveat_loss(T, sol.ys), list(xt) + [pt["w"]])
+    return sol, list(g)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("gradient", ["symplectic", "backprop", "adjoint"])
+def test_batched_saveat_matches_jax(gradient, backend):
+    """The lane SaveAt cells: per-lane stats exactly (threaded for the
+    symplectic adjoint and DirectBackprop, restarting for the adjoint),
+    observations to RTOL_X and gradients to RTOL_G / ATOL_G against the
+    JAX package's (its symplectic gradient for DirectBackprop, which JAX
+    cannot reverse through its while loop)."""
+    ys_j, stats_j, g_j = _jax_batched_saveat(
+        "adjoint" if gradient == "adjoint" else "symplectic")
+    sol, g = _torch_batched_saveat(gradient, backend)
+    assert sol.ys[0].shape == (len(TS), B, 2)
+    assert _stats(sol) == stats_j
+    for a, b in zip(sol.ys, ys_j):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                   rtol=RTOL_X)
+    for a, b in zip(g, g_j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL_G,
+                                   atol=ATOL_G)
+
+
+@pytest.mark.parametrize("gradient", ["symplectic", "adjoint"])
+def test_batched_saveat_matches_single_lanes(gradient):
+    """Inside torch: lane b of the batched SaveAt solve is the single-lane
+    SaveAt solve of lane b (values, stats), and the batched gradient is the
+    sum of the single-lane gradients (LOOP_TOL)."""
+    x0, params = _problem()
+    sol, g = _torch_batched_saveat(gradient)
+    want = [[], [], 0.0]
+    for b in range(B):
+        xt, pt = _torch_inputs((x0[0][b], x0[1][b]), params, grad=True)
+        one = T.solve(osc_torch, xt, pt, saveat=T.SaveAt(ts=list(TS)),
+                      stepping=_cfg(T), gradient=gradient)
+        for k in ("n_steps", "n_fevals", "n_attempts"):
+            assert int(one.stats[k]) == int(sol.stats[k][b]), (b, k)
+        np.testing.assert_allclose(sol.ys[0][:, b].detach().numpy(),
+                                   one.ys[0].detach().numpy(), rtol=RTOL_X)
+        gx, go, gw = torch.autograd.grad(
+            _saveat_loss(T, one.ys), list(xt) + [pt["w"]])
+        want[0].append(gx)
+        want[1].append(go)
+        want[2] = want[2] + gw
+    for a, c in zip(g, (torch.stack(want[0]), torch.stack(want[1]),
+                        want[2])):
+        assert float((a - c).abs().max()) < LOOP_TOL
+
+
+def test_poisoned_lane_does_not_burn_max_attempts_in_later_segments():
+    """A lane NaN-poisoned in an early SaveAt segment drops out after one
+    doomed trial per later segment, is flagged alone, and its stats equal
+    the JAX package's exactly; the healthy lanes equal their single
+    solves."""
+    x0, params = _problem()
+    tight = dict(max_steps=24, max_attempts=4096)
+    ts = np.linspace(0.25, 1.0, 4)
+    xt, pt = _torch_inputs(x0, params)
+    sol = T.solve(osc_torch, xt, pt, saveat=T.SaveAt(ts=ts),
+                  stepping=_cfg(T, **tight), gradient="backprop",
+                  batch_axis=0)
+    sol_j = J.solve(osc_jax, tuple(jnp.asarray(l) for l in x0),
+                    {"w": jnp.asarray(params["w"])},
+                    saveat=J.SaveAt(ts=jnp.asarray(ts)),
+                    stepping=_cfg(J, **tight), gradient="backprop",
+                    batch_axis=0, backend="jnp")
+    assert _stats(sol) == _stats(sol_j)
+    ok = sol.success.tolist()
+    assert ok[0] and not ok[-1]
+    assert int(sol.stats["n_attempts"][-1]) < 200
+    assert torch.isnan(sol.ys[0][-1, -1]).all()
+    one = T.solve(osc_torch, (xt[0][0], xt[1][0]), pt,
+                  saveat=T.SaveAt(ts=ts), stepping=_cfg(T, **tight),
+                  gradient="backprop")
+    np.testing.assert_allclose(sol.ys[0][:, 0].numpy(), one.ys[0].numpy(),
+                               rtol=RTOL_X)
+    assert int(sol.stats["n_attempts"][0]) == int(one.stats["n_attempts"])
+
+
+def test_lane_saveat_keeps_only_the_accepted_rows():
+    """The lane SaveAt driver's residuals: per segment the checkpoint rows
+    [0, max(n_accepted)) of that segment, cloned (not views of the
+    (max_steps + 1, B) buffers), and the params."""
+    x0, params = _problem()
+    xt, pt = _torch_inputs(x0, params, grad=True)
+    sol = T.solve(osc_torch, xt, pt, saveat=T.SaveAt(ts=list(TS)),
+                  stepping=_cfg(T), batch_axis=0)
+    fn = sol.ys[0].grad_fn
+    assert type(fn).__name__ == "_SymplecticSaveAtLanesBackward"
+    assert len(fn.segs) == len(TS)
+    max_steps = _cfg(T).max_steps
+    total = 0
+    for xs, ts, hs, n_acc in fn.segs:
+        rows = int(n_acc.max())
+        assert rows < max_steps
+        for buf in list(xs) + [ts, hs]:
+            assert buf.shape[0] == rows
+            assert buf._base is None           # a clone, not a view
+            assert buf.untyped_storage().nbytes() == \
+                buf.numel() * buf.element_size()
+        total += rows
+    assert total < len(TS) * (max_steps + 1)
+    assert len(fn.saved_tensors) == 1          # the params
+
+
+def test_per_sample_ts_squeezes_the_lane_singleton():
+    """model_solve_ys with per_sample=True and SaveAt(ts=...) returns
+    (len(ts), B, ...): the singleton axis of each lane is axis 2, after
+    the observation axis (axis 1 for SaveAt(t1=...))."""
+    from repro_torch.models.per_sample import model_solve_ys
+    x0, params = _problem()
+    xt, pt = _torch_inputs(x0, params)
+    ys = model_solve_ys(osc_torch, xt, pt, per_sample=True,
+                        saveat=T.SaveAt(ts=list(TS)), stepping=_cfg(T))
+    assert ys[0].shape == (len(TS), B, 2) and ys[1].shape == (len(TS), B)
+    lanes = T.solve(osc_torch, xt, pt, saveat=T.SaveAt(ts=list(TS)),
+                    stepping=_cfg(T), batch_axis=0)
+    assert torch.equal(ys[0], lanes.ys[0])
+    t1 = model_solve_ys(osc_torch, xt, pt, per_sample=True,
+                        saveat=T.SaveAt(t1=1.0), stepping=_cfg(T))
+    assert t1[0].shape == (B, 2) and t1[1].shape == (B,)

@@ -192,3 +192,70 @@ def test_trainer_two_steps_on_cpu(extra):
     for rec in hist:
         assert math.isfinite(rec["nll"]) and math.isfinite(rec["grad_norm"])
         assert rec["grad_norm"] > 0
+
+
+PATH_TS = (0.25, 0.5, 1.0)
+
+
+def _path_loss(mod, xs, dlps):
+    lib = jnp if mod is jcnf else torch
+    return lib.sum(lib.tanh(xs) ** 2) + lib.sum(dlps * dlps)
+
+
+@pytest.mark.parametrize("per_sample", [False, True],
+                         ids=["fixed", "per_sample"])
+def test_cnf_flow_path_matches_jax(per_sample):
+    """cnf_flow_path: one SaveAt(ts) solve per component, the path states
+    and the cumulative delta log p stacked over M * len(ts) points; values
+    and the gradient of a loss over the whole path against the JAX
+    package's (symplectic adjoint; per_sample=True runs the lane SaveAt
+    cell, adaptive, one controller per sample) at RTOL, ATOL."""
+    if per_sample:
+        kw, u, eps, jparams, _, _ = _per_sample_case("hutchinson")
+        jcfg = jcnf.CNFConfig(**kw, combine_backend="jnp")
+        tcfg = tcnf.CNFConfig(**kw)
+    else:
+        u, eps = _data()
+        jparams = _jax_params()
+        jcfg, tcfg = _cfg(jcnf), _cfg(tcnf)
+
+    def jloss(p):
+        xs, dlps = jcnf.cnf_flow_path(p, jnp.asarray(u), jnp.asarray(eps),
+                                      jcfg, jnp.asarray(PATH_TS))
+        return _path_loss(jcnf, xs, dlps), (xs, dlps)
+
+    (_, (xs_j, dlps_j)), g_j = jax.jit(jax.value_and_grad(
+        jloss, has_aux=True))(jax.tree_util.tree_map(jnp.asarray, jparams))
+    params = tcnf.params_from_jax(jparams, device="cpu")
+    leaves = pytree.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    xs, dlps = tcnf.cnf_flow_path(params, torch.tensor(u), torch.tensor(eps),
+                                  tcfg, PATH_TS)
+    n_points = tcfg.n_components * len(PATH_TS)
+    assert xs.shape == (n_points,) + u.shape and \
+        dlps.shape == (n_points, u.shape[0])
+    for a, b in ((xs, xs_j), (dlps, dlps_j)):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                   rtol=RTOL, atol=ATOL)
+    grads = torch.autograd.grad(_path_loss(tcnf, xs, dlps), leaves)
+    for a, b in zip(grads, jax.tree_util.tree_leaves(g_j)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_cnf_flow_path_endpoint_matches_forward():
+    """With one observation at t1 the flow path's last point is
+    cnf_forward exactly (the JAX package's
+    test_flow_path_endpoint_matches_forward, float64 rtol 1e-12)."""
+    u, eps = _data()
+    cfg = _cfg(tcnf)
+    params = tcnf.params_from_jax(_jax_params(), device="cpu")
+    xs, dlps = tcnf.cnf_flow_path(params, torch.tensor(u), torch.tensor(eps),
+                                  cfg, [cfg.t1])
+    z, dlp = tcnf.cnf_forward(params, torch.tensor(u), torch.tensor(eps),
+                              cfg)
+    np.testing.assert_allclose(xs[-1].detach().numpy(), z.detach().numpy(),
+                               rtol=1e-12)
+    np.testing.assert_allclose(dlps[-1].detach().numpy(),
+                               dlp.detach().numpy(), rtol=1e-12)

@@ -331,3 +331,58 @@ def test_strategies_kernel_path_matches_plain_on_card(case):
         assert a.device.type == "cuda"
         err = float((a - b).abs().max())
         assert err <= 1e-9 * max(float(b.abs().max()), 1e-3), err
+
+
+# ---------------------------------------------------------------------------
+# SaveAt on the kernel path against the plain path, both on the card,
+# float64, the same rule: Hermite dense output (the one-row kernel's lane
+# form, s 3, one lane per observation), dopri8 (s 12) fixed and adaptive
+# SaveAt solves with the symplectic gradient, the per-sample SaveAt cell,
+# and one physics rollout_loss gradient.
+
+SAVEAT_CASES = ["dense", "dopri8_fixed", "dopri8_adaptive", "lanes",
+                "rollout_loss"]
+
+
+def _saveat_grads(case, backend, dev):
+    from repro_torch.core import AdaptiveConfig, SaveAt, solve
+    if case == "rollout_loss":
+        from repro_torch.models import physics
+        cfg = physics.PhysicsConfig(grid=16, channels=4, hidden=8,
+                                    combine_backend=backend, n_steps=2)
+        params = physics.init_energy_net(cfg, seed=0, device=dev,
+                                         dtype=torch.float64)
+        leaves = list(params.values())
+        for p in leaves:
+            p.requires_grad_(True)
+        rng = np.random.default_rng(23)
+        u = torch.tensor(0.3 * rng.normal(size=(3, 2, 16)), device=dev)
+        loss = physics.rollout_loss(params, u, cfg)
+        return torch.autograd.grad(loss, leaves)
+    lanes = case == "lanes"
+    x0, params = _strategy_case(lanes, dev)
+    cfg = AdaptiveConfig(rtol=1e-7, atol=1e-9, initial_step=0.1)
+    kw = {"dense": dict(saveat=SaveAt(ts=[0.3, 0.55, 1.0], dense=True),
+                        gradient="backprop", stepping=cfg),
+          "dopri8_fixed": dict(method="dopri8", stepping=3),
+          "dopri8_adaptive": dict(method="dopri8", stepping=cfg),
+          "lanes": dict(stepping=cfg, batch_axis=0)}[case]
+    kw.setdefault("saveat", SaveAt(ts=[0.3, 0.55, 1.0]))
+    sol = solve(_strategy_field, tuple(x0), params, backend=backend, **kw)
+    loss = torch.sum(torch.tanh(sol.ys[0]) ** 2) + torch.sum(sol.ys[1] ** 3)
+    grads = torch.autograd.grad(loss, x0 + list(params.values()))
+    return grads + tuple(v.to(dev).double() for v in sol.stats.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SAVEAT_CASES)
+def test_saveat_kernel_path_matches_plain_on_card(case):
+    dev = _on_card()
+    combine_kern.butcher_combine.launches = 0
+    got = _saveat_grads(case, "cuda", dev)
+    assert combine_kern.butcher_combine.launches > 0
+    want = _saveat_grads(case, "torch", dev)
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda"
+        err = float((a - b).abs().max())
+        assert err <= 1e-9 * max(float(b.abs().max()), 1e-3), err

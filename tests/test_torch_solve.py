@@ -232,51 +232,42 @@ def test_adaptive_symplectic_equals_grid_replay(backend):
 
 
 def test_unported_cells_name_their_roadmap_item():
-    """All five strategies' t1 cells are the JAX package's, single and
-    lane-batched; the SaveAt cells not ported yet (ts, dense) name ROADMAP
-    item 9 for every strategy."""
+    """No cell of the JAX package's table is left unported: the port's
+    capability matrix equals JAX's on every cell (t1, ts and dense), and
+    an illegal cell fails with the uniform message naming the legal
+    ones."""
     x0, params = _problem()
     xt = tuple(torch.tensor(l) for l in x0)
     pt = {k: torch.tensor(v) for k, v in params.items()}
-    xb = tuple(l.expand((2,) + l.shape) for l in xt)
     names = ("symplectic", "backprop", "remat_step", "remat_solve",
              "adjoint")
-    ts = T.SaveAt(ts=[0.5, 1.0])
+    jm, tm = J.capability_matrix(), T.capability_matrix()
+    assert sorted(tm) == sorted(names)
+    assert tm == jm
+    assert tm["remat_step"][("fixed", "ts")]
+    assert not tm["remat_solve"][("adaptive", "t1")]
+    assert tm["adjoint"][("adaptive", "ts")]
+    dense = T.SaveAt(ts=[0.5, 1.0], dense=True)
     for name in names:
-        with pytest.raises(ValueError, match="item 9"):
-            T.solve(field_torch, xt, pt, gradient=name, saveat=ts,
-                    stepping=3)
-        with pytest.raises(ValueError, match="item 9"):
-            T.solve(field_torch, xt, pt, gradient=name,
-                    saveat=T.SaveAt(ts=[0.5, 1.0], dense=True),
+        if name == "backprop":
+            continue
+        with pytest.raises(ValueError, match="legal.*combinations"):
+            T.solve(field_torch, xt, pt, gradient=name, saveat=dense,
                     stepping=_cfg(T))
-        # lane-batched (batch_axis=0): the missing cells name item 9 too
-        with pytest.raises(ValueError, match="batch_axis=0.*item 9"):
-            T.solve(field_torch, xb, pt, gradient=name, saveat=ts,
-                    stepping=3, batch_axis=0)
     with pytest.raises(ValueError, match="unknown gradient strategy"):
         T.solve(field_torch, xt, pt, gradient="nope")
-    # the port's table equals the JAX package's on every t1 cell, and
-    # offers no cell that JAX lacks
-    jm, tm = J.capability_matrix(), T.capability_matrix()
-    assert sorted(tm) == sorted(jm) == sorted(names)
-    for name, cells in tm.items():
-        for cell, ok in cells.items():
-            assert not ok or jm[name][cell], (name, cell)
-            if cell[1] == "t1":
-                assert ok == jm[name][cell], (name, cell)
-    assert tm["remat_step"][("fixed", "t1")]
-    assert not tm["remat_solve"][("adaptive", "t1")]
-    assert tm["adjoint"][("adaptive", "t1")]
+    assert "item 9" not in T.solve.__doc__ + T.SaveAt.__doc__
 
 
 def test_symplectic_forward_keeps_no_stage_graph():
     """Algorithm 1: the forward saves only {x_n, t_n, h_n}; the output's
-    graph is the one autograd.Function node, not the solver's stages."""
+    graph is the one autograd.Function node (the t1 solve is its one
+    segment), not the solver's stages."""
     x0, params = _problem(5)
     xt, pt = _torch_inputs(x0, params)
     sol = T.solve(field_torch, xt, pt, stepping=5)
     fn = sol.ys[0].grad_fn
-    assert type(fn).__name__ == "_SymplecticSolveBackward"
-    assert len(fn.xs) == 5 and len(fn.ts) == 5
-    assert all(not l.requires_grad for x in fn.xs[1:] for l in x)
+    assert type(fn).__name__ == "_SymplecticSaveAtBackward"
+    (xs, ts, hs), = fn.segs
+    assert len(xs) == 5 and len(ts) == 5
+    assert all(not l.requires_grad for x in xs[1:] for l in x)
