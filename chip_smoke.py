@@ -185,6 +185,40 @@ it (the physics workload of the paper's Table 4, the CNF flow path):
                endpoint equals ``cnf_forward`` (float32 rtol 1e-5, float64
                rtol 1e-12; per-sample with ts = [t1]); ms and launches.
 
+The continuous-batching ODE solve server (``repro_torch.serve``,
+``repro_torch.launch.serve ode``):
+
+ 28. serve ode — the main path: ``benchmarks/bench_serve.py::main``'s
+               configuration (tanh-MLP field, dim 1024, hidden 1024,
+               dopri5, float32; 20 requests of horizons in [0.5, 1.0] and
+               three tolerance pairs, stream seed 7; engine rtol 1e-4, atol
+               1e-6, initial_step 0.02, max_steps 96, buckets (8, 16)),
+               weights from seed 0, through the port's API: the naive
+               sequential baseline (after a warm-up pass), a drain run on a
+               fresh engine after one throwaway run, and Poisson-paced runs
+               at 0.5x and 1.5x the naive rate.  Per run: req/s, p50/p99
+               latency, the engine's stats, both combines' launches and the
+               CUDA synchronisations (sync debug mode), each per engine
+               step; engine_init_s.  Fatal: a request failed, no request
+               joined a running batch, the lanes did not grow to 16,
+               launches per step other than 6 one-row + 1 rows (lane
+               forms), or more synchronisations than one per eviction sweep
+               plus one per harvested lane.  Then the CLI at its defaults
+               (``serve ode --naive``: dim 32, hidden 64, 64 requests,
+               buckets 4 8 16, max_steps 512): every request succeeds.
+ 29. serve exactness — float64, dim 8, hidden 16, 10 requests, buckets
+               (2, 4, 8): each request served out of the shared state
+               equals it served alone at the same bucket bitwise, and alone
+               at B 2 with equal stats and rtol 1e-12; the card's engine
+               equals the port's CPU engine on the same stream (stats
+               equal, rtol 1e-9); the slot state moved card -> host -> card
+               after 5 steps finishes bitwise as the uninterrupted run.
+ 30. serve report — float32 ms per call, alone and host of both lane forms
+               at the engine's shape (B 16, n_lane 1024, s 7; m 2), their
+               plain versions, one ``torch.baddbmm`` (one-row form) and the
+               byte bound; one engine step (16 lanes occupied) under
+               torch.profiler.
+
 Phase 2 also holds the kernels against their plain versions at this
 slice's new call shapes: the Hermite lane rows (s 3, 8 lanes, the CNF's and
 the physics' leaves) and dopri8's s 12 (and 13 with the FSAL error slope)
@@ -192,7 +226,8 @@ one-row and rows calls at the physics shape (n 32 x 64).
 
 The combines' ``launches`` in the ``kernels`` line sum phases 3, 21, 23,
 24 and 27 (``launches_by_path`` splits them; the lane forms' rows sum
-phase 14 and the per-sample cells of phases 24 and 27).  The card's
+phase 14, the per-sample cells of phases 24 and 27 and phase 28's drain
+run, and carry phase 30's numbers as ``serve_shape``).  The card's
 name and power limit are printed early; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -306,6 +341,7 @@ def kernels_vs_plain():
                 n_cases += 2
     n_cases += _lane_cases(kern, ref, dev, max_err)
     n_cases += _saveat_shape_cases(kern, ref, dev, max_err)
+    n_cases += _serve_shape_cases(kern, ref, dev, max_err)
     torch.cuda.synchronize()
     print(f"kernel cases {n_cases} all within tolerance; float32 max abs "
           f"err {max_err}")
@@ -431,6 +467,67 @@ def _saveat_shape_cases(kern, ref, dev, max_err):
     print(f"SaveAt call shapes: Hermite lane rows (s 3, 8 lanes) at leaves "
           f"{HERMITE_LEAVES}, dopri8 s 12/13 one-row and rows (m 2) at n "
           f"{PHYS_N}: {n_cases} cases within tolerance")
+    return n_cases
+
+
+def _serve_shape_cases(kern, ref, dev, max_err):
+    """The ODE server's call shapes: dopri5's stage combines (one-row lane
+    form, s 1..6) and its fused solution + error (rows lane form, s 7, m 2,
+    sc (1, 0)) at B 8 and 16 lanes of n_lane = dim, each lane's rows h_b
+    times the tableau's, and every third lane free (h 0: all-zero rows),
+    which must return x (one-row) and x, 0 (rows) exactly."""
+    from repro_torch.core import get_tableau
+    tab = get_tableau("dopri5")
+    a = torch.tensor(tab.a, dtype=torch.float64, device=dev)
+    be = torch.tensor((tab.b, tab.b_err), dtype=torch.float64, device=dev)
+    n_lane = SERVE_ODE["dim"]
+    n_cases = 0
+    for dtype in (torch.float32, torch.float64):
+        for B in SERVE_ODE["buckets"]:
+            g = torch.Generator(device=dev).manual_seed(B)
+            h = torch.empty(B, device=dev, dtype=torch.float64).uniform_(
+                0.005, 0.2, generator=g)
+            free = torch.arange(B, device=dev) % 3 == 1
+            h[free] = 0.0
+            x = torch.randn((B, n_lane), generator=g, device=dev).to(dtype)
+            ks = torch.randn((tab.s, B, n_lane), generator=g,
+                             device=dev).to(dtype)
+            xa, ka = x.abs(), ks.abs()
+            for s in range(1, tab.s):
+                hc = (h[:, None] * a[s, :s]).to(dtype)
+                got = kern.butcher_combine(x, ks[:s], hc)
+                mag = xa + torch.einsum("bi,ibn->bn", hc.abs(), ka[:s])
+                ok, e = _close(got, ref.butcher_combine_ref(x, ks[:s], hc,
+                                                            1.0), mag, dtype)
+                check(ok, f"serve shape butcher_combine {dtype} B={B} "
+                          f"n_lane={n_lane} s={s}: max err {e}")
+                check(torch.equal(got[free], x[free]),
+                      f"serve shape butcher_combine {dtype} B={B} s={s}: a "
+                      f"free lane (all-zero row) is not returned exactly")
+                if dtype == torch.float32:
+                    max_err["butcher_combine_lanes"] = max(
+                        max_err["butcher_combine_lanes"], e)
+                n_cases += 1
+            hm = (h[:, None, None] * be).to(dtype)
+            sc = torch.tensor([1.0, 0.0], dtype=dtype, device=dev)
+            got = kern.butcher_combine_rows(x, ks, hm, sc)
+            mag = sc.abs()[:, None, None] * xa + \
+                torch.einsum("bri,ibn->rbn", hm.abs(), ka)
+            ok, e = _close(got, ref.butcher_combine_rows_ref(x, ks, hm, sc,
+                                                             1.0), mag, dtype)
+            check(ok, f"serve shape butcher_combine_rows {dtype} B={B} "
+                      f"n_lane={n_lane} s={tab.s} m=2: max err {e}")
+            check(torch.equal(got[0][free], x[free]) and
+                  not bool(got[1][free].any()),
+                  f"serve shape butcher_combine_rows {dtype} B={B}: a free "
+                  f"lane's rows are not x and 0 exactly")
+            if dtype == torch.float32:
+                max_err["butcher_combine_rows_lanes"] = max(
+                    max_err["butcher_combine_rows_lanes"], e)
+            n_cases += 1
+    print(f"serve shapes: dopri5 stages s 1..{tab.s - 1} (one-row) and s "
+          f"{tab.s} m 2 (rows) at B {SERVE_ODE['buckets']} x n_lane {n_lane}, "
+          f"free lanes exact: {n_cases} cases within tolerance")
     return n_cases
 
 
@@ -1126,11 +1223,29 @@ def _per_sample_inputs(B, dtype=torch.float32, seed=0):
     return cfg, params, u[:B], eps[:B]
 
 
+def _counted(run):
+    """``run()`` with the combines' launch counters set to 0 just before and
+    the CUDA synchronisations it makes counted by ``torch.cuda``'s sync
+    debug mode; returns (its result, synchronisations, (one-row launches,
+    rows launches))."""
+    import warnings
+    torch.cuda.synchronize()
+    _zero_combine_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+    return out, syncs, _combine_counts()
+
+
 def _lane_solve(cfg, params, u, eps):
     """The per-sample forward solve of ``cnf_forward`` (one component, no
     graph) through the batched driver; returns (solution, CUDA
     synchronisations during the solve, combine launches during it)."""
-    import warnings
     from repro_torch.core import AdaptiveConfig, get_tableau
     from repro_torch.core.rk import rk_solve_adaptive_batched
     from repro_torch.models.cnf import cnf_field, component
@@ -1138,19 +1253,10 @@ def _lane_solve(cfg, params, u, eps):
                                      device=u.device), eps[:, None])
     acfg = AdaptiveConfig(rtol=cfg.rtol, atol=cfg.atol,
                           max_steps=cfg.max_steps)
-    torch.cuda.synchronize()
-    _zero_combine_counts()
-    with torch.no_grad(), warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            sol = rk_solve_adaptive_batched(
-                cnf_field(cfg), get_tableau(cfg.method), state, 0.0, cfg.t1,
-                component(params, 0), acfg)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("called a synchronizing" in str(w.message) for w in caught)
-    return sol, syncs, _combine_counts()
+    with torch.no_grad():
+        return _counted(lambda: rk_solve_adaptive_batched(
+            cnf_field(cfg), get_tableau(cfg.method), state, 0.0, cfg.t1,
+            component(params, 0), acfg))
 
 
 def per_sample_main_path():
@@ -1976,6 +2082,296 @@ def cnf_flow_path_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# The ODE solve server: the continuous-batching SolveEngine
+
+# benchmarks/bench_serve.py::main's configuration, nothing cut: a tanh-MLP
+# field at dim 1024, hidden 1024, dopri5, float32; 20 requests of horizons
+# uniform in [0.5, 1.0] and tolerances drawn from three pairs (stream seed
+# 7); max_steps 96, lane buckets (8, 16); Poisson loads at 0.5x and 1.5x
+# the naive baseline's rate
+SERVE_ODE = dict(dim=1024, hidden=1024, requests=20, max_steps=96,
+                 buckets=(8, 16), t1_range=(0.5, 1.0), seed=7,
+                 tol_choices=((1e-3, 1e-5), (1e-4, 1e-6), (3e-4, 3e-6)),
+                 loads=(0.5, 1.5))
+# the exactness phase's small width (float64)
+SERVE_EXACT = dict(dim=8, hidden=16, requests=10, max_steps=128,
+                   buckets=(2, 4, 8), seed=3)
+
+
+def _serve_engine(dim, hidden, max_steps, buckets, dtype=torch.float32,
+                  device="cuda"):
+    """A SolveEngine of the ``serve ode`` launcher's field, weights (seed 0)
+    and controller, through the port's API; returns (make_engine, field,
+    cfg, params): ``make_engine()`` builds a fresh engine."""
+    from repro_torch.core import get_tableau
+    from repro_torch.launch.serve import ode_config, ode_field, ode_params
+    from repro_torch.serve import EngineConfig, SolveEngine
+    params = ode_params(dim, hidden, 0, dtype, device)
+    cfg = ode_config(max_steps)
+
+    def make_engine():
+        return SolveEngine(ode_field, get_tableau("dopri5"), cfg, params,
+                           torch.zeros(dim, dtype=dtype, device=device),
+                           EngineConfig(buckets=tuple(buckets)))
+    return make_engine, ode_field, cfg, params
+
+
+def _timed_engine(make_engine):
+    """A fresh engine and its construction seconds (engine_init_s: each
+    bucket's warm-up attempt included)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    engine = make_engine()
+    torch.cuda.synchronize()
+    return engine, time.perf_counter() - t
+
+
+def _serve_run(label, engine, init_s, run, n):
+    """One counted engine run: prints req/s, p50/p99, engine_init_s, the
+    engine's stats, the combines' launches (per engine step) and the CUDA
+    synchronisations (per step); checks every request succeeded and syncs
+    <= one per eviction sweep plus one per harvested lane."""
+    from repro_torch.serve import latency_summary
+    t = time.perf_counter()
+    results, syncs, (one, rows) = _counted(run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    lat = latency_summary(results)
+    st = engine.stats
+    steps = st["steps_total"]
+    ok = sum(r.succeeded for r in results.values())
+    print(f"  {label}: {n} requests ({ok} ok) in {wall:.6f} s -> "
+          f"{n / wall:.3f} req/s; latency p50 {lat['p50_ms']:.3f} ms p99 "
+          f"{lat['p99_ms']:.3f} ms; engine_init_s {init_s:.6f}; stats "
+          f"{st}; launches butcher_combine "
+          f"{one} ({one / steps:.3f}/step) butcher_combine_rows {rows} "
+          f"({rows / steps:.3f}/step); CUDA synchronisations {syncs} "
+          f"({syncs / steps:.3f}/step)")
+    check(len(results) == n and ok == n,
+          f"serve ode {label}: {ok} of {n} requests succeeded")
+    check(syncs <= steps // engine.engine_cfg.check_every + n,
+          f"serve ode {label}: {syncs} synchronisations in {steps} steps "
+          f"and {n} harvests")
+    check(one == 6 * steps and rows == steps,
+          f"serve ode {label}: {one} one-row and {rows} rows launches in "
+          f"{steps} dopri5 steps (6 and 1 per step)")
+    return {"rps": n / wall, "wall_s": wall, **lat, "stats": st,
+            "engine_init_s": init_s,
+            "butcher_combine": one, "butcher_combine_rows": rows,
+            "syncs": syncs}
+
+
+def serve_ode_main_path():
+    """bench_serve's configuration through the engine: the naive baseline,
+    a drain run, two Poisson loads; then the CLI at its defaults."""
+    from repro_torch.core import get_tableau
+    from repro_torch.launch import serve
+    from repro_torch.serve import (naive_sequential_solve, poisson_arrivals,
+                                   serve_timed, synthetic_stream)
+    c = SERVE_ODE
+    phase("28 serve ode (main path): bench_serve's configuration, dim "
+          f"{c['dim']}, hidden {c['hidden']}, {c['requests']} requests, "
+          f"buckets {c['buckets']}, float32")
+    make_engine, field, cfg, params = _serve_engine(
+        c["dim"], c["hidden"], c["max_steps"], c["buckets"])
+    n = c["requests"]
+    reqs = synthetic_stream(n, c["dim"], seed=c["seed"],
+                            t1_range=c["t1_range"],
+                            tol_choices=c["tol_choices"], device="cuda")
+    sols, lats = naive_sequential_solve(field, get_tableau("dopri5"), cfg,
+                                        params, reqs)
+    wall_n = float(sum(lats))
+    rps_n = n / wall_n
+    ok_n = sum(bool(s.succeeded) for s in sols)
+    print(f"  naive sequential: {n} requests ({ok_n} ok) in {wall_n:.6f} s "
+          f"-> {rps_n:.3f} req/s; per-solve p50 "
+          f"{sorted(lats)[n // 2] * 1e3:.3f} ms, max {max(lats) * 1e3:.3f} "
+          f"ms; accepted steps {[int(s.n_accepted) for s in sols]}")
+    check(ok_n == n, f"serve ode naive: {ok_n} of {n} succeeded")
+    engine, init_s = _timed_engine(make_engine)
+    print(f"  engine_init_s {init_s:.6f} (the first engine; each bucket "
+          f"warmed)")
+    engine.run(reqs)                        # throwaway run
+    engine, init_s = _timed_engine(make_engine)
+    out = {"naive_rps": rps_n}
+    out["drain"] = _serve_run("drain", engine, init_s,
+                              lambda: engine.run(reqs), n)
+    st = out["drain"]["stats"]
+    check(st["lanes"] == c["buckets"][-1],
+          f"serve ode: lanes {st['lanes']}, not grown to {c['buckets'][-1]}")
+    check(st["inserted_while_running"] > 0,
+          "serve ode: no request joined a running batch")
+    print(f"  drain: {out['drain']['rps'] / rps_n:.3f}x the naive rate")
+    for k in c["loads"]:
+        engine, init_s = _timed_engine(make_engine)
+        arrivals = poisson_arrivals(n, k * rps_n, seed=c["seed"])
+        out[f"load_{k}"] = _serve_run(
+            f"Poisson {k}x naive ({k * rps_n:.3f} req/s offered)", engine,
+            init_s, lambda: serve_timed(engine, reqs, arrivals), n)
+    cli = serve.main(["ode", "--naive"])
+    check(cli["ok"] == cli["requests"] and
+          cli["naive"]["ok"] == cli["requests"],
+          f"serve ode CLI: {cli['ok']} / {cli['naive']['ok']} of "
+          f"{cli['requests']} succeeded")
+    out["cli"] = cli
+    return out
+
+
+def _same_result(got, want, rtol):
+    """Integer stats equal and x_final equal (rtol None) or within rtol of
+    the largest entry."""
+    stats = ("succeeded", "n_accepted", "n_fevals", "n_attempts")
+    if tuple(getattr(got, k) for k in stats) != \
+            tuple(getattr(want, k) for k in stats):
+        return False
+    a, b = got.x_final.cpu(), want.x_final.cpu()
+    if rtol is None:
+        return torch.equal(a, b)
+    return float((a - b).abs().max()) <= rtol * float(b.abs().max())
+
+
+def serve_exactness():
+    from repro_torch.serve import synthetic_stream
+    c = SERVE_EXACT
+    phase(f"29 serve exactness (float64, dim {c['dim']}, hidden "
+          f"{c['hidden']}, buckets {c['buckets']})")
+    args = (c["dim"], c["hidden"], c["max_steps"])
+    f64 = dict(dtype=torch.float64)
+    make, _, _, _ = _serve_engine(*args, c["buckets"], **f64)
+    make_top, _, _, _ = _serve_engine(*args, c["buckets"][-1:], **f64)
+    make_low, _, _, _ = _serve_engine(*args, c["buckets"][:1], **f64)
+    make_cpu, _, _, _ = _serve_engine(*args, c["buckets"], device="cpu",
+                                      **f64)
+    n = c["requests"]
+    reqs = synthetic_stream(n, c["dim"], seed=c["seed"], dtype=torch.float64,
+                            device="cuda")
+    engine = make()
+    results = engine.run(reqs)
+    check(engine.stats["lanes"] == c["buckets"][-1] and
+          engine.stats["inserted_while_running"] > 0,
+          f"serve exactness: stats {engine.stats}")
+    worst = 0.0
+    for rid, req in enumerate(reqs):
+        check(_same_result(results[rid], make_top().run([req])[0], None),
+              f"request {rid}: not bitwise equal to serving it alone at "
+              f"B {c['buckets'][-1]}")
+        alone = make_low().run([req])[0]
+        check(_same_result(results[rid], alone, 1e-12),
+              f"request {rid}: served at B {c['buckets'][-1]} and alone at "
+              f"B {c['buckets'][0]} differ beyond rtol 1e-12")
+        worst = max(worst, float((results[rid].x_final - alone.x_final)
+                                 .abs().max() / alone.x_final.abs().max()))
+    print(f"  shared state == alone at the same bucket, bitwise ({n} "
+          f"requests); across buckets stats equal, worst rel err "
+          f"{worst:.3e}")
+    cpu_reqs = [r._replace(x0=r.x0.cpu()) for r in reqs]
+    cpu = make_cpu().run(cpu_reqs)
+    worst = 0.0
+    for rid in range(n):
+        check(_same_result(results[rid], cpu[rid], 1e-9),
+              f"request {rid}: card and CPU engines differ (stats or "
+              f"rtol 1e-9)")
+        worst = max(worst, float((results[rid].x_final.cpu()
+                                  - cpu[rid].x_final).abs().max()
+                                 / cpu[rid].x_final.abs().max()))
+    print(f"  card == the port's CPU engine: stats equal, worst rel err "
+          f"{worst:.3e}")
+    full = make().run(reqs)
+    engine = make()
+    for r in reqs:
+        engine.submit(r)
+    paused = {}
+    for _ in range(5):
+        engine.step(paused)
+    check(engine.occupancy > 0, "serve exactness: nothing in flight at the "
+                                "pause")
+    from torch.utils import _pytree as pytree
+    engine._state = pytree.tree_map(
+        lambda l: torch.from_numpy(l.cpu().numpy().copy()).to(l.device)
+        if isinstance(l, torch.Tensor) else l, engine._state)
+    while engine.pending or engine.occupancy:
+        engine.step(paused)
+    check(sorted(paused) == sorted(full) and
+          all(_same_result(paused[r], full[r], None) for r in full),
+          "serve exactness: the run paused card -> CPU -> card differs "
+          "from the uninterrupted run")
+    print(f"  pause/resume (slot state card -> host -> card after 5 steps, "
+          f"{engine.stats['steps_total']} steps): bitwise equal")
+
+
+def serve_report(launches):
+    """Both lane forms at the engine's call shape (B 16, n_lane 1024, s 7,
+    m 2), held against their plain versions (fatal) and timed beside them,
+    one torch.baddbmm and the byte bound; and one engine step under
+    torch.profiler."""
+    from repro_torch.kernels import butcher_combine as kern
+    from repro_torch.kernels import ref
+    from repro_torch.serve import synthetic_stream
+    c = SERVE_ODE
+    B, n_lane, s, m, esize = c["buckets"][-1], c["dim"], MAIN_S, 2, 4
+    phase(f"30 serve report (float32, B {B}, n_lane {n_lane}, s {s}, m {m})")
+    dev = torch.device("cuda")
+    n = B * n_lane
+    g = torch.Generator(device=dev).manual_seed(30)
+    x = torch.randn((B, n_lane), generator=g, device=dev)
+    ks = torch.randn((s, B, n_lane), generator=g, device=dev)
+    hc = torch.randn((B, s), generator=g, device=dev)
+    hm = torch.randn((B, m, s), generator=g, device=dev)
+    sc = torch.tensor([1.0, 0.0], device=dev)
+    xb, kb, hb = x.view(B, 1, n_lane), ks.transpose(0, 1), hc.view(B, 1, s)
+    xa, ka = x.abs(), ks.abs()
+    rows = []
+    for name, fn, plain, lib, nbytes, mag in (
+            ("butcher_combine_lanes", lambda: kern.butcher_combine(x, ks, hc),
+             lambda: ref.butcher_combine_ref(x, ks, hc, 1.0),
+             lambda: torch.baddbmm(xb, hb, kb),
+             (s + 2) * n * esize + B * s * esize,
+             xa + torch.einsum("bi,ibn->bn", hc.abs(), ka)),
+            ("butcher_combine_rows_lanes",
+             lambda: kern.butcher_combine_rows(x, ks, hm, sc),
+             lambda: ref.butcher_combine_rows_ref(x, ks, hm, sc, 1.0), None,
+             (s + 1 + m) * n * esize + (B * m * s + m) * esize,
+             sc.abs()[:, None, None] * xa
+             + torch.einsum("bri,ibn->rbn", hm.abs(), ka))):
+        kname = name[:-len("_lanes")] + "_kernel"
+        ok, err = _close(fn(), plain(), mag, torch.float32)
+        check(ok, f"serve report {name}: kernel and plain differ, max abs "
+                  f"err {err}")
+        t_k, t_p = _time_ms(fn), _time_ms(plain)
+        t_l = _time_ms(lib) if lib is not None else None
+        d_k = _device_ms(fn, kname)
+        h_k = _host_ms(fn)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        per_step = 1 if "rows" in name else 6
+        print(f"  {name}: kernel {t_k:.6f} ms (device "
+              f"{d_k if d_k is None else f'{d_k:.6f}'}, host {h_k:.6f}) "
+              f"plain {t_p:.6f} "
+              + ("" if t_l is None else f"baddbmm {t_l:.6f} kernel/baddbmm "
+                 f"{t_k / t_l:.3f} ")
+              + f"bound {bound:.6f} ({nbytes} bytes); max abs err vs plain "
+              f"{err}; launches "
+              f"{launches[name[:-len('_lanes')]]} in phase 28's drain run, "
+              f"{per_step} per engine step")
+        rows.append(dict(shape=f"float32 B={B} n_lane={n_lane} s={s}"
+                         + (f" m={m}" if "rows" in name else ""),
+                         ms=t_k, device_ms=d_k, host_ms=h_k, plain_ms=t_p,
+                         library_ms=t_l, bound_ms=bound, max_abs_err=err))
+    make_engine, _, _, _ = _serve_engine(c["dim"], c["hidden"],
+                                         c["max_steps"], c["buckets"])
+    engine = make_engine()
+    for r in synthetic_stream(c["requests"], c["dim"], seed=c["seed"],
+                              t1_range=c["t1_range"],
+                              tol_choices=c["tol_choices"], device="cuda"):
+        engine.submit(r)
+    results = {}
+    for _ in range(3):
+        engine.step(results)
+    _profile_once(f"engine step ({engine.occupancy} of {engine.stats['lanes']}"
+                  " lanes occupied)", lambda: engine.step(results))
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -2018,6 +2414,9 @@ def main():
     saveat_exactness()
     saveat_memory()
     path = cnf_flow_path_phase()
+    serve_ode = serve_ode_main_path()
+    serve_exactness()
+    serve_shape = serve_report(serve_ode["drain"])
 
     def summed(results, kinds, name):
         return sum(r[name] for (mode, kind), r in results.items()
@@ -2026,7 +2425,8 @@ def main():
     # the combines' launches, each path counted from 0 around its run: the
     # CNF main path (phase 3), the baselines trainers (phase 21), the
     # physics trainer (phase 23), the SaveAt cells (phase 24) and the CNF
-    # flow path (phase 27); single-trajectory and lane forms apart
+    # flow path (phase 27), and the ODE server (phase 28, the lane forms
+    # only); single-trajectory and lane forms apart
     for row in rows[:2]:
         name = row["name"]
         by_path = {"train": row["launches"],
@@ -2042,9 +2442,12 @@ def main():
         by_path = {"per_sample_train": row["launches"],
                    "saveat_cells_per_sample": summed(cells, ("per_sample",),
                                                      name),
-                   "cnf_flow_path_per_sample": path["per_sample"][name]}
+                   "cnf_flow_path_per_sample": path["per_sample"][name],
+                   "serve_ode": serve_ode["drain"][name]}
         row["launches_by_path"] = by_path
         row["launches"] = sum(by_path.values())
+    for row, at_serve in zip(rows[4:6], serve_shape):
+        row["serve_shape"] = at_serve
     print(f"total_seconds {time.perf_counter() - t0:.1f}")
     print(smi.splitlines()[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"kernels": rows}))

@@ -33,6 +33,14 @@ n_accepted[b], every other lane writes the scratch row max_steps.  The host
 reads ONE value per attempt: whether any lane is still live.  Every
 controller rule is the single-trajectory one applied per lane, so lane b of
 a batched solve takes the accepted grid of its own single solve.
+``advance_in_place`` is the same attempt with no host read, written into
+the state's own tensors: the serve engine (``repro_torch.serve``) drives it
+and reads liveness itself, once per eviction sweep.
+
+Tolerances may be data: ``init_state(..., rtol=, atol=)`` puts them into
+the state (0-dim, or one per lane), cast to each leaf's dtype in the error
+norm, so a solve at tolerances as data takes the same steps, bit for bit,
+as one at the config's Python floats.
 
 A stepper built with ``checkpoints=False`` records none of them (no lists,
 no buffers): the continuous adjoint's solves need only the final state, and
@@ -195,9 +203,13 @@ class AdaptiveConfig:
 
 
 def _tol_like(v, leaf):
-    """Cast a TENSOR tolerance to the leaf dtype; Python floats pass
-    through (they never promote the scale computation)."""
-    return v.to(leaf.dtype) if isinstance(v, torch.Tensor) else v
+    """A TENSOR tolerance (0-dim, or (B,) per lane) cast to the leaf dtype
+    and shaped to broadcast over the leaf's lane axis 0, so tolerances as
+    data reproduce the closed Python floats bit for bit; Python floats
+    pass through (they never promote the scale computation)."""
+    if isinstance(v, torch.Tensor):
+        return lane_bcast(v.to(leaf.dtype), leaf)
+    return v
 
 
 def _scaled_sq(e, a, b, rtol, atol) -> torch.Tensor:
@@ -226,7 +238,9 @@ def _error_norm(err, x, x_next, rtol, atol) -> torch.Tensor:
 def _error_norm_lanes(err, x, x_next, rtol, atol) -> torch.Tensor:
     """Per-lane error norms of lane-batched states, shape (B,): lane b's is
     ``_error_norm`` of lane b alone — the same per-leaf scale and the same
-    element-count weighting across leaves, never pooled over the batch."""
+    element-count weighting across leaves, never pooled over the batch.
+    ``rtol``/``atol`` are Python floats (shared) or (B,) tensors (one
+    tolerance per lane)."""
     leaves = zip(pytree.tree_leaves(err), pytree.tree_leaves(x),
                  pytree.tree_leaves(x_next))
     total, count = 0.0, 0
@@ -302,6 +316,8 @@ class SolverState(NamedTuple):
     xs, ts, hs   — the accepted checkpoints of Algorithm 1.
     active       — the host's copy of "the solve goes on": the clock is
                    short of t1, the budgets are not spent, and h is finite.
+    rtol, atol   — optional 0-dim tolerances in the time dtype (tolerances
+                   as data); None takes the AdaptiveConfig's Python floats.
     """
     t0: torch.Tensor
     t1: torch.Tensor
@@ -315,6 +331,8 @@ class SolverState(NamedTuple):
     ts: List[torch.Tensor]
     hs: List[torch.Tensor]
     active: bool
+    rtol: Optional[torch.Tensor] = None
+    atol: Optional[torch.Tensor] = None
 
 
 class BatchedSolverState(NamedTuple):
@@ -329,7 +347,13 @@ class BatchedSolverState(NamedTuple):
                    is where lanes that do not commit write.
     lanes        — arange(B), the lane index of the buffers' commit.
     live         — (B,) bool: the lane goes on (``lanes_active``).
-    active       — the host's copy of live.any(), read once per attempt.
+    active       — the host's copy of live.any(), read once per attempt
+                   (``advance_in_place`` leaves it as it is).
+    rtol, atol   — optional (B,) tolerances in the time dtype, one per lane
+                   (tolerances as data); None takes the AdaptiveConfig's.
+
+    The fields of a state from ``init_state`` share no storage with one
+    another, so ``advance_in_place`` may write each of them.
     """
     t0: torch.Tensor
     t1: torch.Tensor
@@ -345,6 +369,8 @@ class BatchedSolverState(NamedTuple):
     lanes: torch.Tensor
     live: torch.Tensor
     active: bool
+    rtol: Optional[torch.Tensor] = None
+    atol: Optional[torch.Tensor] = None
 
 
 def _commit_lanes(buf: torch.Tensor, val: torch.Tensor, row: torch.Tensor,
@@ -383,14 +409,16 @@ class AdaptiveStepper:
         return get_combiner(self.tab, self.combine_backend)
 
     # -- lifecycle ----------------------------------------------------------
-    def init_state(self, x0, t0, t1, h0=None, *, lanes: Optional[int] = None
-                   ) -> SolverState:
+    def init_state(self, x0, t0, t1, h0=None, *, lanes: Optional[int] = None,
+                   rtol=None, atol=None) -> SolverState:
         """Fresh state at t0.  ``h0`` seeds the controller with a step
         MAGNITUDE, falling back to ``cfg.initial_step`` when absent or
         zero.  ``lanes=B`` builds a lane-batched state (x0 leaves carry lane
-        axis 0; t0, t1 and h0 may be scalars or (B,))."""
+        axis 0; t0, t1 and h0 may be scalars or (B,)).  ``rtol``/``atol``
+        (scalars, or (B,) with lanes) put the tolerances into the state as
+        data, in place of the config's Python floats."""
         if lanes is not None:
-            return self._init_lanes(x0, t0, t1, h0, lanes)
+            return self._init_lanes(x0, t0, t1, h0, lanes, rtol, atol)
         cfg = self.cfg
         dtype, device = time_dtype(x0), _device_of(x0)
         t0 = as_time(t0, dtype, device)
@@ -400,14 +428,17 @@ class AdaptiveStepper:
                          device).abs()
         h = direction * torch.where(h0_abs > 0, h0_abs,
                                     as_time(cfg.initial_step, dtype, device))
-        state = SolverState(t0=t0, t1=t1, t=t0, x=x0, h=h, n_accepted=0,
-                            n_attempts=0, n_fevals=0, xs=[], ts=[], hs=[],
-                            active=True)
+        state = SolverState(
+            t0=t0, t1=t1, t=t0, x=x0, h=h, n_accepted=0, n_attempts=0,
+            n_fevals=0, xs=[], ts=[], hs=[], active=True,
+            rtol=None if rtol is None else as_time(rtol, dtype, device),
+            atol=None if atol is None else as_time(atol, dtype, device))
         return state._replace(
             active=self._budget_left(state)
             and bool(self._clock_live(state, state.t, state.h)))
 
-    def _init_lanes(self, x0, t0, t1, h0, B: int) -> BatchedSolverState:
+    def _init_lanes(self, x0, t0, t1, h0, B: int, rtol,
+                    atol) -> BatchedSolverState:
         cfg = self.cfg
         dtype, device = time_dtype(x0), _device_of(x0)
 
@@ -422,7 +453,9 @@ class AdaptiveStepper:
         h = torch.sign(t1 - t0) * torch.where(
             h0_abs > 0, h0_abs, as_time(cfg.initial_step, dtype, device))
         rows = cfg.max_steps + 1
-        counter = torch.zeros(B, dtype=torch.int32, device=device)
+
+        def counter():
+            return torch.zeros(B, dtype=torch.int32, device=device)
         xs = ts = hs = None
         if self.checkpoints:
             xs = pytree.tree_map(
@@ -431,10 +464,11 @@ class AdaptiveStepper:
             ts = torch.zeros((rows, B), dtype=dtype, device=device)
             hs = torch.zeros((rows, B), dtype=dtype, device=device)
         state = BatchedSolverState(
-            t0=t0, t1=t1, t=t0, x=x0, h=h, n_accepted=counter,
-            n_attempts=counter, n_fevals=counter, xs=xs, ts=ts, hs=hs,
-            lanes=torch.arange(B, device=device), live=counter.bool(),
-            active=True)
+            t0=t0, t1=t1, t=t0.clone(), x=x0, h=h, n_accepted=counter(),
+            n_attempts=counter(), n_fevals=counter(), xs=xs, ts=ts, hs=hs,
+            lanes=torch.arange(B, device=device), live=None, active=True,
+            rtol=None if rtol is None else per_lane(rtol),
+            atol=None if atol is None else per_lane(atol))
         # no host read here: if no lane is live, the first attempt leaves
         # every lane as it is and reads that back
         return state._replace(live=self.lanes_active(state))
@@ -478,8 +512,10 @@ class AdaptiveStepper:
         h_eff = direction * torch.minimum(h.abs(), gap)
         x_next, err = rk_step(f, tab, x, t, h_eff, params, self.combiner,
                               with_error=True)
+        rtol = cfg.rtol if state.rtol is None else state.rtol
+        atol = cfg.atol if state.atol is None else state.atol
         enorm = error_norm(_detach(err), _detach(x), _detach(x_next),
-                           cfg.rtol, cfg.atol)
+                           rtol, atol)
         accept = enorm <= 1.0
         factor = torch.clamp(
             cfg.safety * torch.pow(torch.clamp_min(enorm, 1e-10), err_exp),
@@ -519,9 +555,39 @@ class AdaptiveStepper:
 
     def _advance_lanes(self, state: BatchedSolverState,
                        params) -> BatchedSolverState:
-        """The lane-batched attempt: every lane steps from its own (t, h),
-        f once per stage over all lanes, and the lanes that are active and
-        accept commit.  The one host read is whether any lane is live."""
+        """The lane-batched attempt and its one host read: whether any lane
+        is live."""
+        state = self._attempt_lanes(state, params)
+        live = self.lanes_active(state)
+        return state._replace(live=live, active=bool(live.any()))
+
+    @torch.no_grad()
+    def advance_in_place(self, state: BatchedSolverState, params) -> None:
+        """One lane-batched attempt written into the state's own tensors
+        (t, x, h, the counters, ``live``; checkpoints as always), with no
+        host read and no autograd: the serve engine's step, whose slot
+        tensors keep their storage across attempts.  It runs whatever the
+        host flag ``active`` says, so a lane written into a finished state
+        steps; ``active`` is left as it is, and an attempt in which no lane
+        is live leaves every lane as it is.  The x0 given to ``init_state``
+        is the state's x, and is written too."""
+        new = self._attempt_lanes(state, params)
+        for dst, src in zip(self._attempt_fields(state),
+                            self._attempt_fields(new)):
+            dst.copy_(src)
+        state.live.copy_(self.lanes_active(state))
+
+    @staticmethod
+    def _attempt_fields(state: BatchedSolverState) -> List[torch.Tensor]:
+        return [state.t, state.h, state.n_accepted, state.n_attempts,
+                state.n_fevals] + pytree.tree_leaves(state.x)
+
+    def _attempt_lanes(self, state: BatchedSolverState,
+                       params) -> BatchedSolverState:
+        """The lane-batched attempt without a host read: every lane steps
+        from its own (t, h), f once per stage over all lanes, and the lanes
+        that are live and accept commit.  Returns the state with new t, x,
+        h and counters (``live`` as it was)."""
         t, x, active = state.t, state.x, state.live
         x_next, h_eff, accept, h_new = self._trial(
             state, params, lane_field(self.f), _error_norm_lanes)
@@ -539,14 +605,11 @@ class AdaptiveStepper:
         x = pytree.tree_map(
             lambda a, b: torch.where(lane_bcast(do, a), b, a), x, x_next)
         fevals = self.tab.s + (1 if self.tab.err_uses_fsal else 0)
-        state = state._replace(
+        return state._replace(
             t=torch.where(do, t + h_eff, t), x=x, h=h,
             n_accepted=n_acc + do.int(),
             n_attempts=state.n_attempts + active.int(),
             n_fevals=state.n_fevals + active.int() * fevals)
-        live = self.lanes_active(state)
-        # the one device-to-host read of the attempt
-        return state._replace(live=live, active=bool(live.any()))
 
     def run(self, state: SolverState, params) -> SolverState:
         """Drive ``advance`` until ``is_done``."""

@@ -1,15 +1,21 @@
-"""Serving entry point: batched LM decoding (prefill a batch of prompts into a
-bfloat16 KV cache, then decode token by token).
+"""Serving entry points: batched LM decoding and the continuous-batching
+ODE solve server.
 
+    # batched LM serving: prefill a batch of prompts into a bfloat16 KV
+    # cache, then decode token by token
     PYTHONPATH=src python -m repro_torch.launch.serve lm --arch qwen3-0.6b \\
         [--smoke] [--batch 8 --prompt-len 1024 --gen-len 32] [--device cpu]
 
-Runs on ``cuda`` unless ``--device`` says otherwise (and raises when there
-is no CUDA device).  Weights are random, from ``--seed``; prompts are the
-synthetic token stream of ``data/tokens.py``.  ``main`` returns the
-generated tokens and the timings it prints.  The bare legacy form (no
-subcommand) routes to ``lm``; the ``ode`` subcommand (the continuous-
-batching ODE engine) is not ported yet (ROADMAP queue 1, item 12).
+    # ODE solve serving: a heterogeneous request stream through
+    # repro_torch.serve.SolveEngine (drain, or Poisson arrivals with --rate)
+    PYTHONPATH=src python -m repro_torch.launch.serve ode [--smoke] \\
+        [--naive] [--rate 40] [--device cpu]
+
+Both run on ``cuda`` unless ``--device`` says otherwise (and raise when
+there is no CUDA device).  Weights are random, from ``--seed``; LM prompts
+are the synthetic token stream of ``data/tokens.py``, ODE requests the
+synthetic stream of ``serve/stream.py``.  ``main`` returns the numbers it
+prints.  The bare legacy form (no subcommand) routes to ``lm``.
 """
 from __future__ import annotations
 
@@ -18,17 +24,30 @@ import sys
 import time
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_arch, get_smoke_arch
+from repro_torch.core import AdaptiveConfig, get_tableau
 from repro_torch.data.tokens import synthetic_lm_batch
 from repro_torch.models.lm import init_lm
+from repro_torch.serve import (EngineConfig, SolveEngine, latency_summary,
+                               naive_sequential_solve, poisson_arrivals,
+                               serve_timed, synthetic_stream)
 from repro_torch.train import make_decode_step, make_prefill_step
 
 
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available "
+                           "(pass --device cpu to serve on the CPU)")
+    return device
 
 
 def _lm_main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -44,10 +63,7 @@ def _lm_main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available "
-                           "(pass --device cpu to serve on the CPU)")
+    device = _device(args.device)
     arch = get_smoke_arch(args.arch) if args.smoke else get_arch(args.arch)
     params = init_lm(arch, seed=args.seed, device=device)
     max_len = args.prompt_len + args.gen_len
@@ -94,10 +110,106 @@ def _lm_main(argv: Optional[Sequence[str]] = None) -> dict:
             "logits_finite": bool(finite)}
 
 
-def _ode_main(argv=None):
-    raise NotImplementedError(
-        "serve ode (the continuous-batching ODE engine) is not ported to "
-        "repro_torch yet (ROADMAP queue 1, item 12)")
+def ode_params(dim: int, hidden: int, seed: int = 0,
+               dtype: torch.dtype = torch.float32, device="cuda") -> dict:
+    """The ODE server's tanh-MLP weights from ``seed``, drawn by a CPU
+    ``torch.Generator`` (the same values on every device): w1 (dim,
+    hidden) and w2 (hidden, dim) with entries N(0, 0.4^2), b1 and b2 with
+    N(0, 0.1^2), the JAX launcher's scales."""
+    gen = torch.Generator().manual_seed(seed + 17)
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=gen, dtype=dtype)
+                * scale).to(device)
+
+    return {"w1": normal((dim, hidden), 0.4), "b1": normal((hidden,), 0.1),
+            "w2": normal((hidden, dim), 0.4), "b2": normal((dim,), 0.1)}
+
+
+def ode_field(x, t, p):
+    """dx/dt = tanh(x w1 + b1) w2 + b2."""
+    return torch.tanh(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+
+
+def ode_config(max_steps: int) -> AdaptiveConfig:
+    """The server's controller: rtol 1e-4, atol 1e-6 for lanes no request
+    has taken yet, initial step 0.02."""
+    return AdaptiveConfig(rtol=1e-4, atol=1e-6, max_steps=max_steps,
+                          initial_step=0.02)
+
+
+def _ode_main(argv: Optional[Sequence[str]] = None) -> dict:
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.serve ode")
+    ap.add_argument("--smoke", action="store_true",
+                    help="tiny sizes: rot-check that the engine runs")
+    ap.add_argument("--dim", type=int, default=32)
+    ap.add_argument("--hidden", type=int, default=64)
+    ap.add_argument("--requests", type=int, default=64)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seeds the weights, the stream and the arrivals")
+    ap.add_argument("--method", default="dopri5")
+    ap.add_argument("--buckets", type=int, nargs="+", default=[4, 8, 16])
+    ap.add_argument("--max-steps", type=int, default=512)
+    ap.add_argument("--rate", type=float, default=None,
+                    help="offered load in requests/s (Poisson arrivals); "
+                    "default: submit everything up front and drain")
+    ap.add_argument("--naive", action="store_true",
+                    help="also run the sequential single-solve baseline")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.smoke:
+        args.dim, args.hidden = 4, 8
+        args.requests = min(args.requests, 8)
+        args.buckets = [2, 4]
+
+    device = _device(args.device)
+    dim, tab = args.dim, get_tableau(args.method)
+    params = ode_params(dim, args.hidden, args.seed, device=device)
+    cfg = ode_config(args.max_steps)
+    reqs = synthetic_stream(args.requests, dim, seed=args.seed,
+                            device=device)
+
+    t0 = time.perf_counter()
+    engine = SolveEngine(ode_field, tab, cfg, params,
+                         x0_template=torch.zeros(dim, device=device),
+                         engine_cfg=EngineConfig(buckets=tuple(args.buckets)))
+    _sync(device)
+    t_init = time.perf_counter() - t0
+    print(f"[serve ode] engine up in {t_init:.3f}s on {device} (each "
+          f"bucket of {tuple(args.buckets)} warmed)")
+
+    arrivals = None
+    if args.rate is not None:
+        arrivals = poisson_arrivals(args.requests, args.rate, seed=args.seed)
+    t0 = time.perf_counter()
+    results = serve_timed(engine, reqs, arrivals)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    ok = sum(r.succeeded for r in results.values())
+    lat = latency_summary(results)
+    print(f"[serve ode] {len(results)} requests ({ok} ok) in {wall:.3f}s "
+          f"-> {len(results) / wall:.3f} req/s"
+          + (f" at offered {args.rate:.3f} req/s" if args.rate else
+             " (drain mode)"))
+    print(f"[serve ode] latency p50 {lat['p50_ms']:.3f} ms, "
+          f"p99 {lat['p99_ms']:.3f} ms; engine stats {engine.stats}")
+    out = {"requests": len(results), "ok": ok, "wall_s": wall,
+           "rps": len(results) / wall, "engine_init_s": t_init,
+           "stats": engine.stats, **lat}
+
+    if args.naive:
+        sols, lats = naive_sequential_solve(ode_field, tab, cfg, params,
+                                            reqs)
+        wall_n = float(np.sum(lats))       # steady state: warmup excluded
+        ok_n = sum(bool(s.succeeded) for s in sols)
+        print(f"[serve ode] naive sequential: {len(reqs)} requests ({ok_n} "
+              f"ok) in {wall_n:.3f}s -> {len(reqs) / wall_n:.3f} req/s; "
+              f"per-solve p50 {np.percentile(lats, 50) * 1e3:.3f} ms")
+        out["naive"] = {"ok": ok_n, "wall_s": wall_n,
+                        "rps": len(reqs) / wall_n,
+                        "p50_ms": float(np.percentile(lats, 50) * 1e3),
+                        "p99_ms": float(np.percentile(lats, 99) * 1e3)}
+    return out
 
 
 def main(argv: Optional[Sequence[str]] = None):

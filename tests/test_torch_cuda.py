@@ -277,6 +277,45 @@ def test_butcher_combine_lane_forms_match_plain_on_card(dtype, lanes, n_lane,
             assert rows_close(got, want, mag, tdt), f"s={s} m={m}"
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [8, 16])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_butcher_combine_lane_forms_at_serve_shape_on_card(dtype, lanes):
+    """The ODE server's call shapes (n_lane 1024): dopri5's stage rows
+    (s 1..6) and its solution + error rows (s 7, m 2, sc (1, 0)), h_b per
+    lane, every third lane free (h 0: all-zero rows), which must give x
+    (one-row) and x, 0 (rows) exactly."""
+    from repro_torch.core import get_tableau
+    dev = _on_card()
+    tdt = ALL_DTYPES[dtype]
+    tab = get_tableau("dopri5")
+    g = torch.Generator(device=dev).manual_seed(lanes)
+    h = torch.empty(lanes, device=dev, dtype=torch.float64).uniform_(
+        0.005, 0.2, generator=g)
+    free = torch.arange(lanes, device=dev) % 3 == 1
+    h[free] = 0.0
+    x = torch.randn((lanes, 1024), generator=g, device=dev).to(tdt)
+    ks = torch.randn((tab.s, lanes, 1024), generator=g, device=dev).to(tdt)
+    a = torch.tensor(tab.a, dtype=torch.float64, device=dev)
+    for s in range(1, tab.s):
+        hc = (h[:, None] * a[s, :s]).to(tdt)
+        got = combine_kern.butcher_combine(x, ks[:s], hc)
+        mag = x.abs() + torch.einsum("bi,ibn->bn", hc.abs(), ks[:s].abs())
+        assert combine_close(got, tref.butcher_combine_ref(x, ks[:s], hc,
+                                                           1.0), mag, tdt), s
+        assert torch.equal(got[free], x[free]), s
+    be = torch.tensor((tab.b, tab.b_err), dtype=torch.float64, device=dev)
+    hm = (h[:, None, None] * be).to(tdt)
+    sc = torch.tensor([1.0, 0.0], dtype=tdt, device=dev)
+    got = combine_kern.butcher_combine_rows(x, ks, hm, sc)
+    mag = sc.abs()[:, None, None] * x.abs() + \
+        torch.einsum("bri,ibn->rbn", hm.abs(), ks.abs())
+    assert rows_close(got, tref.butcher_combine_rows_ref(x, ks, hm, sc, 1.0),
+                      mag, tdt)
+    assert torch.equal(got[0][free], x[free])
+    assert not bool(got[1][free].any())
+
+
 # ---------------------------------------------------------------------------
 # The gradient strategies on the kernel path (backend "cuda") against the
 # plain path (backend "torch"), both on the card, float64.  The kernels fuse
@@ -386,3 +425,51 @@ def test_saveat_kernel_path_matches_plain_on_card(case):
         assert a.device.type == "cuda"
         err = float((a - b).abs().max())
         assert err <= 1e-9 * max(float(b.abs().max()), 1e-3), err
+
+
+# ---------------------------------------------------------------------------
+# The ODE solve server on the kernel path (backend "cuda") against the plain
+# path (backend "torch"), both on the card, float64: the same request
+# stream through the continuous-batching engine (both combines' lane forms,
+# a coefficient row per lane, the free lanes' rows all zero); integer stats
+# equal, x_final by the same rule.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("buckets", [(2, 4, 8), (16,)])
+def test_serve_engine_kernel_path_matches_plain_on_card(buckets):
+    from repro_torch.core import get_tableau
+    from repro_torch.launch.serve import ode_config, ode_field, ode_params
+    from repro_torch.serve import EngineConfig, SolveEngine, synthetic_stream
+    dev = _on_card()
+    params = ode_params(8, 16, 0, torch.float64, dev)
+    reqs = synthetic_stream(10, 8, seed=5, dtype=torch.float64, device=dev)
+    runs = []
+    for backend in ("cuda", "torch"):
+        on = backend == "cuda"
+        combine_kern.butcher_combine.launches = 0
+        combine_kern.butcher_combine_rows.launches = 0
+        engine = SolveEngine(ode_field, get_tableau("dopri5"),
+                             ode_config(128), params,
+                             torch.zeros(8, dtype=torch.float64, device=dev),
+                             EngineConfig(buckets=buckets),
+                             combine_backend=backend)
+        warm = (combine_kern.butcher_combine.launches,
+                combine_kern.butcher_combine_rows.launches)
+        # one warm-up attempt per bucket at construction
+        assert warm == ((6 * len(buckets), len(buckets)) if on
+                        else (0, 0)), warm
+        combine_kern.butcher_combine.launches = 0
+        combine_kern.butcher_combine_rows.launches = 0
+        runs.append(engine.run(reqs))
+        steps = engine.stats["steps_total"]
+        kernel = (combine_kern.butcher_combine.launches,
+                  combine_kern.butcher_combine_rows.launches)
+        assert kernel == ((6 * steps, steps) if on else (0, 0)), kernel
+    got, want = runs
+    for rid, w in want.items():
+        g = got[rid]
+        assert g.succeeded and (g.n_accepted, g.n_fevals, g.n_attempts) == \
+            (w.n_accepted, w.n_fevals, w.n_attempts), rid
+        assert g.x_final.device.type == "cuda"
+        err = float((g.x_final - w.x_final).abs().max())
+        assert err <= 1e-9 * float(w.x_final.abs().max()), err
