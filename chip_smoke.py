@@ -5,7 +5,7 @@
 Phases, each fatal on failure (any failure exits non-zero and prints no
 result line):
 
-  1. build   — compile the four CUDA sources of ``src/repro_torch/csrc``
+  1. build   — compile the five CUDA sources of ``src/repro_torch/csrc``
                (one nvcc each, in parallel) and load them (build seconds
                and ptxas registers/spills are printed).
   2. kernels — each kernel against its plain PyTorch version on the card:
@@ -219,6 +219,58 @@ The continuous-batching ODE solve server (``repro_torch.serve``,
                byte bound; one engine step (16 lanes occupied) under
                torch.profiler.
 
+LM training (``repro_torch.launch.train``: qwen3-0.6b at full width,
+float32, discrete with remat and node mode with the symplectic adjoint over
+depth; the backward kernels of rms_norm and flash attention):
+
+ 31. backward kernels vs plain — ``rms_norm_bwd`` at rows x d 8192 x 1024
+               and 131072 x 128 (the LM's) and 77 x 1000, 5 x 16, with and
+               without residual; ``flash_attention_bwd`` at the LM's shape
+               (B 8, H 16/8, S 1024, D 128, causal; B 2 in float64) and at
+               window, q_offset, Sq != Sk, D 16/32/64 cases; the forward's
+               row log-sum-exp against the plain one (1e-4).  Tolerance:
+               max |kernel - plain| <= 1e-4 (dq/dk/dv) / 1e-5 (dx/dw) of
+               max |plain| in float32, 1e-12 in float64; a second call
+               bitwise equal.  Then ms per call of both backward kernels
+               (and of the forward with and without ``return_lse``), their
+               plain versions, the library call's backward (``F.rms_norm``,
+               ``F.scaled_dot_product_attention``, float32) and the bound.
+ 32. LM train — the main path of this slice: ``launch.train.main`` at
+               full width, in a process of its own (``chip_smoke.py
+               --lm-train``: the launcher's deterministic algorithms need
+               cuBLAS's fixed workspace set before CUDA starts, and that
+               setting costs the other phases host time), batch 8 x seq
+               1024, 3 discrete steps (remat) and
+               3 node steps (``--grad-mode symplectic --node-method euler``,
+               28 steps), counters zeroed before each run: s/step, loss
+               (finite), launches per step of every kernel (each > 0 where
+               the path runs it); one step of each under torch.profiler
+               (busy share, kernels by time); the CUDA synchronisations of
+               one node loss+gradient (the unit index is read to the host
+               once per field evaluation).
+ 33. LM exactness (float64, 28 layers, full width, batch 1 x seq 128) —
+               node-symplectic gradient vs DirectBackprop through the same
+               node solve (rtol 1e-9 per leaf, phase 4's rule); node (euler,
+               n_steps 28) vs the discrete stack: loss rtol 1e-8, each
+               gradient leaf ||diff|| <= 1e-8 ||ref|| (max-based printed);
+               the unit sequence of the solve equal to 0..27.
+ 34. LM memory — peak allocated bytes of one float32 loss+gradient (batch
+               8 x 1024): discrete without remat, discrete with remat,
+               node-symplectic, at the trainer's loss chunk 512 and at 64
+               (where the head's logits block no longer sets the peak);
+               fatal unless symplectic < discrete without remat (the
+               paper's ordering).
+ 35. resume — three ``python -m repro_torch.launch.train`` processes at
+               full width, float32, batch 4 x seq 512, 4 steps: one
+               uninterrupted and, beside it on the card, one killed once
+               its step-2 checkpoint is published; then one that resumes
+               from it.  The metrics lines
+               (loss, grad_norm, lr) of the resumed steps bitwise equal the
+               uninterrupted run's.
+ 36. train -> serve — ``launch.serve lm --ckpt-dir`` boots from phase 35's
+               step-4 checkpoint: its prefill logits equal (bitwise) those
+               computed here from the checkpoint's params.
+
 Phase 2 also holds the kernels against their plain versions at this
 slice's new call shapes: the Hermite lane rows (s 3, 8 lanes, the CNF's and
 the physics' leaves) and dopri8's s 12 (and 13 with the FSAL error slope)
@@ -243,6 +295,13 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+LM_TRAIN_CHILD = "--lm-train"
+if sys.argv[1:] == [LM_TRAIN_CHILD]:
+    # phase 32's own process: the training launcher turns on deterministic
+    # algorithms, which need cuBLAS's fixed workspace set before CUDA
+    # starts; the rest of the script runs without it (it costs host time
+    # per GEMM call: PERF.md §7)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import torch  # noqa: E402
 
@@ -281,7 +340,8 @@ def build():
     t = time.perf_counter()
     logs = _build.build_all([butcher_combine.LIBRARY,
                              butcher_combine.ROWS_LIBRARY, rmsnorm.LIBRARY,
-                             flash_attention.LIBRARY])
+                             flash_attention.LIBRARY,
+                             flash_attention.BWD_LIBRARY])
     print(f"build_seconds {time.perf_counter() - t:.2f} (one nvcc per "
           f"source, in parallel)")
     for name, log in logs.items():
@@ -2372,6 +2432,491 @@ def serve_report(launches):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# LM training: qwen3-0.6b at full width, discrete and node mode, with the
+# backward kernels of rms_norm and flash attention
+
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+RESUME = dict(batch=4, seq=512, steps=4)
+BWD_TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
+RMS_BWD_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+LM_KERNELS = ("rms_norm", "flash_attention", "rms_norm_bwd",
+              "flash_attention_bwd", "butcher_combine",
+              "butcher_combine_rows")
+
+
+def _timed(fn, *args):
+    t = time.perf_counter()
+    out = fn(*args)
+    print(f"phase seconds {time.perf_counter() - t:.1f}")
+    return out
+
+
+def _rel_err(got, want):
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp_min(1e-300))
+
+
+def _all_counts():
+    from repro_torch.kernels import butcher_combine as bc
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    return {"rms_norm": rn.rms_norm.launches,
+            "flash_attention": fa.flash_attention.launches,
+            "rms_norm_bwd": rn.rms_norm_bwd.launches,
+            "flash_attention_bwd": fa.flash_attention_bwd.launches,
+            "butcher_combine": bc.butcher_combine.launches,
+            "butcher_combine_rows": bc.butcher_combine_rows.launches}
+
+
+def _zero_all_counts():
+    from repro_torch.kernels import butcher_combine as bc
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    for fn in (rn.rms_norm, fa.flash_attention, rn.rms_norm_bwd,
+               fa.flash_attention_bwd, bc.butcher_combine,
+               bc.butcher_combine_rows):
+        fn.launches = 0
+
+
+# (B, H, Hkv, Sq, Sk, D, causal, window, q_offset)
+BWD_CASES = [
+    (8, 16, 8, 1024, 1024, 128, True, None, 0),   # qwen3-0.6b training
+    (1, 4, 1, 128, 128, 128, True, 64, 0),        # MQA + window
+    (1, 4, 2, 100, 100, 64, True, None, 0),       # ragged
+    (1, 4, 4, 64, 256, 64, True, None, 192),      # q_offset, Sq != Sk
+    (1, 4, 2, 200, 150, 32, False, None, 0),      # D 32, Sq > Sk
+    (1, 4, 2, 200, 200, 16, True, None, 0),       # D 16
+    (1, 16, 4, 300, 300, 128, True, 100, 0),      # GQA 4 + window
+    (2, 8, 2, 65, 300, 64, True, 40, 235),        # window + offset
+]
+
+
+def backward_kernels_vs_plain():
+    """Phase 31: both backward kernels against their plain versions on the
+    card, bitwise against themselves, then their times."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    phase("31 backward kernels vs plain (rms_norm_bwd, flash_attention_bwd)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    max_err = {"rms_norm_bwd": 0.0, "flash_attention_bwd": 0.0}
+    n = 0
+    for dtype in (torch.float32, torch.float64):
+        for rows, d in ((8192, 1024), (131072, 128), (77, 1000), (5, 16)):
+            x, r, dy = (torch.randn(rows, d, generator=g, device=dev,
+                                    dtype=dtype) for _ in range(3))
+            w = torch.randn(d, generator=g, device=dev, dtype=dtype)
+            for res in (None, r):
+                dx, dw = rn.rms_norm_bwd(x, w, res, dy)
+                dx2, dw2 = rn.rms_norm_bwd(x, w, res, dy)
+                wdx, wdw, _ = ref.rms_norm_bwd_ref(x, w, res, dy)
+                e = max(_rel_err(dx, wdx), _rel_err(dw, wdw))
+                check(e <= RMS_BWD_TOL[dtype],
+                      f"rms_norm_bwd {dtype} {rows}x{d} residual="
+                      f"{res is not None}: rel err {e}")
+                check(torch.equal(dx, dx2) and torch.equal(dw, dw2),
+                      f"rms_norm_bwd {dtype} {rows}x{d}: two calls differ")
+                if dtype == torch.float32:
+                    max_err["rms_norm_bwd"] = max(
+                        max_err["rms_norm_bwd"],
+                        float((dx - wdx).abs().max()))
+                n += 1
+        for case in BWD_CASES:
+            if dtype == torch.float64 and case[0] == 8:
+                case = (2,) + case[1:]
+            B, H, Hkv, Sq, Sk, D, causal, window, q_offset = case
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            q = torch.randn(B, H, Sq, D, generator=g, device=dev, dtype=dtype)
+            k, v = (torch.randn(B, Hkv, Sk, D, generator=g, device=dev,
+                                dtype=dtype) for _ in range(2))
+            do = torch.randn(B, H, Sq, D, generator=g, device=dev,
+                             dtype=dtype)
+            o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+            e_lse = float((lse - ref.attention_lse_ref(q, k, **kw).float())
+                          .abs().max())
+            check(e_lse <= 1e-4, f"flash lse {dtype} {case}: err {e_lse}")
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            want = ref.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+            errs = [_rel_err(a, b) for a, b in zip(got, want)]
+            check(max(errs) <= BWD_TOL[dtype],
+                  f"flash_attention_bwd {dtype} {case}: rel errs {errs}")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"flash_attention_bwd {dtype} {case}: two calls differ")
+            if dtype == torch.float32:
+                max_err["flash_attention_bwd"] = max(
+                    max_err["flash_attention_bwd"],
+                    max(float((a - b).abs().max())
+                        for a, b in zip(got, want)))
+            n += 1
+            del got, again, want
+    torch.cuda.synchronize()
+    print(f"backward cases {n} within tolerance and bitwise repeatable; "
+          f"float32 max abs err {max_err}")
+
+    # times at the training shapes, float32
+    lines, main = [], {}
+    rows, d = 8192, 1024
+    x = torch.randn(rows, d, generator=g, device=dev)
+    w = torch.randn(d, generator=g, device=dev)
+    dy = torch.randn(rows, d, generator=g, device=dev)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y_lib = F.rms_norm(xr, (d,), wr, 1e-6)
+    t_k = _time_ms(lambda: rn.rms_norm_bwd(x, w, None, dy), 100, 10)
+    t_p = _time_ms(lambda: ref.rms_norm_bwd_ref(x, w, None, dy), 50, 5)
+    t_l = _time_ms(lambda: torch.autograd.grad(y_lib, (xr, wr), dy,
+                                               retain_graph=True), 100, 10)
+    d_k = _device_ms(lambda: rn.rms_norm_bwd(x, w, None, dy), "rms_norm_bwd")
+    h_k = _host_ms(lambda: rn.rms_norm_bwd(x, w, None, dy), 300)
+    bound = (3 * rows * d + 2 * d) * 4 / HBM_BYTES_PER_S * 1e3
+    lines.append(f"rms_norm_bwd {rows}x{d}: kernel {t_k:.6f} ms (device, 3 "
+                 f"kernels {d_k if d_k is None else f'{d_k:.6f}'}, host "
+                 f"{h_k:.6f}) plain {t_p:.6f} F.rms_norm backward {t_l:.6f} "
+                 f"kernel/library {t_k / t_l:.3f} bound {bound:.6f} (bytes)")
+    main["rms_norm_bwd"] = dict(ms=t_k, device_ms=d_k, host_ms=h_k,
+                                plain_ms=t_p, library_ms=t_l, bound_ms=bound,
+                                bound_by="bytes",
+                                shape="float32 rows 8192 d 1024")
+    del xr, wr, y_lib
+    B, H, Hkv, S, D = 8, 16, 8, 1024, 128
+    q = torch.randn(B, H, S, D, generator=g, device=dev)
+    k, v = (torch.randn(B, Hkv, S, D, generator=g, device=dev)
+            for _ in range(2))
+    do = torch.randn(B, H, S, D, generator=g, device=dev)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    t_f = _time_ms(lambda: fa.flash_attention(q, k, v), 30, 3)
+    t_fl = _time_ms(lambda: fa.flash_attention(q, k, v, return_lse=True),
+                    30, 3)
+    t_k = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), 10, 2)
+    t_p = _time_ms(lambda: ref.attention_bwd_ref(q, k, v, o, lse, do), 5, 1)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                           enable_gqa=True)
+    t_l = _time_ms(lambda: torch.autograd.grad(o_lib, (qr, kr, vr), do,
+                                               retain_graph=True), 10, 2)
+    d_k = _device_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
+                     "attn_bwd", 5)
+    h_k = _host_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), 20)
+    flops = 2.5 * 4 * B * H * D * (S * (S + 1) // 2)
+    t_ops = 3 * flops / TF32_FLOP_PER_S
+    t_fma = flops / F32_FLOP_PER_S
+    nbytes = (4 * B * H * S * D + 4 * B * Hkv * S * D + B * H * S) * 4
+    bound = max(t_ops, nbytes / HBM_BYTES_PER_S) * 1e3
+    alone = d_k if d_k is not None else t_k
+    lines.append(f"flash_attention_bwd B{B} H{H}/{Hkv} S{S} D{D} causal: "
+                 f"kernel {t_k:.6f} ms (device, 3 kernels "
+                 f"{d_k if d_k is None else f'{d_k:.6f}'}, host {h_k:.6f}) "
+                 f"plain {t_p:.6f} sdpa backward {t_l:.6f} kernel/library "
+                 f"{t_k / t_l:.3f} bound {bound:.6f} (operations, 3xTF32; "
+                 f"{bound / alone * 100:.1f}% of it alone) float32-FMA "
+                 f"bound {t_fma * 1e3:.6f} ({t_fma * 1e3 / alone * 100:.1f}% "
+                 f"of it alone); forward {t_f:.6f} ms, with lse {t_fl:.6f}")
+    main["flash_attention_bwd"] = dict(
+        ms=t_k, device_ms=d_k, host_ms=h_k, plain_ms=t_p, library_ms=t_l,
+        bound_ms=bound, bound_by="operations", fma_bound_ms=t_fma * 1e3,
+        forward_ms=t_f, forward_lse_ms=t_fl,
+        shape=f"float32 B{B} H{H} Hkv{Hkv} S{S} D{D} causal")
+    print("float32 ms per call (CUDA events; device = the kernels' time "
+          "from torch.profiler; host = host clock per call, no "
+          "synchronise):")
+    for line in lines:
+        print("  " + line)
+    return max_err, main
+
+
+def _train_argv(*extra):
+    return ["--arch", "qwen3-0.6b", "--global-batch", str(TRAIN_BATCH),
+            "--seq-len", str(TRAIN_SEQ), "--steps", "3", "--device", "cuda",
+            *extra]
+
+
+def lm_train_main_path():
+    """Phase 32: the training CLI at full width, discrete then node, in a
+    process of its own (see ``LM_TRAIN_CHILD``); returns its counts."""
+    phase(f"32 LM train (main path): qwen3-0.6b full width, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, float32")
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           LM_TRAIN_CHILD], capture_output=True, text=True,
+                          timeout=600)
+    lines = proc.stdout.rstrip("\n").splitlines()
+    print("\n".join(lines[:-1]))
+    check(proc.returncode == 0 and lines,
+          f"phase 32 process failed (rc {proc.returncode}):\n"
+          f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
+def _lm_train_child():
+    """Phase 32's process: 3 discrete and 3 node-symplectic steps through
+    ``launch.train.main``, each kernel's counter zeroed just before each run
+    and read just after, one more step of each under the profiler; prints
+    the counts as its last line."""
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.launch import train
+    from repro_torch.train import TrainConfig, loss_and_grads, \
+        make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for mode, extra in (("discrete", ()),
+                        ("node_symplectic", ("--grad-mode", "symplectic",
+                                             "--node-method", "euler"))):
+        torch.cuda.synchronize()
+        _zero_all_counts()
+        t = time.perf_counter()
+        res = train.main(_train_argv(*extra))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = _all_counts()
+        rows = res["rows"]
+        losses = [r["loss"] for r in rows]
+        check(all(math.isfinite(x) for x in losses), f"{mode}: loss {losses}")
+        per_step = {k: v / len(rows) for k, v in counts.items()}
+        print(f"{mode}: s/step {[round(x, 4) for x in res['step_seconds']]} "
+              f"(run {wall:.2f} s incl. set-up), losses {losses}, "
+              f"grad_norm {[r['grad_norm'] for r in rows]}")
+        print(f"{mode}: launches per step {per_step}")
+        need = ["rms_norm", "flash_attention", "rms_norm_bwd",
+                "flash_attention_bwd"] + (["butcher_combine"]
+                                          if mode != "discrete" else [])
+        for name in need:
+            check(counts[name] > 0, f"{mode}: {name} never launched")
+        # one more step under the profiler, on the run's final state
+        arch, state = res["arch"], res["state"]
+        b = synthetic_lm_batch(99, TRAIN_BATCH, TRAIN_SEQ + 1, arch.vocab)
+        batch = {k: torch.as_tensor(v, dtype=torch.long, device="cuda")
+                 for k, v in b.items()}
+        step = make_train_step(arch, TrainConfig())
+        _profile_once(f"{mode} step:", lambda: step(state, batch))
+        if mode != "discrete":
+            _, syncs, _ = _counted(lambda: loss_and_grads(
+                state.params, batch, arch))
+            print(f"{mode}: CUDA synchronisations in one loss+gradient "
+                  f"{syncs} (the unit index read per field evaluation: "
+                  f"{arch.n_repeats} forward + {arch.n_repeats} backward "
+                  f"expected, plus the loop's own)")
+        out[mode] = {"counts": counts, "steps": len(rows),
+                     "step_seconds": res["step_seconds"], "losses": losses}
+        del res, state, step
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+
+
+def _leaf_errs(got, want):
+    from torch.utils import _pytree as pytree
+    mx, fro = 0.0, 0.0
+    for a, b in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+        mx = max(mx, _rel_err(a, b))
+        fro = max(fro, float((a - b).norm() / b.norm().clamp_min(1e-300)))
+    return mx, fro
+
+
+def lm_exactness():
+    """Phase 33: float64 at full width and depth, batch 1 x seq 128."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import NodeConfig
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.models.lm import init_lm, node_depth_units
+    from repro_torch.train import loss_and_grads
+    phase("33 LM exactness (float64, 28 layers, full width, batch 1 x 128)")
+    base = get_arch("qwen3-0.6b")
+    params = init_lm(base, seed=0, device="cuda", dtype=torch.float64)
+    b = synthetic_lm_batch(0, 1, 129, base.vocab)
+    batch = {k: torch.as_tensor(v, dtype=torch.long, device="cuda")
+             for k, v in b.items()}
+    node = base.with_(node=NodeConfig(mode="node", method="euler",
+                                      grad_mode="symplectic"))
+    units = node_depth_units(node, torch.float64, device="cuda")
+    check(units == list(range(base.n_repeats)), f"unit sequence {units}")
+    print(f"unit sequence (float64 time, euler, 28 steps): {units}")
+    sym = loss_and_grads(params, batch, node)
+    bp = loss_and_grads(params, batch, node.with_(node=NodeConfig(
+        mode="node", method="euler", grad_mode="backprop")))
+    mx, fro = _leaf_errs(sym[1], bp[1])
+    lerr = abs(float(sym[0]) - float(bp[0])) / abs(float(bp[0]))
+    print(f"node symplectic vs DirectBackprop: loss rel err {lerr:.3e}, "
+          f"max per-leaf rel err {mx:.3e} (rtol 1e-9), per-leaf "
+          f"norm rel err {fro:.3e}")
+    check(mx <= 1e-9 and lerr <= 1e-9,
+          f"symplectic vs backprop: {mx}, loss {lerr}")
+    del bp
+    torch.cuda.empty_cache()
+    disc = loss_and_grads(params, batch, base)
+    mx, fro = _leaf_errs(sym[1], disc[1])
+    lerr = abs(float(sym[0]) - float(disc[0])) / abs(float(disc[0]))
+    print(f"node (euler, 28 steps) vs discrete stack: loss "
+          f"{float(sym[0])!r} vs {float(disc[0])!r} (rel err "
+          f"{lerr:.3e}, rtol 1e-8), per-leaf norm rel err {fro:.3e} "
+          f"(rtol 1e-8), max per-leaf rel err {mx:.3e}")
+    check(lerr <= 1e-8 and fro <= 1e-8,
+          f"node vs discrete: loss {lerr}, grads {fro}")
+    del params, sym, disc
+    torch.cuda.empty_cache()
+
+
+def lm_memory():
+    """Phase 34: peak bytes of one float32 loss+gradient at full width."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import NodeConfig
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train import loss_and_grads
+    phase(f"34 LM memory (float32, one loss+gradient, batch {TRAIN_BATCH} "
+          f"x {TRAIN_SEQ})")
+    base = get_arch("qwen3-0.6b")
+    params = init_lm(base, seed=0, device="cuda")
+    b = synthetic_lm_batch(1, TRAIN_BATCH, TRAIN_SEQ + 1, base.vocab)
+    batch = {k: torch.as_tensor(v, dtype=torch.long, device="cuda")
+             for k, v in b.items()}
+    peaks = {}
+    for chunk in (512, 64):
+        for name, arch in (
+                ("discrete_no_remat", base.with_(remat=False)),
+                ("discrete_remat", base),
+                ("node_symplectic", base.with_(node=NodeConfig(
+                    mode="node", grad_mode="symplectic")))):
+            peaks[name if chunk == 512 else f"{name}_chunk{chunk}"] = \
+                _peak_bytes(lambda: loss_and_grads(params, batch, arch,
+                                                   loss_chunk=chunk))
+    grad_bytes = sum(p.numel() * 4 for p in
+                     __import__("torch.utils._pytree", fromlist=["x"])
+                     .tree_leaves(params))
+    print(f"peak bytes above the params: {peaks} (the gradient tree alone "
+          f"is {grad_bytes}; at the trainer's loss chunk 512 the head's "
+          f"(8, 512, 151936) logits block and its backward can set the "
+          f"peak of both remat and symplectic: the chunk-64 runs show the "
+          f"depth part)")
+    check(peaks["node_symplectic"] < peaks["discrete_no_remat"],
+          f"symplectic peak {peaks['node_symplectic']} not below backprop "
+          f"{peaks['discrete_no_remat']}")
+    del params
+    torch.cuda.empty_cache()
+    return peaks
+
+
+def _resume_cmd(metrics, *extra):
+    return [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "qwen3-0.6b", "--global-batch", str(RESUME["batch"]),
+            "--seq-len", str(RESUME["seq"]), "--steps",
+            str(RESUME["steps"]), "--ckpt-every", "2", "--metrics-out",
+            str(metrics), "--device", "cuda", *extra]
+
+
+def _metric_lines(path):
+    with open(path) as f:
+        return {json.loads(line)["step"]: line.rstrip("\n")
+                for line in f if line.strip()}
+
+
+def lm_resume():
+    """Phase 35: uninterrupted vs killed-and-resumed, three processes."""
+    import shutil
+    phase(f"35 resume on the card (full width, float32, batch "
+          f"{RESUME['batch']} x {RESUME['seq']}, {RESUME['steps']} steps)")
+    work = ROOT / "runs" / "chip_smoke_resume"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + \
+        env.get("PYTHONPATH", "")
+    ckpt = work / "ckpt"
+    t = time.perf_counter()
+    golden = work / "golden.jsonl"
+    # the uninterrupted run and the one to be killed share the card (each
+    # process's kernels are deterministic whatever runs beside it)
+    p1 = subprocess.Popen(_resume_cmd(golden), env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    victim = work / "victim.jsonl"
+    p2 = subprocess.Popen(_resume_cmd(victim, "--ckpt-dir", str(ckpt),
+                                      "--step-delay-s", "2"), env=env,
+                          stdout=subprocess.DEVNULL,
+                          stderr=subprocess.DEVNULL)
+    t0 = time.time()
+    published = ckpt / "step_2" / "MANIFEST.json"
+    while not published.exists() and p2.poll() is None and \
+            time.time() - t0 < 400:
+        time.sleep(0.05)
+    p2.kill()
+    p2.wait()
+    out1, _ = p1.communicate(timeout=400)
+    check(p1.returncode == 0, f"uninterrupted run failed:\n{out1}")
+    check(published.exists(), "the second process published no step-2 "
+                              "checkpoint")
+    resumed = work / "resumed.jsonl"
+    proc = subprocess.run(_resume_cmd(resumed, "--ckpt-dir", str(ckpt),
+                                      "--resume"), env=env,
+                          capture_output=True, text=True, timeout=400)
+    check(proc.returncode == 0 and "resumed from step 2" in proc.stdout,
+          f"resume failed:\n{proc.stdout}\n{proc.stderr}")
+    want, got = _metric_lines(golden), _metric_lines(resumed)
+    check(sorted(got) == [2, 3], f"resumed steps {sorted(got)}")
+    for step in got:
+        check(got[step] == want[step],
+              f"step {step}: resumed {got[step]} != uninterrupted "
+              f"{want[step]}")
+    print(f"resumed steps {sorted(got)} bitwise equal to the uninterrupted "
+          f"run ({time.perf_counter() - t:.1f} s, three processes):")
+    for step in sorted(got):
+        print(f"  {got[step]}")
+    return ckpt
+
+
+def lm_train_to_serve(ckpt):
+    """Phase 36: the serve CLI boots from phase 35's checkpoint."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.launch import serve
+    from repro_torch.runtime import Checkpointer
+    from repro_torch.train import TrainConfig, init_train_state, \
+        make_prefill_step
+    phase("36 train -> serve (launch.serve lm --ckpt-dir)")
+    out = serve.main(["lm", "--arch", "qwen3-0.6b", "--ckpt-dir", str(ckpt),
+                      "--batch", "2", "--prompt-len", "64", "--gen-len", "4",
+                      "--device", "cuda"])
+    check(out["logits_finite"], "serve from checkpoint: non-finite logits")
+    arch = get_arch("qwen3-0.6b")
+    like = init_train_state(arch, TrainConfig(), seed=1, device="cuda")
+    state, step = Checkpointer(str(ckpt)).restore(like)
+    toks = torch.as_tensor(synthetic_lm_batch(0, 2, 65, arch.vocab)[
+        "tokens"], dtype=torch.long, device="cuda")
+    want, _ = make_prefill_step(arch, 2, 68)(state.params, {"tokens": toks})
+    check(torch.equal(out["prefill_logits"], want),
+          "serve from checkpoint: logits differ from the checkpoint's "
+          "params")
+    print(f"serve booted from step {step}: prefill logits bitwise equal to "
+          f"the checkpoint params' ({tuple(want.shape)}); tokens "
+          f"{out['tokens'][0].tolist()}")
+    del state, like
+    torch.cuda.empty_cache()
+    # the checkpoints hold ~7 GB each: leave no disk behind
+    import shutil
+    shutil.rmtree(pathlib.Path(ckpt).parent, ignore_errors=True)
+
+
+def lm_train_rows(train, bwd_err, bwd_main):
+    """The kernels line's rows of the backward kernels: launches from
+    phase 32 (both modes), the rest from phase 31."""
+    rows = []
+    srcs = {"rms_norm_bwd": ("src/repro_torch/csrc/rmsnorm.cu",
+                             "src/repro/kernels/rmsnorm.py:39"),
+            "flash_attention_bwd": (
+                "src/repro_torch/csrc/flash_attention_bwd.cu",
+                "src/repro/kernels/flash_attention.py:94")}
+    for name in ("rms_norm_bwd", "flash_attention_bwd"):
+        by_path = {mode: r["counts"][name] for mode, r in train.items()}
+        rows.append({"name": name, "route": "cuda", "source": srcs[name][0],
+                     "replaces": srcs[name][1],
+                     "launches": sum(by_path.values()),
+                     "launches_by_path": by_path,
+                     "max_abs_err": bwd_err[name], **bwd_main[name]})
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -2417,6 +2962,14 @@ def main():
     serve_ode = serve_ode_main_path()
     serve_exactness()
     serve_shape = serve_report(serve_ode["drain"])
+    t_train = time.perf_counter()
+    bwd_err, bwd_main = _timed(backward_kernels_vs_plain)
+    train = _timed(lm_train_main_path)
+    _timed(lm_exactness)
+    _timed(lm_memory)
+    ckpt = _timed(lm_resume)
+    _timed(lm_train_to_serve, ckpt)
+    print(f"phases 31-36 seconds {time.perf_counter() - t_train:.1f}")
 
     def summed(results, kinds, name):
         return sum(r[name] for (mode, kind), r in results.items()
@@ -2448,6 +3001,20 @@ def main():
         row["launches"] = sum(by_path.values())
     for row, at_serve in zip(rows[4:6], serve_shape):
         row["serve_shape"] = at_serve
+    # the LM kernels' forward launches: the serving path (phase 9) and the
+    # training path (phase 32, both modes); the backward kernels' rows
+    for row in rows[2:4]:
+        name = row["name"]
+        by_path = {"serve": row["launches"],
+                   **{f"lm_train_{mode}": r["counts"][name]
+                      for mode, r in train.items()}}
+        row["launches_by_path"] = by_path
+        row["launches"] = sum(by_path.values())
+    for row in rows[:2]:
+        row["launches_by_path"]["lm_train_node_symplectic"] = \
+            train["node_symplectic"]["counts"][row["name"]]
+        row["launches"] = sum(row["launches_by_path"].values())
+    rows += lm_train_rows(train, bwd_err, bwd_main)
     print(f"total_seconds {time.perf_counter() - t0:.1f}")
     print(smi.splitlines()[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"kernels": rows}))
@@ -2458,4 +3025,7 @@ def main():
 
 if __name__ == "__main__":
     os.chdir(ROOT)
-    main()
+    if sys.argv[1:] == [LM_TRAIN_CHILD]:
+        _lm_train_child()
+    else:
+        main()

@@ -29,9 +29,11 @@ class NodeConfig:
     mode:
       "off"    — standard discrete residual stack.
       "node"   — depth-time neural ODE over the layer stack:
-                 f(x, t) = unit_{floor(t*R)}(x), integrated with ``method``
-                 over [0,1] with n_steps (= R by default).  Not ported yet
-                 (ROADMAP queue 1, item 14).
+                 f(x, t) = R * (unit_n(x) - x), n = floor(t*R) (with the
+                 offset of ``models.lm.depth_unit``, so that step n runs
+                 unit n), integrated with ``method`` over [0,1] with n_steps
+                 (= R by default) by ``repro_torch.core.solve``.  Training
+                 only: prefill and decode run the discrete stack.
     grad_mode: a gradient strategy for ``repro_torch.core.solve``, by name
       or instance.
     combine_backend: auto | torch | cuda — how RK stage combinations run

@@ -127,13 +127,17 @@ def lane_field(f: VectorField) -> VectorField:
 # ---------------------------------------------------------------------------
 
 def rk_stages(f: VectorField, tab: ButcherTableau, x, t, h, params,
-              combiner: Optional[StageCombiner] = None):
+              combiner: Optional[StageCombiner] = None,
+              last_slope: bool = True):
     """Compute all stage states X_i and slopes k_i for one step.
 
     Returns (Xs, K): ``Xs`` is a list of s stage-state pytrees, ``K`` the
     stacked slope buffer (leading stage dim s per leaf), a fresh buffer
     whose rows are each written once.  Purely forward; the symplectic
-    backward pass re-runs this from a checkpoint (Alg. 2 lines 3-7).
+    backward pass re-runs this from a checkpoint (Alg. 2 lines 3-7) with
+    ``last_slope=False``: it needs the stage states only, and X_{s-1}
+    reads k_0 .. k_{s-2}, so the last field evaluation is skipped (K's
+    last row is then left unwritten).
     """
     combiner = combiner or get_combiner(tab)
     s = tab.s
@@ -141,9 +145,9 @@ def rk_stages(f: VectorField, tab: ButcherTableau, x, t, h, params,
     Xs = []
     for i in range(s):
         Xi = combiner.stage_state(x, K, h, i)
-        ki = f(Xi, t + tab.c[i] * h, params)
-        set_stage(K, i, ki)
         Xs.append(Xi)
+        if i < s - 1 or last_slope:
+            set_stage(K, i, f(Xi, t + tab.c[i] * h, params))
     return Xs, K
 
 

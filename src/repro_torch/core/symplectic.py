@@ -119,7 +119,8 @@ def symplectic_step_adjoint(f: VectorField, tab: ButcherTableau,
     s = tab.s
     b, c = tab.b, tab.c
     # --- Alg.2 lines 3-7: recompute stages from the checkpoint ----------
-    Xs, _K = rk_stages(f, tab, x_n, t_n, h, params, combiner)
+    Xs, _K = rk_stages(f, tab, x_n, t_n, h, params, combiner,
+                       last_slope=False)
     del _K
     L = alloc_stages(s, lam_next)   # stacked adjoint slopes l_{n,i}
     gtheta = None
@@ -188,7 +189,8 @@ def symplectic_step_adjoint_lanes(f: VectorField, tab: ButcherTableau,
 
     x_n = pytree.tree_map(safe, x_n)
     t_n, h_n = safe(t_n), safe(h_n)
-    Xs, _K = rk_stages(lane_f, tab, x_n, t_n, h_n, params, combiner)
+    Xs, _K = rk_stages(lane_f, tab, x_n, t_n, h_n, params, combiner,
+                       last_slope=False)
     del _K
     L = alloc_stages(s, lam_next)
     gtheta = None

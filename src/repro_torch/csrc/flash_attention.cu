@@ -17,6 +17,11 @@
 // float (a double input is computed in float, as the JAX reference does),
 // the output is stored as T.  D is a template parameter: 16, 32, 64 or 128.
 // The plain PyTorch version is repro_torch/kernels/ref.py::attention_ref.
+// Given a non-null lse, the kernel also writes each query row's log-sum-exp
+// of its scaled scores, lse[b,h,i] = log(sum_j exp(scale q.k_j)) (float,
+// contiguous (B,H,Sq)): what the backward kernels of flash_attention_bwd.cu
+// recompute the probabilities from.  The serving path passes null.  The
+// masks are those of attention_mask.cuh, shared with the backward.
 //
 // Numerics follow _flash_kernel: per query row a running maximum m, sum l
 // and accumulator in float; a kv tile that no row of the query tile may see
@@ -85,6 +90,8 @@
 #include <math.h>
 #include <stdint.h>
 #include <type_traits>
+
+#include "attention_mask.cuh"
 
 namespace {
 
@@ -405,8 +412,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(__grid_constant__ const CUtensorMap qmap,
                        __grid_constant__ const CUtensorMap kmap,
                        __grid_constant__ const CUtensorMap vmap,
-                       T* __restrict__ out, Strides os, int group, int Sq,
-                       int Sk, float scale_log2, int causal, int has_window,
+                       T* __restrict__ out, Strides os,
+                       float* __restrict__ lse, int group, int Sq, int Sk,
+                       float scale_log2, int causal, int has_window,
                        int window, int q_offset) {
   using C = Cfg<T>;
   using P = Plan<T, D>;
@@ -423,15 +431,10 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap qmap,
   const int q0 = iq * kBQ;
   // the CTA's live kv tiles [j_begin, j_begin + n_tiles), by _flash_kernel's
   // test (a contiguous range); rows past Sq see nothing
-  const int q_lo = q0 + q_offset;
-  const int q_hi = min(q0 + kBQ, Sq) - 1 + q_offset;
-  int j_end = (Sk + kBK - 1) / kBK;
-  if (causal) j_end = min(j_end, q_hi < 0 ? 0 : q_hi / kBK + 1);
-  int j_begin = 0;
-  if (has_window) {
-    const int x = q_lo - window - (kBK - 1);
-    j_begin = x < 0 ? 0 : x / kBK + 1;
-  }
+  const AttnMask mask{Sk, causal, has_window, window, q_offset};
+  int j_begin, j_end;
+  mask.kv_tiles(q0 + q_offset, min(q0 + kBQ, Sq) - 1 + q_offset, kBK, &j_begin,
+                &j_end);
   const int n_tiles = max(0, j_end - j_begin);
   // Tile i lives in ring slot i & 1.  Another T than float first stages
   // warpgroup w's raw Q rows in slot w: the full and K-free barriers then
@@ -657,8 +660,7 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap qmap,
     const uint32_t stage = sbase + P::oRing + s * P::kStage;
     mbar_wait(bar(kBarConv + s), (i >> 1) & 1);
 
-    const bool live = has_rows && (!causal || k_lo <= wq_hi) &&
-                      (!has_window || k_hi > wq_lo - window);
+    const bool live = has_rows && mask.tile_live(wq_lo, wq_hi, k_lo, k_hi);
     if (live) {
       // S = Q.K^T, per step of 8 along D: Q_hi.[K_hi; K_lo] in one wgmma,
       // then Q_lo.K_hi into its hi.lo half; the two small terms are summed
@@ -698,8 +700,7 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap qmap,
       }
       // online softmax on the accumulator fragments: sc[4n + 2hr + e] is
       // row g + 8hr, key k_lo + 8n + 2t + e
-      const bool full = k_hi < Sk && (!causal || k_hi <= wq_lo) &&
-                        (!has_window || k_lo > wq_hi - window);
+      const bool full = mask.tile_full(wq_lo, wq_hi, k_lo, k_hi);
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         const int qpos = row_a + 8 * hr + q_offset;
@@ -709,13 +710,8 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap qmap,
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             float v = sc[4 * n + 2 * hr + e] * scale_log2;
-            if (!full) {
-              const int kpos = k_lo + 8 * n + 2 * t + e;
-              bool ok = kpos < Sk;
-              if (causal) ok = ok && kpos <= qpos;
-              if (has_window) ok = ok && kpos > qpos - window;
-              if (!ok) v = -INFINITY;
-            }
+            if (!full && !mask.allowed(qpos, k_lo + 8 * n + 2 * t + e))
+              v = -INFINITY;
             sc[4 * n + 2 * hr + e] = v;
             mx = fmaxf(mx, v);
           }
@@ -776,8 +772,8 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap qmap,
     if (lane == 0) mbar_arrive(bar(kBarVtFree + s));
   }
 
-  // ---- epilogue: O / l, rows past Sq not written ----
-  // ---- epilogue: O / l, rows past Sq not written ----
+  // ---- epilogue: O / l, rows past Sq not written; with lse, the row's
+  // log-sum-exp of the scaled scores (natural log) ----
   T* ob = out + b * os.b + h * os.h;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -787,6 +783,11 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap qmap,
     const int row = row_a + 8 * hr;
     if (row >= Sq) continue;
     const float li = fmaxf(lt, 1e-30f);
+    if (lse != nullptr && t == 0) {
+      const float ms = isfinite(m[hr]) ? m[hr] : 0.f;
+      lse[((int64_t)b * gridDim.y + h) * Sq + row] =
+          (ms + log2f(li)) * 0.6931471805599453f;
+    }
     T* orow = ob + row * os.s;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
@@ -858,7 +859,7 @@ int encode(CUtensorMap* map, const void* base, int S, int heads, int B,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            const long long* st, int B, int H, int Hkv, int Sq, int Sk,
            float scale, int causal, int has_window, int window, int q_offset,
            cudaStream_t stream) {
@@ -881,20 +882,21 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const Strides os{st[9], st[10], st[11]};
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_attention_kernel<T, D><<<grid, kThreads, P::kBytes, stream>>>(
-      qm, km, vm, static_cast<T*>(out), os, H / Hkv, Sq, Sk, scale * kLog2e,
+      qm, km, vm, static_cast<T*>(out), os, lse, H / Hkv, Sq, Sk,
+      scale * kLog2e,
       causal, has_window, window, q_offset);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_d(int D, const void* q, const void* k, const void* v, void* out,
-             const long long* st, int B, int H, int Hkv, int Sq, int Sk,
+             float* lse, const long long* st, int B, int H, int Hkv, int Sq, int Sk,
              float scale, int causal, int has_window, int window, int q_offset,
              cudaStream_t stream) {
   switch (D) {
 #define FA_CASE(DD)                                                         \
   case DD:                                                                  \
-    return launch<T, DD>(q, k, v, out, st, B, H, Hkv, Sq, Sk, scale,        \
+    return launch<T, DD>(q, k, v, out, lse, st, B, H, Hkv, Sq, Sk, scale,   \
                          causal, has_window, window, q_offset, stream);
     FA_CASE(16) FA_CASE(32) FA_CASE(64) FA_CASE(128)
 #undef FA_CASE
@@ -906,13 +908,16 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* out,
 
 // dtype codes shared with repro_torch/kernels/flash_attention.py:
 //   0 float32, 1 float64, 2 float16, 3 bfloat16.
+// lse: null, or a contiguous (B, H, Sq) float buffer for each query row's
+// log-sum-exp of its scaled scores (what the backward kernels recompute the
+// probabilities from; a row that sees no key gets log(1e-30)).
 // strides: 12 element strides, (b, h, s) for q, k, v and out in that order;
 // the last dim of each is contiguous, and q, k, v bases and strides are
 // 16-byte aligned (TMA's rule).  Returns the cudaError_t of the launch
 // (0 = success), cudaErrorInvalidValue for arguments the kernel does not
 // take, or 1000 + the CUresult when a tensor map cannot be encoded.
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
-                                      const void* v, void* out,
+                                      const void* v, void* out, void* lse,
                                       const long long* strides, int B, int H,
                                       int Hkv, int Sq, int Sk, int D,
                                       float scale, int causal, int has_window,
@@ -924,11 +929,12 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
     if (reinterpret_cast<uintptr_t>(i == 0 ? q : i == 1 ? k : v) % 16 != 0)
       return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   switch (dtype) {
-    case 0: return launch_d<float>(D, q, k, v, out, strides, B, H, Hkv, Sq, Sk, scale, causal, has_window, window, q_offset, st);
-    case 1: return launch_d<double>(D, q, k, v, out, strides, B, H, Hkv, Sq, Sk, scale, causal, has_window, window, q_offset, st);
-    case 2: return launch_d<__half>(D, q, k, v, out, strides, B, H, Hkv, Sq, Sk, scale, causal, has_window, window, q_offset, st);
-    case 3: return launch_d<__nv_bfloat16>(D, q, k, v, out, strides, B, H, Hkv, Sq, Sk, scale, causal, has_window, window, q_offset, st);
+    case 0: return launch_d<float>(D, q, k, v, out, lse_f, strides, B, H, Hkv, Sq, Sk, scale, causal, has_window, window, q_offset, st);
+    case 1: return launch_d<double>(D, q, k, v, out, lse_f, strides, B, H, Hkv, Sq, Sk, scale, causal, has_window, window, q_offset, st);
+    case 2: return launch_d<__half>(D, q, k, v, out, lse_f, strides, B, H, Hkv, Sq, Sk, scale, causal, has_window, window, q_offset, st);
+    case 3: return launch_d<__nv_bfloat16>(D, q, k, v, out, lse_f, strides, B, H, Hkv, Sq, Sk, scale, causal, has_window, window, q_offset, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -39,6 +39,26 @@
 //   * a row too long for registers (more than 1024 threads x kMaxN vectors:
 //     d > 16384 float or half, > 8192 double, > 4096 on the scalar path)
 //     is walked twice by one 1024-thread block, the second read from L2.
+//
+// The backward (rms_norm_bwd_launch; the JAX package has no backward
+// kernel: XLA differentiates its plain reference).  With v = x (+ res),
+// r = 1 / sqrt(mean(v * v) + eps), g = dy * w:
+//
+//   dx = dres = r g - v r^3 mean(g * v),   dw = sum over rows of dy v r,
+//
+// in T for float and double (a double input is computed in double, the
+// exact gradient of the formula; other dtypes are refused).  r is
+// recomputed from x (+ res), not saved by the forward.  Three kernels:
+//   * dx: one warp a row, two passes over the row (the second from L1/L2),
+//     which also writes each row's r to a scratch vector;
+//   * dw partials: a 32-column x 8-row block sums dy v r over a fixed
+//     chunk of rows (consecutive lanes on consecutive columns), the 8 row
+//     lanes then in shared memory in a fixed order: one partial row per
+//     chunk;
+//   * dw: one thread a column sums the chunks' partials in chunk order.
+// No atomics: the same inputs give the same bits on every call.  Bound:
+// bytes, (3 or 4) * rows * d * sizeof(T) read and written once; this
+// version reads x, res and dy twice (dx, then the partials).
 #include <cuda_runtime.h>
 #include <cuda_fp16.h>
 #include <cuda_bf16.h>
@@ -256,7 +276,161 @@ int launch(const void* x, const void* res, const float* w, void* out,
   return launch_r<T, true>(x, res, w, out, rows, d, eps, stream);
 }
 
+// ---- backward ----
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float inv_rms(float ss, int d, float eps) {
+  return 1.0f / sqrtf(ss / (float)d + eps);
+}
+__device__ __forceinline__ double inv_rms(double ss, int d, double eps) {
+  return 1.0 / sqrt(ss / (double)d + eps);
+}
+
+template <typename T, bool kRes>
+__device__ __forceinline__ T v_at(const T* x, const T* res, int64_t at) {
+  return kRes ? x[at] + res[at] : x[at];
+}
+
+constexpr int kBwdThreads = 256;
+
+// dx (= dres) and r per row; one warp a row
+template <typename T, bool kRes>
+__global__ void __launch_bounds__(kBwdThreads)
+rms_norm_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                       const T* __restrict__ w, const T* __restrict__ dy,
+                       T* __restrict__ dx, T* __restrict__ rinv,
+                       int64_t rows, int d, T eps) {
+  const int64_t r = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= rows) return;
+  const int64_t row = r * d;
+  T ss = T(0), dot = T(0);
+  for (int j = lane; j < d; j += 32) {
+    const T v = v_at<T, kRes>(x, res, row + j);
+    ss += v * v;
+    dot += dy[row + j] * w[j] * v;
+  }
+  ss = warp_sum(ss);
+  dot = warp_sum(dot);
+  const T inv = inv_rms(ss, d, eps);
+  const T coef = inv * inv * inv * (dot / (T)d);
+  for (int j = lane; j < d; j += 32) {
+    const T v = v_at<T, kRes>(x, res, row + j);
+    dx[row + j] = inv * (dy[row + j] * w[j]) - v * coef;
+  }
+  if (lane == 0) rinv[r] = inv;
+}
+
+// partial[c][j] = sum over rows [c * rpc, (c + 1) * rpc) of dy v r
+template <typename T, bool kRes>
+__global__ void __launch_bounds__(kBwdThreads)
+rms_norm_bwd_dw_partial_kernel(const T* __restrict__ x,
+                               const T* __restrict__ res,
+                               const T* __restrict__ dy,
+                               const T* __restrict__ rinv,
+                               T* __restrict__ partial, int64_t rows, int d,
+                               int64_t rpc) {
+  __shared__ T part[kBwdThreads / 32][32];
+  const int cx = threadIdx.x % 32, ry = threadIdx.x / 32;
+  const int j = blockIdx.x * 32 + cx;
+  const int64_t r0 = (int64_t)blockIdx.y * rpc;
+  const int64_t r1 = r0 + rpc < rows ? r0 + rpc : rows;
+  T acc = T(0);
+  if (j < d)
+    for (int64_t r = r0 + ry; r < r1; r += kBwdThreads / 32) {
+      const int64_t at = r * d + j;
+      acc += dy[at] * v_at<T, kRes>(x, res, at) * rinv[r];
+    }
+  part[ry][cx] = acc;
+  __syncthreads();
+  if (ry == 0 && j < d) {
+    T s = T(0);
+#pragma unroll
+    for (int i = 0; i < kBwdThreads / 32; ++i) s += part[i][cx];
+    partial[(int64_t)blockIdx.y * d + j] = s;
+  }
+}
+
+// dw[j] = sum over chunks c (in order) of partial[c][j]
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+rms_norm_bwd_dw_kernel(const T* __restrict__ partial, T* __restrict__ dw,
+                       int d, int nchunks) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= d) return;
+  T s = T(0);
+  for (int c = 0; c < nchunks; ++c) s += partial[(int64_t)c * d + j];
+  dw[j] = s;
+}
+
+template <typename T, bool kRes>
+int launch_bwd(const void* xp, const void* resp, const void* wp,
+               const void* dyp, void* dxp, void* dwp, void* rinvp,
+               void* partialp, int64_t rows, int d, int64_t rpc, int nchunks,
+               double eps, cudaStream_t stream) {
+  const T* x = static_cast<const T*>(xp);
+  const T* res = static_cast<const T*>(resp);
+  const T* dy = static_cast<const T*>(dyp);
+  T* rinv = static_cast<T*>(rinvp);
+  T* partial = static_cast<T*>(partialp);
+  const int64_t blocks = (rows * 32 + kBwdThreads - 1) / kBwdThreads;
+  if (blocks > 0x7fffffff || nchunks > 65535 ||
+      (int64_t)nchunks * rpc < rows)
+    return (int)cudaErrorInvalidValue;
+  rms_norm_bwd_dx_kernel<T, kRes><<<(int)blocks, kBwdThreads, 0, stream>>>(
+      x, res, static_cast<const T*>(wp), dy, static_cast<T*>(dxp), rinv, rows,
+      d, (T)eps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((d + 31) / 32, nchunks);
+  rms_norm_bwd_dw_partial_kernel<T, kRes><<<grid, kBwdThreads, 0, stream>>>(
+      x, res, dy, rinv, partial, rows, d, rpc);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  rms_norm_bwd_dw_kernel<T><<<(d + kBwdThreads - 1) / kBwdThreads,
+                              kBwdThreads, 0, stream>>>(
+      partial, static_cast<T*>(dwp), d, nchunks);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_r(const void* x, const void* res, const void* w, const void* dy,
+                 void* dx, void* dw, void* rinv, void* partial, int64_t rows,
+                 int d, int64_t rpc, int nchunks, double eps,
+                 cudaStream_t stream) {
+  if (res == nullptr)
+    return launch_bwd<T, false>(x, nullptr, w, dy, dx, dw, rinv, partial,
+                                rows, d, rpc, nchunks, eps, stream);
+  return launch_bwd<T, true>(x, res, w, dy, dx, dw, rinv, partial, rows, d,
+                             rpc, nchunks, eps, stream);
+}
+
 }  // namespace
+
+// The backward.  dtype codes as below, 0 float32 or 1 float64 only; w, dw,
+// the rows' r (rinv, rows long) and the partials (nchunks x d) are of the
+// dtype; res may be null; rows of rpc per chunk, nchunks * rpc >= rows.
+// dx is also dres.  Returns the cudaError_t of the three launches.
+extern "C" int rms_norm_bwd_launch(int dtype, const void* x, const void* res,
+                                   const void* w, const void* dy, void* dx,
+                                   void* dw, void* rinv, void* partial,
+                                   long long rows, int d, long long rpc,
+                                   int nchunks, double eps, void* stream) {
+  if (rows <= 0 || d <= 0 || rpc <= 0 || nchunks <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_bwd_r<float>(x, res, w, dy, dx, dw, rinv, partial, rows, d, rpc, nchunks, eps, st);
+    case 1: return launch_bwd_r<double>(x, res, w, dy, dx, dw, rinv, partial, rows, d, rpc, nchunks, eps, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 // dtype codes shared with repro_torch/kernels/rmsnorm.py:
 //   0 float32, 1 float64, 2 float16, 3 bfloat16.

@@ -1,8 +1,19 @@
 """Deterministic synthetic LM tokens (numpy; the JAX package's
-``synthetic_lm_batch``, copied so the port needs nothing of it)."""
+``synthetic_lm_batch`` and ``TokenPipeline``, copied so the port needs
+nothing of it).
+
+``TokenPipeline`` is an infinite iterator of host batches keyed by (step,
+host_id), so a restart at a saved data cursor replays the exact sample
+stream (the fault-tolerance path of ``launch/train.py`` relies on it);
+each batch lands on the requested device as int64 tensors.
+"""
 from __future__ import annotations
 
+import dataclasses
+from typing import Iterator
+
 import numpy as np
+import torch
 
 
 def synthetic_lm_batch(step: int, batch: int, seq_len: int, vocab: int,
@@ -18,3 +29,26 @@ def synthetic_lm_batch(step: int, batch: int, seq_len: int, vocab: int,
         toks.append(nxt)
     tokens = np.concatenate(toks, axis=1).astype(np.int32)
     return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+
+@dataclasses.dataclass
+class TokenPipeline:
+    global_batch: int
+    seq_len: int
+    vocab: int
+    seed: int = 0
+    host_id: int = 0
+    n_hosts: int = 1
+    start_step: int = 0
+    device: str = "cpu"
+
+    def __iter__(self) -> Iterator[dict]:
+        step = self.start_step
+        per_host = self.global_batch // self.n_hosts
+        while True:
+            b = synthetic_lm_batch(step * self.n_hosts + self.host_id,
+                                   per_host, self.seq_len + 1, self.vocab,
+                                   self.seed)
+            yield {k: torch.as_tensor(v, dtype=torch.long).to(self.device)
+                   for k, v in b.items()}
+            step += 1

@@ -25,30 +25,49 @@ It writes its output into a (B, Sq, H, D) buffer and returns the
 (B, H, Sq, D) view of it, so that the caller's transpose back to
 (B, Sq, H*D) is free.
 
-The wrapper counts its kernel launches in ``flash_attention.launches``, a
-plain integer that callers may reset.
+With ``return_lse=True`` the forward also returns each query row's
+log-sum-exp of its scaled scores, (B, H, Sq) float32: what the backward
+recomputes the probabilities from.  The backward, ``flash_attention_bwd``
+(``csrc/flash_attention_bwd.cu``, float32 and float64), takes q, k, v, the
+output, lse and the output's cotangent and returns (dq, dk, dv) from three
+deterministic kernels (a row-dot pass, one CTA per kv tile for dk/dv
+summing its GQA group in a fixed order, one CTA per query tile for dq; no
+atomics).  ``kernels/ops.py`` makes the pair a ``torch.autograd.Function``;
+the plain version is ``kernels/ref.py::attention_bwd_ref``.
+
+Each wrapper counts its calls in ``<wrapper>.launches`` (one per call:
+the backward's three kernels count once), a plain integer that callers may
+reset.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
 
 from ._build import CudaLibrary, call, raise_on
 
-__all__ = ["flash_attention", "SOURCE", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_bwd", "SOURCE", "BWD_SOURCE",
+           "HEAD_DIMS"]
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
                torch.bfloat16: 3}
 _vp, _i32 = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary("flash_attention", {
-    "flash_attention_launch": [_i32, _vp, _vp, _vp, _vp, _vp, _i32, _i32,
-                               _i32, _i32, _i32, _i32, ctypes.c_float, _i32,
-                               _i32, _i32, _i32, _vp],
+    "flash_attention_launch": [_i32, _vp, _vp, _vp, _vp, _vp, _vp, _i32,
+                               _i32, _i32, _i32, _i32, _i32, ctypes.c_float,
+                               _i32, _i32, _i32, _i32, _vp],
 })
 SOURCE = LIBRARY.source
+BWD_LIBRARY = CudaLibrary("flash_attention_bwd", {
+    "flash_attention_bwd_launch": [_i32] + [_vp] * 11 + [_i32] * 6 + [
+        ctypes.c_double] + [_i32] * 4 + [_vp],
+})
+BWD_SOURCE = BWD_LIBRARY.source
+_BWD_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
 
 def _strides(t: torch.Tensor):
@@ -97,13 +116,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    q_offset: int = 0, scale: Optional[float] = None,
+                    return_lse: bool = False):
     """Attention on the card.  q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D), one
     float dtype, D in ``HEAD_DIMS``, last dim contiguous.  ``q_offset`` is
     the absolute position of query 0; with ``window`` w, query i attends
     keys j with i - w < j <= i (absolute).  Returns (B, H, Sq, D) in q's
-    dtype, a view of a (B, Sq, H, D) buffer."""
+    dtype, a view of a (B, Sq, H, D) buffer; with ``return_lse``, also the
+    rows' log-sum-exp (B, H, Sq) float32 (log(1e-30) for a row that sees no
+    key)."""
     name = "flash_attention"
     _check(q, k, v, name)
     B, H, Sq, D = q.shape
@@ -111,18 +132,78 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else D ** -0.5
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     view = out.transpose(1, 2)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if q.numel() == 0 or Sk == 0:
-        return view.zero_()
+        view.zero_()
+        if lse is not None:
+            lse.fill_(math.log(1e-30))
+        return (view, lse) if return_lse else view
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, view) for s in _strides(t)))
     err = call(LIBRARY.load().flash_attention_launch, q.get_device(),
                _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-               out.data_ptr(), strides, B, H, Hkv, Sq, Sk, D, float(scale),
+               out.data_ptr(), None if lse is None else lse.data_ptr(),
+               strides, B, H, Hkv, Sq, Sk, D, float(scale),
                int(causal), int(window is not None),
                0 if window is None else int(window), int(q_offset))
     raise_on(err, name)
     flash_attention.launches += 1
-    return view
+    return (view, lse) if return_lse else view
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None, q_offset: int = 0,
+                        scale: Optional[float] = None):
+    """The gradients (dq, dk, dv) of ``flash_attention(q, k, v, ...)`` for
+    the output cotangent ``dout``, on the card, from the forward's output
+    ``out`` and ``lse`` (its ``return_lse``).  q, k, v, out, dout: float32
+    or float64 (another dtype raises ``TypeError``), any strides with the
+    last dim contiguous; lse: (B, H, Sq) float32.  dq comes back as the
+    (B, H, Sq, D) view of a (B, Sq, H, D) buffer, like the forward's output;
+    dk and dv as (B, Hkv, Sk, D) views of (B, Sk, Hkv, D) buffers."""
+    name = "flash_attention_bwd"
+    code = _BWD_DTYPE_CODE.get(q.dtype)
+    if code is None:
+        raise TypeError(f"{name}: dtype {q.dtype} not supported "
+                        f"(have {sorted(map(str, _BWD_DTYPE_CODE))})")
+    _check(q, k, v, name)
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    for t, nm in ((out, "out"), (dout, "dout")):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
+                or t.stride(-1) != 1:
+            raise ValueError(f"{name}: {nm} {t.dtype} {tuple(t.shape)} "
+                             f"strides {tuple(t.stride())} is not like q "
+                             f"{q.dtype} {tuple(q.shape)} with its last dim "
+                             f"contiguous")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or \
+            not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"{name}: lse {lse.dtype} {tuple(lse.shape)} is not "
+                         f"a contiguous ({B}, {H}, {Sq}) float32 tensor")
+    scale = scale if scale is not None else D ** -0.5
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, Hkv, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    views = (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2))
+    if q.numel() == 0 or Sk == 0:
+        return tuple(t.zero_() for t in views)
+    dvec = torch.empty((B, H, Sq), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*(
+        s for t in (q, k, v, out, dout) + views for s in _strides(t)))
+    err = call(BWD_LIBRARY.load().flash_attention_bwd_launch, q.get_device(),
+               code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               dout.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
+               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides, B, H,
+               Hkv, Sq, Sk, D, float(scale), int(causal),
+               int(window is not None), 0 if window is None else int(window),
+               int(q_offset))
+    raise_on(err, name)
+    flash_attention_bwd.launches += 1
+    return views
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

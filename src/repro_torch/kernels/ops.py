@@ -9,6 +9,16 @@ JAX package's ``use_pallas``: None picks by device as above; False takes
 the plain version on any device, on purpose (a reference run on the card);
 True takes the kernel, which raises for a CPU tensor.
 
+``rms_norm`` and ``attention`` are differentiable on both paths: a CPU
+tensor is differentiated by autograd through the plain version; on the
+kernel path a tensor that requires grad goes through a
+``torch.autograd.Function`` whose forward is the kernel (attention also
+writes the rows' log-sum-exp, saved with q, k, v and the output; rms_norm
+saves its inputs) and whose backward is the backward kernel
+(``rms_norm_bwd``, ``flash_attention_bwd``): never the plain backward.
+Without grad the forward kernel alone runs (attention then writes no
+log-sum-exp).
+
 ``hc``/``sc`` of the combines are the final coefficient rows, already
 multiplied by the step size, in ``promote(x.dtype, float32)`` on x's
 device: one row for the whole buffer, or one row per lane (the leading
@@ -42,16 +52,53 @@ def butcher_combine_rows(x: torch.Tensor, ks: torch.Tensor, hc: torch.Tensor,
     return _kernels.butcher_combine_rows(x, ks, hc, sc)
 
 
-def _use_kernel(x: torch.Tensor, use_kernels: Optional[bool],
-                *inputs: Optional[torch.Tensor]) -> bool:
-    use = x.device.type != "cpu" if use_kernels is None else use_kernels
-    if use and torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in inputs):
-        raise NotImplementedError(
-            "the rms_norm and flash_attention kernels have no backward yet "
-            "(ROADMAP queue 1, item 14): run them under torch.no_grad(), or "
-            "pass use_kernels=False to differentiate the plain version")
-    return use
+def _use_kernel(x: torch.Tensor, use_kernels: Optional[bool]) -> bool:
+    return x.device.type != "cpu" if use_kernels is None else use_kernels
+
+
+def _needs_grad(*inputs: Optional[torch.Tensor]) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in inputs)
+
+
+class _RmsNorm(torch.autograd.Function):
+    """rms_norm on the kernel path with its backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, weight, residual, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, weight, residual)
+        return _rmsnorm.rms_norm(x, weight, residual, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, residual = ctx.saved_tensors
+        dx, dw = _rmsnorm.rms_norm_bwd(x, weight, residual, dy.contiguous(),
+                                       eps=ctx.eps)
+        return dx, dw, (None if residual is None else dx), None
+
+
+class _Attention(torch.autograd.Function):
+    """Flash attention on the kernel path with its backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, scale):
+        out, lse = _flash.flash_attention(q, k, v, causal=causal,
+                                          window=window, q_offset=q_offset,
+                                          scale=scale, return_lse=True)
+        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset,
+                        scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dq, dk, dv = _flash.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                **ctx.mask)
+        return dq, dk, dv, None, None, None, None
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -59,7 +106,9 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              use_kernels: Optional[bool] = None) -> torch.Tensor:
     """(x [+ residual]) * rsqrt(mean((x [+ residual])^2) + eps) * weight
     over the last dim, in float32, returned in x.dtype."""
-    if _use_kernel(x, use_kernels, x, weight, residual):
+    if _use_kernel(x, use_kernels):
+        if _needs_grad(x, weight, residual):
+            return _RmsNorm.apply(x, weight, residual, eps)
         return _rmsnorm.rms_norm(x, weight, residual, eps=eps)
     return ref.rms_norm_ref(x, weight, residual, eps=eps)
 
@@ -72,7 +121,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     D).  The plain version materialises the (Sq, Sk) scores; the JAX
     package's query-blocked plain path for long sequences
     (``attention_blocked_ref``) is not ported."""
-    if _use_kernel(q, use_kernels, q, k, v):
+    if _use_kernel(q, use_kernels):
+        if _needs_grad(q, k, v):
+            return _Attention.apply(q, k, v, causal, window, q_offset, scale)
         return _flash.flash_attention(q, k, v, causal=causal, window=window,
                                       q_offset=q_offset, scale=scale)
     return ref.attention_ref(q, k, v, causal=causal, window=window,

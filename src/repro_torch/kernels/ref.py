@@ -11,9 +11,18 @@ caller picks on purpose with ``use_kernels=False``.
 
 ``decode_attention_ref`` has no kernel, in the JAX package either: decode
 runs it on every device.
+
+The backward versions (``rms_norm_bwd_ref``, ``attention_bwd_ref``, and
+``attention_lse_ref`` for the forward's row log-sum-exp) compute in
+``promote(dtype, float32)``: float32 for float32 inputs, float64 for
+float64 ones (the exact gradient of the formula; the forwards compute a
+float64 input in float32, as the JAX package's references do).  They are
+the oracles that the backward kernels are held against; on CPU tensors
+autograd differentiates the forward versions instead.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -81,6 +90,95 @@ def rms_norm_ref(x: torch.Tensor, weight: torch.Tensor,
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.reciprocal(torch.sqrt(var + eps))
     return (out * weight.to(torch.float32)).to(x.dtype)
+
+
+def rms_norm_bwd_ref(x: torch.Tensor, weight: torch.Tensor,
+                     residual: Optional[torch.Tensor], dy: torch.Tensor,
+                     eps: float = 1e-6):
+    """The gradients of ``rms_norm_ref`` for the cotangent ``dy``: (dx, dw,
+    dres), dres None without a residual (it equals dx).  With v = x (+ res)
+    and r = 1 / sqrt(mean(v^2) + eps), g = dy * w:
+    dx = r g - v r^3 mean(g v), dw = sum over rows of dy v r."""
+    acc = acc_dtype(x.dtype)
+    v = x.to(acc)
+    if residual is not None:
+        v = v + residual.to(acc)
+    d = v.shape[-1]
+    r = torch.reciprocal(torch.sqrt(torch.mean(v * v, dim=-1, keepdim=True)
+                                    + eps))
+    g = dy.to(acc) * weight.to(acc)
+    dv = r * g - v * (r * r * r) * (torch.sum(g * v, dim=-1, keepdim=True)
+                                    / d)
+    dw = torch.sum((dy.to(acc) * v * r).reshape(-1, d), dim=0)
+    dx = dv.to(x.dtype)
+    return dx, dw.to(weight.dtype), (None if residual is None else dx)
+
+
+def _mask(Sq: int, Sk: int, causal: bool, window: Optional[int],
+          q_offset: int, device) -> torch.Tensor:
+    """(Sq, Sk) boolean: query i (absolute i + q_offset) may see key j."""
+    qpos = torch.arange(Sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _scores(q, k, scale, acc):
+    group = q.shape[1] // k.shape[1]
+    kk = torch.repeat_interleave(k, group, dim=1).to(acc)
+    return torch.matmul(q.to(acc), kk.transpose(-1, -2)) * scale
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      q_offset: int = 0,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """Each query row's log-sum-exp of its scaled, allowed scores, (B, H,
+    Sq) in promote(q.dtype, float32); log(1e-30) for a row that sees no key
+    (the forward kernel's convention)."""
+    acc = acc_dtype(q.dtype)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    s = _scores(q, k, scale, acc)
+    mask = _mask(q.shape[2], k.shape[2], causal, window, q_offset, q.device)
+    lse = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.where(torch.isfinite(lse), lse,
+                       torch.full_like(lse, math.log(1e-30)))
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      q_offset: int = 0, scale: Optional[float] = None):
+    """The gradients (dq, dk, dv) of ``attention_ref`` by the flash
+    recurrence, from the output ``o`` and the rows' log-sum-exp ``lse``:
+    D = rowsum(do * o), P = exp(S - lse) on the allowed pairs, dV = P^T do,
+    dS = P * (do V^T - D), dQ = dS K scale, dK = dS^T Q scale; GQA sums dK
+    and dV over each kv head's query heads.  In promote(q.dtype, float32);
+    returned in the inputs' dtype."""
+    acc = acc_dtype(q.dtype)
+    B, H, Sq, Dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    group = H // Hkv
+    scale = scale if scale is not None else Dh ** -0.5
+    s = _scores(q, k, scale, acc)
+    mask = _mask(Sq, Sk, causal, window, q_offset, q.device)
+    p = torch.where(mask, torch.exp(s - lse.to(acc)[..., None]),
+                    torch.zeros((), dtype=acc, device=q.device))
+    dof = do.to(acc)
+    dvec = torch.sum(dof * o.to(acc), dim=-1, keepdim=True)
+    vv = torch.repeat_interleave(v, group, dim=1).to(acc)
+    kk = torch.repeat_interleave(k, group, dim=1).to(acc)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    ds = p * (torch.matmul(dof, vv.transpose(-1, -2)) - dvec)
+    dq = torch.matmul(ds, kk) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(acc)) * scale
+    dk = dk.reshape(B, Hkv, group, Sk, Dh).sum(dim=2)
+    dv = dv.reshape(B, Hkv, group, Sk, Dh).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _masked_softmax(s: torch.Tensor) -> torch.Tensor:

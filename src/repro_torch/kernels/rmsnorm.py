@@ -9,7 +9,15 @@ package's ``rms_norm_pallas``).  The plain PyTorch version is
 ``kernels/ref.py::rms_norm_ref``; ``kernels/ops.py`` routes CPU tensors
 there and CUDA tensors here.
 
-The wrapper counts its kernel launches in ``rms_norm.launches``, a plain
+The backward, ``rms_norm_bwd`` (float32 and float64), is in the same
+source: dx (which is also the residual's gradient) per row and dw as
+fixed-order partial sums over chunks of rows, then one reduction pass, with
+no atomics, so that two calls give the same bits.  ``kernels/ops.py`` makes
+the pair a ``torch.autograd.Function``; the plain version is
+``kernels/ref.py::rms_norm_bwd_ref``.
+
+Each wrapper counts its calls in ``<wrapper>.launches`` (one per call that
+launches: ``rms_norm_bwd`` launches its three kernels per call), a plain
 integer that callers may reset.
 """
 from __future__ import annotations
@@ -21,7 +29,7 @@ import torch
 
 from ._build import CudaLibrary, call, raise_on
 
-__all__ = ["rms_norm", "SOURCE"]
+__all__ = ["rms_norm", "rms_norm_bwd", "SOURCE"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
                torch.bfloat16: 3}
@@ -29,7 +37,12 @@ _vp = ctypes.c_void_p
 LIBRARY = CudaLibrary("rmsnorm", {
     "rms_norm_launch": [ctypes.c_int, _vp, _vp, _vp, _vp, ctypes.c_longlong,
                         ctypes.c_int, ctypes.c_float, _vp],
+    "rms_norm_bwd_launch": [ctypes.c_int, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                            _vp, ctypes.c_longlong, ctypes.c_int,
+                            ctypes.c_longlong, ctypes.c_int, ctypes.c_double,
+                            _vp],
 })
+_BWD_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 SOURCE = LIBRARY.source
 
 
@@ -54,6 +67,74 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
     if code is None:
         raise TypeError(f"{name}: dtype {x.dtype} not supported "
                         f"(have {sorted(map(str, _DTYPE_CODE))})")
+    _check(x, w, residual, name)
+    out = torch.empty_like(x)
+    n = x.numel()
+    if n == 0:
+        return out
+    if w.dtype != torch.float32 or not w.is_contiguous():
+        w = w.to(torch.float32).contiguous()
+    d = x.shape[-1]
+    err = call(LIBRARY.load().rms_norm_launch, x.get_device(), code,
+               x.data_ptr(),
+               None if residual is None else residual.data_ptr(),
+               w.data_ptr(), out.data_ptr(), n // d, d, float(eps))
+    raise_on(err, name)
+    rms_norm.launches += 1
+    return out
+
+
+def _dw_chunks(rows: int, d: int):
+    """Rows per chunk and chunk count of the dw partial sums: about 1024
+    blocks of 32 columns in all, at least 8 rows a chunk; a function of the
+    shape alone, so the summation order is fixed."""
+    target = max(1, 1024 // -(-d // 32))
+    rpc = max(8, -(-rows // target))
+    return rpc, -(-rows // rpc)
+
+
+def rms_norm_bwd(x: torch.Tensor, w: torch.Tensor,
+                 residual: Optional[torch.Tensor], dy: torch.Tensor, *,
+                 eps: float = 1e-6):
+    """The gradients of ``rms_norm(x, w, residual, eps)`` for the output
+    cotangent ``dy``, on the card: (dx, dw).  dx, like x, is also the
+    residual's gradient; dw is in w's dtype.  x, residual, dy: contiguous
+    float32 or float64 CUDA tensors of one shape and dtype (another dtype
+    raises ``TypeError``); w: (d,), read in x's dtype."""
+    name = "rms_norm_bwd"
+    code = _BWD_DTYPE_CODE.get(x.dtype)
+    if code is None:
+        raise TypeError(f"{name}: dtype {x.dtype} not supported "
+                        f"(have {sorted(map(str, _BWD_DTYPE_CODE))})")
+    _check(x, w, residual, name)
+    if dy.dtype != x.dtype or dy.shape != x.shape or not dy.is_contiguous() \
+            or dy.device != x.device:
+        raise ValueError(f"{name}: dy {dy.dtype} {tuple(dy.shape)} on "
+                         f"{dy.device} is not a contiguous tensor like x "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    d = x.shape[-1]
+    dx = torch.empty_like(x)
+    rows = x.numel() // d if d else 0
+    if rows == 0:
+        return dx, torch.zeros_like(w)
+    wt = w.to(x.dtype).contiguous()
+    rpc, nchunks = _dw_chunks(rows, d)
+    dw = torch.empty(d, dtype=x.dtype, device=x.device)
+    rinv = torch.empty(rows, dtype=x.dtype, device=x.device)
+    partial = torch.empty((nchunks, d), dtype=x.dtype, device=x.device)
+    err = call(LIBRARY.load().rms_norm_bwd_launch, x.get_device(), code,
+               x.data_ptr(),
+               None if residual is None else residual.data_ptr(),
+               wt.data_ptr(), dy.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+               rinv.data_ptr(), partial.data_ptr(), rows, d, rpc, nchunks,
+               float(eps))
+    raise_on(err, name)
+    rms_norm_bwd.launches += 1
+    return dx, dw.to(w.dtype)
+
+
+def _check(x: torch.Tensor, w: torch.Tensor,
+           residual: Optional[torch.Tensor], name: str):
     shape = x.shape
     if not shape or w.shape != (shape[-1],):
         raise ValueError(f"{name}: weight shape {tuple(w.shape)} is not "
@@ -75,19 +156,7 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
                                    residual.get_device() != index):
         t = w if w.get_device() != index else residual
         raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
-    out = torch.empty_like(x)
-    n = x.numel()
-    if n == 0:
-        return out
-    if w.dtype != torch.float32 or not w.is_contiguous():
-        w = w.to(torch.float32).contiguous()
-    d = shape[-1]
-    err = call(LIBRARY.load().rms_norm_launch, index, code, x.data_ptr(),
-               None if residual is None else residual.data_ptr(),
-               w.data_ptr(), out.data_ptr(), n // d, d, float(eps))
-    raise_on(err, name)
-    rms_norm.launches += 1
-    return out
 
 
 rms_norm.launches = 0
+rms_norm_bwd.launches = 0

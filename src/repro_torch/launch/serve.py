@@ -2,9 +2,11 @@
 ODE solve server.
 
     # batched LM serving: prefill a batch of prompts into a bfloat16 KV
-    # cache, then decode token by token
+    # cache, then decode token by token; --ckpt-dir serves the params of a
+    # training checkpoint (launch/train.py; the same --grad-mode)
     PYTHONPATH=src python -m repro_torch.launch.serve lm --arch qwen3-0.6b \\
-        [--smoke] [--batch 8 --prompt-len 1024 --gen-len 32] [--device cpu]
+        [--smoke] [--batch 8 --prompt-len 1024 --gen-len 32] [--device cpu] \\
+        [--ckpt-dir runs/ckpt [--grad-mode symplectic]]
 
     # ODE solve serving: a heterogeneous request stream through
     # repro_torch.serve.SolveEngine (drain, or Poisson arrivals with --rate)
@@ -28,13 +30,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch, get_smoke_arch
+from repro_torch.configs.base import NodeConfig
 from repro_torch.core import AdaptiveConfig, get_tableau
 from repro_torch.data.tokens import synthetic_lm_batch
 from repro_torch.models.lm import init_lm
 from repro_torch.serve import (EngineConfig, SolveEngine, latency_summary,
-                               naive_sequential_solve, poisson_arrivals,
-                               serve_timed, synthetic_stream)
-from repro_torch.train import make_decode_step, make_prefill_step
+                               naive_sequential_solve, params_from_checkpoint,
+                               poisson_arrivals, serve_timed,
+                               synthetic_stream)
+from repro_torch.train import (TrainConfig, init_train_state,
+                               make_decode_step, make_prefill_step)
 
 
 def _sync(device: torch.device):
@@ -60,12 +65,33 @@ def _lm_main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the weights, the prompts and the sampler")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the params of a TRAINING checkpoint (the "
+                    "full TrainState saved by repro_torch.launch.train; "
+                    "pass the --grad-mode/--node-method the training run "
+                    "used, so the state trees match)")
+    ap.add_argument("--grad-mode", default=None)
+    ap.add_argument("--node-method", default="euler")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     device = _device(args.device)
     arch = get_smoke_arch(args.arch) if args.smoke else get_arch(args.arch)
-    params = init_lm(arch, seed=args.seed, device=device)
+    if args.grad_mode:
+        # a node-mode arch serves with the discrete stack (models/lm.py)
+        arch = arch.with_(node=NodeConfig(mode="node",
+                                          method=args.node_method,
+                                          grad_mode=args.grad_mode))
+    if args.ckpt_dir:
+        # train -> serve handoff: a fresh state is only the restore
+        # template (same arch => same tree), every leaf is overwritten
+        like = init_train_state(arch, TrainConfig(), seed=args.seed,
+                                device=device)
+        params, ck_step = params_from_checkpoint(args.ckpt_dir, like)
+        print(f"[serve] restored params from {args.ckpt_dir} "
+              f"step {ck_step}")
+    else:
+        params = init_lm(arch, seed=args.seed, device=device)
     max_len = args.prompt_len + args.gen_len
     prefill = make_prefill_step(arch, args.batch, max_len)
     decode = make_decode_step(arch)
@@ -81,6 +107,7 @@ def _lm_main(argv: Optional[Sequence[str]] = None) -> dict:
     _sync(device)
     t_prefill = time.perf_counter() - t0
 
+    first_logits = logits
     finite = torch.isfinite(logits).all()
     tok = torch.argmax(logits[:, -1], -1)[:, None]
     out_tokens = [tok]
@@ -104,7 +131,8 @@ def _lm_main(argv: Optional[Sequence[str]] = None) -> dict:
           f"decode {args.gen_len} tok in {t_decode * 1e3:.3f} ms "
           f"({t_decode / steps * 1e3:.3f} ms/tok)")
     print("[serve] sample generation (token ids):", gen[0][:16].tolist())
-    return {"tokens": gen, "prefill_ms": t_prefill * 1e3,
+    return {"tokens": gen, "prefill_logits": first_logits,
+            "prefill_ms": t_prefill * 1e3,
             "decode_ms": t_decode * 1e3,
             "decode_ms_per_token": t_decode / steps * 1e3,
             "logits_finite": bool(finite)}

@@ -94,12 +94,18 @@ class EngineConfig:
 
 
 def params_from_checkpoint(directory: str, like: Pytree,
-                           step: Optional[int] = None, shardings=None):
-    """Load the params leaf of a training checkpoint: needs the training
-    runtime's ``Checkpointer``, which is not ported yet."""
-    raise NotImplementedError(
-        "params_from_checkpoint needs runtime.Checkpointer, which is not "
-        "ported yet (ROADMAP queue 1, item 14)")
+                           step: Optional[int] = None):
+    """Load the params leaf out of a TRAINING checkpoint (the full
+    ``train.TrainState`` saved by ``runtime.Checkpointer``).
+
+    ``like`` must be a state with the same tree structure as what training
+    saved, e.g. ``train.init_train_state`` with the training arch and
+    config (its values are overwritten; dtypes and devices are kept).
+    Returns ``(params, step)``: the train -> serve handoff.  A mismatched
+    template raises ``ValueError`` (shape-contract mismatch)."""
+    from ..runtime import Checkpointer
+    state, step = Checkpointer(directory).restore(like, step=step)
+    return state["params"], step
 
 
 def _detached(tree: Pytree) -> Pytree:
@@ -146,11 +152,15 @@ class SolveEngine:
                         engine_cfg: EngineConfig = None,
                         combine_backend: str = "auto",
                         step: Optional[int] = None) -> "SolveEngine":
-        """Boot an engine from a training checkpoint: needs the training
-        runtime's ``Checkpointer``, which is not ported yet."""
-        raise NotImplementedError(
-            "from_checkpoint needs runtime.Checkpointer, which is not ported "
-            "yet (ROADMAP queue 1, item 14)")
+        """Boot an engine from a TRAINING checkpoint: the params leaf of the
+        ``train.TrainState`` saved by ``launch.train`` becomes the field
+        parameters (``like`` supplies the saved tree structure, see
+        ``params_from_checkpoint``); ``restored_step`` records the step."""
+        params, step = params_from_checkpoint(directory, like, step)
+        engine = cls(f, tab, cfg, params, x0_template, engine_cfg,
+                     combine_backend)
+        engine.restored_step = step
+        return engine
 
     # -- slot-state construction / resizing ---------------------------------
     def _blank_state(self, B: int) -> BatchedSolverState:

@@ -1,0 +1,162 @@
+"""Training step factory (the JAX package's ``repro.train.train_step``):
+loss -> gradient (any mode) -> compression -> clipping -> AdamW, with
+optional microbatch gradient accumulation.
+
+The gradient scheme of a node-mode arch is its ``NodeConfig.grad_mode``
+(a registered strategy name or a ``repro_torch.core.GradientStrategy``),
+which the LM forward resolves through ``repro_torch.core.solve``.  The
+decoder LM is the arch this package trains; the enc-dec model and the
+patch frontend come with ROADMAP queue 1, item 13, and the ZeRO-style
+gradient sharding hook (``grad_constraint``) with item 15.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.lm import init_lm, lm_forward
+from repro_torch.optim import (AdamWConfig, CompressionConfig, adamw_init,
+                               adamw_update, clip_by_global_norm,
+                               compress_grads, decompress_grads,
+                               init_error_state)
+from .losses import lm_loss, lm_loss_chunked
+from .state import (TrainState, generator_from_state, init_solver_stats,
+                    node_solver_counts)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    max_grad_norm: float = 1.0
+    microbatches: int = 1
+    adamw: AdamWConfig = AdamWConfig()
+    compression: CompressionConfig = CompressionConfig()
+    param_dtype: str = "float32"
+    # chunked cross-entropy: never make the (B, S, V) logits; 0 takes the
+    # full-logits path
+    loss_chunk: int = 512
+
+
+def _check_arch(arch: ArchConfig):
+    if arch.encdec or arch.frontend != "none":
+        raise NotImplementedError(
+            f"{arch.name}: training the enc-dec model or a patch/audio "
+            f"frontend is not ported yet (ROADMAP queue 1, item 13)")
+
+
+def init_train_state(arch: ArchConfig, tcfg: TrainConfig, *, seed: int = 0,
+                     device="cuda") -> TrainState:
+    """A fresh ``TrainState`` on ``device``: weights from ``seed`` (see
+    ``models.lm.init_lm``), the training generator seeded with seed + 1."""
+    _check_arch(arch)
+    params = init_lm(arch, seed=seed, device=device,
+                     dtype=getattr(torch, tcfg.param_dtype))
+    return TrainState(
+        params=params, opt=adamw_init(params, tcfg.adamw),
+        rng=torch.Generator().manual_seed(seed + 1).get_state(),
+        data_step=torch.zeros((), dtype=torch.int32, device=device),
+        solver_stats=init_solver_stats(device),
+        compress_err=init_error_state(params, tcfg.compression))
+
+
+def _forward_loss(params, batch, arch: ArchConfig, loss_chunk: int):
+    rh = loss_chunk > 0
+    out = lm_forward(params, arch, batch["tokens"], mode="train",
+                     return_hidden=rh)
+    if rh:
+        loss = lm_loss_chunked(out["hidden"], out["head"], batch["labels"],
+                               loss_chunk)
+    else:
+        loss = lm_loss(out["logits"], batch["labels"])
+    return loss + out["aux"], loss
+
+
+def loss_and_grads(params, batch, arch: ArchConfig, loss_chunk: int = 512):
+    """(total loss, gradient tree like ``params``) of one batch; the params
+    are not modified (the gradient is taken on detached copies)."""
+    leaves, spec = pytree.tree_flatten(params)
+    with torch.enable_grad():
+        live = [l.detach().requires_grad_() for l in leaves]
+        total, _ = _forward_loss(pytree.tree_unflatten(live, spec), batch,
+                                 arch, loss_chunk)
+        grads = torch.autograd.grad(total, live, allow_unused=True)
+    grads = [torch.zeros_like(l) if g is None else g
+             for g, l in zip(grads, leaves)]
+    return total.detach(), pytree.tree_unflatten(grads, spec)
+
+
+def make_train_step(arch: ArchConfig, tcfg: TrainConfig,
+                    lr_fn: Optional[Callable] = None,
+                    grad_constraint: Optional[Callable] = None):
+    """train_step(state, batch) -> (new state, {"loss", "grad_norm", "lr"})
+    with batch {"tokens", "labels"} (B, S) integer tensors on the params'
+    device.  The new state's tensors are new (the old state stays valid)."""
+    _check_arch(arch)
+    if grad_constraint is not None:
+        raise NotImplementedError(
+            "grad_constraint (the ZeRO-style sharding of the gradients over "
+            "a data-parallel mesh) is not ported yet (ROADMAP queue 1, item "
+            "15)")
+    if lr_fn is None:
+        lr_fn = lambda step: torch.full(  # noqa: E731
+            (), tcfg.lr, dtype=torch.float32, device=step.device)
+    # static forward-solve cost of one train step (node archs)
+    solve_steps, solve_fevals = node_solver_counts(arch)
+    n_solves = max(tcfg.microbatches, 1)
+
+    def train_step(state, batch):
+        params = state["params"]
+        if tcfg.microbatches > 1:
+            mb = tcfg.microbatches
+            g_acc = pytree.tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            loss_sum = None
+            for i in range(mb):
+                part = {k: torch.chunk(v, mb, dim=0)[i]
+                        for k, v in batch.items()}
+                total, g = loss_and_grads(params, part, arch, tcfg.loss_chunk)
+                g_acc = pytree.tree_map(lambda a, b: a + b.to(a.dtype),
+                                        g_acc, g)
+                loss_sum = total if loss_sum is None else loss_sum + total
+            grads = pytree.tree_map(lambda g: g / mb, g_acc)
+            loss = loss_sum / mb
+        else:
+            loss, grads = loss_and_grads(params, batch, arch,
+                                         tcfg.loss_chunk)
+
+        with torch.no_grad():
+            # gradient compression across the (future) data-parallel
+            # all-reduce boundary
+            err = state.get("compress_err")
+            comp, new_err = compress_grads(grads, tcfg.compression, err)
+            grads = decompress_grads(comp, tcfg.compression)
+            grads, gnorm = clip_by_global_norm(grads, tcfg.max_grad_norm)
+            lr = lr_fn(state["opt"]["step"])
+            params, opt = adamw_update(params, grads, state["opt"], lr,
+                                       tcfg.adamw)
+        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        if isinstance(state, TrainState):
+            # advance every contract field: one draw from the training
+            # generator (the step's key, reserved for stochastic layers),
+            # the data cursor, the static solve counters
+            gen = generator_from_state(state.rng)
+            torch.randint(0, 2 ** 62, (1,), generator=gen)
+            stats = {
+                "n_steps": state.solver_stats["n_steps"]
+                + solve_steps * n_solves,
+                "n_fevals": state.solver_stats["n_fevals"]
+                + solve_fevals * n_solves}
+            return TrainState(params=params, opt=opt, rng=gen.get_state(),
+                              data_step=state.data_step + 1,
+                              solver_stats=stats,
+                              compress_err=new_err), metrics
+        new_state = {"params": params, "opt": opt}
+        if new_err is not None:
+            new_state["compress_err"] = new_err
+        return new_state, metrics
+
+    return train_step

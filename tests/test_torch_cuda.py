@@ -10,9 +10,15 @@ suite's conftest imports JAX, hence ``--noconftest``):
 It also holds the cases and tolerances that ``test_torch_lm_kernels.py``
 uses against the JAX package on the CPU.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
+
+# cuBLAS takes deterministic reductions only with a fixed workspace, set
+# before CUDA starts (the training launcher does the same)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 from repro_torch.kernels import butcher_combine as combine_kern
 from repro_torch.kernels import flash_attention as flash_kern
@@ -473,3 +479,175 @@ def test_serve_engine_kernel_path_matches_plain_on_card(buckets):
         assert g.x_final.device.type == "cuda"
         err = float((g.x_final - w.x_final).abs().max())
         assert err <= 1e-9 * float(w.x_final.abs().max()), err
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels (rms_norm_bwd, flash_attention_bwd) and the
+# differentiable kernel path
+# ---------------------------------------------------------------------------
+
+# the backward kernels compute in the input's dtype (float32 or float64),
+# as their plain versions do; they differ in the order of the sums:
+# |kernel - plain| <= tol * max|plain| per output
+BWD_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+BWD_TOL = {"float32": 1e-4, "float64": 1e-12}
+RMS_BWD_TOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+def _rel_err(got, want):
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp_min(1e-300))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("rows,d", [(8192, 1024), (131072, 128), (1, 16),
+                                    (7, 1000), (33, 4096), (4099, 128)])
+@pytest.mark.parametrize("dtype", sorted(BWD_DTYPES))
+def test_rms_norm_bwd_kernel_matches_plain_on_card(dtype, rows, d, residual):
+    dev = _on_card()
+    tdt = BWD_DTYPES[dtype]
+    g = torch.Generator(device=dev).manual_seed(rows + d)
+    x, r, dy = (torch.randn(rows, d, generator=g, device=dev, dtype=tdt)
+                for _ in range(3))
+    w = torch.randn(d, generator=g, device=dev, dtype=tdt)
+    res = r if residual else None
+    dx, dw = rms_kern.rms_norm_bwd(x, w, res, dy)
+    wdx, wdw, wdres = tref.rms_norm_bwd_ref(x, w, res, dy)
+    assert _rel_err(dx, wdx) <= RMS_BWD_TOL[dtype]
+    assert _rel_err(dw, wdw) <= RMS_BWD_TOL[dtype]
+    # deterministic: the same bits on a second call (no atomics)
+    dx2, dw2 = rms_kern.rms_norm_bwd(x, w, res, dy)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+def test_rms_norm_bwd_refuses_other_dtypes_on_card():
+    dev = _on_card()
+    x = torch.ones(4, 16, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="not supported"):
+        rms_kern.rms_norm_bwd(x, torch.ones(16, device=dev), None, x)
+
+
+BWD_ATTN_CASES = CARD_ATTN_CASES + [
+    (2, 8, 2, 65, 300, 64, True, 40, 235),      # window + offset, GQA 4
+    (1, 4, 2, 200, 150, 32, False, None, 0),    # Sq > Sk
+    (1, 6, 3, 37, 37, 16, True, 7, 0),          # odd sizes, D 16
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(BWD_DTYPES))
+@pytest.mark.parametrize("case", BWD_ATTN_CASES)
+def test_flash_attention_bwd_kernel_matches_plain_on_card(case, dtype):
+    dev = _on_card()
+    B, H, Hkv, Sq, Sk, D, causal, window, q_offset = case
+    tdt = BWD_DTYPES[dtype]
+    q, k, v = (torch.tensor(a, device=dev).to(tdt)
+               for a in attn_inputs(case))
+    do = torch.tensor(np.random.default_rng(5).normal(size=(B, H, Sq, D)),
+                      device=dev).to(tdt)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = flash_kern.flash_attention(q, k, v, return_lse=True, **kw)
+    # the forward's log-sum-exp is float32 (the forward computes in float)
+    torch.testing.assert_close(lse, tref.attention_lse_ref(q, k, **kw)
+                               .float(), rtol=1e-5, atol=1e-5)
+    got = flash_kern.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = tref.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert _rel_err(a, b) <= BWD_TOL[dtype]
+    again = flash_kern.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_flash_attention_lse_costs_the_serve_path_nothing_on_card():
+    """Without ``return_lse`` the forward writes no log-sum-exp and gives
+    the same output bits as with it."""
+    dev = _on_card()
+    case = (2, 8, 4, 256, 256, 128, True, None, 0)
+    q, k, v = (torch.tensor(a, device=dev) for a in attn_inputs(case))
+    o1 = flash_kern.flash_attention(q, k, v)
+    o2, lse = flash_kern.flash_attention(q, k, v, return_lse=True)
+    assert torch.equal(o1, o2) and lse.shape == (2, 8, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(BWD_DTYPES))
+def test_kernel_path_autograd_matches_plain_on_card(dtype):
+    """ops.rms_norm / ops.attention with tensors that require grad: the
+    backward kernels run (their counters move), and the gradients equal
+    the plain versions' autograd (float32: the forward computes in float
+    on both paths, 1e-4; float64: the kernels' float64 backward against
+    autograd of the float32-inside plain version, float32's bound)."""
+    from repro_torch.kernels import ops
+    dev = _on_card()
+    tdt = BWD_DTYPES[dtype]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(64, 128, generator=gen, device=dev, dtype=tdt)
+    r = torch.randn(64, 128, generator=gen, device=dev, dtype=tdt)
+    w = torch.randn(128, generator=gen, device=dev, dtype=tdt)
+    case = (2, 4, 2, 96, 96, 64, True, None, 0)
+    q, k, v = (torch.tensor(a, device=dev).to(tdt)
+               for a in attn_inputs(case))
+    grads = []
+    for use in (None, False):
+        leaves = [t.clone().requires_grad_() for t in (x, r, w, q, k, v)]
+        xx, rr, ww, qq, kk, vv = leaves
+        y = ops.rms_norm(xx, ww, rr, use_kernels=use)
+        o = ops.attention(qq, kk, vv, use_kernels=use)
+        (y.square().sum() + o.square().sum()).backward()
+        grads.append([t.grad for t in leaves])
+    before = (rms_kern.rms_norm_bwd.launches,
+              flash_kern.flash_attention_bwd.launches)
+    xx = x.clone().requires_grad_()
+    ops.rms_norm(xx, w).sum().backward()
+    qq = q.clone().requires_grad_()
+    ops.attention(qq, k, v).sum().backward()
+    assert (rms_kern.rms_norm_bwd.launches,
+            flash_kern.flash_attention_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for a, b in zip(*grads):
+        assert _rel_err(a, b) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["discrete", "node_symplectic"])
+def test_lm_train_step_kernel_path_matches_plain_on_card(mode):
+    """One smoke-width train step on the card through the kernels against
+    the same step with the plain versions (use_kernels=False): loss and
+    grad_norm within float32's bound, and a second run of the kernel step
+    bitwise equal (deterministic algorithms on)."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.configs.base import NodeConfig
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.train import TrainConfig, init_train_state, \
+        make_train_step
+    dev = _on_card()
+    arch = get_smoke_arch("qwen3-0.6b")
+    if mode == "node_symplectic":
+        arch = arch.with_(node=NodeConfig(mode="node",
+                                          grad_mode="symplectic"))
+    b = synthetic_lm_batch(0, 4, 17, arch.vocab)
+    batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+             for k, v in b.items()}
+    from torch.utils import _pytree as pytree
+    state = init_train_state(arch, TrainConfig(), device=dev)
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for use in (None, False, None):
+            step = make_train_step(arch.with_(use_kernels=use),
+                                   TrainConfig())
+            out.setdefault(use, []).append(step(state, batch))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (s1, m1), (s2, m2) = out[None]
+    _, mp = out[False][0]
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(m1[key]), float(mp[key]),
+                                   rtol=1e-4)
+        assert float(m1[key]) == float(m2[key])
+    assert all(torch.equal(a, b_) for a, b_ in zip(
+        pytree.tree_leaves(s1.params), pytree.tree_leaves(s2.params)))

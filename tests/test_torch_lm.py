@@ -74,7 +74,7 @@ def test_registry_resolves_ported_and_names_the_rest():
         get_arch("no-such-arch")
 
 
-def test_unported_layers_and_modes_raise():
+def test_unported_layers_and_modes_raise(tmp_path):
     cfg = tqwen.SMOKE
     g = torch.Generator().manual_seed(0)
     from repro_torch.models import blocks
@@ -85,18 +85,24 @@ def test_unported_layers_and_modes_raise():
             blocks.init_layer(g, spec, cfg, device="cpu")
     params = tlm.init_lm(cfg, seed=0, device="cpu")
     tokens = torch.zeros((1, 3), dtype=torch.long)
+    # node mode is ported: it trains through the depth solve (euler, one
+    # step per unit: the discrete stack up to the rounding of x + h R (y -
+    # x), float32 here) and serves with the discrete stack
     node = cfg.with_(node=tbase.NodeConfig(mode="node"))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tlm.lm_forward(params, node, tokens)
+    torch.testing.assert_close(tlm.lm_forward(params, node, tokens)["logits"],
+                               tlm.lm_forward(params, cfg, tokens)["logits"],
+                               rtol=1e-5, atol=1e-5)
     with pytest.raises(NotImplementedError, match="item 13"):
         make_prefill_step(cfg.with_(encdec=True), 1, 4)
     with pytest.raises(ValueError, match="mode"):
         tlm.lm_forward(params, cfg, tokens, mode="prefill")
-    # serve ode runs (tests/test_torch_serve.py); its checkpoint handoff
-    # waits for the training runtime
+    # serve ode runs (tests/test_torch_serve.py) and boots from a training
+    # checkpoint (tests/test_torch_runtime.py); an empty directory holds
+    # none
     from repro_torch.serve import SolveEngine
-    with pytest.raises(NotImplementedError, match="item 14"):
-        SolveEngine.from_checkpoint(None, None, None, "ckpt", None, None)
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        SolveEngine.from_checkpoint(None, None, None, str(tmp_path), None,
+                                    None)
 
 
 @functools.lru_cache(maxsize=None)

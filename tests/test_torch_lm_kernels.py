@@ -155,17 +155,36 @@ def test_ops_use_kernels_true_never_falls_back():
 
 
 def test_ops_kernel_path_refuses_autograd():
-    """The kernels have no backward yet: the kernel path raises rather than
-    return a result that gradients would silently skip."""
+    """The kernel path is differentiable through the backward kernels
+    (``ops._RmsNorm``, ``ops._Attention``) and never hands a gradient to
+    the plain version: a tensor that requires grad on the kernel path goes
+    to the kernel or raises (here, a CPU tensor is refused with and without
+    grad); ``use_kernels=False`` differentiates the plain version."""
     x = torch.ones(2, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no backward"):
+    q = torch.ones(1, 2, 4, 16, requires_grad=True)
+    before = (rms_kern.rms_norm_bwd.launches,
+              flash_kern.flash_attention_bwd.launches)
+    with pytest.raises(ValueError, match="CUDA tensor"):
         ops.rms_norm(x, torch.ones(16), use_kernels=True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.attention(q, q, q, use_kernels=True)
     with torch.no_grad():
         with pytest.raises(ValueError, match="CUDA tensor"):
             ops.rms_norm(x, torch.ones(16), use_kernels=True)
     y = ops.rms_norm(x, torch.ones(16), use_kernels=False)
     y.sum().backward()
     assert x.grad is not None
+    assert (rms_kern.rms_norm_bwd.launches,
+            flash_kern.flash_attention_bwd.launches) == before
+    # the backward wrappers take float32 and float64 only
+    with pytest.raises(TypeError, match="not supported"):
+        rms_kern.rms_norm_bwd(x.detach().to(torch.bfloat16),
+                              torch.ones(16), None,
+                              x.detach().to(torch.bfloat16))
+    qb = q.detach().to(torch.float16)
+    with pytest.raises(TypeError, match="not supported"):
+        flash_kern.flash_attention_bwd(qb, qb, qb, qb,
+                                       torch.zeros(1, 2, 4), qb)
 
 
 def test_wrappers_check_their_inputs():

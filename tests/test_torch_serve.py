@@ -261,17 +261,19 @@ def test_submit_rejects_mismatched_pytree():
         engine.submit(bad)
 
 
-def test_engine_config_validation():
+def test_engine_config_validation(tmp_path):
     with pytest.raises(ValueError, match="strictly increasing"):
         EngineConfig(buckets=(4, 4, 8))
     with pytest.raises(ValueError, match="check_every"):
         EngineConfig(check_every=0)
     with pytest.raises(NotImplementedError, match="item 15"):
         EngineConfig(mesh=object())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        params_from_checkpoint("ckpt", like=None)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        SolveEngine.from_checkpoint(field, TAB, CFG, "ckpt", None,
+    # the checkpoint handoff is ported (tests/test_torch_runtime.py): a
+    # directory with no checkpoint is refused
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        params_from_checkpoint(str(tmp_path), like=None)
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        SolveEngine.from_checkpoint(field, TAB, CFG, str(tmp_path), None,
                                     torch.zeros(DIM))
 
 
