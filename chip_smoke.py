@@ -234,7 +234,12 @@ depth; the backward kernels of rms_norm and flash attention):
                bitwise equal.  Then ms per call of both backward kernels
                (and of the forward with and without ``return_lse``), their
                plain versions, the library call's backward (``F.rms_norm``,
-               ``F.scaled_dot_product_attention``, float32) and the bound.
+               ``F.scaled_dot_product_attention``, float32) and the bound;
+               the kernels' device time alone from torch.profiler in a
+               process of its own (``python3 chip_smoke.py
+               --bwd-device-times``: late in this long process the
+               profiler loses kernel records), every kernel of each call
+               counted; the phase fails without it.
  32. LM train — the main path of this slice: ``launch.train.main`` at
                full width, in a process of its own (``chip_smoke.py
                --lm-train``: the launcher's deterministic algorithms need
@@ -296,6 +301,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 LM_TRAIN_CHILD = "--lm-train"
+BWD_TIMES_CHILD = "--bwd-device-times"
 if sys.argv[1:] == [LM_TRAIN_CHILD]:
     # phase 32's own process: the training launcher turns on deterministic
     # algorithms, which need cuBLAS's fixed workspace set before CUDA
@@ -755,25 +761,34 @@ def _host_ms(fn, calls=1000):
     return ms
 
 
-def _device_ms(fn, name, iters=50):
-    """Kernel time on the device timeline from torch.profiler, or None."""
+def _device_ms(fn, name, iters=50, kernels=None):
+    """Kernel time on the device timeline from torch.profiler: the device
+    time of the kernels whose name holds ``name``, per call, or None.  With
+    ``kernels`` (the launches of such kernels one call makes), a profile
+    holding fewer than ``iters * kernels`` of their records is incomplete:
+    it prints what it saw and profiles again, three times at most."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-    except RuntimeError as exc:     # CUPTI unavailable: report, don't guess
-        print(f"  profiler unavailable: {exc}")
-        return None
-    total = 0.0
-    for ev in prof.key_averages():
-        if name in ev.key:
-            total += getattr(ev, "device_time_total",
-                             getattr(ev, "cuda_time_total", 0.0))
-    return total / iters / 1e3 if total > 0 else None
+    for attempt in range(3 if kernels else 1):
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+        except RuntimeError as exc:   # CUPTI unavailable: report, don't guess
+            print(f"  profiler unavailable: {exc}")
+            return None
+        seen = [ev for ev in prof.key_averages() if _self_device_us(ev) > 0]
+        hits = [ev for ev in seen if name in ev.key]
+        total = sum(_self_device_us(ev) for ev in hits)
+        count = sum(ev.count for ev in hits)
+        if total > 0 and (kernels is None or count == iters * kernels):
+            return total / iters / 1e3
+        print(f"  profiler, attempt {attempt + 1}: {count} records of "
+              f"*{name}* kernels for {iters} calls; seen "
+              f"{[(ev.key[:60], ev.count) for ev in seen[:12]]}")
+    return None
 
 
 def report(max_err, launches):
@@ -1995,6 +2010,25 @@ def _dense_same_grid(field, u0, params, cpu_params, ts, acfg):
           f"{own.n_accepted}; over the first {m}: max |h_card/h_cpu - 1| "
           f"{h_rel:.3e}, max |t_card - t_cpu| {t_abs:.3e}; gradients, card "
           f"vs CPU on their own grids: worst rel err {g_err:.3e}")
+    # which part of the card's solve moves its grid: the same solve on the
+    # card with the plain combines (torch ops, core/combine.py's "torch"
+    # backend) in place of the kernels, and one field evaluation card vs CPU
+    plain = rk_solve_adaptive(field, tab, u0, 0.0, ts[-1], params, acfg,
+                              combine_backend="torch")
+    mp = min(plain.n_accepted, own.n_accepted)
+    h_plain = max(abs(float(plain.hs[i]) / float(own.hs[i]) - 1.0)
+                  for i in range(mp))
+    h_kp = max(abs(float(grid[i][1]) / float(plain.hs[i]) - 1.0)
+               for i in range(min(m, plain.n_accepted)))
+    f_card = field(u0, torch.zeros((), dtype=u0.dtype, device=u0.device),
+                   params)
+    f_cpu = field(u0.cpu(), torch.zeros((), dtype=u0.dtype), cpu_params)
+    f_err = _max_rel([f_card.detach()], [f_cpu.detach()])
+    print(f"dopri8 grid on the card, float64: kernel combines max "
+          f"|h/h_cpu - 1| {h_rel:.3e}; plain combines {h_plain:.3e} "
+          f"({plain.n_accepted} accepted steps); kernel vs plain on the card "
+          f"{h_kp:.3e}; one field evaluation at u0, card vs CPU: worst rel "
+          f"err {f_err:.3e}")
     print(f"dense output, card vs CPU replay of the card's {len(grid)} "
           f"accepted steps: worst rel err of values and gradients "
           f"{err:.3e}; the CPU's own change under a 1e-15 relative change "
@@ -2489,7 +2523,60 @@ BWD_CASES = [
     (1, 4, 2, 200, 200, 16, True, None, 0),       # D 16
     (1, 16, 4, 300, 300, 128, True, 100, 0),      # GQA 4 + window
     (2, 8, 2, 65, 300, 64, True, 40, 235),        # window + offset
+    # the float32 kernels' tiles cut off-edge (64 keys x 16 queries for
+    # dK/dV and the dS blocks, 128 queries x 32 keys for dQ), GQA groups 1,
+    # 2, 4 and every head dim (tests/test_torch_cuda.py::BWD_EDGE_CASES)
+    (1, 4, 4, 77, 77, 16, True, None, 0),         # group 1, D 16, ragged
+    (1, 4, 2, 130, 200, 32, False, None, 0),      # group 2, D 32
+    (1, 8, 2, 100, 333, 64, True, None, 233),     # group 4, q_offset
+    (1, 4, 4, 256, 256, 128, True, 8, 0),         # window under one tile
+    (2, 8, 4, 48, 300, 128, True, 20, 252),       # window + offset, Sq < Sk
+    (1, 8, 2, 129, 129, 32, True, 5, 0),          # window 5, one past 128
 ]
+
+
+def _bwd_device_times_child():
+    """Phase 31's kernel times alone, in a process of its own: both
+    backward wrappers at the training shapes (float32) under torch.profiler,
+    all three kernels of each call counted; prints them as its last line."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    x, dy = (torch.randn(8192, 1024, generator=g, device=dev)
+             for _ in range(2))
+    w = torch.randn(1024, generator=g, device=dev)
+    out = {"rms_norm_bwd": _device_ms(
+        lambda: rn.rms_norm_bwd(x, w, None, dy), "rms_norm_bwd", 50, 3)}
+    B, H, Hkv, S, D = 8, 16, 8, 1024, 128
+    q, do = (torch.randn(B, H, S, D, generator=g, device=dev)
+             for _ in range(2))
+    k, v = (torch.randn(B, Hkv, S, D, generator=g, device=dev)
+            for _ in range(2))
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    out["flash_attention_bwd"] = _device_ms(
+        lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), "attn_bwd", 20,
+        3)
+    print(json.dumps(out), flush=True)
+
+
+def _bwd_device_times():
+    """Run ``_bwd_device_times_child`` and return its times; fails the phase
+    when either is missing."""
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           BWD_TIMES_CHILD], capture_output=True, text=True,
+                          timeout=300)
+    lines = proc.stdout.rstrip("\n").splitlines()
+    if lines[:-1]:
+        print("\n".join(lines[:-1]))
+    check(proc.returncode == 0 and lines,
+          f"device-time process failed (rc {proc.returncode}):\n"
+          f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    times = json.loads(lines[-1])
+    for name, ms in times.items():
+        check(ms is not None, f"{name}: no complete device time from the "
+                              f"profiler")
+    return times
 
 
 def backward_kernels_vs_plain():
@@ -2569,7 +2656,8 @@ def backward_kernels_vs_plain():
     t_p = _time_ms(lambda: ref.rms_norm_bwd_ref(x, w, None, dy), 50, 5)
     t_l = _time_ms(lambda: torch.autograd.grad(y_lib, (xr, wr), dy,
                                                retain_graph=True), 100, 10)
-    d_k = _device_ms(lambda: rn.rms_norm_bwd(x, w, None, dy), "rms_norm_bwd")
+    alone = _bwd_device_times()
+    d_k = alone["rms_norm_bwd"]
     h_k = _host_ms(lambda: rn.rms_norm_bwd(x, w, None, dy), 300)
     bound = (3 * rows * d + 2 * d) * 4 / HBM_BYTES_PER_S * 1e3
     lines.append(f"rms_norm_bwd {rows}x{d}: kernel {t_k:.6f} ms (device, 3 "
@@ -2597,27 +2685,34 @@ def backward_kernels_vs_plain():
                                            enable_gqa=True)
     t_l = _time_ms(lambda: torch.autograd.grad(o_lib, (qr, kr, vr), do,
                                                retain_graph=True), 10, 2)
-    d_k = _device_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
-                     "attn_bwd", 5)
+    d_k = alone["flash_attention_bwd"]
     h_k = _host_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), 20)
+    # five products (S, dP, dV, dK, dQ) over the causal pairs
     flops = 2.5 * 4 * B * H * D * (S * (S + 1) // 2)
     t_ops = 3 * flops / TF32_FLOP_PER_S
     t_fma = flops / F32_FLOP_PER_S
     nbytes = (4 * B * H * S * D + 4 * B * Hkv * S * D + B * H * S) * 4
     bound = max(t_ops, nbytes / HBM_BYTES_PER_S) * 1e3
-    alone = d_k if d_k is not None else t_k
+    # the dS scratch between the dK/dV and dQ kernels (not in the bound:
+    # it is the kernel's own traffic, written and read once)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fa.flash_attention_bwd(q, k, v, o, lse, do)
+    peak = torch.cuda.max_memory_allocated() - base
     lines.append(f"flash_attention_bwd B{B} H{H}/{Hkv} S{S} D{D} causal: "
-                 f"kernel {t_k:.6f} ms (device, 3 kernels "
-                 f"{d_k if d_k is None else f'{d_k:.6f}'}, host {h_k:.6f}) "
-                 f"plain {t_p:.6f} sdpa backward {t_l:.6f} kernel/library "
-                 f"{t_k / t_l:.3f} bound {bound:.6f} (operations, 3xTF32; "
-                 f"{bound / alone * 100:.1f}% of it alone) float32-FMA "
-                 f"bound {t_fma * 1e3:.6f} ({t_fma * 1e3 / alone * 100:.1f}% "
-                 f"of it alone); forward {t_f:.6f} ms, with lse {t_fl:.6f}")
+                 f"kernel {t_k:.6f} ms (device, 3 kernels {d_k:.6f}, host "
+                 f"{h_k:.6f}) plain {t_p:.6f} sdpa backward {t_l:.6f} "
+                 f"kernel/library {t_k / t_l:.3f} bound {bound:.6f} "
+                 f"(operations, 5 products in 3xTF32; "
+                 f"{bound / d_k * 100:.1f}% of it alone) float32-FMA bound "
+                 f"{t_fma * 1e3:.6f} ({t_fma * 1e3 / d_k * 100:.1f}% of it "
+                 f"alone); bytes allocated by one call {peak} (outputs, "
+                 f"row dots and the dS scratch); forward {t_f:.6f} ms, with "
+                 f"lse {t_fl:.6f}")
     main["flash_attention_bwd"] = dict(
         ms=t_k, device_ms=d_k, host_ms=h_k, plain_ms=t_p, library_ms=t_l,
         bound_ms=bound, bound_by="operations", fma_bound_ms=t_fma * 1e3,
-        forward_ms=t_f, forward_lse_ms=t_fl,
+        forward_ms=t_f, forward_lse_ms=t_fl, call_bytes=peak,
         shape=f"float32 B{B} H{H} Hkv{Hkv} S{S} D{D} causal")
     print("float32 ms per call (CUDA events; device = the kernels' time "
           "from torch.profiler; host = host clock per call, no "
@@ -3027,5 +3122,7 @@ if __name__ == "__main__":
     os.chdir(ROOT)
     if sys.argv[1:] == [LM_TRAIN_CHILD]:
         _lm_train_child()
+    elif sys.argv[1:] == [BWD_TIMES_CHILD]:
+        _bwd_device_times_child()
     else:
         main()

@@ -32,8 +32,13 @@ recomputes the probabilities from.  The backward, ``flash_attention_bwd``
 output, lse and the output's cotangent and returns (dq, dk, dv) from three
 deterministic kernels (a row-dot pass, one CTA per kv tile for dk/dv
 summing its GQA group in a fixed order, one CTA per query tile for dq; no
-atomics).  ``kernels/ops.py`` makes the pair a ``torch.autograd.Function``;
-the plain version is ``kernels/ref.py::attention_bwd_ref``.
+atomics).  float32 runs its five products on the tensor cores with
+``wgmma`` in 3xTF32 from TMA-fed tiles, and the dk/dv kernel hands dS to
+the dq kernel through a scratch tensor of the tiles the masks keep (0.285
+GB at the LM's training shape, B 8, H 16, S 1024, causal), allocated here
+per call; float64 runs FMA on the CUDA cores.  ``kernels/ops.py`` makes the
+pair a ``torch.autograd.Function``; the plain version is
+``kernels/ref.py::attention_bwd_ref``.
 
 Each wrapper counts its calls in ``<wrapper>.launches`` (one per call:
 the backward's three kernels count once), a plain integer that callers may
@@ -49,8 +54,8 @@ import torch
 
 from ._build import CudaLibrary, call, raise_on
 
-__all__ = ["flash_attention", "flash_attention_bwd", "SOURCE", "BWD_SOURCE",
-           "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_bwd", "tma_ready", "SOURCE",
+           "BWD_SOURCE", "HEAD_DIMS"]
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
@@ -63,8 +68,10 @@ LIBRARY = CudaLibrary("flash_attention", {
 })
 SOURCE = LIBRARY.source
 BWD_LIBRARY = CudaLibrary("flash_attention_bwd", {
-    "flash_attention_bwd_launch": [_i32] + [_vp] * 11 + [_i32] * 6 + [
+    "flash_attention_bwd_launch": [_i32] + [_vp] * 12 + [_i32] * 6 + [
         ctypes.c_double] + [_i32] * 4 + [_vp],
+    "flash_attention_bwd_scratch_bytes": [_i32] * 9 + [
+        ctypes.POINTER(ctypes.c_longlong)],
 })
 BWD_SOURCE = BWD_LIBRARY.source
 _BWD_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
@@ -77,6 +84,13 @@ def _strides(t: torch.Tensor):
     dense = (H * S * D, S * D, D)
     return tuple(st if n > 1 else c
                  for st, n, c in zip(t.stride()[:3], (B, H, S), dense))
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """t can be read by TMA: the last dim contiguous, and the base and the
+    b, h, s strides 16-byte aligned."""
+    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and not any(
+        st * t.element_size() % 16 for st in _strides(t))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str):
@@ -101,8 +115,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str):
             raise ValueError(f"{name}: the last dim must be contiguous (got "
                              f"strides {tuple(t.stride())}); the kernel "
                              f"reads rows through the other strides")
-        if t.data_ptr() % 16 or any(
-                st * t.element_size() % 16 for st in _strides(t)):
+        if not tma_ready(t):
             raise ValueError(f"{name}: TMA needs a 16-byte aligned base and "
                              f"b, h, s strides (got storage offset "
                              f"{t.storage_offset()}, strides "
@@ -161,7 +174,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the output cotangent ``dout``, on the card, from the forward's output
     ``out`` and ``lse`` (its ``return_lse``).  q, k, v, out, dout: float32
     or float64 (another dtype raises ``TypeError``), any strides with the
-    last dim contiguous; lse: (B, H, Sq) float32.  dq comes back as the
+    last dim contiguous (float32 reads dout by TMA too: ``tma_ready``);
+    lse: (B, H, Sq) float32.  dq comes back as the
     (B, H, Sq, D) view of a (B, Sq, H, D) buffer, like the forward's output;
     dk and dv as (B, Hkv, Sk, D) views of (B, Sk, Hkv, D) buffers."""
     name = "flash_attention_bwd"
@@ -183,6 +197,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"{name}: lse {lse.dtype} {tuple(lse.shape)} is not "
                          f"a contiguous ({B}, {H}, {Sq}) float32 tensor")
+    if code == 0 and not tma_ready(dout):
+        raise ValueError(f"{name}: TMA needs dout's base and b, h, s strides "
+                         f"16-byte aligned (got storage offset "
+                         f"{dout.storage_offset()}, strides "
+                         f"{tuple(dout.stride())})")
     scale = scale if scale is not None else D ** -0.5
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, Hkv, D), dtype=q.dtype, device=q.device)
@@ -190,16 +209,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     views = (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2))
     if q.numel() == 0 or Sk == 0:
         return tuple(t.zero_() for t in views)
+    lib = BWD_LIBRARY.load()
+    mask = (int(causal), int(window is not None),
+            0 if window is None else int(window), int(q_offset))
+    nbytes = ctypes.c_longlong(0)
+    raise_on(lib.flash_attention_bwd_scratch_bytes(
+        code, B, H, Sq, Sk, *mask, ctypes.byref(nbytes)), name)
+    # float32's dS scratch: only the (query, key) tiles the masks keep
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=q.device) \
+        if nbytes.value else None
     dvec = torch.empty((B, H, Sq), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 24)(*(
         s for t in (q, k, v, out, dout) + views for s in _strides(t)))
-    err = call(BWD_LIBRARY.load().flash_attention_bwd_launch, q.get_device(),
-               code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    err = call(lib.flash_attention_bwd_launch, q.get_device(), code,
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                dout.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
+               None if scratch is None else scratch.data_ptr(),
                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides, B, H,
-               Hkv, Sq, Sk, D, float(scale), int(causal),
-               int(window is not None), 0 if window is None else int(window),
-               int(q_offset))
+               Hkv, Sq, Sk, D, float(scale), *mask)
     raise_on(err, name)
     flash_attention_bwd.launches += 1
     return views

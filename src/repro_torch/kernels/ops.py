@@ -94,7 +94,7 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if dout.stride(-1) != 1:
+        if not _flash.tma_ready(dout):
             dout = dout.contiguous()
         dq, dk, dv = _flash.flash_attention_bwd(q, k, v, out, lse, dout,
                                                 **ctx.mask)

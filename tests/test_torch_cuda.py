@@ -529,11 +529,22 @@ def test_rms_norm_bwd_refuses_other_dtypes_on_card():
         rms_kern.rms_norm_bwd(x, torch.ones(16, device=dev), None, x)
 
 
+# the float32 kernels' tiles cut off-edge: 64 keys x 16 queries (dK/dV, and
+# the dS blocks), 128 queries x 32 keys (dQ); GQA groups 1, 2 and 4 and every
+# head dim among them
+BWD_EDGE_CASES = [
+    (1, 4, 4, 77, 77, 16, True, None, 0),       # group 1, D 16, ragged
+    (1, 4, 2, 130, 200, 32, False, None, 0),    # group 2, D 32, off the tiles
+    (1, 8, 2, 100, 333, 64, True, None, 233),   # group 4, q_offset, Sq < Sk
+    (1, 4, 4, 256, 256, 128, True, 8, 0),       # window 8, under one tile
+    (2, 8, 4, 48, 300, 128, True, 20, 252),     # window + offset, Sq < Sk
+    (1, 8, 2, 129, 129, 32, True, 5, 0),        # window 5, one past 128
+]
 BWD_ATTN_CASES = CARD_ATTN_CASES + [
     (2, 8, 2, 65, 300, 64, True, 40, 235),      # window + offset, GQA 4
     (1, 4, 2, 200, 150, 32, False, None, 0),    # Sq > Sk
     (1, 6, 3, 37, 37, 16, True, 7, 0),          # odd sizes, D 16
-]
+] + BWD_EDGE_CASES
 
 
 @pytest.mark.cuda

@@ -151,8 +151,9 @@ def test_kernel_source_is_in_the_package():
 def test_build_tag_reads_only_the_headers_a_source_includes(tmp_path):
     """A source's build tag covers the ``csrc/`` headers it includes, so an
     edit to the combines' shared header rebuilds the combines and not the
-    other kernels, and an edit to the attention masks' header rebuilds the
-    two attention sources (forward and backward) and nothing else."""
+    other kernels, and an edit to the attention masks' header or to the
+    wgmma header rebuilds the two attention sources (forward and backward)
+    and nothing else."""
     from repro_torch.kernels import _build
     header = (_build.CSRC / "butcher_combine.cuh").read_bytes()
     for source in (kern.SOURCE, kern.ROWS_SOURCE):
@@ -161,10 +162,11 @@ def test_build_tag_reads_only_the_headers_a_source_includes(tmp_path):
     source = _build.CSRC / "rmsnorm.cu"
     assert _build._with_local_headers(source) == source.read_bytes()
     masks = (_build.CSRC / "attention_mask.cuh").read_bytes()
+    wgmma = (_build.CSRC / "wgmma_tf32.cuh").read_bytes()
     for name in ("flash_attention.cu", "flash_attention_bwd.cu"):
         source = _build.CSRC / name
         assert _build._with_local_headers(source) == \
-            source.read_bytes() + masks
+            source.read_bytes() + masks + wgmma
     # nested and repeated includes are read once each, in include order
     (tmp_path / "a.cu").write_text('#include "b.cuh"\n#include "c.cuh"\n')
     (tmp_path / "b.cuh").write_text('#include "c.cuh"\n// b\n')

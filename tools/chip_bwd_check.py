@@ -32,7 +32,14 @@ CASES = [(8, 16, 8, 1024, 1024, 128, True, None, 0),
          (1, 4, 2, 200, 200, 16, True, None, 0),
          (1, 4, 2, 200, 150, 32, False, None, 0),
          (1, 16, 4, 300, 300, 128, True, 100, 0),
-         (2, 8, 2, 65, 300, 64, True, 40, 235)]
+         (2, 8, 2, 65, 300, 64, True, 40, 235),
+         # the float32 kernels' tiles cut off-edge (chip_smoke.py phase 31)
+         (1, 4, 4, 77, 77, 16, True, None, 0),
+         (1, 4, 2, 130, 200, 32, False, None, 0),
+         (1, 8, 2, 100, 333, 64, True, None, 233),
+         (1, 4, 4, 256, 256, 128, True, 8, 0),
+         (2, 8, 4, 48, 300, 128, True, 20, 252),
+         (1, 8, 2, 129, 129, 32, True, 5, 0)]
 
 
 def rel(a, b):
@@ -57,6 +64,10 @@ def main():
     _build.build_all([butcher_combine.LIBRARY, butcher_combine.ROWS_LIBRARY,
                       rn.LIBRARY, fa.LIBRARY, fa.BWD_LIBRARY])
     print(f"build {time.perf_counter() - t:.1f} s")
+    for line in fa.BWD_LIBRARY.log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line \
+                or "warning" in line:
+            print(f"  ptxas flash_attention_bwd: {line.strip()}")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     bad = 0
@@ -108,6 +119,15 @@ def main():
           f"{timed(lambda: fa.flash_attention(q, k, v, return_lse=True))}")
     print(f"flash backward ms "
           f"{timed(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))}")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fa.flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us > 0:
+            print(f"  {us / 5 / 1e3:.4f} ms per call  {ev.key[:90]}")
     for rows, d in ((8192, 1024), (131072, 128)):
         x, dy = (torch.randn(rows, d, generator=g, device=dev)
                  for _ in range(2))
