@@ -223,18 +223,24 @@ LM training (``repro_torch.launch.train``: qwen3-0.6b at full width,
 float32, discrete with remat and node mode with the symplectic adjoint over
 depth; the backward kernels of rms_norm and flash attention):
 
- 31. backward kernels vs plain — ``rms_norm_bwd`` at rows x d 8192 x 1024
-               and 131072 x 128 (the LM's) and 77 x 1000, 5 x 16, with and
-               without residual; ``flash_attention_bwd`` at the LM's shape
+ 31. backward kernels vs plain — ``rms_norm_bwd`` at rows x d 8192 x
+               1024, 131072 x 128 and 65536 x 128 (a training step's), 12345
+               x 1024 (a partial last chunk), 20 x 128 (under one chunk), 77
+               x 1000 and 5 x 16, with and without residual; ``flash_attention_bwd`` at the LM's shape
                (B 8, H 16/8, S 1024, D 128, causal; B 2 in float64) and at
                window, q_offset, Sq != Sk, D 16/32/64 cases; the forward's
                row log-sum-exp against the plain one (1e-4).  Tolerance:
                max |kernel - plain| <= 1e-4 (dq/dk/dv) / 1e-5 (dx/dw) of
                max |plain| in float32, 1e-12 in float64; a second call
                bitwise equal.  Then ms per call of both backward kernels
-               (and of the forward with and without ``return_lse``), their
-               plain versions, the library call's backward (``F.rms_norm``,
-               ``F.scaled_dot_product_attention``, float32) and the bound;
+               (rms_norm_bwd at the three training shapes; the forward with
+               and without ``return_lse``), their plain versions, the
+               library call's backward (``F.rms_norm``,
+               ``F.scaled_dot_product_attention``; for the forward with the
+               lse, memory-efficient attention with ``compute_log_sumexp``,
+               K/V expanded to 16 heads untimed), float32, and the bound;
+               fatal where rms_norm_bwd per call is slower than
+               ``F.rms_norm``'s backward;
                the kernels' device time alone from torch.profiler in a
                process of its own (``python3 chip_smoke.py
                --bwd-device-times``: late in this long process the
@@ -262,9 +268,11 @@ depth; the backward kernels of rms_norm and flash attention):
  34. LM memory — peak allocated bytes of one float32 loss+gradient (batch
                8 x 1024): discrete without remat, discrete with remat,
                node-symplectic, at the trainer's loss chunk 512 and at 64
-               (where the head's logits block no longer sets the peak);
-               fatal unless symplectic < discrete without remat (the
-               paper's ordering).
+               (where the head's logits block no longer sets the peak;
+               node-symplectic's printed beside remat's); fatal unless
+               symplectic < discrete without remat at both (the paper's
+               ordering), and where node-symplectic's chunk-64 peak passes
+               5.5 GB (the zero cotangents of untouched units are back).
  35. resume — three ``python -m repro_torch.launch.train`` processes at
                full width, float32, batch 4 x seq 512, 4 steps: one
                uninterrupted and, beside it on the card, one killed once
@@ -2474,6 +2482,7 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 RESUME = dict(batch=4, seq=512, steps=4)
 BWD_TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
 RMS_BWD_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+NODE_PEAK_CHUNK64 = 5.5e9       # bytes, phase 34's node-symplectic bound
 LM_KERNELS = ("rms_norm", "flash_attention", "rms_norm_bwd",
               "flash_attention_bwd", "butcher_combine",
               "butcher_combine_rows")
@@ -2535,19 +2544,28 @@ BWD_CASES = [
 ]
 
 
+# rms_norm_bwd's (rows, d) in a training step at batch 8 x 1024: the
+# blocks' and the final norm (57 calls), q_norm (28), k_norm (28)
+RMS_BWD_SHAPES = ((8192, 1024), (131072, 128), (65536, 128))
+
+
 def _bwd_device_times_child():
     """Phase 31's kernel times alone, in a process of its own: both
     backward wrappers at the training shapes (float32) under torch.profiler,
-    all three kernels of each call counted; prints them as its last line."""
+    every kernel of each call counted (rms_norm_bwd two, flash three);
+    prints them as its last line."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(31)
-    x, dy = (torch.randn(8192, 1024, generator=g, device=dev)
-             for _ in range(2))
-    w = torch.randn(1024, generator=g, device=dev)
-    out = {"rms_norm_bwd": _device_ms(
-        lambda: rn.rms_norm_bwd(x, w, None, dy), "rms_norm_bwd", 50, 3)}
+    out = {}
+    for rows, d in RMS_BWD_SHAPES:
+        x, dy = (torch.randn(rows, d, generator=g, device=dev)
+                 for _ in range(2))
+        w = torch.randn(d, generator=g, device=dev)
+        out[f"rms_norm_bwd {rows}x{d}"] = _device_ms(
+            lambda: rn.rms_norm_bwd(x, w, None, dy), "rms_norm_bwd", 50, 2)
+        del x, dy
     B, H, Hkv, S, D = 8, 16, 8, 1024, 128
     q, do = (torch.randn(B, H, S, D, generator=g, device=dev)
              for _ in range(2))
@@ -2562,7 +2580,7 @@ def _bwd_device_times_child():
 
 def _bwd_device_times():
     """Run ``_bwd_device_times_child`` and return its times; fails the phase
-    when either is missing."""
+    when any is missing."""
     proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
                            BWD_TIMES_CHILD], capture_output=True, text=True,
                           timeout=300)
@@ -2592,7 +2610,10 @@ def backward_kernels_vs_plain():
     max_err = {"rms_norm_bwd": 0.0, "flash_attention_bwd": 0.0}
     n = 0
     for dtype in (torch.float32, torch.float64):
-        for rows, d in ((8192, 1024), (131072, 128), (77, 1000), (5, 16)):
+        # the training shapes, a partial last chunk (12345 rows), fewer
+        # rows than one chunk (20), d 1000 and 16
+        for rows, d in RMS_BWD_SHAPES + ((12345, 1024), (20, 128),
+                                         (77, 1000), (5, 16)):
             x, r, dy = (torch.randn(rows, d, generator=g, device=dev,
                                     dtype=dtype) for _ in range(3))
             w = torch.randn(d, generator=g, device=dev, dtype=dtype)
@@ -2646,29 +2667,36 @@ def backward_kernels_vs_plain():
 
     # times at the training shapes, float32
     lines, main = [], {}
-    rows, d = 8192, 1024
-    x = torch.randn(rows, d, generator=g, device=dev)
-    w = torch.randn(d, generator=g, device=dev)
-    dy = torch.randn(rows, d, generator=g, device=dev)
-    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
-    y_lib = F.rms_norm(xr, (d,), wr, 1e-6)
-    t_k = _time_ms(lambda: rn.rms_norm_bwd(x, w, None, dy), 100, 10)
-    t_p = _time_ms(lambda: ref.rms_norm_bwd_ref(x, w, None, dy), 50, 5)
-    t_l = _time_ms(lambda: torch.autograd.grad(y_lib, (xr, wr), dy,
-                                               retain_graph=True), 100, 10)
     alone = _bwd_device_times()
-    d_k = alone["rms_norm_bwd"]
-    h_k = _host_ms(lambda: rn.rms_norm_bwd(x, w, None, dy), 300)
-    bound = (3 * rows * d + 2 * d) * 4 / HBM_BYTES_PER_S * 1e3
-    lines.append(f"rms_norm_bwd {rows}x{d}: kernel {t_k:.6f} ms (device, 3 "
-                 f"kernels {d_k if d_k is None else f'{d_k:.6f}'}, host "
-                 f"{h_k:.6f}) plain {t_p:.6f} F.rms_norm backward {t_l:.6f} "
-                 f"kernel/library {t_k / t_l:.3f} bound {bound:.6f} (bytes)")
-    main["rms_norm_bwd"] = dict(ms=t_k, device_ms=d_k, host_ms=h_k,
-                                plain_ms=t_p, library_ms=t_l, bound_ms=bound,
-                                bound_by="bytes",
-                                shape="float32 rows 8192 d 1024")
-    del xr, wr, y_lib
+    by_shape = {}
+    for rows, d in RMS_BWD_SHAPES:
+        x, dy = (torch.randn(rows, d, generator=g, device=dev)
+                 for _ in range(2))
+        w = torch.randn(d, generator=g, device=dev)
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y_lib = F.rms_norm(xr, (d,), wr, 1e-6)
+        t_k = _time_ms(lambda: rn.rms_norm_bwd(x, w, None, dy), 100, 10)
+        t_p = _time_ms(lambda: ref.rms_norm_bwd_ref(x, w, None, dy), 50, 5)
+        t_l = _time_ms(lambda: torch.autograd.grad(
+            y_lib, (xr, wr), dy, retain_graph=True), 100, 10)
+        d_k = alone[f"rms_norm_bwd {rows}x{d}"]
+        h_k = _host_ms(lambda: rn.rms_norm_bwd(x, w, None, dy), 300)
+        # x and dy read, dx written; w read, dw written
+        bound = (3 * rows * d + 2 * d) * 4 / HBM_BYTES_PER_S * 1e3
+        lines.append(f"rms_norm_bwd {rows}x{d}: kernel {t_k:.6f} ms "
+                     f"(device, 2 kernels {d_k:.6f}, host {h_k:.6f}) plain "
+                     f"{t_p:.6f} F.rms_norm backward {t_l:.6f} "
+                     f"kernel/library {t_k / t_l:.3f} bound {bound:.6f} "
+                     f"(bytes; {bound / d_k * 100:.1f}% of it alone)")
+        by_shape[f"{rows}x{d}"] = dict(
+            ms=t_k, device_ms=d_k, host_ms=h_k, plain_ms=t_p,
+            library_ms=t_l, bound_ms=bound)
+        check(t_k <= t_l, f"rms_norm_bwd {rows}x{d}: {t_k} ms per call, "
+                          f"slower than F.rms_norm's backward {t_l}")
+        del x, dy, xr, wr, y_lib
+    main["rms_norm_bwd"] = dict(**by_shape["8192x1024"], bound_by="bytes",
+                                shape="float32 rows 8192 d 1024",
+                                by_shape=by_shape)
     B, H, Hkv, S, D = 8, 16, 8, 1024, 128
     q = torch.randn(B, H, S, D, generator=g, device=dev)
     k, v = (torch.randn(B, Hkv, S, D, generator=g, device=dev)
@@ -2678,6 +2706,21 @@ def backward_kernels_vs_plain():
     t_f = _time_ms(lambda: fa.flash_attention(q, k, v), 30, 3)
     t_fl = _time_ms(lambda: fa.flash_attention(q, k, v, return_lse=True),
                     30, 3)
+    # the library call with the row log-sum-exp: memory-efficient attention
+    # (no GQA: K and V expanded to the H heads before the timing)
+    ke, ve = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+    t_fll = _time_ms(
+        lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+            q, ke, ve, None, True, is_causal=True), 30, 3)
+    del ke, ve
+    t_flp = _time_ms(lambda: (ref.attention_ref(q, k, v),
+                              ref.attention_lse_ref(q, k)), 5, 1)
+    # the forward's two products in 3xTF32, or its bytes with the lse row
+    fl_ops = 3 * 4 * B * H * D * (S * (S + 1) // 2) / TF32_FLOP_PER_S
+    fl_bytes = ((2 * B * H * S * D + 2 * B * Hkv * S * D + B * H * S) * 4
+                / HBM_BYTES_PER_S)
+    t_fl_bound = max(fl_ops, fl_bytes) * 1e3
+    fl_by = "operations" if fl_ops >= fl_bytes else "bytes"
     t_k = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), 10, 2)
     t_p = _time_ms(lambda: ref.attention_bwd_ref(q, k, v, o, lse, do), 5, 1)
     qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
@@ -2708,11 +2751,16 @@ def backward_kernels_vs_plain():
                  f"{t_fma * 1e3:.6f} ({t_fma * 1e3 / d_k * 100:.1f}% of it "
                  f"alone); bytes allocated by one call {peak} (outputs, "
                  f"row dots and the dS scratch); forward {t_f:.6f} ms, with "
-                 f"lse {t_fl:.6f}")
+                 f"lse {t_fl:.6f} (bound {t_fl_bound:.6f}, {fl_by}; plain "
+                 f"{t_flp:.6f}; efficient attention with lse {t_fll:.6f}, "
+                 f"kernel/library {t_fl / t_fll:.3f})")
     main["flash_attention_bwd"] = dict(
         ms=t_k, device_ms=d_k, host_ms=h_k, plain_ms=t_p, library_ms=t_l,
         bound_ms=bound, bound_by="operations", fma_bound_ms=t_fma * 1e3,
-        forward_ms=t_f, forward_lse_ms=t_fl, call_bytes=peak,
+        forward_ms=t_f, forward_lse_ms=t_fl,
+        forward_lse_bound_ms=t_fl_bound, forward_lse_plain_ms=t_flp,
+        forward_lse_library_ms=t_fll,
+        call_bytes=peak,
         shape=f"float32 B{B} H{H} Hkv{Hkv} S{S} D{D} causal")
     print("float32 ms per call (CUDA events; device = the kernels' time "
           "from torch.profiler; host = host clock per call, no "
@@ -2885,9 +2933,20 @@ def lm_memory():
           f"(8, 512, 151936) logits block and its backward can set the "
           f"peak of both remat and symplectic: the chunk-64 runs show the "
           f"depth part)")
-    check(peaks["node_symplectic"] < peaks["discrete_no_remat"],
-          f"symplectic peak {peaks['node_symplectic']} not below backprop "
-          f"{peaks['discrete_no_remat']}")
+    sym64, remat64 = (peaks["node_symplectic_chunk64"],
+                      peaks["discrete_remat_chunk64"])
+    print(f"chunk 64: node_symplectic {sym64} B beside discrete_remat "
+          f"{remat64} B (ratio {sym64 / remat64:.3f}; without remat "
+          f"{peaks['discrete_no_remat_chunk64']} B)")
+    for sfx in ("", "_chunk64"):
+        sym, bp = peaks[f"node_symplectic{sfx}"], \
+            peaks[f"discrete_no_remat{sfx}"]
+        check(sym < bp, f"symplectic peak{sfx} {sym} not below backprop "
+                        f"{bp}")
+    # no zero cotangents for untouched units: the growing gradient, the 28
+    # step checkpoints and one unit's graph (4569973248 B on the H100)
+    check(sym64 <= NODE_PEAK_CHUNK64,
+          f"node_symplectic chunk-64 peak {sym64} above {NODE_PEAK_CHUNK64}")
     del params
     torch.cuda.empty_cache()
     return peaks

@@ -75,21 +75,51 @@ from .tableau import ButcherTableau
 Pytree = Any
 
 
+def _add(a, b):
+    """a + b, where None stands for an exact zero (a parameter leaf that no
+    stage used): None + g is g itself, no copy."""
+    if a is None:
+        return b
+    return a if b is None else a + b
+
+
 def _tree_add(a, b):
-    return pytree.tree_map(torch.add, a, b)
+    return pytree.tree_map(_add, a, b)
+
+
+def _scaled(w, tree):
+    """w * each tensor leaf of ``tree`` (a tensor w cast to the leaf's
+    dtype); None leaves stay None."""
+    def leaf(g):
+        if g is None:
+            return None
+        return (w.to(g.dtype) if isinstance(w, torch.Tensor) else w) * g
+    return pytree.tree_map(leaf, tree)
+
+
+def _dense(gtheta: Pytree, params: Pytree) -> Pytree:
+    """``gtheta`` with each None leaf (and a None tree) made a zero tensor
+    like its parameter: the zeros that no stage needed, made once."""
+    if gtheta is None:
+        return pytree.tree_map(torch.zeros_like, params)
+    return pytree.tree_map(
+        lambda p, g: torch.zeros_like(p) if g is None else g, params, gtheta)
 
 
 def _stage_vjp(f: VectorField, X: Pytree, t, params: Pytree,
                cot: Pytree):
     """(d f(X, t, params) / d(X, params))^T cot, from one graph that is
-    built and freed inside this call.  Returns (xbar, thbar) pytrees."""
-    return _value_and_vjp(f, X, t, params, cot)[1:]
+    built and freed inside this call.  Returns (xbar, thbar) pytrees;
+    thbar holds None for each parameter leaf the evaluation did not use."""
+    return _value_and_vjp(f, X, t, params, cot, dense=False)[1:]
 
 
 def _value_and_vjp(f: VectorField, X: Pytree, t, params: Pytree,
-                   cot: Pytree):
+                   cot: Pytree, dense: bool = True):
     """``_stage_vjp`` that also returns f(X, t, params), as evaluated on
-    the detached copies (it holds their graph): (f, xbar, thbar)."""
+    the detached copies (it holds their graph): (f, xbar, thbar).  xbar is
+    dense; so is thbar unless ``dense`` is False (then an unused parameter
+    leaf's entry is None, and no zero tensor is made for it)."""
     x_leaves, x_spec = pytree.tree_flatten(X)
     p_leaves, p_spec = pytree.tree_flatten(params)
     with torch.enable_grad():
@@ -104,18 +134,19 @@ def _value_and_vjp(f: VectorField, X: Pytree, t, params: Pytree,
         grads = torch.autograd.grad(
             [o for o, _ in pairs], inputs, [c for _, c in pairs],
             allow_unused=True) if pairs else [None] * len(inputs)
-    grads = [torch.zeros_like(i) if g is None else g
-             for g, i in zip(grads, inputs)]
+    fill = len(inputs) if dense else len(xd)    # xbar is always dense
+    grads = [torch.zeros_like(i) if g is None and k < fill else g
+             for k, (g, i) in enumerate(zip(grads, inputs))]
     return (out, pytree.tree_unflatten(grads[:len(xd)], x_spec),
             pytree.tree_unflatten(grads[len(xd):], p_spec))
 
 
-@torch.no_grad()
-def symplectic_step_adjoint(f: VectorField, tab: ButcherTableau,
-                            x_n, t_n, h, params, lam_next,
-                            combiner: Optional[StageCombiner] = None):
-    """One backward step of Algorithm 2. Returns (lambda_n, grad_theta_step)."""
-    combiner = combiner or get_combiner(tab)
+def _step_adjoint(f: VectorField, tab: ButcherTableau, x_n, t_n, h, params,
+                  lam_next, combiner: StageCombiner):
+    """One backward step of Algorithm 2: (lambda_n, grad_theta_step), the
+    latter None for each parameter leaf that no stage of the step used (a
+    field that runs one of many units per evaluation touches only that
+    unit's leaves)."""
     s = tab.s
     b, c = tab.b, tab.c
     # --- Alg.2 lines 3-7: recompute stages from the checkpoint ----------
@@ -131,16 +162,23 @@ def symplectic_step_adjoint(f: VectorField, tab: ButcherTableau,
         xbar, thbar = _stage_vjp(f, Xs[i], t_n + c[i] * h, params, Lam_i)
         set_stage(L, i, pytree.tree_map(torch.neg, xbar))
         # Eq. (8): h_n replaces vanishing weights.
-        if b[i] == 0.0:
-            contrib = pytree.tree_map(lambda g: h.to(g.dtype) * g, thbar)
-        else:
-            contrib = pytree.tree_map(lambda g: b[i] * g, thbar)
+        contrib = _scaled(h if b[i] == 0.0 else b[i], thbar)
         gtheta = contrib if gtheta is None else _tree_add(gtheta, contrib)
     # --- lambda_n = lambda_{n+1} - h sum_i btilde_i l_{n,i} --------------
     lam_n = combiner.lambda_update(lam_next, L, h)
     # grad_theta step contribution: + h sum_i btilde_i (df/dtheta)^T Lambda_i
-    gtheta = pytree.tree_map(lambda g: h.to(g.dtype) * g, gtheta)
-    return lam_n, gtheta
+    return lam_n, _scaled(h, gtheta)
+
+
+@torch.no_grad()
+def symplectic_step_adjoint(f: VectorField, tab: ButcherTableau,
+                            x_n, t_n, h, params, lam_next,
+                            combiner: Optional[StageCombiner] = None):
+    """One backward step of Algorithm 2. Returns (lambda_n, grad_theta_step),
+    the latter a dense tree like ``params``."""
+    lam_n, gtheta = _step_adjoint(f, tab, x_n, t_n, h, params, lam_next,
+                                  combiner or get_combiner(tab))
+    return lam_n, _dense(gtheta, params)
 
 
 def _stage_vjp_lanes(lane_f: VectorField, X: Pytree, t: torch.Tensor,
@@ -238,10 +276,10 @@ def _masked_lanes_alg2_scan(f, tab, combiner, params, xs, ts, hs, n_acc,
 def _algorithm2(f, tab, combiner, xs, ts, hs, params, lam, gtheta=None):
     """Reverse sweep over the checkpoints; returns (lambda_0, grad_theta),
     grad_theta added to ``gtheta`` when given (None while no step has
-    contributed)."""
+    contributed; a None leaf while no step has used that leaf)."""
     for n in reversed(range(len(xs))):
-        lam, gstep = symplectic_step_adjoint(f, tab, xs[n], ts[n], hs[n],
-                                             params, lam, combiner)
+        lam, gstep = _step_adjoint(f, tab, xs[n], ts[n], hs[n], params, lam,
+                                   combiner)
         gtheta = gstep if gtheta is None else _tree_add(gtheta, gstep)
     return lam, gtheta
 
@@ -306,8 +344,9 @@ def _saveat_backward(ctx, grads, sweep):
         ob = pytree.tree_map(lambda g: g[i], obs_bar)
         lam = ob if lam is None else _tree_add(lam, ob)
         lam, gtheta = sweep(prob, combiner, params, ctx.segs[i], lam, gtheta)
-    if gtheta is None:          # every segment had zero length
-        gtheta = pytree.tree_map(torch.zeros_like, params)
+    # zeros, once, for the leaves no step used (all, if every segment had
+    # zero length)
+    gtheta = _dense(gtheta, params)
     return (None, *pytree.tree_leaves(lam), *pytree.tree_leaves(gtheta))
 
 

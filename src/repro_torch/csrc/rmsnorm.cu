@@ -48,17 +48,29 @@
 //
 // in T for float and double (a double input is computed in double, the
 // exact gradient of the formula; other dtypes are refused).  r is
-// recomputed from x (+ res), not saved by the forward.  Three kernels:
-//   * dx: one warp a row, two passes over the row (the second from L1/L2),
-//     which also writes each row's r to a scratch vector;
-//   * dw partials: a 32-column x 8-row block sums dy v r over a fixed
-//     chunk of rows (consecutive lanes on consecutive columns), the 8 row
-//     lanes then in shared memory in a fixed order: one partial row per
-//     chunk;
-//   * dw: one thread a column sums the chunks' partials in chunk order.
-// No atomics: the same inputs give the same bits on every call.  Bound:
-// bytes, (3 or 4) * rows * d * sizeof(T) read and written once; this
-// version reads x, res and dy twice (dx, then the partials).
+// recomputed from x (+ res), not saved by the forward.  Bound: bytes,
+// (3 or 4) * rows * d * sizeof(T), each of x, res, dy read once and dx
+// written once.  Two launches, no atomics:
+//   * rms_norm_bwd_kernel, one pass over the rows.  Each block walks a
+//     fixed, contiguous chunk of rows; a group of tpr threads owns a row
+//     and holds its v and dy in registers (16-byte loads, as the forward;
+//     at most 4 vectors a thread, so one warp holds 4 rows at d = 128 and
+//     two warps one row at d = 1024), sums v*v and g*v in one sweep (over
+//     the lanes by shuffles, over the group's warps in shared memory under
+//     a named barrier of the group alone), writes dx once and adds dy v r
+//     to per-thread column sums.  A thread keeps the same columns (and
+//     their w, loaded once) for every row of its block, so at the end the
+//     block's groups meet in shared memory in group order and the block
+//     writes one partial row of dw;
+//   * rms_norm_bwd_dw_kernel sums the partial rows in a fixed order (lane
+//     l of 32 takes chunks l, l + 32, ... in turn, then the 32 lane sums in
+//     lane order).
+// The group size comes from d, the chunks from (rows, d) (the caller's
+// rows per chunk): never from the card, so the same inputs give the same
+// bits on every call and every card.  A row too long for registers (d >
+// 16384 float, > 8192 double, > 4096 on the scalar path) is walked twice
+// by one 1024-thread block, and its column sums go to the block's partial
+// row in device memory, row by row.
 #include <cuda_runtime.h>
 #include <cuda_fp16.h>
 #include <cuda_bf16.h>
@@ -278,13 +290,6 @@ int launch(const void* x, const void* res, const float* w, void* out,
 
 // ---- backward ----
 
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __device__ __forceinline__ float inv_rms(float ss, int d, float eps) {
   return 1.0f / sqrtf(ss / (float)d + eps);
 }
@@ -292,142 +297,320 @@ __device__ __forceinline__ double inv_rms(double ss, int d, double eps) {
   return 1.0 / sqrt(ss / (double)d + eps);
 }
 
-template <typename T, bool kRes>
-__device__ __forceinline__ T v_at(const T* x, const T* res, int64_t at) {
-  return kRes ? x[at] + res[at] : x[at];
-}
-
-constexpr int kBwdThreads = 256;
-
-// dx (= dres) and r per row; one warp a row
-template <typename T, bool kRes>
-__global__ void __launch_bounds__(kBwdThreads)
-rms_norm_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ res,
-                       const T* __restrict__ w, const T* __restrict__ dy,
-                       T* __restrict__ dx, T* __restrict__ rinv,
-                       int64_t rows, int d, T eps) {
-  const int64_t r = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (r >= rows) return;
-  const int64_t row = r * d;
-  T ss = T(0), dot = T(0);
-  for (int j = lane; j < d; j += 32) {
-    const T v = v_at<T, kRes>(x, res, row + j);
-    ss += v * v;
-    dot += dy[row + j] * w[j] * v;
-  }
-  ss = warp_sum(ss);
-  dot = warp_sum(dot);
-  const T inv = inv_rms(ss, d, eps);
-  const T coef = inv * inv * inv * (dot / (T)d);
-  for (int j = lane; j < d; j += 32) {
-    const T v = v_at<T, kRes>(x, res, row + j);
-    dx[row + j] = inv * (dy[row + j] * w[j]) - v * coef;
-  }
-  if (lane == 0) rinv[r] = inv;
-}
-
-// partial[c][j] = sum over rows [c * rpc, (c + 1) * rpc) of dy v r
-template <typename T, bool kRes>
-__global__ void __launch_bounds__(kBwdThreads)
-rms_norm_bwd_dw_partial_kernel(const T* __restrict__ x,
-                               const T* __restrict__ res,
-                               const T* __restrict__ dy,
-                               const T* __restrict__ rinv,
-                               T* __restrict__ partial, int64_t rows, int d,
-                               int64_t rpc) {
-  __shared__ T part[kBwdThreads / 32][32];
-  const int cx = threadIdx.x % 32, ry = threadIdx.x / 32;
-  const int j = blockIdx.x * 32 + cx;
-  const int64_t r0 = (int64_t)blockIdx.y * rpc;
-  const int64_t r1 = r0 + rpc < rows ? r0 + rpc : rows;
-  T acc = T(0);
-  if (j < d)
-    for (int64_t r = r0 + ry; r < r1; r += kBwdThreads / 32) {
-      const int64_t at = r * d + j;
-      acc += dy[at] * v_at<T, kRes>(x, res, at) * rinv[r];
-    }
-  part[ry][cx] = acc;
-  __syncthreads();
-  if (ry == 0 && j < d) {
-    T s = T(0);
+template <typename T, int V>
+__device__ __forceinline__ void load_t(const T* p, T (&f)[V]) {
+  const Pack<T, V> q = *reinterpret_cast<const Pack<T, V>*>(p);
 #pragma unroll
-    for (int i = 0; i < kBwdThreads / 32; ++i) s += part[i][cx];
-    partial[(int64_t)blockIdx.y * d + j] = s;
+  for (int e = 0; e < V; ++e) f[e] = q.v[e];
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_t(T* p, const T (&f)[V]) {
+  Pack<T, V> q;
+#pragma unroll
+  for (int e = 0; e < V; ++e) q.v[e] = f[e];
+  *reinterpret_cast<Pack<T, V>*>(p) = q;
+}
+
+template <typename T, bool kRes, int V>
+__device__ __forceinline__ void load_vt(const T* x, const T* res, int64_t at,
+                                        T (&v)[V]) {
+  load_t<T, V>(x + at, v);
+  if (kRes) {
+    T u[V];
+    load_t<T, V>(res + at, u);
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[e] += u[e];
   }
 }
 
-// dw[j] = sum over chunks c (in order) of partial[c][j]
+constexpr int kBwdBlock = 256;   // block size when a row's group is smaller
+constexpr int kBwdMaxN = 4;      // vectors a thread holds per tensor
+
+// Sums a and b over the tpr threads of group grp (tpr a power of 2, the
+// group's threads consecutive): over the lanes by a butterfly of shuffles
+// (every lane ends with the same bits), then, for a group of several
+// warps, over its warps in order through red (2 slots a warp), behind a
+// named barrier of the group's threads alone.
 template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
+__device__ __forceinline__ void group_sum2(T& a, T& b, int tpr, int grp,
+                                           T* red) {
+  const int width = tpr < 32 ? tpr : 32;
+  for (int o = width >> 1; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+  if (tpr > 32) {
+    const int warp = threadIdx.x >> 5, nw = tpr >> 5, first = grp * nw;
+    if ((threadIdx.x & 31) == 0) {
+      red[2 * warp] = a;
+      red[2 * warp + 1] = b;
+    }
+    asm volatile("bar.sync %0, %1;" ::"r"(grp + 1), "r"(tpr) : "memory");
+    a = T(0);
+    b = T(0);
+    for (int i = 0; i < nw; ++i) {
+      a += red[2 * (first + i)];
+      b += red[2 * (first + i) + 1];
+    }
+  }
+}
+
+// One pass: block c walks rows [c * rpc, min((c + 1) * rpc, rows)), its
+// blockDim / tpr groups taking rows base + grp for base = c * rpc, c * rpc
+// + groups, ...; writes dx and partial[c][:].  Thread t of a group holds
+// vectors t, t + tpr, ... (kN of them) of each row, and the same vectors of
+// w and of its column sums for all the block's rows.  kN == 0: the row
+// does not fit, one group of kThreads walks it twice.
+template <typename T, bool kRes, int V, int kN, int kThreads>
+__global__ void __launch_bounds__(kThreads)
+rms_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                    const T* __restrict__ w, const T* __restrict__ dy,
+                    T* __restrict__ dx, T* __restrict__ partial,
+                    int64_t rows, int d, int tpr, int64_t rpc, T eps) {
+  constexpr int kHeld = kN > 0 ? kN : 1;
+  // the groups' column sums meet here (several groups: kThreads == kBwdBlock)
+  constexpr int kCols = kThreads == kBwdBlock ? kBwdBlock * kHeld * V : 1;
+  __shared__ __align__(16) T cols[kCols];
+  __shared__ T red[2][2 * kThreads / 32];   // two buffers: rows alternate
+  const int t = threadIdx.x % tpr, grp = threadIdx.x / tpr;
+  const int groups = blockDim.x / tpr;
+  const int nv = d / V;
+  const int64_t r0 = (int64_t)blockIdx.x * rpc;
+  const int64_t r1 = r0 + rpc < rows ? r0 + rpc : rows;
+  T* out = partial + (int64_t)blockIdx.x * d;
+  T wv[kHeld][V], acc[kHeld][V];
+  if (kN > 0) {
+#pragma unroll
+    for (int k = 0; k < kHeld; ++k) {
+      const int q = t + k * tpr;
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[k][e] = wv[k][e] = T(0);
+      if (q < nv) load_t<T, V>(w + q * V, wv[k]);
+    }
+  }
+  int it = 0;
+  for (int64_t base = r0; base < r1; base += groups, ++it) {
+    const int64_t r = base + grp;
+    const bool live = r < r1;
+    const int64_t row = r * d;
+    T ss = T(0), dot = T(0);
+    if (kN > 0) {
+      T v[kHeld][V], g[kHeld][V];   // g: dy, as loaded
+      // every load of the row is issued before the first use
+#pragma unroll
+      for (int k = 0; k < kHeld; ++k) {
+        const int q = t + k * tpr;
+        if (live && q < nv) {
+          load_vt<T, kRes, V>(x, res, row + (int64_t)q * V, v[k]);
+          load_t<T, V>(dy + row + (int64_t)q * V, g[k]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < V; ++e) v[k][e] = g[k][e] = T(0);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kHeld; ++k)
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          ss += v[k][e] * v[k][e];
+          dot += g[k][e] * wv[k][e] * v[k][e];
+        }
+      group_sum2(ss, dot, tpr, grp, red[it & 1]);
+      if (live) {
+        const T inv = inv_rms(ss, d, eps);
+        const T coef = inv * inv * inv * (dot / (T)d);
+#pragma unroll
+        for (int k = 0; k < kHeld; ++k) {
+          const int q = t + k * tpr;
+          if (q < nv) {
+            T o[V];
+#pragma unroll
+            for (int e = 0; e < V; ++e) {
+              o[e] = inv * (g[k][e] * wv[k][e]) - v[k][e] * coef;
+              acc[k][e] += g[k][e] * v[k][e] * inv;
+            }
+            store_t<T, V>(dx + row + (int64_t)q * V, o);
+          }
+        }
+      }
+    } else {
+      for (int q = t; live && q < nv; q += tpr) {
+        T u[V], gq[V], wq[V];
+        load_vt<T, kRes, V>(x, res, row + (int64_t)q * V, u);
+        load_t<T, V>(dy + row + (int64_t)q * V, gq);
+        load_t<T, V>(w + q * V, wq);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          ss += u[e] * u[e];
+          dot += gq[e] * wq[e] * u[e];
+        }
+      }
+      group_sum2(ss, dot, tpr, grp, red[it & 1]);
+      if (live) {
+        const T inv = inv_rms(ss, d, eps);
+        const T coef = inv * inv * inv * (dot / (T)d);
+        for (int q = t; q < nv; q += tpr) {
+          T u[V], gq[V], wq[V], o[V], p[V];
+          load_vt<T, kRes, V>(x, res, row + (int64_t)q * V, u);
+          load_t<T, V>(dy + row + (int64_t)q * V, gq);
+          load_t<T, V>(w + q * V, wq);
+          if (r == r0) {
+#pragma unroll
+            for (int e = 0; e < V; ++e) p[e] = T(0);
+          } else {   // this thread's own earlier store
+            load_t<T, V>(out + q * V, p);
+          }
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            o[e] = inv * (gq[e] * wq[e]) - u[e] * coef;
+            p[e] += gq[e] * u[e] * inv;
+          }
+          store_t<T, V>(dx + row + (int64_t)q * V, o);
+          store_t<T, V>(out + q * V, p);
+        }
+      }
+    }
+  }
+  if (kN == 0) return;   // the partial row is written
+  if (groups == 1) {
+#pragma unroll
+    for (int k = 0; k < kHeld; ++k) {
+      const int q = t + k * tpr;
+      if (q < nv) store_t<T, V>(out + q * V, acc[k]);
+    }
+    return;
+  }
+  // groups * d <= kCols: tpr * kN * V >= d
+#pragma unroll
+  for (int k = 0; k < kHeld; ++k) {
+    const int q = t + k * tpr;
+    if (q < nv) store_t<T, V>(cols + grp * d + q * V, acc[k]);
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < d; j += blockDim.x) {
+    T s = T(0);
+    for (int i = 0; i < groups; ++i) s += cols[i * d + j];
+    out[j] = s;
+  }
+}
+
+constexpr int kDwLanes = 32;
+
+// dw[j] = the partial rows' sum: lane l of kDwLanes sums chunks l, l +
+// kDwLanes, ... in turn, then the lanes' sums are added in lane order
+template <typename T>
+__global__ void __launch_bounds__(32 * kDwLanes)
 rms_norm_bwd_dw_kernel(const T* __restrict__ partial, T* __restrict__ dw,
                        int d, int nchunks) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= d) return;
+  __shared__ T part[kDwLanes][33];
+  const int cx = threadIdx.x & 31, ry = threadIdx.x >> 5;
+  const int j = blockIdx.x * 32 + cx;
   T s = T(0);
-  for (int c = 0; c < nchunks; ++c) s += partial[(int64_t)c * d + j];
-  dw[j] = s;
+  if (j < d)
+    for (int c = ry; c < nchunks; c += kDwLanes) s += partial[(int64_t)c * d + j];
+  part[ry][cx] = s;
+  __syncthreads();
+  if (ry == 0 && j < d) {
+    T sum = T(0);
+#pragma unroll
+    for (int i = 0; i < kDwLanes; ++i) sum += part[i][cx];
+    dw[j] = sum;
+  }
+}
+
+template <typename T, bool kRes, int V, int kN, int kThreads>
+int launch_bwd_n(const T* x, const T* res, const T* w, const T* dy, T* dx,
+                 T* partial, int64_t rows, int d, int tpr, int64_t rpc,
+                 int nchunks, T eps, cudaStream_t stream) {
+  const int threads = tpr < kBwdBlock ? kBwdBlock : tpr;
+  rms_norm_bwd_kernel<T, kRes, V, kN, kThreads><<<nchunks, threads, 0, stream>>>(
+      x, res, w, dy, dx, partial, rows, d, tpr, rpc, eps);
+  return (int)cudaGetLastError();
+}
+
+// The group size: the fewest threads (a power of 2) that hold a row in
+// kBwdMaxN vectors each, from d alone.
+template <typename T, bool kRes, int V>
+int launch_bwd_v(const T* x, const T* res, const T* w, const T* dy, T* dx,
+                 T* partial, int64_t rows, int d, int64_t rpc, int nchunks,
+                 T eps, cudaStream_t stream) {
+  const int nv = d / V;
+  int tpr = 1;
+  while (tpr * kBwdMaxN < nv) tpr <<= 1;
+  if (tpr > kMaxThreads)
+    return launch_bwd_n<T, kRes, V, 0, kMaxThreads>(
+        x, res, w, dy, dx, partial, rows, d, kMaxThreads, rpc, nchunks, eps,
+        stream);
+  const int n = (nv + tpr - 1) / tpr;
+  if (tpr > kBwdBlock)  // then n > 2
+    return launch_bwd_n<T, kRes, V, kBwdMaxN, kMaxThreads>(
+        x, res, w, dy, dx, partial, rows, d, tpr, rpc, nchunks, eps, stream);
+  if (n == 1)
+    return launch_bwd_n<T, kRes, V, 1, kBwdBlock>(
+        x, res, w, dy, dx, partial, rows, d, tpr, rpc, nchunks, eps, stream);
+  if (n == 2)
+    return launch_bwd_n<T, kRes, V, 2, kBwdBlock>(
+        x, res, w, dy, dx, partial, rows, d, tpr, rpc, nchunks, eps, stream);
+  return launch_bwd_n<T, kRes, V, kBwdMaxN, kBwdBlock>(
+      x, res, w, dy, dx, partial, rows, d, tpr, rpc, nchunks, eps, stream);
 }
 
 template <typename T, bool kRes>
 int launch_bwd(const void* xp, const void* resp, const void* wp,
-               const void* dyp, void* dxp, void* dwp, void* rinvp,
-               void* partialp, int64_t rows, int d, int64_t rpc, int nchunks,
-               double eps, cudaStream_t stream) {
+               const void* dyp, void* dxp, void* dwp, void* partialp,
+               int64_t rows, int d, int64_t rpc, int nchunks, double eps,
+               cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
   const T* x = static_cast<const T*>(xp);
   const T* res = static_cast<const T*>(resp);
+  const T* w = static_cast<const T*>(wp);
   const T* dy = static_cast<const T*>(dyp);
-  T* rinv = static_cast<T*>(rinvp);
+  T* dx = static_cast<T*>(dxp);
   T* partial = static_cast<T*>(partialp);
-  const int64_t blocks = (rows * 32 + kBwdThreads - 1) / kBwdThreads;
-  if (blocks > 0x7fffffff || nchunks > 65535 ||
-      (int64_t)nchunks * rpc < rows)
+  if ((int64_t)nchunks * rpc < rows || (int64_t)(nchunks - 1) * rpc >= rows)
     return (int)cudaErrorInvalidValue;
-  rms_norm_bwd_dx_kernel<T, kRes><<<(int)blocks, kBwdThreads, 0, stream>>>(
-      x, res, static_cast<const T*>(wp), dy, static_cast<T*>(dxp), rinv, rows,
-      d, (T)eps);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((d + 31) / 32, nchunks);
-  rms_norm_bwd_dw_partial_kernel<T, kRes><<<grid, kBwdThreads, 0, stream>>>(
-      x, res, dy, rinv, partial, rows, d, rpc);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  rms_norm_bwd_dw_kernel<T><<<(d + kBwdThreads - 1) / kBwdThreads,
-                              kBwdThreads, 0, stream>>>(
+  const int e =
+      d % V == 0 && aligned16(x) && aligned16(w) && aligned16(dy) &&
+              aligned16(dx) && (!kRes || aligned16(res))
+          ? launch_bwd_v<T, kRes, V>(x, res, w, dy, dx, partial, rows, d, rpc,
+                                     nchunks, (T)eps, stream)
+          : launch_bwd_v<T, kRes, 1>(x, res, w, dy, dx, partial, rows, d, rpc,
+                                     nchunks, (T)eps, stream);
+  if (e != (int)cudaSuccess) return e;
+  rms_norm_bwd_dw_kernel<T><<<(d + 31) / 32, 32 * kDwLanes, 0, stream>>>(
       partial, static_cast<T*>(dwp), d, nchunks);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_bwd_r(const void* x, const void* res, const void* w, const void* dy,
-                 void* dx, void* dw, void* rinv, void* partial, int64_t rows,
-                 int d, int64_t rpc, int nchunks, double eps,
-                 cudaStream_t stream) {
+                 void* dx, void* dw, void* partial, int64_t rows, int d,
+                 int64_t rpc, int nchunks, double eps, cudaStream_t stream) {
   if (res == nullptr)
-    return launch_bwd<T, false>(x, nullptr, w, dy, dx, dw, rinv, partial,
-                                rows, d, rpc, nchunks, eps, stream);
-  return launch_bwd<T, true>(x, res, w, dy, dx, dw, rinv, partial, rows, d,
-                             rpc, nchunks, eps, stream);
+    return launch_bwd<T, false>(x, nullptr, w, dy, dx, dw, partial, rows, d,
+                                rpc, nchunks, eps, stream);
+  return launch_bwd<T, true>(x, res, w, dy, dx, dw, partial, rows, d, rpc,
+                             nchunks, eps, stream);
 }
 
 }  // namespace
 
-// The backward.  dtype codes as below, 0 float32 or 1 float64 only; w, dw,
-// the rows' r (rinv, rows long) and the partials (nchunks x d) are of the
-// dtype; res may be null; rows of rpc per chunk, nchunks * rpc >= rows.
-// dx is also dres.  Returns the cudaError_t of the three launches.
+// The backward.  dtype codes as below, 0 float32 or 1 float64 only; w, dw
+// and the partials (nchunks x d) are of the dtype; res may be null; rows of
+// rpc per chunk, nchunks = ceil(rows / rpc).  dx is also dres.  Returns the
+// cudaError_t of the two launches.
 extern "C" int rms_norm_bwd_launch(int dtype, const void* x, const void* res,
                                    const void* w, const void* dy, void* dx,
-                                   void* dw, void* rinv, void* partial,
-                                   long long rows, int d, long long rpc,
-                                   int nchunks, double eps, void* stream) {
+                                   void* dw, void* partial, long long rows,
+                                   int d, long long rpc, int nchunks,
+                                   double eps, void* stream) {
   if (rows <= 0 || d <= 0 || rpc <= 0 || nchunks <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_bwd_r<float>(x, res, w, dy, dx, dw, rinv, partial, rows, d, rpc, nchunks, eps, st);
-    case 1: return launch_bwd_r<double>(x, res, w, dy, dx, dw, rinv, partial, rows, d, rpc, nchunks, eps, st);
+    case 0: return launch_bwd_r<float>(x, res, w, dy, dx, dw, partial, rows, d, rpc, nchunks, eps, st);
+    case 1: return launch_bwd_r<double>(x, res, w, dy, dx, dw, partial, rows, d, rpc, nchunks, eps, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

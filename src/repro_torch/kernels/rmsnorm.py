@@ -10,14 +10,15 @@ package's ``rms_norm_pallas``).  The plain PyTorch version is
 there and CUDA tensors here.
 
 The backward, ``rms_norm_bwd`` (float32 and float64), is in the same
-source: dx (which is also the residual's gradient) per row and dw as
-fixed-order partial sums over chunks of rows, then one reduction pass, with
-no atomics, so that two calls give the same bits.  ``kernels/ops.py`` makes
-the pair a ``torch.autograd.Function``; the plain version is
+source: one pass over the rows writes dx (which is also the residual's
+gradient) and one partial row of dw per chunk of rows, then a small launch
+sums the partials in a fixed order; no atomics, and the chunks depend on
+the shape alone, so that two calls give the same bits.  ``kernels/ops.py``
+makes the pair a ``torch.autograd.Function``; the plain version is
 ``kernels/ref.py::rms_norm_bwd_ref``.
 
 Each wrapper counts its calls in ``<wrapper>.launches`` (one per call that
-launches: ``rms_norm_bwd`` launches its three kernels per call), a plain
+launches: ``rms_norm_bwd`` launches its two kernels per call), a plain
 integer that callers may reset.
 """
 from __future__ import annotations
@@ -38,7 +39,7 @@ LIBRARY = CudaLibrary("rmsnorm", {
     "rms_norm_launch": [ctypes.c_int, _vp, _vp, _vp, _vp, ctypes.c_longlong,
                         ctypes.c_int, ctypes.c_float, _vp],
     "rms_norm_bwd_launch": [ctypes.c_int, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                            _vp, ctypes.c_longlong, ctypes.c_int,
+                            ctypes.c_longlong, ctypes.c_int,
                             ctypes.c_longlong, ctypes.c_int, ctypes.c_double,
                             _vp],
 })
@@ -84,12 +85,19 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+DW_CHUNKS = 256             # blocks of the one-pass kernel, at most
+DW_PARTIAL_ELEMENTS = 1 << 18   # dw partials, at most (1 MB in float32)
+DW_MIN_ROWS = 32            # rows a chunk, at least
+
+
 def _dw_chunks(rows: int, d: int):
-    """Rows per chunk and chunk count of the dw partial sums: about 1024
-    blocks of 32 columns in all, at least 8 rows a chunk; a function of the
-    shape alone, so the summation order is fixed."""
-    target = max(1, 1024 // -(-d // 32))
-    rpc = max(8, -(-rows // target))
+    """Rows per chunk and chunk count of the one-pass kernel (one block and
+    one partial row of dw per chunk): about 256 chunks (two blocks an SM on
+    the H100), fewer where the partials would pass 2^18 elements, at least
+    32 rows each.  A function of the shape alone, so the summation order is
+    fixed on every card."""
+    target = max(1, min(DW_CHUNKS, DW_PARTIAL_ELEMENTS // d))
+    rpc = max(DW_MIN_ROWS, -(-rows // target))
     return rpc, -(-rows // rpc)
 
 
@@ -120,14 +128,12 @@ def rms_norm_bwd(x: torch.Tensor, w: torch.Tensor,
     wt = w.to(x.dtype).contiguous()
     rpc, nchunks = _dw_chunks(rows, d)
     dw = torch.empty(d, dtype=x.dtype, device=x.device)
-    rinv = torch.empty(rows, dtype=x.dtype, device=x.device)
     partial = torch.empty((nchunks, d), dtype=x.dtype, device=x.device)
     err = call(LIBRARY.load().rms_norm_bwd_launch, x.get_device(), code,
                x.data_ptr(),
                None if residual is None else residual.data_ptr(),
                wt.data_ptr(), dy.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-               rinv.data_ptr(), partial.data_ptr(), rows, d, rpc, nchunks,
-               float(eps))
+               partial.data_ptr(), rows, d, rpc, nchunks, float(eps))
     raise_on(err, name)
     rms_norm_bwd.launches += 1
     return dx, dw.to(w.dtype)

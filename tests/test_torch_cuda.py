@@ -501,8 +501,11 @@ def _rel_err(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("residual", [False, True])
-@pytest.mark.parametrize("rows,d", [(8192, 1024), (131072, 128), (1, 16),
-                                    (7, 1000), (33, 4096), (4099, 128)])
+@pytest.mark.parametrize("rows,d", [
+    (8192, 1024), (131072, 128), (1, 16), (7, 1000), (33, 4096), (4099, 128),
+    # the training shapes' k_norm; a partial last chunk (49 rows a chunk,
+    # 46 in the last); fewer rows than one chunk (32 rows at least)
+    (65536, 128), (12345, 1024), (20, 128)])
 @pytest.mark.parametrize("dtype", sorted(BWD_DTYPES))
 def test_rms_norm_bwd_kernel_matches_plain_on_card(dtype, rows, d, residual):
     dev = _on_card()
@@ -517,6 +520,39 @@ def test_rms_norm_bwd_kernel_matches_plain_on_card(dtype, rows, d, residual):
     assert _rel_err(dx, wdx) <= RMS_BWD_TOL[dtype]
     assert _rel_err(dw, wdw) <= RMS_BWD_TOL[dtype]
     # deterministic: the same bits on a second call (no atomics)
+    dx2, dw2 = rms_kern.rms_norm_bwd(x, w, res, dy)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("rows,d,offset", [
+    (33, 999, 0),      # odd d: one element at a time
+    (64, 1024, 1),     # a view at storage offset 1: one element at a time
+    (9, 20000, 0),     # float32 past 16384 (float64 past 8192): two walks
+    (5, 4099, 0),      # odd and past 4096: two walks, one element at a time
+])
+@pytest.mark.parametrize("dtype", sorted(BWD_DTYPES))
+def test_rms_norm_bwd_kernel_paths_on_card(dtype, rows, d, offset, residual):
+    """The one-pass kernel's other paths: the scalar accesses and the rows
+    too long for registers, against the plain version and bitwise against
+    a second call."""
+    dev = _on_card()
+    tdt = BWD_DTYPES[dtype]
+    g = torch.Generator(device=dev).manual_seed(rows * d + offset)
+
+    def view():
+        buf = torch.randn(rows * d + offset, generator=g, device=dev,
+                          dtype=tdt)
+        return buf[offset:].view(rows, d)
+
+    x, r, dy = view(), view(), view()
+    w = torch.randn(d, generator=g, device=dev, dtype=tdt)
+    res = r if residual else None
+    dx, dw = rms_kern.rms_norm_bwd(x, w, res, dy)
+    wdx, wdw, _ = tref.rms_norm_bwd_ref(x, w, res, dy)
+    assert _rel_err(dx, wdx) <= RMS_BWD_TOL[dtype]
+    assert _rel_err(dw, wdw) <= RMS_BWD_TOL[dtype]
     dx2, dw2 = rms_kern.rms_norm_bwd(x, w, res, dy)
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
 

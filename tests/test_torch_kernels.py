@@ -138,6 +138,22 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                 kern.butcher_combine_rows(xt, kt, bad, torch.tensor(sc))
 
 
+@pytest.mark.parametrize("rows,d", [(8192, 1024), (131072, 128),
+                                    (65536, 128), (12345, 1024), (20, 128),
+                                    (1, 16), (9, 20000)])
+def test_rms_norm_bwd_chunks_follow_the_shape(rows, d):
+    """The one-pass backward's chunks of rows (one block and one partial
+    dw row each) cover the rows with no empty chunk (the launcher refuses
+    one), hold at least 32 rows, and number at most 256 with at most 2^18
+    partial elements where d allows; the training shapes get 256."""
+    from repro_torch.kernels import rmsnorm as rn
+    rpc, n = rn._dw_chunks(rows, d)
+    assert (n - 1) * rpc < rows <= n * rpc
+    assert rpc >= 32 and n <= 256 and (n == 1 or n * d <= 1 << 18)
+    if (rows, d) in ((8192, 1024), (131072, 128), (65536, 128)):
+        assert n == 256
+
+
 def test_kernel_source_is_in_the_package():
     for source, entry in ((kern.SOURCE, "butcher_combine_launch"),
                           (kern.ROWS_SOURCE, "butcher_combine_rows_launch")):

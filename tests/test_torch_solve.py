@@ -271,3 +271,102 @@ def test_symplectic_forward_keeps_no_stage_graph():
     (xs, ts, hs), = fn.segs
     assert len(xs) == 5 and len(ts) == 5
     assert all(not l.requires_grad for x in xs[1:] for l in x)
+
+
+# ---------------------------------------------------------------------------
+# parameter leaves a stage does not use: None through Algorithm 2, zeros
+# made once at the end
+# ---------------------------------------------------------------------------
+
+def _unit_problem(seed=6, d=4, R=3):
+    rng = np.random.default_rng(seed)
+    x0 = rng.normal(size=d)
+    params = {"units": [rng.normal(size=(d, d)) * 0.5 for _ in range(R)],
+              "b": rng.normal(size=d),
+              "unused": rng.normal(size=(2, 3))}
+    return x0, params
+
+
+def unit_field(x, t, p):
+    """Runs one of R units per evaluation, picked by t (as the LM's depth
+    field does); never reads ``p["unused"]``."""
+    R = len(p["units"])
+    w = p["units"][min(int(float(t) * R), R - 1)]
+    return torch.tanh(w @ x + p["b"])
+
+
+UNIT_SAVEATS = {"t1": lambda: T.SaveAt(t1=1.0),
+                "ts": lambda: T.SaveAt(ts=torch.tensor([0.4, 1.0],
+                                                       dtype=torch.float64))}
+
+
+def _unit_grads(gradient, stepping, saveat):
+    x0, params = _unit_problem()
+    x = torch.tensor(x0, requires_grad=True)
+    p = {"units": [torch.tensor(u, requires_grad=True)
+                   for u in params["units"]],
+         "b": torch.tensor(params["b"], requires_grad=True),
+         "unused": torch.tensor(params["unused"], requires_grad=True)}
+    sol = T.solve(unit_field, x, p, gradient=gradient, method="dopri5",
+                  stepping=stepping, saveat=UNIT_SAVEATS[saveat]())
+    loss = torch.sum(torch.tanh(sol.ys) ** 2)
+    leaves = [x, *p["units"], p["b"], p["unused"]]
+    # DirectBackprop's graph never reaches the unused leaf: its None is
+    # materialised; the symplectic Function returns a tensor for every leaf
+    bp = gradient == "backprop"
+    return leaves, torch.autograd.grad(loss, leaves, allow_unused=bp,
+                                       materialize_grads=bp)
+
+
+@pytest.mark.parametrize("saveat", sorted(UNIT_SAVEATS))
+@pytest.mark.parametrize("stepping", sorted(STEPPINGS))
+def test_unused_parameter_leaf_gets_an_exact_zero(stepping, saveat):
+    """A field that never reads one leaf and runs one unit per evaluation:
+    Algorithm 2 carries the untouched leaves' cotangents as None, and the
+    gradient of the unused leaf is an exact zero like the leaf; every other
+    leaf equals DirectBackprop through the same solve."""
+    stepping = STEPPINGS[stepping](T)
+    leaves, g_sym = _unit_grads("symplectic", stepping, saveat)
+    _, g_bp = _unit_grads("backprop", stepping, saveat)
+    unused = g_sym[-1]
+    assert (unused.shape, unused.dtype, unused.device) == \
+        (leaves[-1].shape, leaves[-1].dtype, leaves[-1].device)
+    assert torch.count_nonzero(unused) == 0
+    for a, b in zip(g_sym[:-1], g_bp[:-1]):
+        assert float(b.abs().max()) > 0
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=RTOL_EXACT,
+                                   atol=1e-13)
+
+
+def test_symplectic_step_adjoint_returns_a_dense_tree():
+    """The public one-step backward keeps its contract: a gradient tensor
+    for every parameter leaf, zeros (like the leaf) where the step's stages
+    used none, and the same numbers as the internal step."""
+    from repro_torch.core.symplectic import _step_adjoint
+    x0, params = _unit_problem()
+    x = torch.tensor(x0)
+    p = {"units": [torch.tensor(u) for u in params["units"]],
+         "b": torch.tensor(params["b"]), "unused": torch.tensor(
+             params["unused"])}
+    tab = T.get_tableau("dopri5")
+    t, h = torch.tensor(0.1, dtype=torch.float64), \
+        torch.tensor(0.05, dtype=torch.float64)
+    lam = torch.tensor(np.random.default_rng(7).normal(size=x.shape))
+    lam_n, g = T.symplectic_step_adjoint(unit_field, tab, x, t, h, p, lam)
+    with torch.no_grad():
+        lam_s, g_s = _step_adjoint(unit_field, tab, x, t, h, p, lam,
+                                   T.get_combiner(tab))
+    assert g_s["unused"] is None and g_s["units"][2] is None
+    assert torch.equal(lam_n, lam_s)
+    for name, leaf, got, sparse in zip(
+            ["units0", "units1", "units2", "b", "unused"],
+            [*p["units"], p["b"], p["unused"]],
+            [*g["units"], g["b"], g["unused"]],
+            [*g_s["units"], g_s["b"], g_s["unused"]]):
+        assert isinstance(got, torch.Tensor), name
+        assert (got.shape, got.dtype) == (leaf.shape, leaf.dtype), name
+        if sparse is None:
+            assert torch.count_nonzero(got) == 0, name
+        else:
+            assert torch.equal(got, sparse), name
+    assert float(g["units"][0].abs().max()) > 0

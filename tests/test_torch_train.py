@@ -442,6 +442,33 @@ def test_node_symplectic_gradient_equals_backprop_float64(monkeypatch):
             _rel(_np(a), _np(b), rtol)
 
 
+def test_node_symplectic_makes_no_zero_cotangents_for_units(monkeypatch):
+    """Node mode runs one unit per field evaluation.  Algorithm 2 carries
+    the other units' parameter cotangents as None (no zero tensor per stage
+    for each untouched leaf), and since every unit runs once in the
+    euler solve, no zero is made for a unit leaf at the end either."""
+    from torch.utils import _pytree as pytree
+    base = tqwen.SMOKE.with_(n_layers=3)
+    params = tlm.init_lm(base, seed=3, device="cpu", dtype=torch.float64)
+    _, batch = _batch(2, B=2, S=12)
+    arch = base.with_(node=NodeConfig(mode="node", grad_mode="symplectic"))
+    unit_ptrs = {l.data_ptr() for l in pytree.tree_leaves(params["unit"])}
+    calls = []
+    zeros_like = torch.zeros_like
+
+    def counting(t, *args, **kwargs):
+        calls.append(t.data_ptr() in unit_ptrs)
+        return zeros_like(t, *args, **kwargs)
+
+    monkeypatch.setattr(torch, "zeros_like", counting)
+    loss, grads = _lm_loss(params, arch, batch)
+    monkeypatch.setattr(torch, "zeros_like", zeros_like)
+    assert sum(calls) == 0, f"{sum(calls)} zeros_like of unit leaves"
+    assert all(float(g.abs().max()) > 0
+               for g in pytree.tree_leaves(grads["unit"]))
+    assert np.isfinite(float(loss))
+
+
 def test_remat_gives_the_gradient_of_the_plain_stack():
     arch = tqwen.SMOKE
     params = tlm.init_lm(arch, seed=1, device="cpu", dtype=torch.float64)

@@ -6,10 +6,15 @@ events over back-to-back calls).  The short first check of a new kernel;
 ``chip_smoke.py`` phase 31 is the full one.
 
     python3 tools/chip_bwd_check.py        # on a machine with an H100
+    python3 tools/chip_bwd_check.py --rms-only --chunks 128 256 512
 
-Exits 1 when a case is out of tolerance (1e-5 / 1e-4 of max |plain| in
+``--rms-only`` skips flash attention; ``--chunks`` times rms_norm_bwd at
+each given chunk target (``rmsnorm.DW_CHUNKS``) beside the default, at the
+three training shapes (per call, each kernel alone, and ``F.rms_norm``'s
+backward).  Exits 1 when a case is out of tolerance (1e-5 / 1e-4 of max |plain| in
 float32, 1e-12 in float64) or a second call differs.
 """
+import argparse
 import pathlib
 import sys
 import time
@@ -59,23 +64,99 @@ def timed(fn, n=10):
     return a.elapsed_time(b) / n
 
 
-def main():
+# (rows, d, storage offset): the training shapes, a partial last chunk,
+# fewer rows than a chunk, the scalar path (odd d, offset 1) and two walks
+RMS_CASES = [(8192, 1024, 0), (131072, 128, 0), (65536, 128, 0),
+             (12345, 1024, 0), (20, 128, 0), (77, 1000, 0), (5, 16, 0),
+             (33, 999, 0), (64, 1024, 1), (9, 20000, 0), (5, 4099, 0)]
+TRAIN_SHAPES = ((8192, 1024), (131072, 128), (65536, 128))
+
+
+def kernel_ms(fn, n=20):
+    """Device time per call of each kernel that ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key[:60]: round(ev.self_device_time_total / n / 1e3, 6)
+            for ev in prof.key_averages() if ev.self_device_time_total > 0}
+
+
+def time_rms_bwd(chunks, g, dev):
+    """rms_norm_bwd at the training shapes: as it stands, then at each chunk
+    target in ``chunks`` (``rmsnorm.DW_CHUNKS``)."""
+    import torch.nn.functional as F
+    for rows, d in TRAIN_SHAPES:
+        x, dy = (torch.randn(rows, d, generator=g, device=dev)
+                 for _ in range(2))
+        w = torch.randn(d, generator=g, device=dev)
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = F.rms_norm(xr, (d,), wr, 1e-6)
+        lib = timed(lambda: torch.autograd.grad(y, (xr, wr), dy,
+                                                retain_graph=True), 50)
+        bound = (3 * rows * d + 2 * d) * 4 / 3.35e12 * 1e3
+        for target in [None] + list(chunks):
+            saved = getattr(rn, "DW_CHUNKS", None)
+            if target is not None:
+                rn.DW_CHUNKS = target
+            ms = timed(lambda: rn.rms_norm_bwd(x, w, None, dy), 100)
+            alone = kernel_ms(lambda: rn.rms_norm_bwd(x, w, None, dy))
+            split = rn._dw_chunks(rows, d)
+            rn.DW_CHUNKS = saved
+            total = sum(alone.values())
+            print(f"rms_norm backward {rows}x{d} chunk target "
+                  f"{target or saved} {split}: {ms:.6f} ms per call, alone "
+                  f"{total:.6f} ({bound / total * 100:.1f}% of the "
+                  f"{bound:.6f} ms byte bound) {alone}; F.rms_norm backward "
+                  f"{lib:.6f}")
+
+
+def time_flash_bwd(g, dev):
+    q, do = (torch.randn(8, 16, 1024, 128, generator=g, device=dev)
+             for _ in range(2))
+    k, v = (torch.randn(8, 8, 1024, 128, generator=g, device=dev)
+            for _ in range(2))
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    print(f"flash forward ms {timed(lambda: fa.flash_attention(q, k, v))}, "
+          f"with lse "
+          f"{timed(lambda: fa.flash_attention(q, k, v, return_lse=True))}")
+    print(f"flash backward ms "
+          f"{timed(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))}")
+    alone = kernel_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), 5)
+    print(f"  {alone}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rms-only", action="store_true")
+    ap.add_argument("--chunks", nargs="*", type=int, default=[])
+    args = ap.parse_args(argv)
     t = time.perf_counter()
     _build.build_all([butcher_combine.LIBRARY, butcher_combine.ROWS_LIBRARY,
                       rn.LIBRARY, fa.LIBRARY, fa.BWD_LIBRARY])
     print(f"build {time.perf_counter() - t:.1f} s")
-    for line in fa.BWD_LIBRARY.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line \
-                or "warning" in line:
-            print(f"  ptxas flash_attention_bwd: {line.strip()}")
+    for name, lib in (("flash_attention_bwd", fa.BWD_LIBRARY),
+                      ("rms_norm_bwd", rn.LIBRARY)):
+        keep = False   # the lines of the backward kernels' entries
+        for line in lib.log.splitlines():
+            if "Compiling" in line:
+                keep = "bwd" in line
+            if keep and any(k in line for k in ("registers", "spill",
+                                                "Compiling", "warning")):
+                print(f"  ptxas {name}: {line.strip()}")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     bad = 0
     for dtype in (torch.float32, torch.float64):
         tol = 1e-12 if dtype == torch.float64 else 1e-5
-        for rows, d in ((8192, 1024), (131072, 128), (77, 1000), (5, 16)):
-            x, r, dy = (torch.randn(rows, d, generator=g, device=dev,
-                                    dtype=dtype) for _ in range(3))
+        for rows, d, off in RMS_CASES:
+            def view():
+                return torch.randn(rows * d + off, generator=g, device=dev,
+                                   dtype=dtype)[off:].view(rows, d)
+            x, r, dy = view(), view(), view()
             w = torch.randn(d, generator=g, device=dev, dtype=dtype)
             for res in (None, r):
                 dx, dw = rn.rms_norm_bwd(x, w, res, dy)
@@ -85,8 +166,11 @@ def main():
                 ok = max(errs) <= tol and torch.equal(dx, again[0]) and \
                     torch.equal(dw, again[1])
                 bad += not ok
-                print(f"rms_norm_bwd {dtype} {rows}x{d} residual="
+                print(f"rms_norm_bwd {dtype} {rows}x{d}+{off} residual="
                       f"{res is not None}: {errs} {'ok' if ok else 'BAD'}")
+        torch.cuda.synchronize()
+        if args.rms_only:
+            continue
         tol = 1e-12 if dtype == torch.float64 else 1e-4
         for case in CASES:
             if dtype == torch.float64 and case[0] == 8:
@@ -109,31 +193,9 @@ def main():
             bad += not ok
             print(f"flash_attention_bwd {dtype} {case}: lse {e_lse:.2e} "
                   f"dq/dk/dv {errs} {'ok' if ok else 'BAD'}")
-    q, do = (torch.randn(8, 16, 1024, 128, generator=g, device=dev)
-             for _ in range(2))
-    k, v = (torch.randn(8, 8, 1024, 128, generator=g, device=dev)
-            for _ in range(2))
-    o, lse = fa.flash_attention(q, k, v, return_lse=True)
-    print(f"flash forward ms {timed(lambda: fa.flash_attention(q, k, v))}, "
-          f"with lse "
-          f"{timed(lambda: fa.flash_attention(q, k, v, return_lse=True))}")
-    print(f"flash backward ms "
-          f"{timed(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))}")
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            fa.flash_attention_bwd(q, k, v, o, lse, do)
-        torch.cuda.synchronize()
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0.0)
-        if us > 0:
-            print(f"  {us / 5 / 1e3:.4f} ms per call  {ev.key[:90]}")
-    for rows, d in ((8192, 1024), (131072, 128)):
-        x, dy = (torch.randn(rows, d, generator=g, device=dev)
-                 for _ in range(2))
-        w = torch.randn(d, generator=g, device=dev)
-        print(f"rms_norm backward {rows}x{d} ms "
-              f"{timed(lambda: rn.rms_norm_bwd(x, w, None, dy))}")
+    if not args.rms_only:
+        time_flash_bwd(g, dev)
+    time_rms_bwd(args.chunks, g, dev)
     print(f"cases out of tolerance: {bad}")
     return 1 if bad else 0
 
