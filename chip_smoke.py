@@ -289,6 +289,29 @@ slice's new call shapes: the Hermite lane rows (s 3, 8 lanes, the CNF's and
 the physics' leaves) and dopri8's s 12 (and 13 with the FSAL error slope)
 one-row and rows calls at the physics shape (n 32 x 64).
 
+The mesh (``repro_torch.parallel``), each phase in a process of its own:
+
+ 37. mesh solve — a world of 1 over NCCL: phase 14's per-sample CNF (256
+               lanes, dopri5, rtol 1e-4 / atol 1e-6, max_steps 48) through
+               ``solve(..., batch_axis=0, mesh=)`` for the symplectic and
+               continuous adjoints, fixed and adaptive, t1 and SaveAt(ts):
+               loss, values, stats, success and gradients bitwise those of
+               ``solve()``; no collective in the forward, one all_reduce
+               per parameter leaf in the backward; peak bytes and ms of
+               one loss+gradient with and without the mesh.
+ 38. mesh over gloo — 2 ranks sharing the card, 128 lanes each, float64:
+               each rank's block bitwise the single-process solve of that
+               block, stats equal to the full width's, gradients within
+               1e-12; combine launches per rank.
+ 39. serve on a mesh — phase 28's server with ``EngineConfig(mesh=)`` (a
+               world of 1): results bitwise the no-mesh engine's, the slot
+               state DTensors on the lane axis, req/s and collectives per
+               engine step beside the no-mesh engine's.
+ 40. data-parallel training — ``launch.train --mesh debug`` (ZeRO-1, a
+               world of 1, NCCL) for 3 discrete steps at batch 8 x 1024:
+               metrics bitwise phase 32's discrete run's; s/step, the
+               collectives per step, and peak bytes.
+
 The combines' ``launches`` in the ``kernels`` line sum phases 3, 21, 23,
 24 and 27 (``launches_by_path`` splits them; the lane forms' rows sum
 phase 14, the per-sample cells of phases 24 and 27 and phase 28's drain
@@ -310,7 +333,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 LM_TRAIN_CHILD = "--lm-train"
 BWD_TIMES_CHILD = "--bwd-device-times"
-if sys.argv[1:] == [LM_TRAIN_CHILD]:
+MESH_CHILD = "--mesh"
+if sys.argv[1:] == [LM_TRAIN_CHILD] or sys.argv[1:3] == [MESH_CHILD, "40"]:
     # phase 32's own process: the training launcher turns on deterministic
     # algorithms, which need cuBLAS's fixed workspace set before CUDA
     # starts; the rest of the script runs without it (it costs host time
@@ -2843,7 +2867,8 @@ def _lm_train_child():
                   f"{arch.n_repeats} forward + {arch.n_repeats} backward "
                   f"expected, plus the loop's own)")
         out[mode] = {"counts": counts, "steps": len(rows),
-                     "step_seconds": res["step_seconds"], "losses": losses}
+                     "step_seconds": res["step_seconds"], "losses": losses,
+                     "rows": rows}
         del res, state, step
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
@@ -3052,6 +3077,390 @@ def lm_train_to_serve(ckpt):
     shutil.rmtree(pathlib.Path(ckpt).parent, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the mesh: phases 37-40, each in a process of its own (``MESH_CHILD``), so
+# that no process group touches the earlier phases
+# ---------------------------------------------------------------------------
+
+MESH_CNF_B = 256                 # phase 14's lanes
+MESH_GLOO_B = 256                # phase 38: 128 lanes on each of 2 ranks
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _world(backend, world=1, rank=0, port=None):
+    """Join a process group on localhost and make the lane mesh over it."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_lane_mesh
+    dist.init_process_group(
+        backend, init_method=f"tcp://127.0.0.1:{port or _free_port()}",
+        world_size=world, rank=rank)
+    torch.cuda.set_device(0)
+    return make_lane_mesh((world,), device_type="cuda")
+
+
+def _mesh_phase(which, *args, timeout=600):
+    """Run phase ``which`` in its own process; returns its last line's JSON
+    (the lines before it are printed)."""
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           MESH_CHILD, str(which), *args],
+                          capture_output=True, text=True, timeout=timeout)
+    lines = proc.stdout.rstrip("\n").splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    check(proc.returncode == 0 and lines,
+          f"phase {which} process failed (rc {proc.returncode}):\n"
+          f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
+def _cnf_lanes(B, dtype):
+    """Phase 14's per-sample CNF solve problem at B lanes: the field, the
+    first component's weights, the lane state (u, 0, eps) and the
+    controller (rtol 1e-4, atol 1e-6, max_steps 48)."""
+    from repro_torch.core import AdaptiveConfig
+    from repro_torch.models.cnf import cnf_field, component
+    cfg, params, u, eps = _per_sample_inputs(B, dtype)
+    # per-sample lanes hold a singleton batch (models/per_sample.py)
+    state = (u[:, None], torch.zeros((B, 1), dtype=dtype, device=u.device),
+             eps[:, None])
+    acfg = AdaptiveConfig(rtol=cfg.rtol, atol=cfg.atol,
+                          max_steps=cfg.max_steps)
+    return cfg, cnf_field(cfg), component(params, 0), state, acfg
+
+
+def _cnf_lane_run(cfg, field, p0, state, B, mesh=None, **kw):
+    """One loss+gradient of the per-sample solve through ``solve``: the
+    nll of the solve's final (z, dlp) summed over this rank's lanes and
+    divided by the global lane count B (so the ranks' losses sum to the
+    full batch's).  Returns (loss, ys, stats, success, grads, forward
+    collectives, backward collectives), ys/stats/success as this rank's
+    blocks."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils import _pytree as pytree
+    from repro_torch.core import solve
+    from repro_torch.parallel import comm
+    leaves, spec = pytree.tree_flatten(p0)
+    live = [l.detach().clone().requires_grad_() for l in leaves]
+
+    def own(x):
+        return x.to_local() if isinstance(x, DTensor) else x
+
+    comm.reset_counts()
+    sol = solve(field, state, pytree.tree_unflatten(live, spec),
+                batch_axis=0, mesh=mesh, **kw)
+    fwd = comm.counts()
+    ys = pytree.tree_map(own, sol.ys)
+    z, dlp, _ = pytree.tree_map(lambda l: l[-1], ys) \
+        if "saveat" in kw and kw["saveat"].kind == "ts" else ys
+    z, dlp = z[:, 0], dlp[:, 0]
+    logpz = -0.5 * torch.sum(z ** 2, -1) - 0.5 * cfg.dim * math.log(
+        2 * math.pi)
+    loss = -torch.sum(logpz - dlp) / B
+    grads = torch.autograd.grad(loss, live)
+    return (loss.detach(), pytree.tree_map(lambda l: l.detach(), ys),
+            {k: own(sol.stats[k]) for k in ("n_steps", "n_fevals",
+                                             "n_attempts")},
+            own(sol.success), grads, fwd, comm.counts())
+
+
+def _mesh_cells(acfg):
+    from repro_torch.core import ContinuousAdjoint, SaveAt, SymplecticAdjoint
+    ts = SaveAt(ts=[0.5, 1.0])
+    for gname, grad in (("symplectic", SymplecticAdjoint()),
+                        ("adjoint", ContinuousAdjoint())):
+        for sname, stepping in (("adaptive", acfg), ("fixed", 8)):
+            for oname, saveat in (("t1", None), ("ts", ts)):
+                kw = {"gradient": grad, "stepping": stepping}
+                if saveat is not None:
+                    kw["saveat"] = saveat
+                yield f"{gname}/{sname}/{oname}", kw
+
+
+def _mesh_solve_child():
+    """Phase 37's process: a world of 1 over NCCL."""
+    from torch.utils import _pytree as pytree
+    mesh = _world("nccl")
+    B = MESH_CNF_B
+    cfg, field, p0, state, acfg = _cnf_lanes(B, torch.float32)
+    n_leaves = len(pytree.tree_leaves(p0))
+    out = {}
+    for name, kw in _mesh_cells(acfg):
+        plain = _cnf_lane_run(cfg, field, p0, state, B, **kw)
+        if name == "symplectic/adaptive/t1":
+            torch.cuda.synchronize()
+            _zero_all_counts()
+        meshed = _cnf_lane_run(cfg, field, p0, state, B, mesh=mesh, **kw)
+        if name == "symplectic/adaptive/t1":
+            torch.cuda.synchronize()
+            out["launches"] = _all_counts()
+        loss, ys, stats, ok, grads, fwd, bwd = meshed
+        same = (torch.equal(loss, plain[0])
+                and all(torch.equal(a, b) for a, b in zip(
+                    pytree.tree_leaves(ys), pytree.tree_leaves(plain[1])))
+                and all(torch.equal(stats[k], plain[2][k]) for k in stats)
+                and torch.equal(ok, plain[3])
+                and all(torch.equal(a, b) for a, b in zip(grads, plain[4])))
+        check(same, f"phase 37 {name}: solve(mesh=) differs from solve()")
+        check(fwd == {} and bwd == {"all_reduce": n_leaves},
+              f"phase 37 {name}: collectives forward {fwd} backward {bwd} "
+              f"(want none, then {n_leaves} all_reduce)")
+        print(f"  {name}: bitwise equal to solve() (loss {float(loss):.6f}, "
+              f"accepted steps max {int(stats['n_steps'].max())}); "
+              f"collectives forward {fwd}, backward {bwd}")
+    kw = {"gradient": "symplectic", "stepping": acfg}
+    for label, m in (("solve()", None), ("solve(mesh=)", mesh)):
+        def run():
+            return _cnf_lane_run(cfg, field, p0, state, B, mesh=m, **kw)
+        peak = _peak_bytes(run)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        out[label] = {"peak_bytes": peak, "ms": sorted(times)[1]}
+        print(f"  one loss+gradient (symplectic, adaptive, t1, B {B}): "
+              f"{label} peak {peak} B, {sorted(times)[1]:.3f} ms (median "
+              f"of 3: {[round(x, 3) for x in times]})")
+    print(json.dumps(out), flush=True)
+
+
+def mesh_solve_phase():
+    phase(f"37 mesh solve, world of 1 over NCCL: per-sample MiniBooNE CNF, "
+          f"{MESH_CNF_B} lanes, dopri5, symplectic and continuous adjoint, "
+          f"fixed and adaptive, t1 and SaveAt(ts); float32")
+    return _mesh_phase(37)
+
+
+def _mesh_gloo_rank(rank, port):
+    """Phase 38's rank: half of the lanes of a world of 2 over gloo, both
+    ranks on the one card (CUDA tensors through gloo's collectives)."""
+    from repro_torch.core import SymplecticAdjoint
+    from repro_torch.parallel import gather
+    mesh = _world("gloo", world=2, rank=rank, port=port)
+    B, per = MESH_GLOO_B, MESH_GLOO_B // 2
+    cfg, field, p0, state, acfg = _cnf_lanes(B, torch.float64)
+    block = tuple(l[rank * per:(rank + 1) * per] for l in state)
+    out = {}
+    for name, stepping in (("adaptive", acfg), ("fixed", 8)):
+        kw = {"gradient": SymplecticAdjoint(), "stepping": stepping}
+        full = _cnf_lane_run(cfg, field, p0, state, B, **kw)
+        alone = _cnf_lane_run(cfg, field, p0, block, B, **kw)
+        torch.cuda.synchronize()
+        _zero_combine_counts()
+        meshed = _cnf_lane_run(cfg, field, p0, state, B, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        launches = _combine_counts()
+        _, ys, stats, ok, grads, fwd, bwd = meshed
+        check(all(torch.equal(a, b) for a, b in zip(ys, alone[1]))
+              and all(torch.equal(stats[k], alone[2][k]) for k in stats),
+              f"phase 38 rank {rank} {name}: the block differs from the "
+              f"single-process solve of that block")
+        for k in stats:
+            whole = gather(_lanes_dtensor(stats[k], mesh))
+            check(torch.equal(whole, full[2][k]),
+                  f"phase 38 rank {rank} {name}: {k} differs from the "
+                  f"full-width solve")
+        err = max(_rel_err(a, b) for a, b in zip(grads, full[4]))
+        check(err <= 1e-12, f"phase 38 rank {rank} {name}: gradient rel "
+                            f"err {err:.3e} > 1e-12")
+        check(fwd == {} and bwd == {"all_reduce": len(grads)},
+              f"phase 38 rank {rank} {name}: collectives {fwd} / {bwd}")
+        print(f"  rank {rank} {name}: block bitwise the single-process "
+              f"solve of lanes [{rank * per}, {(rank + 1) * per}); stats "
+              f"equal the full width's; gradient rel err {err:.3e}; "
+              f"collectives backward {bwd}; launches butcher_combine "
+              f"{launches[0]} butcher_combine_rows {launches[1]}",
+              flush=True)
+        out[name] = {"launches": launches, "grad_rel_err": err}
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def _lanes_dtensor(local, mesh):
+    from repro_torch.parallel.layout import from_local, lane_spec
+    return from_local(local, mesh, lane_spec(mesh, ("data",)))
+
+
+def _mesh_gloo_child():
+    """Phase 38's process: starts the 2 ranks and collects them."""
+    port = str(_free_port())
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               MESH_CHILD, "38", str(r), port],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=500))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = {}
+    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+        lines = o.rstrip("\n").splitlines()
+        print("\n".join(lines[:-1]), flush=True)
+        check(p.returncode == 0 and lines,
+              f"phase 38 rank {r} failed (rc {p.returncode}):\n{o[-3000:]}"
+              f"\n{e[-3000:]}")
+        res[f"rank{r}"] = json.loads(lines[-1])
+    print(json.dumps(res), flush=True)
+
+
+def mesh_gloo_phase():
+    phase(f"38 mesh solve, world of 2 over gloo on the one card: "
+          f"{MESH_GLOO_B // 2} lanes each, float64, symplectic adjoint")
+    return _mesh_phase(38)
+
+
+def _mesh_engine_child():
+    """Phase 39's process: the ODE server at phase 28's configuration,
+    without and with a lane mesh of one rank (NCCL)."""
+    from repro_torch.core import get_tableau
+    from repro_torch.launch.serve import ode_field
+    from repro_torch.parallel import comm
+    from repro_torch.serve import EngineConfig, SolveEngine, synthetic_stream
+    from torch.distributed.tensor import Shard
+    mesh = _world("nccl")
+    c = SERVE_ODE
+    make_plain, _, cfg, params = _serve_engine(
+        c["dim"], c["hidden"], c["max_steps"], c["buckets"])
+
+    def make_mesh():
+        return SolveEngine(ode_field, get_tableau("dopri5"), cfg, params,
+                           torch.zeros(c["dim"], device="cuda"),
+                           EngineConfig(buckets=tuple(c["buckets"]),
+                                        mesh=mesh))
+    n = c["requests"]
+    reqs = synthetic_stream(n, c["dim"], seed=c["seed"],
+                            t1_range=c["t1_range"],
+                            tol_choices=c["tol_choices"], device="cuda")
+    out, results = {}, {}
+    for label, make in (("no mesh", make_plain), ("mesh", make_mesh)):
+        make().run(reqs)                     # throwaway run
+        engine, init_s = _timed_engine(make)
+        comm.reset_counts()
+        box = {}
+        out[label] = _serve_run(
+            f"drain ({label})", engine, init_s,
+            lambda: box.setdefault("r", engine.run(reqs)), n)
+        results[label] = box["r"]
+        steps = engine.stats["steps_total"]
+        colls = comm.counts()
+        out[label]["collectives"] = colls
+        print(f"  {label}: collectives {colls} in {steps} engine steps "
+              f"({sum(colls.values()) / steps:.3f} per step)")
+        if label == "mesh":
+            check(steps <= colls.get("all_gather", 0) <= steps + n,
+                  f"phase 39: {colls} collectives in {steps} steps and {n} "
+                  f"harvests (one per sweep, one more per harvesting sweep)")
+            st = engine.resident_state
+            check(all(isinstance(p, Shard) and p.dim == 0
+                      for p in st.t.placements) and
+                  all(isinstance(p, Shard) and p.dim == 1
+                      for p in st.ts.placements + st.hs.placements),
+                  f"phase 39: resident state placements {st.t.placements} "
+                  f"/ {st.ts.placements}")
+    for rid, want in results["no mesh"].items():
+        check(_same_result(results["mesh"][rid], want, None),
+              f"phase 39: request {rid} differs from the no-mesh engine")
+    print(f"  mesh: {n} results bitwise the no-mesh engine's; req/s "
+          f"{out['mesh']['rps']:.3f} beside {out['no mesh']['rps']:.3f} "
+          f"without the mesh; resident state DTensors (t on axis 0, ts/hs "
+          f"on axis 1)")
+    print(json.dumps(out), flush=True)
+
+
+def mesh_engine_phase(serve_ode=None):
+    c = SERVE_ODE
+    phase(f"39 serve ode on a lane mesh (world of 1, NCCL): dim {c['dim']}, "
+          f"{c['requests']} requests, buckets {c['buckets']}, float32")
+    out = _mesh_phase(39)
+    if serve_ode is not None:
+        d = serve_ode["drain"]
+        print(f"  phase 28's drain in the main process: {d['rps']:.3f} req/s"
+              f", {d['syncs'] / d['stats']['steps_total']:.3f} syncs and no "
+              f"collective per engine step")
+    return out
+
+
+def _mesh_train_child(want_json):
+    """Phase 40's process: 3 discrete steps through ``launch.train.main
+    --mesh debug`` (ZeRO-1 over a world of 1, NCCL), with phase 32's
+    cuBLAS workspace set before CUDA starts."""
+    from repro_torch.launch import train
+    from repro_torch.parallel import comm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    want = json.loads(want_json) if want_json != "none" else None
+    if want is None:          # run alone: phase 32's discrete run first
+        plain = train.main(_train_argv())
+        want = {"rows": plain["rows"], "step_seconds": plain["step_seconds"]}
+        del plain
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_all_counts()
+    comm.reset_counts()
+    res = train.main(_train_argv("--mesh", "debug"))
+    torch.cuda.synchronize()
+    counts, colls = _all_counts(), comm.counts()
+    peak = torch.cuda.max_memory_allocated()
+    rows = res["rows"]
+    keys = ("loss", "grad_norm", "lr")
+    check([[r[k] for k in keys] for r in rows]
+          == [[r[k] for k in keys] for r in want["rows"]],
+          f"phase 40: metrics {rows} differ from phase 32's "
+          f"{want['rows']}")
+    steps = len(rows)
+    for name in ("rms_norm", "flash_attention", "rms_norm_bwd",
+                 "flash_attention_bwd"):
+        check(counts[name] > 0, f"phase 40: {name} never launched")
+    from torch.utils import _pytree as pytree
+    n_leaves = len(pytree.tree_leaves(res["state"].params))
+    grad = sum(colls.get(k, 0) for k in ("reduce_scatter", "reduce"))
+    print(f"  ZeRO-1 discrete: metrics bitwise phase 32's ({rows}); s/step "
+          f"{[round(x, 4) for x in res['step_seconds']]}; collectives per "
+          f"step { {k: v / steps for k, v in colls.items()} } ({n_leaves} "
+          f"gradient leaves: {grad / steps:.0f} reduce_scatter/reduce, "
+          f"the loss and the norm as all_reduce, the new params gathered); "
+          f"peak allocated {peak} B over the run; phase 32's discrete "
+          f"s/step {[round(x, 4) for x in want['step_seconds']]}")
+    check(grad + colls.get("all_reduce", 0) == steps * (n_leaves + 2),
+          f"phase 40: {colls} in {steps} steps of {n_leaves} leaves")
+    print(json.dumps({"counts": counts, "collectives": colls,
+                      "step_seconds": res["step_seconds"], "peak": peak,
+                      "steps": steps}), flush=True)
+
+
+def mesh_train_phase(train=None, peaks=None):
+    phase(f"40 LM train data-parallel (launch.train --mesh debug, ZeRO-1, "
+          f"world of 1, NCCL): qwen3-0.6b, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, float32, 3 discrete steps")
+    want = "none" if train is None else json.dumps(
+        {k: train["discrete"][k] for k in ("rows", "step_seconds")})
+    out = _mesh_phase(40, want)
+    if peaks is not None:
+        print(f"  peak allocated over the ZeRO-1 run {out['peak']} B (params,"
+              f" AdamW state, activations) beside phase 34's one "
+              f"loss+gradient above the params: discrete_remat "
+              f"{peaks['discrete_remat']} B")
+    return out
+
+
+
 def lm_train_rows(train, bwd_err, bwd_main):
     """The kernels line's rows of the backward kernels: launches from
     phase 32 (both modes), the rest from phase 31."""
@@ -3120,10 +3529,16 @@ def main():
     bwd_err, bwd_main = _timed(backward_kernels_vs_plain)
     train = _timed(lm_train_main_path)
     _timed(lm_exactness)
-    _timed(lm_memory)
+    peaks = _timed(lm_memory)
     ckpt = _timed(lm_resume)
     _timed(lm_train_to_serve, ckpt)
     print(f"phases 31-36 seconds {time.perf_counter() - t_train:.1f}")
+    t_mesh = time.perf_counter()
+    mesh_solve = _timed(mesh_solve_phase)
+    mesh_gloo = _timed(mesh_gloo_phase)
+    mesh_engine = _timed(mesh_engine_phase, serve_ode)
+    mesh_train = _timed(mesh_train_phase, train, peaks)
+    print(f"phases 37-40 seconds {time.perf_counter() - t_mesh:.1f}")
 
     def summed(results, kinds, name):
         return sum(r[name] for (mode, kind), r in results.items()
@@ -3169,6 +3584,25 @@ def main():
             train["node_symplectic"]["counts"][row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
     rows += lm_train_rows(train, bwd_err, bwd_main)
+    # the mesh phases: the lane forms of the sharded solve (37, and 38's two
+    # ranks) and of the meshed engine (39); the LM kernels of the
+    # data-parallel run (40)
+    for row in rows[4:6]:
+        name = row["name"][:-len("_lanes")]
+        k = 0 if name == "butcher_combine" else 1
+        row["launches_by_path"].update({
+            "mesh_solve": mesh_solve["launches"][name],
+            "mesh_gloo": sum(r[c]["launches"][k]
+                             for r in mesh_gloo.values()
+                             for c in ("adaptive", "fixed")),
+            "serve_ode_mesh": mesh_engine["mesh"][name]})
+        row["launches"] = sum(row["launches_by_path"].values())
+    for row in rows:
+        if row["name"] in ("rms_norm", "flash_attention", "rms_norm_bwd",
+                           "flash_attention_bwd"):
+            row["launches_by_path"]["lm_train_dp"] = \
+                mesh_train["counts"][row["name"]]
+            row["launches"] = sum(row["launches_by_path"].values())
     print(f"total_seconds {time.perf_counter() - t0:.1f}")
     print(smi.splitlines()[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"kernels": rows}))
@@ -3183,5 +3617,13 @@ if __name__ == "__main__":
         _lm_train_child()
     elif sys.argv[1:] == [BWD_TIMES_CHILD]:
         _bwd_device_times_child()
+    elif sys.argv[1:2] == [MESH_CHILD]:
+        which, rest = sys.argv[2], sys.argv[3:]
+        if which == "38" and rest:
+            _mesh_gloo_rank(int(rest[0]), int(rest[1]))
+        else:
+            {"37": _mesh_solve_child, "38": _mesh_gloo_child,
+             "39": _mesh_engine_child,
+             "40": _mesh_train_child}[which](*rest)
     else:
         main()

@@ -6,7 +6,7 @@ from .api import (GRADIENT_REGISTRY, ContinuousAdjoint,
                   DirectBackprop, GradientStrategy, RematSolve, RematStep,
                   SaveAt, Solution, SymplecticAdjoint, as_gradient,
                   batched_capability_matrix, capability_matrix,
-                  register_gradient, solve)
+                  mesh_capability_matrix, register_gradient, solve)
 from .backprop import odeint_backprop, odeint_remat_solve, odeint_remat_step
 from .combine import COMBINE_BACKENDS, StageCombiner, get_combiner
 from .rk import (AdaptiveConfig, AdaptiveSolution, BatchedAdaptiveSolution,
@@ -35,7 +35,7 @@ __all__ = [
     "RematSolve", "RematStep", "SaveAt", "Solution", "SolverState", "StageCombiner",
     "SymplecticAdjoint", "TABLEAUS", "apply_on_failure",
     "apply_on_failure_lanes", "as_gradient", "batched_capability_matrix",
-    "capability_matrix", "get_combiner", "get_tableau", "hermite_observe",
+    "capability_matrix", "mesh_capability_matrix", "get_combiner", "get_tableau", "hermite_observe",
     "lane_count",
     "odeint_adjoint", "odeint_adjoint_adaptive",
     "odeint_adjoint_adaptive_batched", "odeint_backprop",

@@ -533,6 +533,17 @@ def batched_capability_matrix() -> Dict[str, Dict[Tuple[str, str], bool]]:
             for name, cls in sorted(GRADIENT_REGISTRY.items())}
 
 
+def mesh_capability_matrix() -> Dict[str, Dict[Tuple[str, str], bool]]:
+    """The same table for ``solve(..., batch_axis=0, mesh=...)``: the
+    batched cells restricted to t1|ts saveat.  The mesh path runs the SAME
+    batched hooks (``fixed``/``fixed_saveat``/``adaptive_*_with_stats``) on
+    each rank's lane block, so every batched t1/ts cell is mesh-legal;
+    dense output is not wired through it."""
+    return {name: {cell: ok and cell[1] in ("t1", "ts")
+                   for cell, ok in cells.items()}
+            for name, cells in batched_capability_matrix().items()}
+
+
 def _check_capability(gradient: GradientStrategy, stepping_kind: str,
                       saveat_kind: str, batched: bool = False) -> None:
     cells = (type(gradient).batched_cells() if batched
@@ -577,7 +588,9 @@ def solve(f: VectorField, x0, params, *,
           stepping: Union[int, AdaptiveConfig] = 16,
           backend: str = "auto",
           t0=0.0,
-          batch_axis: Optional[int] = None) -> Solution:
+          batch_axis: Optional[int] = None,
+          mesh=None,
+          sharding=None) -> Solution:
     """Integrate ``dx/dt = f(x, t, params)`` and return a ``Solution``.
 
     f          — vector field over pytrees of tensors; times are not
@@ -601,6 +614,20 @@ def solve(f: VectorField, x0, params, *,
                  (lockstep).  0: the leading axis of every state leaf
                  indexes B INDEPENDENT trajectories (masked per-lane step
                  control; per-lane (B,) stats and success).  Only axis 0.
+    mesh       — a ``DeviceMesh`` over the running process group: each rank
+                 solves its contiguous block of lanes over the mesh's data
+                 axes (the longest divisible prefix of ("pod", "data")),
+                 SPMD.  Requires ``batch_axis=0`` and saveat t1|ts.  ``x0``
+                 is a DTensor sharded on axis 0 over those axes, or a full
+                 tensor every rank holds (each takes its block, no
+                 communication).  The forward makes no collective; the
+                 backward makes one all_reduce per parameter leaf.  ``ys``,
+                 ``stats`` and ``success`` are DTensors on the lane axis,
+                 and ``stats`` gains ``shard_steps`` / ``load_imbalance``
+                 (``repro_torch.parallel.solve``).
+    sharding   — params placement under ``mesh``: None (replicated,
+                 default), ``"auto"`` (``repro_torch.parallel`` path
+                 rules), or an explicit per-leaf tree of specs.
     """
     tab = get_tableau(method) if isinstance(method, str) else method
     resolve_backend(backend)  # eager validation, single source
@@ -629,6 +656,17 @@ def solve(f: VectorField, x0, params, *,
 
     _check_capability(gradient, stepping_kind, saveat.kind, batched)
     ctx = _Ctx(f, tab, n_steps, adaptive, backend)
+    if mesh is None and sharding is not None:
+        raise ValueError("solve(sharding=...) requires mesh=: the params "
+                         "placement only means something on a mesh")
+    if mesh is not None:
+        if not batched:
+            raise ValueError(
+                "solve(mesh=...) shards the lane axis over the mesh's data "
+                "axes: pass batch_axis=0 (a single trajectory has no lane "
+                "axis to shard)")
+        return _solve_sharded(gradient, ctx, tab, n_steps, stepping_kind,
+                              saveat, x0, t0, params, lanes, mesh, sharding)
     device = pytree.tree_leaves(x0)[0].device
     if saveat.kind == "t1":
         if stepping_kind == "fixed":
@@ -659,4 +697,70 @@ def solve(f: VectorField, x0, params, *,
         ys, stats, success = gradient.adaptive_saveat_with_stats(
             ctx, x0, t0, ts, params)
     final = pytree.tree_map(lambda l: l[-1], ys)
+    return Solution(ys=ys, final_state=final, stats=stats, success=success)
+
+
+def _solve_sharded(gradient: GradientStrategy, ctx: _Ctx,
+                   tab: ButcherTableau, n_steps: Optional[int],
+                   stepping_kind: str, saveat: SaveAt, x0, t0, params,
+                   lanes: int, mesh, sharding) -> Solution:
+    """The mesh path of ``solve``: the SAME dispatch as the unsharded
+    batched solve, run by every rank on its contiguous lane block exactly
+    as a single-process call would (bitwise: values, per-lane stats, grids,
+    h carries).  It lives here so that the dispatch stays next to the
+    unsharded branch it must mirror; the mesh mechanics (lane axes,
+    placements, the cotangent reductions, load stats) come from
+    ``repro_torch.parallel.solve``."""
+    from ..parallel import solve as _pps  # parallel imports core: lazy
+    axes = _pps.lane_axes(mesh, lanes, require=True)
+    n_shards = _pps.shard_count(mesh, axes)
+    lanes_local = lanes // n_shards
+    pspec = _pps.resolve_param_specs(params, mesh, sharding)
+
+    def device_of(x):
+        leaf = pytree.tree_leaves(x)[0]
+        return leaf.device
+
+    if saveat.kind == "t1":
+        if stepping_kind == "fixed":
+            def body(x0_, params_):
+                ys = gradient.fixed(ctx, x0_, t0, saveat.t1, params_)
+                return (ys, *_fixed_stats(tab, n_steps, 1, lanes_local,
+                                          device_of(x0_)))
+        else:
+            def body(x0_, params_):
+                return gradient.adaptive_batched_with_stats(
+                    ctx, x0_, t0, saveat.t1, params_)
+        ys, stats, success = _pps.sharded_solve_triple(
+            body, mesh, axes, x0, params, params_spec=pspec, ys_lane_axis=0)
+        stats = _pps.with_shard_load_stats(stats, n_shards)
+        return Solution(ys=ys, final_state=ys, stats=stats, success=success)
+
+    if saveat.kind != "ts":
+        # unreachable today (_check_capability rejects batched dense), but
+        # the mesh path must never fall through to a new kind
+        raise ValueError(
+            f"solve(mesh=...) supports saveat t1|ts; got {saveat.kind!r}")
+
+    def times(x0_):
+        return _as_ts(saveat.ts, time_dtype(x0_), device_of(x0_), t0)
+
+    if stepping_kind == "fixed":
+        def body(x0_, params_):
+            ts = times(x0_)
+            ys = gradient.fixed_saveat(ctx, x0_, t0, ts, params_)
+            return (ys, *_fixed_stats(tab, n_steps, ts.shape[0],
+                                      lanes_local, device_of(x0_)))
+    else:
+        def body(x0_, params_):
+            return gradient.adaptive_saveat_batched_with_stats(
+                ctx, x0_, t0, times(x0_), params_)
+    # SaveAt stacks are time-major: lanes live on axis 1 of the ys leaves
+    ys, stats, success = _pps.sharded_solve_triple(
+        body, mesh, axes, x0, params, params_spec=pspec, ys_lane_axis=1)
+    stats = _pps.with_shard_load_stats(stats, n_shards)
+    # the last observation, from the local blocks (lanes on axis 0)
+    lane = _pps.lane_spec(mesh, axes)
+    final = pytree.tree_map(
+        lambda l: _pps.from_local(l.to_local()[-1], mesh, lane), ys)
     return Solution(ys=ys, final_state=final, stats=stats, success=success)

@@ -10,9 +10,15 @@ The JAX launcher's flags, plus ``--device`` (default ``cuda``; raises when
 there is no CUDA device).  ``--grad-mode`` trains the arch in node mode
 (the paper: depth as ODE time, ``--node-method`` with one step per repeat
 unit) with that gradient strategy; without it the discrete stack trains.
-``--mesh`` other than ``none`` raises (multi-card training is ROADMAP
-queue 1, item 15); the JAX launcher's ``--tpu-flags`` (XLA flags for TPU
-collectives) has no counterpart here and is not taken.
+``--mesh debug`` trains data-parallel with ZeRO-1 over a ("data", "model")
+mesh of (world, 1) ranks (``launch.mesh.make_debug_mesh``): one process per
+rank, started by ``torchrun --nproc-per-node N`` (or alone: a world of 1),
+each taking its rows of the one global batch, so the run equals the
+single-process run; the state is laid out by ``parallel.state_specs`` and
+checkpoints hold full arrays, written by rank 0.  ``--mesh pod`` and
+``multipod`` (the TPU pod layouts) raise; the JAX launcher's
+``--tpu-flags`` (XLA flags for TPU collectives) has no counterpart here and
+is not taken.
 
 The full train state (``train.TrainState``: params, AdamW state with the
 schedule step, the training generator's state, the data cursor, solver
@@ -82,13 +88,33 @@ def _args(argv):
     return ap.parse_args(argv)
 
 
+def _join_world(device) -> bool:
+    """Join the process group torchrun describes (``env://``), or make a
+    world of 1 on a free localhost port; True when this call made it."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return False
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if "MASTER_ADDR" in os.environ and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend)
+    else:
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        dist.init_process_group(backend,
+                                init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=1, rank=0)
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+    return True
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = _args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: multi-card training (a device mesh, "
-            f"sharded state, elastic restart) is not ported yet (ROADMAP "
-            f"queue 1, item 15)")
     if args.device.startswith("cuda"):
         # before CUDA starts: cuBLAS picks deterministic reductions only
         # with a fixed workspace
@@ -106,12 +132,29 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from repro_torch.train import (TrainConfig, init_train_state,
                                    make_train_step)
 
+    from repro_torch.launch.mesh import (make_debug_mesh,
+                                         make_production_mesh)
+    from repro_torch.parallel import comm, make_sharder, state_specs
+    from repro_torch.runtime import mesh_shardings, reshard_state
+    from repro_torch.train.data_parallel import Zero1, local_tensor
+
     device = torch.device(args.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("--device cuda: no CUDA device is available "
                                "(pass --device cpu to train on the CPU)")
+        if device.index is None and "LOCAL_RANK" in os.environ:
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
         torch.use_deterministic_algorithms(True)
+    mesh, own_world = None, False
+    if args.mesh in ("pod", "multipod"):
+        make_production_mesh(multi_pod=args.mesh == "multipod")
+    elif args.mesh == "debug":
+        import torch.distributed as dist
+        own_world = _join_world(device)
+        mesh = make_debug_mesh(dist.get_world_size(), 1,
+                               device_type=device.type)
+    writer = comm.is_writer()
     arch = get_smoke_arch(args.arch) if args.smoke else get_arch(args.arch)
     if args.grad_mode:
         arch = arch.with_(node=NodeConfig(mode="node",
@@ -135,6 +178,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
              "constant": lambda: constant_schedule(args.lr)}[args.schedule]()
 
     state = init_train_state(arch, tcfg, device=device)
+    specs = state_specs(state, mesh) if mesh is not None else None
     start_step = 0
     ckpt = None
     if args.ckpt_dir:
@@ -145,22 +189,28 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                   f"{args.ckpt_dir}", file=sys.stderr)
             sys.exit(3)
         if latest is not None:
-            state, start_step = ckpt.restore(state)
+            state, start_step = ckpt.restore(
+                state, shardings=None if mesh is None
+                else mesh_shardings(mesh, specs))
             # the data cursor IS the checkpoint step: the pipeline resumes
             # the exact sample stream
-            assert int(state["data_step"]) == start_step, \
-                (int(state["data_step"]), start_step)
+            assert int(local_tensor(state["data_step"])) == start_step, \
+                (int(local_tensor(state["data_step"])), start_step)
             print(f"[train] resumed from step {start_step} "
                   f"(epoch {start_step // steps_per_epoch})")
     elif args.resume:
         print("[train] --resume requires --ckpt-dir", file=sys.stderr)
         sys.exit(3)
 
-    step_fn = make_train_step(arch, tcfg, lr_fn=sched)
+    if mesh is not None and start_step == 0:
+        state = reshard_state(state, mesh, specs)
+    step_fn = make_train_step(
+        arch, tcfg, lr_fn=sched, shard=make_sharder(mesh),
+        grad_constraint=None if mesh is None else Zero1(mesh, state))
     pipe = iter(TokenPipeline(args.global_batch, args.seq_len, arch.vocab,
                               start_step=start_step, device=str(device)))
     metrics_f = None
-    if args.metrics_out:
+    if args.metrics_out and writer:
         out_dir = os.path.dirname(args.metrics_out)
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
@@ -197,15 +247,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             # resume check compares bit-identical values
             metrics_f.write(json.dumps(row) + "\n")
             metrics_f.flush()
-        if step % 5 == 0 or step == total_steps - 1:
+        if writer and (step % 5 == 0 or step == total_steps - 1):
             print(f"[train] step {step:5d} loss {row['loss']:.4f}"
                   f" gnorm {row['grad_norm']:.3f}"
                   f" lr {row['lr']:.2e}"
                   f" {time.time() - t0:.1f}s")
         if (step + 1) % steps_per_epoch == 0:
-            print(f"[train] epoch {epoch} done: mean loss "
-                  f"{sum(epoch_losses) / len(epoch_losses):.4f} "
-                  f"({len(epoch_losses)} steps)")
+            if writer:
+                print(f"[train] epoch {epoch} done: mean loss "
+                      f"{sum(epoch_losses) / len(epoch_losses):.4f} "
+                      f"({len(epoch_losses)} steps)")
             epoch_losses = []
         if ckpt is not None and (step + 1) % args.ckpt_every == 0:
             # async: the host transfer is the only stall; the file write
@@ -220,8 +271,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         ckpt.wait()
     if metrics_f is not None:
         metrics_f.close()
-    sstats = {k: int(v) for k, v in state["solver_stats"].items()}
-    print(f"[train] done (solver stats {sstats})")
+    sstats = {k: int(local_tensor(v)) for k, v in state["solver_stats"].items()}
+    if writer:
+        print(f"[train] done (solver stats {sstats})")
+    if own_world:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return {"rows": rows, "step_seconds": step_seconds, "state": state,
             "arch": arch}
 

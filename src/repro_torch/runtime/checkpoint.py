@@ -15,6 +15,13 @@ device tensors at once) and writes in a background thread.
 the array write and the manifest publish: the fault-injection tests SIGKILL
 a run there and prove the resume contract.
 
+A state laid out on a mesh (DTensor leaves, ``runtime.elastic.OwnedShard``
+leaves) is saved as its full logical arrays: every rank calls ``save``,
+each leaf is made whole (``elastic.full_leaf``, collective), and rank 0
+alone writes.  ``restore(..., shardings=)`` reads the full arrays on every
+rank and lays each leaf out per its sharding (``elastic.shard_leaf``, no
+communication), so a checkpoint written on one mesh restores on another.
+
 Leaves are flattened with ``torch.utils._pytree`` (a ``TrainState``
 flattens in its field order; a None leaf, such as ``compress_err`` without
 compression, is skipped, as the JAX package's tree utilities skip it),
@@ -35,11 +42,16 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from ..parallel import comm
+
 
 def _to_numpy(leaf) -> np.ndarray:
     """A host copy of a leaf: a CUDA tensor's ``.cpu()`` copies; a CPU
     tensor's numpy view would share the caller's storage, so it is copied
-    (an async write must not see later in-place updates)."""
+    (an async write must not see later in-place updates).  A laid-out leaf
+    is made whole first (a collective)."""
+    from .elastic import full_leaf
+    leaf = full_leaf(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         a = t.cpu().numpy()
@@ -61,8 +73,11 @@ class Checkpointer:
                 os.environ.get("REPRO_CKPT_WRITE_DELAY_S", "0") or 0)
         self.write_delay_s = write_delay_s
         self._thread: Optional[threading.Thread] = None
+        # of an SPMD program's ranks, rank 0 alone writes
+        self._writer = comm.is_writer()
         os.makedirs(directory, exist_ok=True)
-        self._clean_stale_tmp()
+        if self._writer:
+            self._clean_stale_tmp()
 
     def _clean_stale_tmp(self) -> None:
         """Remove ``.tmp_step_*`` leftovers of a crash mid-write.  Safe
@@ -79,6 +94,8 @@ class Checkpointer:
         # the device -> host pull is synchronous, the file write is not
         arrays = [_to_numpy(l) for l in pytree.tree_leaves(state)
                   if l is not None]
+        if not self._writer:
+            return
 
         def _write():
             self._clean_stale_tmp()
@@ -131,9 +148,13 @@ class Checkpointer:
         steps = self.list_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like: Any, step: Optional[int] = None):
+    def restore(self, like: Any, step: Optional[int] = None,
+                shardings: Any = None):
         """Restore into the structure of ``like``: each leaf takes the
-        dtype and device of ``like``'s leaf.  Returns (state, step)."""
+        dtype and device of ``like``'s leaf, and, with ``shardings`` (a
+        tree like ``like`` of ``elastic.NamedSharding``, from
+        ``elastic.mesh_shardings``), its layout on a mesh.  Returns
+        (state, step)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -169,4 +190,8 @@ class Checkpointer:
                     out.append(t.to(device=l.device, dtype=l.dtype))
                 else:
                     out.append(type(l)(arr) if np.ndim(arr) == 0 else arr)
+        if shardings is not None:
+            from .elastic import shard_leaf
+            out = [shard_leaf(t, sh) for t, sh in
+                   zip(out, spec.flatten_up_to(shardings))]
         return pytree.tree_unflatten(out, spec), step

@@ -26,6 +26,21 @@ device, while every other lane's mid-flight controller state is untouched.
 read per sweep, copies each finished lane's final state (on the device) and
 marks the slot free on the host; the lane itself is already self-masking.
 
+On a mesh (``EngineConfig(mesh=)``), SPMD: every rank runs the same engine
+on the same request stream, and holds its block of B / n lanes of the slot
+state (n lane shards over the mesh's data axes, ``parallel.lane_axes``);
+``resident_state`` presents it as DTensors on the lane axis (axis 1 for the
+step-major checkpoint buffers).  A slot keeps its (shard, local lane) for
+life: growth adds B' / n - B / n lanes to every rank's block, so no lane
+ever moves between ranks.  Which slot takes which request is host logic
+every rank computes alike.  The attempt is rank-local; an eviction sweep
+makes ONE collective (an all_gather of every rank's liveness and counter
+table, so every rank sees every lane), and a sweep that harvests makes one
+more (an all_gather of the lanes' final states, so every rank returns the
+same results): at most 2 collectives per engine step, 1 when nothing
+finishes, counted in ``parallel.comm.COUNTS``.  With one shard the slot
+order is the no-mesh engine's and so are the results, bit for bit.
+
 Bucketing: the engine starts at the smallest configured bucket and GROWS
 through ``EngineConfig.buckets`` as concurrent demand (occupied + queued)
 rises.  Each bucket's attempt runs once at construction on a blank state
@@ -88,13 +103,20 @@ class EngineConfig:
         if self.check_every < 1:
             raise ValueError("check_every must be >= 1")
         if self.mesh is not None:
-            raise NotImplementedError(
-                "EngineConfig(mesh=...): lane sharding over a device mesh is "
-                "not ported yet (ROADMAP queue 1, item 15)")
+            from ..parallel.solve import lane_axes, shard_count
+            axes = lane_axes(self.mesh, self.buckets[0], require=True)
+            n = shard_count(self.mesh, axes)
+            bad = [B for B in self.buckets if B % n]
+            if bad:
+                raise ValueError(
+                    f"EngineConfig.mesh shards lanes {n}-way over axes "
+                    f"{axes}, but bucket(s) {bad} are not divisible by {n}:"
+                    " every bucket's slot state must fill whole lane "
+                    "shards")
 
 
 def params_from_checkpoint(directory: str, like: Pytree,
-                           step: Optional[int] = None):
+                           step: Optional[int] = None, shardings=None):
     """Load the params leaf out of a TRAINING checkpoint (the full
     ``train.TrainState`` saved by ``runtime.Checkpointer``).
 
@@ -102,15 +124,44 @@ def params_from_checkpoint(directory: str, like: Pytree,
     saved, e.g. ``train.init_train_state`` with the training arch and
     config (its values are overwritten; dtypes and devices are kept).
     Returns ``(params, step)``: the train -> serve handoff.  A mismatched
-    template raises ``ValueError`` (shape-contract mismatch)."""
+    template raises ``ValueError`` (shape-contract mismatch).
+    ``shardings`` (``runtime.mesh_shardings``) lays the restored leaves out
+    on a mesh."""
     from ..runtime import Checkpointer
-    state, step = Checkpointer(directory).restore(like, step=step)
+    state, step = Checkpointer(directory).restore(like, step=step,
+                                                  shardings=shardings)
     return state["params"], step
 
 
 def _detached(tree: Pytree) -> Pytree:
-    return pytree.tree_map(
-        lambda l: l.detach() if isinstance(l, torch.Tensor) else l, tree)
+    """Detached leaves; a DTensor leaf (replicated params) as its local
+    tensor, which is what a rank computes with."""
+    from torch.distributed.tensor import DTensor
+
+    def one(l):
+        if isinstance(l, DTensor):
+            l = l.to_local()
+        return l.detach() if isinstance(l, torch.Tensor) else l
+
+    return pytree.tree_map(one, tree)
+
+
+def _pack_rows(tree: Pytree, B: int) -> torch.Tensor:
+    """(B, bytes) uint8: each lane's leaves, their bytes side by side."""
+    return torch.cat([l.reshape(B, -1).contiguous().view(torch.uint8)
+                      for l in pytree.tree_leaves(tree)], 1)
+
+
+def _unpack_row(row: torch.Tensor, like: Pytree) -> Pytree:
+    """One lane's leaves out of a ``_pack_rows`` row (shapes and dtypes of
+    the per-lane template ``like``)."""
+    leaves, spec = pytree.tree_flatten(like)
+    out, off = [], 0
+    for l in leaves:
+        nb = l.numel() * l.element_size()
+        out.append(row[off:off + nb].clone().view(l.dtype).reshape(l.shape))
+        off += nb
+    return pytree.tree_unflatten(out, spec)
 
 
 class SolveEngine:
@@ -141,28 +192,50 @@ class SolveEngine:
         self._steps_total = 0
         self._inserted_while_running = 0
         self._buckets = tuple(self.engine_cfg.buckets)
+        self._mesh = mesh = self.engine_cfg.mesh
+        self._n_shards, self._shard = 1, 0
+        if mesh is not None:
+            from ..parallel.layout import axes_group, block_index
+            from ..parallel.solve import lane_axes, shard_count
+            self._axes = lane_axes(mesh, self._buckets[0], require=True)
+            self._n_shards = shard_count(mesh, self._axes)
+            self._shard = block_index(mesh, self._axes)
+            self._group, self._order, _ = axes_group(mesh, self._axes)
         for B in self._buckets:
-            self.stepper.advance_in_place(self._blank_state(B), self.params)
-        self._state = self._blank_state(self._buckets[0])
-        self._lane_rid: List[Optional[int]] = [None] * self._buckets[0]
+            self.stepper.advance_in_place(self._blank_state(self._local(B)),
+                                          self.params)
+        B0 = self._buckets[0]
+        self._state = self._blank_state(self._local(B0))
+        self._lane_rid: List[Optional[int]] = [None] * B0
+        # slot -> (lane shard, lane in that shard's block), fixed for life
+        self._slot = [(s, j) for s in range(self._n_shards)
+                      for j in range(self._local(B0))]
+        self.restored_step: Optional[int] = None
 
     @classmethod
     def from_checkpoint(cls, f, tab: ButcherTableau, cfg: AdaptiveConfig,
                         directory: str, like: Pytree, x0_template: Pytree,
                         engine_cfg: EngineConfig = None,
                         combine_backend: str = "auto",
-                        step: Optional[int] = None) -> "SolveEngine":
+                        step: Optional[int] = None,
+                        shardings=None) -> "SolveEngine":
         """Boot an engine from a TRAINING checkpoint: the params leaf of the
         ``train.TrainState`` saved by ``launch.train`` becomes the field
         parameters (``like`` supplies the saved tree structure, see
-        ``params_from_checkpoint``); ``restored_step`` records the step."""
-        params, step = params_from_checkpoint(directory, like, step)
+        ``params_from_checkpoint``; ``shardings`` lays the restored state out
+        on a mesh); ``restored_step`` records the step."""
+        params, step = params_from_checkpoint(directory, like, step,
+                                              shardings)
         engine = cls(f, tab, cfg, params, x0_template, engine_cfg,
                      combine_backend)
         engine.restored_step = step
         return engine
 
     # -- slot-state construction / resizing ---------------------------------
+    def _local(self, B: int) -> int:
+        """Lanes of this rank's block of a B-lane slot state."""
+        return B // self._n_shards
+
     def _blank_state(self, B: int) -> BatchedSolverState:
         """All-free state: t0 == t1 == 0 makes every lane inactive, so an
         attempt is the identity on it until something is inserted."""
@@ -173,7 +246,8 @@ class SolveEngine:
                                        rtol=self.cfg.rtol, atol=self.cfg.atol)
 
     def _grow(self, new_B: int) -> None:
-        s, b = self._state, self._blank_state(new_B - self._lanes)
+        old, new = self._local(self._lanes), self._local(new_B)
+        s, b = self._state, self._blank_state(new - old)
 
         def pad0(l, r):
             return torch.cat([l, r], 0)
@@ -189,22 +263,50 @@ class SolveEngine:
             n_fevals=pad0(s.n_fevals, b.n_fevals),
             xs=pytree.tree_map(pad1, s.xs, b.xs),
             ts=pad1(s.ts, b.ts), hs=pad1(s.hs, b.hs),
-            lanes=pad0(s.lanes, b.lanes + self._lanes),
+            lanes=pad0(s.lanes, b.lanes + old),
             live=pad0(s.live, b.live),
             rtol=pad0(s.rtol, b.rtol), atol=pad0(s.atol, b.atol))
         self._lane_rid.extend([None] * (new_B - self._lanes))
+        self._slot.extend((sh, j) for sh in range(self._n_shards)
+                          for j in range(old, new))
 
     @property
     def _lanes(self) -> int:
         return len(self._lane_rid)
 
+    @property
+    def resident_state(self) -> BatchedSolverState:
+        """The slot state: on a mesh, every rank's block as DTensors (no
+        copy, no communication): per-lane fields on axis 0, the step-major
+        checkpoint buffers on axis 1.  Without a mesh, the local state."""
+        s = self._state
+        if self._mesh is None:
+            return s
+        from ..parallel.layout import from_local
+        from ..parallel.solve import lane_spec
+        lane = lane_spec(self._mesh, self._axes)
+        step = lane_spec(self._mesh, self._axes, lane_axis=1)
+
+        def put(name, v):
+            if v is None or isinstance(v, bool):
+                return v
+            place = step if name in ("xs", "ts", "hs") else lane
+            return pytree.tree_map(lambda l: from_local(l, self._mesh,
+                                                        place), v)
+
+        return s._replace(**{n: put(n, getattr(s, n)) for n in s._fields})
+
     # -- lane insert / harvest ------------------------------------------------
-    def _insert(self, lane: int, req: Request) -> None:
+    def _insert(self, slot: int, req: Request) -> None:
         """Rewrite ONE lane of the running state for a fresh request: clock
         at t0, fresh h carry (sign(t1 - t0) * initial_step, the seed a
         single solve with h0=None uses, rounded as there), zeroed counters
         and checkpoint column, its tolerances.  Fills and one device copy;
-        every other lane is untouched."""
+        every other lane is untouched.  On a mesh only the rank that holds
+        the slot's lane writes."""
+        shard, lane = self._slot[slot]
+        if shard != self._shard:
+            return
         s = self._state
         np_dt = torch.empty((), dtype=s.t.dtype).numpy().dtype.type
         t0, t1 = np_dt(req.t0), np_dt(req.t1)
@@ -220,12 +322,17 @@ class SolveEngine:
         for buf in pytree.tree_leaves(s.xs) + [s.ts, s.hs]:
             buf[:, lane].zero_()
 
-    def _harvest(self, lane: int, table):
-        """Lane ``lane``'s final state (a copy, on the device) and its
+    def _harvest(self, slot: int, table, rows):
+        """Slot ``slot``'s final state (a copy, on the device) and its
         (succeeded, n_accepted, n_fevals, n_attempts) from the sweep's
-        host table."""
-        _, ok, n_acc, n_fe, n_try = (row[lane] for row in table)
-        x = pytree.tree_map(lambda l: l[lane].clone(), self._state.x)
+        host table; on a mesh its state comes out of the gathered ``rows``
+        (``_pack_rows`` of every rank's block, in block order)."""
+        _, ok, n_acc, n_fe, n_try = (row[slot] for row in table)
+        shard, lane = self._slot[slot]
+        if rows is None:
+            x = pytree.tree_map(lambda l: l[lane].clone(), self._state.x)
+        else:
+            x = _unpack_row(rows[shard][lane], self._template)
         return x, bool(ok), n_acc, n_fe, n_try
 
     # -- public API ---------------------------------------------------------
@@ -284,15 +391,31 @@ class SolveEngine:
         of every lane."""
         s = self._state
         table = torch.stack([s.live.int(), self.stepper.succeeded(s).int(),
-                             s.n_accepted, s.n_fevals, s.n_attempts]).cpu()
+                             s.n_accepted, s.n_fevals, s.n_attempts])
+        if self._mesh is not None:
+            # every rank's table, in block order: the sweep's collective
+            from ..parallel import comm
+            parts = comm.all_gather(table, self._group)
+            table = torch.stack([parts[g] for g in self._order])
         now = time.perf_counter()
-        table = table.tolist()
-        for lane, rid in enumerate(self._lane_rid):
-            if rid is None or table[0][lane]:
-                continue
-            results[rid] = Result(*self._harvest(lane, table),
+        table = table.cpu().tolist()
+        if self._mesh is not None:    # (shard, row, lane) -> (row, slot)
+            table = [[table[sh][r][j] for sh, j in self._slot]
+                     for r in range(5)]
+        done = [slot for slot, rid in enumerate(self._lane_rid)
+                if rid is not None and not table[0][slot]]
+        rows = None
+        if done and self._mesh is not None:
+            # the harvested lanes' final states reach every rank
+            from ..parallel import comm
+            parts = comm.all_gather(
+                _pack_rows(s.x, self._local(self._lanes)), self._group)
+            rows = [parts[g] for g in self._order]
+        for slot in done:
+            rid = self._lane_rid[slot]
+            results[rid] = Result(*self._harvest(slot, table, rows),
                                   self._pending_meta.pop(rid), now)
-            self._lane_rid[lane] = None
+            self._lane_rid[slot] = None
 
     def step(self, results: Dict[int, Result]) -> None:
         """One step boundary: fill free lanes, one in-place attempt over the

@@ -6,8 +6,12 @@ The gradient scheme of a node-mode arch is its ``NodeConfig.grad_mode``
 (a registered strategy name or a ``repro_torch.core.GradientStrategy``),
 which the LM forward resolves through ``repro_torch.core.solve``.  The
 decoder LM is the arch this package trains; the enc-dec model and the
-patch frontend come with ROADMAP queue 1, item 13, and the ZeRO-style
-gradient sharding hook (``grad_constraint``) with item 15.
+patch frontend come with ROADMAP queue 1, item 13.
+
+On a mesh (``shard=parallel.make_sharder(mesh)``, or a ``grad_constraint``)
+the step is data-parallel and SPMD: ``train.data_parallel`` holds its
+collectives (one per gradient leaf, plus the loss and the clip norm), and
+``grad_constraint=data_parallel.Zero1(mesh, state)`` makes it ZeRO-1.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from repro_torch.optim import (AdamWConfig, CompressionConfig, adamw_init,
                                adamw_update, clip_by_global_norm,
                                compress_grads, decompress_grads,
                                init_error_state)
+from .data_parallel import DataParallel, Zero1, local_tensor, relay
 from .losses import lm_loss, lm_loss_chunked
 from .state import (TrainState, generator_from_state, init_solver_stats,
                     node_solver_counts)
@@ -90,17 +95,31 @@ def loss_and_grads(params, batch, arch: ArchConfig, loss_chunk: int = 512):
 
 
 def make_train_step(arch: ArchConfig, tcfg: TrainConfig,
-                    lr_fn: Optional[Callable] = None,
-                    grad_constraint: Optional[Callable] = None):
+                    lr_fn: Optional[Callable] = None, shard=None,
+                    grad_constraint: Optional[Zero1] = None):
     """train_step(state, batch) -> (new state, {"loss", "grad_norm", "lr"})
     with batch {"tokens", "labels"} (B, S) integer tensors on the params'
-    device.  The new state's tensors are new (the old state stays valid)."""
+    device.  The new state's tensors are new (the old state stays valid).
+
+    ``shard`` (``parallel.make_sharder(mesh)``) with a mesh, or a
+    ``grad_constraint`` (``data_parallel.Zero1``), makes the step
+    data-parallel over the mesh's "data" axis: every rank passes the same
+    global batch and takes its rows; the state is laid out by
+    ``runtime.reshard_state(state, mesh, parallel.state_specs(state,
+    mesh))`` for ZeRO-1, or held whole on every rank without it."""
     _check_arch(arch)
-    if grad_constraint is not None:
+    mesh = getattr(shard, "mesh", None) or getattr(grad_constraint, "mesh",
+                                                   None)
+    if grad_constraint is not None and not isinstance(grad_constraint,
+                                                      Zero1):
+        raise TypeError("grad_constraint must be a data_parallel.Zero1 "
+                        f"(ZeRO-1 over a mesh); got {type(grad_constraint)}")
+    if mesh is not None and (tcfg.microbatches > 1
+                             or tcfg.compression.mode != "none"):
         raise NotImplementedError(
-            "grad_constraint (the ZeRO-style sharding of the gradients over "
-            "a data-parallel mesh) is not ported yet (ROADMAP queue 1, item "
-            "15)")
+            "data-parallel training with microbatches or gradient "
+            "compression is not ported (one microbatch, no compression)")
+    dp = DataParallel(mesh, grad_constraint) if mesh is not None else None
     if lr_fn is None:
         lr_fn = lambda step: torch.full(  # noqa: E731
             (), tcfg.lr, dtype=torch.float32, device=step.device)
@@ -108,7 +127,55 @@ def make_train_step(arch: ArchConfig, tcfg: TrainConfig,
     solve_steps, solve_fevals = node_solver_counts(arch)
     n_solves = max(tcfg.microbatches, 1)
 
+    def advance(state, params, opt, new_err, metrics):
+        if isinstance(state, TrainState):
+            # advance every contract field: one draw from the training
+            # generator (the step's key, reserved for stochastic layers),
+            # the data cursor, the static solve counters
+            gen = generator_from_state(local_tensor(state.rng))
+            torch.randint(0, 2 ** 62, (1,), generator=gen)
+            ss = state.solver_stats
+
+            def bump(leaf, inc):
+                return relay(local_tensor(leaf) + inc, leaf)
+            stats = {"n_steps": bump(ss["n_steps"], solve_steps * n_solves),
+                     "n_fevals": bump(ss["n_fevals"],
+                                      solve_fevals * n_solves)}
+            return TrainState(params=params, opt=opt,
+                              rng=relay(gen.get_state(), state.rng),
+                              data_step=bump(state.data_step, 1),
+                              solver_stats=stats,
+                              compress_err=new_err), metrics
+        new_state = {"params": params, "opt": opt}
+        if new_err is not None:
+            new_state["compress_err"] = new_err
+        return new_state, metrics
+
+    def dp_step(state, batch):
+        """The data-parallel step (see ``train.data_parallel``)."""
+        p_leaves, p_tree = pytree.tree_flatten(state["params"])
+        full = [local_tensor(l) for l in p_leaves]
+        local, weight = dp.local_batch(batch)
+        total, grads = loss_and_grads(pytree.tree_unflatten(full, p_tree),
+                                      local, arch, tcfg.loss_chunk)
+        loss = dp.loss(total * weight.to(total.dtype))
+        grads = pytree.tree_map(lambda g: g * weight.to(g.dtype), grads)
+        with torch.no_grad():
+            pieces = pytree.tree_leaves(dp.reduce(grads),
+                                        is_leaf=lambda x: x is None)
+            gnorm = dp.norm(pieces)
+            scale = torch.clamp(tcfg.max_grad_norm
+                                / torch.clamp(gnorm, min=1e-9), max=1.0)
+            lr = lr_fn(local_tensor(state["opt"]["step"]))
+            params, opt = dp.update(p_leaves, full, state["opt"], pieces,
+                                    scale, lr, tcfg.adamw)
+        metrics = {"loss": loss.detach(), "grad_norm": gnorm, "lr": lr}
+        return advance(state, pytree.tree_unflatten(params, p_tree), opt,
+                       state.get("compress_err"), metrics)
+
     def train_step(state, batch):
+        if dp is not None:
+            return dp_step(state, batch)
         params = state["params"]
         if tcfg.microbatches > 1:
             mb = tcfg.microbatches
@@ -129,8 +196,9 @@ def make_train_step(arch: ArchConfig, tcfg: TrainConfig,
                                          tcfg.loss_chunk)
 
         with torch.no_grad():
-            # gradient compression across the (future) data-parallel
-            # all-reduce boundary
+            # gradient compression (the JAX package compresses before its
+            # data-parallel all-reduce; the port's data-parallel step
+            # takes none)
             err = state.get("compress_err")
             comp, new_err = compress_grads(grads, tcfg.compression, err)
             grads = decompress_grads(comp, tcfg.compression)
@@ -139,24 +207,6 @@ def make_train_step(arch: ArchConfig, tcfg: TrainConfig,
             params, opt = adamw_update(params, grads, state["opt"], lr,
                                        tcfg.adamw)
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
-        if isinstance(state, TrainState):
-            # advance every contract field: one draw from the training
-            # generator (the step's key, reserved for stochastic layers),
-            # the data cursor, the static solve counters
-            gen = generator_from_state(state.rng)
-            torch.randint(0, 2 ** 62, (1,), generator=gen)
-            stats = {
-                "n_steps": state.solver_stats["n_steps"]
-                + solve_steps * n_solves,
-                "n_fevals": state.solver_stats["n_fevals"]
-                + solve_fevals * n_solves}
-            return TrainState(params=params, opt=opt, rng=gen.get_state(),
-                              data_step=state.data_step + 1,
-                              solver_stats=stats,
-                              compress_err=new_err), metrics
-        new_state = {"params": params, "opt": opt}
-        if new_err is not None:
-            new_state["compress_err"] = new_err
-        return new_state, metrics
+        return advance(state, params, opt, new_err, metrics)
 
     return train_step

@@ -266,8 +266,11 @@ def test_engine_config_validation(tmp_path):
         EngineConfig(buckets=(4, 4, 8))
     with pytest.raises(ValueError, match="check_every"):
         EngineConfig(check_every=0)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        EngineConfig(mesh=object())
+    # lane sharding is ported (tests/test_torch_parallel.py): a bucket that
+    # does not fill whole lane shards is refused
+    mesh = type("Mesh", (), {"shape": {"data": 4}, "axis_names": ("data",)})
+    with pytest.raises(ValueError, match="divisible by 4"):
+        EngineConfig(buckets=(4, 6), mesh=mesh)
     # the checkpoint handoff is ported (tests/test_torch_runtime.py): a
     # directory with no checkpoint is refused
     with pytest.raises(FileNotFoundError, match="no checkpoint"):

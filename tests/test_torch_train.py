@@ -520,16 +520,21 @@ def test_node_depth_states_match_jax():
 
 def test_unported_training_paths_name_their_items():
     arch = tqwen.SMOKE
-    with pytest.raises(NotImplementedError, match="item 15"):
-        make_train_step(arch, TrainConfig(), grad_constraint=lambda g: g)
+    # data parallelism is ported (tests/test_torch_elastic.py); a training
+    # step on a "model" axis (tensor-parallel compute) is item 17
+    from repro_torch.parallel import make_sharder
+    mesh = type("Mesh", (), {"shape": {"data": 2, "model": 2},
+                             "axis_names": ("data", "model")})
+    with pytest.raises(NotImplementedError, match="item 17"):
+        make_train_step(arch, TrainConfig(), shard=make_sharder(mesh))
     with pytest.raises(NotImplementedError, match="item 13"):
         make_train_step(arch.with_(encdec=True), TrainConfig())
     with pytest.raises(NotImplementedError, match="item 13"):
         init_train_state(arch.with_(frontend="patch"), TrainConfig(),
                          device="cpu")
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="item 15"):
-        train.main(["--arch", "qwen3-0.6b", "--smoke", "--mesh", "debug",
+    with pytest.raises(NotImplementedError, match="no H100 counterpart"):
+        train.main(["--arch", "qwen3-0.6b", "--smoke", "--mesh", "pod",
                     "--device", "cpu"])
 
 

@@ -8,7 +8,8 @@ compared on one card in turns (parent, change, change, parent).
 A tree is a directory holding ``chip_smoke.py`` and ``src/`` (for the
 parent commit: ``git archive <commit> | tar -x -C runs/parent``).  Each run
 builds the kernels (phase 1), then calls the phases' functions of that
-tree's ``chip_smoke.py``; 35 runs 36 after it.  Each run's whole output goes
+tree's ``chip_smoke.py``; 35 runs 36 after it; 40 run alone runs phase
+32's discrete run first, in its own process, to compare with.  Each run's whole output goes
 to ``<log-dir>/phases_<i>.log`` (``--log-dir``, default ``runs/phases``);
 the lines that carry numbers are printed.  Exits 1 when a run fails.
 """
@@ -24,10 +25,15 @@ PHASES = {25: ["saveat_exactness"],
           32: ["lm_train_main_path"],
           33: ["lm_exactness"],
           34: ["lm_memory"],
-          35: ["lm_resume", "lm_train_to_serve"]}
+          35: ["lm_resume", "lm_train_to_serve"],
+          37: ["mesh_solve_phase"],
+          38: ["mesh_gloo_phase"],
+          39: ["mesh_engine_phase"],
+          40: ["mesh_train_phase"]}
 KEEP = ("==", "phase seconds", "s/step", "launches per step", "wall",
         "ms (device", "peak", "bitwise", "rel err", "dopri8 grid", "FAILED",
-        "Error", "error", "ptxas flash_attention_bwd")
+        "Error", "error", "ptxas flash_attention_bwd", "collectives",
+        "rank", "req/s", "peak")
 
 
 def _child(tree: str, names):
