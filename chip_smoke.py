@@ -312,8 +312,25 @@ The mesh (``repro_torch.parallel``), each phase in a process of its own:
                metrics bitwise phase 32's discrete run's; s/step, the
                collectives per step, and peak bytes.
 
+The auditor, in a process of its own (``python3 chip_smoke.py --mesh 41``):
+
+ 41. analysis — ``repro_torch.analysis.run_analysis(device="cuda")``: every
+               enumerated case with the combine kernels, the sharded cells
+               on an in-process gloo world of 1 with CUDA tensors, the
+               engine's ``advance_in_place``; no ERROR finding against the
+               committed ``cuda`` budgets (without them, the counts go to
+               ``chiprun_out/analysis_counts_cuda.json``); both combines
+               launched under it; every gradient records backward ops; six
+               cases with the plain combines on the card and on the CPU
+               (their op counts and the op names the card adds or drops,
+               printed); then the memory rule, each strategy x (dopri5,
+               bosh3) x N (8, 64) at dim 8, hidden 1024 (float64): the
+               recorder's peak beside ``max_memory_allocated`` above the
+               inputs, the same growth class per row and no memory-bound
+               finding from either.
+
 The combines' ``launches`` in the ``kernels`` line sum phases 3, 21, 23,
-24 and 27 (``launches_by_path`` splits them; the lane forms' rows sum
+24, 27 and 41 (``launches_by_path`` splits them; the lane forms' rows sum
 phase 14, the per-sample cells of phases 24 and 27 and phase 28's drain
 run, and carry phase 30's numbers as ``serve_shape``).  The card's
 name and power limit are printed early; the last line is
@@ -321,6 +338,7 @@ name and power limit are printed early; the last line is
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -3461,6 +3479,186 @@ def mesh_train_phase(train=None, peaks=None):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 41: the auditor (repro_torch.analysis) on the card
+# ---------------------------------------------------------------------------
+
+# the allocator comparison's probe (float64): the caching allocator rounds
+# every block up to 512 B, so the rule's own dim-4 probe (32-byte states,
+# 2 KiB hidden vectors) would make each step's checkpoints (x, t: 2 x 512 B)
+# weigh against a flat strategy's ~70-120 KiB; hidden 1024 makes its fixed
+# part ~0.5 MB, and dim 8 keeps backprop's per-step activations above its
+# parameter-sized part (growth 5.4x / 4.4x on the CPU)
+ALLOC_DIM, ALLOC_HIDDEN = 8, 1024
+# cases also run on the card with the plain combines, to hold the
+# recorder's counts there against the CPU's committed "torch" budgets
+PLAIN_CASES = ("symplectic/dopri5/fixed/t1/single",
+               "symplectic/dopri5/adaptive/t1/single",
+               "backprop/dopri5/fixed/t1/single",
+               "adjoint/dopri5/adaptive/t1/single",
+               "remat_step/dopri5/fixed/t1/single",
+               "symplectic/dopri5/adaptive/t1/batched")
+CARD_ONLY_OPS = {"aten._to_copy", "aten.select"}
+CPU_ONLY_OPS = {"aten.lift_fresh"}
+
+
+def _alloc_peak(fn, args):
+    """Allocated bytes above the inputs at the peak of ``fn(*args)``.  The
+    earlier calls' autograd graphs (reference cycles through the
+    strategies' ``ctx``) are collected first: freed during the call, they
+    would lower the peak below the call's own."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    return peak
+
+
+def _analysis_child():
+    """Phase 41's process: ``run_analysis`` on the cuda backend (the
+    sharded cells on an in-process gloo world of 1 with CUDA tensors),
+    then the allocator beside the recorder."""
+    from repro_torch.analysis import (case_records, count_ops,
+                                      enumerate_cases, load_budgets, record,
+                                      render_report, run_analysis)
+    from repro_torch.analysis.memory import (MEMORY_METHODS, N_BIG, N_SMALL,
+                                             MemoryRow, grad_loss,
+                                             growth_class, memory_findings)
+    from repro_torch.core.api import GRADIENT_REGISTRY
+    torch.cuda.set_device(0)
+    budgets = load_budgets()
+    have_cuda = any(k.endswith(":cuda") for k in budgets)
+    # warm-up: kernels loaded, cuBLAS workspace made, before any baseline
+    for method in MEMORY_METHODS:
+        for name in sorted(GRADIENT_REGISTRY):
+            fn, args = grad_loss(name, method, 2, dim=ALLOC_DIM,
+                                 hidden=ALLOC_HIDDEN, device="cuda")
+            fn(*args)
+    torch.cuda.synchronize()
+    _zero_combine_counts()
+    t = time.perf_counter()
+    report = run_analysis(budgets, device="cuda", run_memory=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = dict(zip(("butcher_combine", "butcher_combine_rows"),
+                        _combine_counts()))
+    print(render_report(report))
+    print(f"  run_analysis(device='cuda') {seconds:.1f} s; combine launches "
+          f"under it {launches}; budgets have cuda keys: {have_cuda}")
+    errors = report.errors
+    if not have_cuda:
+        # the first card run of a tree: its cuda counts are what a commit
+        # takes as the cuda budgets (the missing keys are its only errors)
+        errors = [f for f in errors if "no committed budget" not in f.message]
+        pathlib.Path("chiprun_out").mkdir(exist_ok=True)
+        pathlib.Path("chiprun_out/analysis_counts_cuda.json").write_text(
+            json.dumps(dict(sorted(report.counts.items())), indent=2))
+        print("  no cuda budgets committed: counts written to "
+              "chiprun_out/analysis_counts_cuda.json")
+    check(not errors, "phase 41: ERROR findings on the cuda backend:\n"
+          + "\n".join(str(f) for f in errors))
+    check(not report.failed_probes,
+          f"phase 41: probes did not succeed: {report.failed_probes}")
+    check(all(v > 0 for v in launches.values()),
+          f"phase 41: a combine kernel never launched: {launches}")
+    # the recorder on the card's backward (autograd's device thread): every
+    # grad run records more ops than its value run, and with the plain
+    # combines a case counts what the CPU's committed torch budget says
+    # (unless the torch versions differ: printed)
+    grads = {k: v for k, v in report.counts.items() if ":grad:" in k}
+    for k, n in grads.items():
+        value = report.counts.get(k.replace(":grad:", ":value:"))
+        check(value is not None and n > value,
+              f"phase 41: {k} records {n} ops, value {value}: the backward "
+              "was not recorded")
+    # the same cases with the plain combines on the card and on the CPU, in
+    # this process (one torch version): the ops the card adds or drops
+    cases = {c.key: c for c in enumerate_cases()}
+    plain = {}
+    for key in PLAIN_CASES:
+        recs = {dev: case_records(cases[key], device=dev, backend="torch")
+                for dev in ("cuda", "cpu")}
+        for kind in ("value", "grad"):
+            if recs["cpu"][kind] is None:
+                continue
+            names = {dev: collections.Counter(
+                r.name for r in recs[dev][kind].records) for dev in recs}
+            plain[f"{key}:{kind}"] = (
+                count_ops(recs["cuda"][kind]), count_ops(recs["cpu"][kind]),
+                dict(names["cuda"] - names["cpu"]),
+                dict(names["cpu"] - names["cuda"]),
+                budgets.get(f"{key}:{kind}:torch"))
+    same = sum(v[0] == v[1] for v in plain.values())
+    print(f"  plain combines, card vs CPU in this process: {same} of "
+          f"{len(plain)} calls count alike")
+    for k, (n_card, n_cpu, more, fewer, committed) in plain.items():
+        print(f"    {k}: card {n_card}, CPU {n_cpu} (committed CPU budget, "
+              f"torch 2.13: {committed}); card adds {more}, drops {fewer}")
+        # the card's only extra ops are the adaptive controller's one
+        # device-to-host read per attempt (tolist: a copy to the host, a
+        # select per element); a literal the CPU lifts may be made on it
+        check(set(more) <= CARD_ONLY_OPS and set(fewer) <= CPU_ONLY_OPS,
+              f"phase 41: {k} on the card adds {more}, drops {fewer}")
+    # the allocator beside the recorder: Table 1 at the wider probe
+    lines, rows_rec, rows_alloc = [], [], []
+    for method in MEMORY_METHODS:
+        for name in sorted(GRADIENT_REGISTRY):
+            rec_peaks, alloc_peaks = [], []
+            for n in (N_SMALL, N_BIG):
+                fn, args = grad_loss(name, method, n, dim=ALLOC_DIM,
+                                     hidden=ALLOC_HIDDEN, device="cuda")
+                rec_peaks.append(record(fn, *args, records=False)[1]
+                                 .peak_bytes)
+                alloc_peaks.append(_alloc_peak(fn, args))
+            r = MemoryRow(name, method, N_SMALL, rec_peaks[0], N_BIG,
+                          rec_peaks[1])
+            a = MemoryRow(name, method, N_SMALL, alloc_peaks[0], N_BIG,
+                          alloc_peaks[1])
+            rows_rec.append(r)
+            rows_alloc.append(a)
+            cr, ca = growth_class(r.growth, method), \
+                growth_class(a.growth, method)
+            lines.append(f"  {name:11s} {method:6s} recorder {rec_peaks[0]} "
+                         f"-> {rec_peaks[1]} B ({r.growth:.3f}x, {cr}); "
+                         f"allocator {alloc_peaks[0]} -> {alloc_peaks[1]} B "
+                         f"({a.growth:.3f}x, {ca})")
+            check(cr == ca and cr != "between",
+                  f"phase 41: {name}/{method} recorder {cr} vs allocator "
+                  f"{ca}")
+    print(f"Table 1 on the card (float64, dim {ALLOC_DIM}, hidden "
+          f"{ALLOC_HIDDEN}, one fixed-grid loss+gradient, N {N_SMALL} and "
+          f"{N_BIG}; allocator = max_memory_allocated above the inputs):")
+    print("\n".join(lines))
+    for label, rows in (("recorder", rows_rec), ("allocator", rows_alloc)):
+        fs = memory_findings(rows)
+        check(not fs, f"phase 41: {label} memory findings: "
+              + "; ".join(map(str, fs)))
+    print(json.dumps({"launches": launches, "seconds": seconds,
+                      "errors": len(report.errors),
+                      "findings": len(report.findings),
+                      "plain_equal": [same, len(plain)],
+                      "table1_recorder": [_row(r) for r in rows_rec],
+                      "table1_allocator": [_row(r) for r in rows_alloc]}),
+          flush=True)
+
+
+def _row(r):
+    return [r.strategy, r.method, r.peak_small, r.peak_big]
+
+
+def analysis_phase():
+    phase("41 analysis: repro_torch.analysis on the cuda backend (every "
+          "case, the sharded cells on a gloo world of 1, the engine's "
+          "attempt, Table 1), recorder vs allocator")
+    return _mesh_phase(41)
+
+
+
 def lm_train_rows(train, bwd_err, bwd_main):
     """The kernels line's rows of the backward kernels: launches from
     phase 32 (both modes), the rest from phase 31."""
@@ -3539,6 +3737,7 @@ def main():
     mesh_engine = _timed(mesh_engine_phase, serve_ode)
     mesh_train = _timed(mesh_train_phase, train, peaks)
     print(f"phases 37-40 seconds {time.perf_counter() - t_mesh:.1f}")
+    audit = _timed(analysis_phase)
 
     def summed(results, kinds, name):
         return sum(r[name] for (mode, kind), r in results.items()
@@ -3603,6 +3802,11 @@ def main():
             row["launches_by_path"]["lm_train_dp"] = \
                 mesh_train["counts"][row["name"]]
             row["launches"] = sum(row["launches_by_path"].values())
+    # the auditor (phase 41): both combines, single-trajectory and lane
+    # forms together (one counter per kernel)
+    for row in rows[:2]:
+        row["launches_by_path"]["analysis"] = audit["launches"][row["name"]]
+        row["launches"] = sum(row["launches_by_path"].values())
     print(f"total_seconds {time.perf_counter() - t0:.1f}")
     print(smi.splitlines()[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"kernels": rows}))
@@ -3623,7 +3827,7 @@ if __name__ == "__main__":
             _mesh_gloo_rank(int(rest[0]), int(rest[1]))
         else:
             {"37": _mesh_solve_child, "38": _mesh_gloo_child,
-             "39": _mesh_engine_child,
-             "40": _mesh_train_child}[which](*rest)
+             "39": _mesh_engine_child, "40": _mesh_train_child,
+             "41": _analysis_child}[which](*rest)
     else:
         main()

@@ -1,6 +1,7 @@
 """Architecture registry (the ported subset of the JAX package's)."""
-from .base import ArchConfig, LayerSpec, NodeConfig
-from .registry import ARCH_IDS, get_arch, get_smoke_arch
+from .base import SHAPES, ArchConfig, LayerSpec, NodeConfig, ShapeConfig
+from .registry import (ARCH_IDS, cell_is_applicable, get_arch,
+                       get_smoke_arch)
 
-__all__ = ["ArchConfig", "LayerSpec", "NodeConfig", "ARCH_IDS", "get_arch",
-           "get_smoke_arch"]
+__all__ = ["ArchConfig", "LayerSpec", "NodeConfig", "ShapeConfig", "SHAPES",
+           "ARCH_IDS", "cell_is_applicable", "get_arch", "get_smoke_arch"]

@@ -20,6 +20,12 @@ _NOT_PORTED = ("mixtral-8x7b", "deepseek-v2-lite-16b", "qwen3-1.7b",
 
 ARCH_IDS = tuple(_MODULES)
 
+# archs whose attention is strictly quadratic-full: long_500k is skipped
+FULL_ATTENTION_ARCHS = frozenset({
+    "deepseek-v2-lite-16b", "qwen3-1.7b", "minicpm-2b", "qwen3-0.6b",
+    "stablelm-12b", "internvl2-1b", "seamless-m4t-medium",
+})
+
 
 def _mod(arch_id: str):
     if arch_id in _NOT_PORTED:
@@ -37,3 +43,8 @@ def get_arch(arch_id: str) -> ArchConfig:
 
 def get_smoke_arch(arch_id: str) -> ArchConfig:
     return _mod(arch_id).SMOKE
+
+
+def cell_is_applicable(arch_id: str, shape_name: str) -> bool:
+    return not (shape_name == "long_500k"
+                and arch_id in FULL_ATTENTION_ARCHS)

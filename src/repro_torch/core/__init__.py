@@ -9,6 +9,7 @@ from .api import (GRADIENT_REGISTRY, ContinuousAdjoint,
                   mesh_capability_matrix, register_gradient, solve)
 from .backprop import odeint_backprop, odeint_remat_solve, odeint_remat_step
 from .combine import COMBINE_BACKENDS, StageCombiner, get_combiner
+from .odeint import GRAD_MODES, TS_MODES, odeint, odeint_with_stats
 from .rk import (AdaptiveConfig, AdaptiveSolution, BatchedAdaptiveSolution,
                  FixedSolution, apply_on_failure, apply_on_failure_lanes,
                  hermite_observe, lane_count, rk_solve_adaptive,
@@ -31,12 +32,12 @@ __all__ = [
     "AdaptiveConfig", "AdaptiveSolution", "AdaptiveStepper",
     "BatchedAdaptiveSolution", "BatchedSolverState", "ButcherTableau",
     "COMBINE_BACKENDS", "ContinuousAdjoint", "DirectBackprop", "FixedSolution", "FixedStepper",
-    "GRADIENT_REGISTRY", "GradientStrategy", "HERMITE_DENSE_W",
+    "GRADIENT_REGISTRY", "GRAD_MODES", "GradientStrategy", "HERMITE_DENSE_W",
     "RematSolve", "RematStep", "SaveAt", "Solution", "SolverState", "StageCombiner",
     "SymplecticAdjoint", "TABLEAUS", "apply_on_failure",
     "apply_on_failure_lanes", "as_gradient", "batched_capability_matrix",
     "capability_matrix", "mesh_capability_matrix", "get_combiner", "get_tableau", "hermite_observe",
-    "lane_count",
+    "lane_count", "odeint", "odeint_with_stats",
     "odeint_adjoint", "odeint_adjoint_adaptive",
     "odeint_adjoint_adaptive_batched", "odeint_backprop",
     "odeint_remat_solve", "odeint_remat_step", "odeint_symplectic", "odeint_symplectic_adaptive",
@@ -47,5 +48,5 @@ __all__ = [
     "rk_solve_adaptive_batched_saveat_stacked",
     "rk_solve_adaptive_saveat_stacked", "rk_solve_fixed", "rk_stages",
     "rk_step", "segment_starts", "solve", "symplectic_step_adjoint",
-    "symplectic_step_adjoint_lanes",
+    "symplectic_step_adjoint_lanes", "TS_MODES",
 ]

@@ -87,14 +87,27 @@ def _tree_add(a, b):
     return pytree.tree_map(_add, a, b)
 
 
-def _scaled(w, tree):
+def _scaled(w, tree, in_place: bool = False):
     """w * each tensor leaf of ``tree`` (a tensor w cast to the leaf's
-    dtype); None leaves stay None."""
+    dtype); None leaves stay None.  ``in_place`` writes the products into
+    the leaves (only for tensors this module made)."""
     def leaf(g):
         if g is None:
             return None
-        return (w.to(g.dtype) if isinstance(w, torch.Tensor) else w) * g
+        wg = w.to(g.dtype) if isinstance(w, torch.Tensor) else w
+        return g.mul_(wg) if in_place else wg * g
     return pytree.tree_map(leaf, tree)
+
+
+def _accumulate(acc, tree):
+    """acc + tree, written into ``acc``'s leaves: ``acc`` holds only
+    tensors this module made (never a caller's or autograd's), None for an
+    exact zero.  The sums round as ``_tree_add``'s."""
+    def leaf(a, g):
+        if a is None:
+            return g
+        return a if g is None else a.add_(g)
+    return pytree.tree_map(leaf, acc, tree)
 
 
 def _dense(gtheta: Pytree, params: Pytree) -> Pytree:
@@ -163,11 +176,15 @@ def _step_adjoint(f: VectorField, tab: ButcherTableau, x_n, t_n, h, params,
         set_stage(L, i, pytree.tree_map(torch.neg, xbar))
         # Eq. (8): h_n replaces vanishing weights.
         contrib = _scaled(h if b[i] == 0.0 else b[i], thbar)
-        gtheta = contrib if gtheta is None else _tree_add(gtheta, contrib)
+        del xbar, thbar
+        # one parameter-sized sum per step, written in place (the memory
+        # audit's Table-1 margin holds with one-stage methods too)
+        gtheta = contrib if gtheta is None else _accumulate(gtheta, contrib)
+        del contrib
     # --- lambda_n = lambda_{n+1} - h sum_i btilde_i l_{n,i} --------------
     lam_n = combiner.lambda_update(lam_next, L, h)
     # grad_theta step contribution: + h sum_i btilde_i (df/dtheta)^T Lambda_i
-    return lam_n, _scaled(h, gtheta)
+    return lam_n, _scaled(h, gtheta, in_place=True)
 
 
 @torch.no_grad()
@@ -280,7 +297,8 @@ def _algorithm2(f, tab, combiner, xs, ts, hs, params, lam, gtheta=None):
     for n in reversed(range(len(xs))):
         lam, gstep = _step_adjoint(f, tab, xs[n], ts[n], hs[n], params, lam,
                                    combiner)
-        gtheta = gstep if gtheta is None else _tree_add(gtheta, gstep)
+        gtheta = gstep if gtheta is None else _accumulate(gtheta, gstep)
+        del gstep
     return lam, gtheta
 
 

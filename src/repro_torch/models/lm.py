@@ -68,9 +68,11 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device="cuda",
             dtype: torch.dtype = torch.float32):
     """Random weights from ``seed``, drawn by a generator on ``device`` (so
     full-width weights are made on the card; a CPU device gives the same
-    weights on every machine)."""
+    weights on every machine).  ``device="meta"`` gives the shapes alone,
+    allocating nothing."""
     _check_ported(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = None if torch.device(device).type == "meta" else \
+        torch.Generator(device=device).manual_seed(seed)
     params: dict = {
         "embed": embed_init((cfg.vocab, cfg.d_model), dtype, gen, device),
         "final_norm": init_rmsnorm(cfg.d_model, dtype, device),

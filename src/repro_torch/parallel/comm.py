@@ -1,8 +1,10 @@
 """The one door to ``torch.distributed`` for ``parallel/``, ``core/``,
 ``serve/`` and ``train/``: every collective those packages issue goes
-through a function here, which counts it by kind in ``COUNTS`` (reset with
+through a function here, which counts it by kind in ``COUNTS`` and the
+bytes of its output by kind in ``BYTES`` (both reset with
 ``reset_counts``), so a test or the card's smoke run can read how many
-collectives a solve, an engine step or a train step made.
+collectives a solve, an engine step or a train step made, and how much
+they moved.
 
 Only ``torch.distributed`` names present in both torch 2.11 and 2.13 are
 used: the list forms of all_gather and reduce_scatter (the ``*_tensor``
@@ -21,19 +23,31 @@ import torch.distributed as dist
 
 #: collectives issued since the last ``reset_counts``, by kind
 COUNTS: collections.Counter = collections.Counter()
+#: bytes of those collectives' outputs, by kind
+BYTES: collections.Counter = collections.Counter()
 
 
 def reset_counts() -> None:
     COUNTS.clear()
+    BYTES.clear()
+
+
+def _count(kind: str, nbytes: int) -> None:
+    COUNTS[kind] += 1
+    BYTES[kind] += nbytes
 
 
 def counts() -> dict:
     return dict(COUNTS)
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place; returns ``t``."""
-    COUNTS["all_reduce"] += 1
+    _count("all_reduce", _nbytes(t))
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
@@ -41,9 +55,9 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
 def all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
     """Every member's ``t`` (same shape and dtype on every member), in
     group-rank order."""
-    COUNTS["all_gather"] += 1
     t = t.contiguous()
     out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    _count("all_gather", _nbytes(t) * len(out))
     dist.all_gather(out, t, group=group)
     return out
 
@@ -51,9 +65,9 @@ def all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
 def reduce_scatter(chunks: List[torch.Tensor], group) -> torch.Tensor:
     """Sum the members' ``chunks`` elementwise and hand member i the sum of
     chunk i (the chunks are equal in shape)."""
-    COUNTS["reduce_scatter"] += 1
     chunks = [c.contiguous() for c in chunks]
     out = torch.empty_like(chunks[0])
+    _count("reduce_scatter", _nbytes(out))
     dist.reduce_scatter(out, chunks, op=dist.ReduceOp.SUM, group=group)
     return out
 
@@ -61,7 +75,7 @@ def reduce_scatter(chunks: List[torch.Tensor], group) -> torch.Tensor:
 def reduce(t: torch.Tensor, dst: int, group) -> torch.Tensor:
     """Sum ``t`` over ``group`` into the member of global rank ``dst``, in
     place (the other members' ``t`` is left undefined)."""
-    COUNTS["reduce"] += 1
+    _count("reduce", _nbytes(t))
     dist.reduce(t, dst=dst, op=dist.ReduceOp.SUM, group=group)
     return t
 
@@ -69,7 +83,7 @@ def reduce(t: torch.Tensor, dst: int, group) -> torch.Tensor:
 def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
     """``t`` of the member of global rank ``src`` into every member's
     ``t``, in place."""
-    COUNTS["broadcast"] += 1
+    _count("broadcast", _nbytes(t))
     dist.broadcast(t, src=src, group=group)
     return t
 

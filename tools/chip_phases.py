@@ -29,11 +29,12 @@ PHASES = {25: ["saveat_exactness"],
           37: ["mesh_solve_phase"],
           38: ["mesh_gloo_phase"],
           39: ["mesh_engine_phase"],
-          40: ["mesh_train_phase"]}
+          40: ["mesh_train_phase"],
+          41: ["analysis_phase"]}
 KEEP = ("==", "phase seconds", "s/step", "launches per step", "wall",
         "ms (device", "peak", "bitwise", "rel err", "dopri8 grid", "FAILED",
         "Error", "error", "ptxas flash_attention_bwd", "collectives",
-        "rank", "req/s", "peak")
+        "rank", "req/s", "peak", "recorder", "analysis", "error(s)")
 
 
 def _child(tree: str, names):
