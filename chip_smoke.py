@@ -329,10 +329,57 @@ The auditor, in a process of its own (``python3 chip_smoke.py --mesh 41``):
                inputs, the same growth class per row and no memory-bound
                finding from either.
 
+The LM zoo's attention-and-expert half, in a process of its own
+(``python3 chip_smoke.py --zoo``: deepseek-v2-lite-16b's 62.8 GB of float32
+weights need a card no earlier phase has filled):
+
+ 42. zoo kernels vs plain — flash at head dim 160 (stablelm-12b's prefill
+               (8, 32/8, 1024, 160) causal, 65 queries against 4096 keys
+               with an offset, a window), internvl2-1b's GQA group of 7 and
+               mixtral's window 4096 at 8192 (against the blocked plain
+               version, its plain route), float32 and bfloat16, at phase
+               8's tolerances; ``attention_blocked_ref`` against
+               ``attention_ref`` at two shapes both hold (1e-5); rms_norm at
+               d 512 (MLA's kv_norm), 896, 2048, 2304, 4096, 5120.  Then ms
+               per call of rms_norm at those widths and of flash at D 160
+               and at mixtral's window beside the plain version, SDPA (a
+               boolean mask for the window) and the bound.
+ 43. zoo serve — the main path of this slice: ``launch.serve lm --arch
+               deepseek-v2-lite-16b`` at full width and depth (27 layers,
+               MLA, 64 experts top-6 + 2 shared), batch 8, prompt 1024, 32
+               tokens after a 2-token warm-up: prefill ms, decode ms/token,
+               ``max_memory_allocated``, launches (82 rms_norm per forward,
+               no flash: MLA attends with the plain version, as in JAX).
+ 44. deepseek kernels vs plain — prefill and 4 decode steps with the
+               kernels and with ``use_kernels=False`` fed the same tokens;
+               the plain side routed by the kernel side's expert choices
+               (``_Gates(forced=...)``), so both differ by rounding alone:
+               logits and every position's final hidden state within 1e-3
+               of the plain side's largest.  A third run routed on its own
+               reports the rows and positions routed differently beside
+               the bound fixed before the first card run (0.5; exceeded,
+               PERF.md).  One prefill and one decode step under the
+               profiler.
+ 45. the other five at full width — stablelm-12b, qwen3-1.7b, minicpm-2b,
+               internvl2-1b (256 patch embeddings before 768 tokens) and
+               mixtral-8x7b (8 of its 32 layers, batch 1 x 8192, window
+               4096: the plain side's attention takes the blocked route):
+               prefill and 4 decode steps, kernels vs plain as in 44,
+               launches per prefill and decode step, ms.
+ 46. zoo card vs CPU (smoke width) — the six archs from the same CPU-made
+               weights: prefill and 4 decode steps, the card routed by the
+               CPU's choices, float32 cache at 1e-5 and bfloat16 cache at
+               1e-3 (the card decoding from the CPU's cache contents, the
+               caches held to one bfloat16 ulp + 1e-5 of the largest entry
+               apart); then one training step per arch (the backward
+               kernels at the smoke head dims), loss and params at 1e-5.
+
 The combines' ``launches`` in the ``kernels`` line sum phases 3, 21, 23,
 24, 27 and 41 (``launches_by_path`` splits them; the lane forms' rows sum
 phase 14, the per-sample cells of phases 24 and 27 and phase 28's drain
-run, and carry phase 30's numbers as ``serve_shape``).  The card's
+run, and carry phase 30's numbers as ``serve_shape``); rms_norm's and
+flash's add the zoo's paths (phases 43 and 45; flash at D 160 has its own
+row, ``flash_attention_d160``, from stablelm-12b's run).  The card's
 name and power limit are printed early; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -3124,12 +3171,12 @@ def _world(backend, world=1, rank=0, port=None):
     return make_lane_mesh((world,), device_type="cuda")
 
 
-def _mesh_phase(which, *args, timeout=600):
-    """Run phase ``which`` in its own process; returns its last line's JSON
-    (the lines before it are printed)."""
+def _child_phase(argv, which, timeout=600):
+    """Run ``chip_smoke.py argv`` (phase ``which``) in its own process;
+    returns its last line's JSON (the lines before it are printed)."""
     torch.cuda.empty_cache()
     proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                           MESH_CHILD, str(which), *args],
+                           *argv],
                           capture_output=True, text=True, timeout=timeout)
     lines = proc.stdout.rstrip("\n").splitlines()
     print("\n".join(lines[:-1]), flush=True)
@@ -3137,6 +3184,10 @@ def _mesh_phase(which, *args, timeout=600):
           f"phase {which} process failed (rc {proc.returncode}):\n"
           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
     return json.loads(lines[-1])
+
+
+def _mesh_phase(which, *args, timeout=600):
+    return _child_phase([MESH_CHILD, str(which), *args], which, timeout)
 
 
 def _cnf_lanes(B, dtype):
@@ -3659,6 +3710,652 @@ def analysis_phase():
 
 
 
+# ---------------------------------------------------------------------------
+# The LM zoo's attention-and-expert half (phases 42-46), in a process of
+# its own (``python3 chip_smoke.py --zoo``): deepseek-v2-lite-16b's 62.8 GB
+# of float32 weights need a card that no earlier phase has filled
+
+ZOO_CHILD = "--zoo"
+ZOO_ARCH = "deepseek-v2-lite-16b"
+ZOO_SERVE = dict(batch=8, prompt=1024, gen=32)
+ZOO_STEPS = 4                    # decode steps of the kernels-vs-plain runs
+# the share of sequence rows (batch > 1) or of prefill positions (batch 1)
+# that an MoE layer routed differently on the two sides, fixed in PERF.md
+# before the first card run; that run found every row of deepseek's
+# routed differently (rounding grows through the random experts), so the
+# share is reported beside this bound and the comparison itself replays
+# one side's expert choices on the other (``_Gates(forced=...)``)
+SET_ASIDE_BOUND = 0.5
+# the other five at full width: (arch, batch, prompt, layers or None for
+# all, patch embeddings before the prompt)
+ZOO_OTHERS = [("stablelm-12b", 8, 1024, None, 0),
+              ("qwen3-1.7b", 8, 1024, None, 0),
+              ("minicpm-2b", 8, 1024, None, 0),
+              ("internvl2-1b", 8, 768, None, 256),
+              ("mixtral-8x7b", 1, 8192, 8, 0)]
+# flash at the zoo's new shapes: D 160 (stablelm-12b's prefill, long keys
+# with an offset, a window), internvl2-1b's GQA group of 7, and mixtral's
+# window at 8192 (held against the blocked plain version, its plain route)
+ZOO_ATTN_CASES = [
+    (8, 32, 8, 1024, 1024, 160, True, None, 0),
+    (1, 8, 2, 65, 4096, 160, True, None, 4031),
+    (1, 8, 2, 300, 300, 160, True, 100, 0),
+    (2, 14, 2, 200, 200, 64, True, None, 0),
+    (8, 14, 2, 1024, 1024, 64, True, None, 0),
+    (1, 32, 8, 8192, 8192, 128, True, 4096, 0),
+]
+# rms_norm at the zoo's widths: kv_lora 512 (MLA's kv_norm), internvl2's
+# 896, deepseek's and qwen3-1.7b's 2048, minicpm's 2304, mixtral's 4096,
+# stablelm's 5120 (rows of the batch-8 prefill)
+ZOO_RMS = [(8192, 512), (10240, 896), (8192, 2048), (8192, 2304),
+           (8192, 4096), (8192, 5120)]
+# the timed flash shapes: stablelm-12b's prefill at D 160, mixtral's
+# window (name, B, H, Hkv, S, D, window)
+ZOO_TIMED = [("flash_attention_d160", 8, 32, 8, 1024, 160, None),
+             ("flash_attention_window", 1, 32, 8, 8192, 128, 4096)]
+# the blocked plain attention against the full one, at shapes both hold
+BLOCKED_CASES = [(2, 8, 2, 2048, 4096, 64, True, None, 0),
+                 (1, 4, 4, 1024, 8448, 128, True, 1000, 7424)]
+BLOCKED_TOL = 1e-5               # the same float32 arithmetic, blocked
+
+
+def _rms_per_forward(cfg) -> int:
+    """rms_norm launches of one forward: the block and FFN norms, q and k
+    norms with qk_norm, MLA's kv_norm, and the final norm."""
+    per_layer = 2 + 2 * cfg.qk_norm + (cfg.mla_kv_lora > 0)
+    return cfg.n_layers * per_layer + 1
+
+
+class _Gates:
+    """Records each MoE layer's routing (its top-k expert ids, in call
+    order) while active, by wrapping ``repro_torch.nn.moe.route``.  With
+    ``forced`` (another run's records, in the same call order) each call
+    takes those expert ids instead of its own top-k, with gate weights from
+    its own probabilities (renormalised as ``route`` does): the two runs
+    then differ by their rounding alone, never by a routing decision."""
+
+    def __init__(self, forced=None):
+        self.forced = forced
+
+    def __enter__(self):
+        import repro_torch.nn.moe as moe
+        self.calls, self._route = [], moe.route
+
+        def route(p, x, cfg):
+            probs, w, idx = self._route(p, x, cfg)
+            if self.forced is not None:
+                idx = self.forced[len(self.calls)].to(idx.device)
+                w = torch.gather(probs, -1, idx)
+                w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+            self.calls.append(idx)
+            return probs, w, idx
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.nn.moe as moe
+        moe.route = self._route
+
+
+def _zoo_serve(params, cfg, toks, patches, steps, feed=None, forced=None,
+               cache_dtype=torch.bfloat16, caches_from=None,
+               keep_caches=False):
+    """The serving path's prefill (``make_prefill_step``'s arithmetic,
+    keeping every position's final hidden state) and ``steps`` decode
+    steps on the tokens' device, greedy or fed ``feed``, routed by
+    ``forced`` when given (see ``_Gates``); counters zeroed before each,
+    host clock around each (synchronised).  ``keep_caches`` keeps a copy
+    of the caches after the prefill and after each decode step
+    ("caches": what this run wrote); with ``caches_from`` (another run's
+    copies) each decode step starts from those instead of its own, so
+    that cache entries whose float32 values straddle a bfloat16 boundary
+    on the two sides (and round apart) stay out of the logits' comparison
+    (the caches are compared apart).  Returns the
+    logits per step, the prefill hidden states, the tokens fed, the
+    routing records, the launches and the times."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.models.lm import init_caches, lm_forward
+    from repro_torch.train import make_decode_step
+    B, S = toks.shape
+    P = 0 if patches is None else patches.shape[1]
+    decode = make_decode_step(cfg)
+    out = {"logits": [], "tokens": [], "counts": [], "ms": [], "caches": []}
+
+    def timed(fn):
+        _zero_lm_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        out["counts"].append(_lm_counts())
+        return res
+
+    with torch.no_grad(), _Gates(forced) as gates:
+        caches = init_caches(cfg, B, P + S + steps, cache_dtype,
+                             device=toks.device)
+        res = timed(lambda: lm_forward(params, cfg, toks, caches=caches,
+                                       extra_embeds=patches, mode="prefill",
+                                       return_hidden=True))
+        logits = (res["hidden"][:, -1:] @ res["head"]).to(torch.float32)
+        out["hidden"], caches = res["hidden"], res["caches"]
+        n_prefill = len(gates.calls)
+        for i in range(steps):
+            out["logits"].append(logits)
+            if keep_caches:
+                out["caches"].append(pytree.tree_map(torch.clone, caches))
+            if caches_from is not None:
+                pytree.tree_map(lambda c, f: c.copy_(f), caches,
+                                caches_from[i])
+            tok = _greedy(logits) if feed is None else \
+                feed[i].to(toks.device)
+            out["tokens"].append(tok)
+            logits, caches = timed(lambda: decode(params, caches, tok,
+                                                  P + S + i))
+        out["logits"].append(logits)
+        if keep_caches:
+            out["caches"].append(pytree.tree_map(torch.clone, caches))
+    out["gates_prefill"] = gates.calls[:n_prefill]
+    out["gates_decode"] = gates.calls[n_prefill:]
+    return out
+
+
+def _routing_kept(k_run, p_run, B, S):
+    """Which rows and prefill positions the two runs routed alike: a row is
+    kept when every MoE decision of it agrees, in the prefill and in every
+    decode step; a position of the prefill is kept when it lies before the
+    row's first differing decision (routing and attention are causal, and a
+    capacity rank depends only on earlier tokens)."""
+    dev = k_run["hidden"].device
+    first = torch.full((B,), S, dtype=torch.long, device=dev)
+    row_ok = torch.ones(B, dtype=torch.bool, device=dev)
+    pos = torch.arange(S, device=dev)
+    for a, b in zip(k_run["gates_prefill"], p_run["gates_prefill"]):
+        diff = (a != b).any(-1)                                   # (B, S)
+        row_ok &= ~diff.any(-1)
+        first = torch.minimum(first, torch.where(
+            diff, pos, torch.full_like(pos, S)).min(-1).values)
+    for a, b in zip(k_run["gates_decode"], p_run["gates_decode"]):
+        row_ok &= ~(a != b).any(-1).any(-1)
+    return row_ok, first
+
+
+def _routing_share(name, k_run, p_run, B, S, tol=LOGITS_RTOL):
+    """How much of the batch the two runs routed alike, on their own: the
+    rows set aside, and the prefill positions from each row's first
+    differing decision on; the share (of rows for batch > 1, of positions
+    for batch 1) beside ``SET_ASIDE_BOUND`` (reported, not held: see
+    there).  Held: on every row with a position before its first differing
+    decision, the final hidden states of those positions within ``tol`` of
+    the row's largest plain one, so that the two sides agree until routing
+    parts them."""
+    row_ok, first = _routing_kept(k_run, p_run, B, S)
+    n_rows, kept_pos = int(row_ok.sum()), int(first.sum())
+    share = 1 - (n_rows / B if B > 1 else kept_pos / S)
+    hk, hp = k_run["hidden"], p_run["hidden"]
+    row_errs = [float((hk[r, :f] - hp[r, :f]).abs().max()
+                      / hp[r, :f].abs().max())
+                for r, f in enumerate(first.tolist()) if f]
+    h_err = max(row_errs) if row_errs else None
+    print(f"{name}: routed on its own, set aside {B - n_rows}/{B} rows, "
+          f"{B * S - kept_pos}/{B * S} prefill positions (share "
+          f"{share:.4f}; bound fixed before the first card run "
+          f"{SET_ASIDE_BOUND}: {'within' if share <= SET_ASIDE_BOUND else 'EXCEEDED'}"
+          f"); final hidden before each row's first differing decision, "
+          f"worst row's max|diff| / max|plain| "
+          f"{h_err if h_err is None else f'{h_err:.3e}'} over "
+          f"{len(row_errs)} rows (tolerance {tol})")
+    check(all(e <= tol for e in row_errs),
+          f"{name}: the two sides differ beyond {tol} before routing parts "
+          f"them")
+    return {"rows_set_aside": B - n_rows, "rows": B,
+            "positions_set_aside": B * S - kept_pos, "positions": B * S,
+            "share": share, "bound": SET_ASIDE_BOUND,
+            "hidden_err_kept": h_err}
+
+
+def _zoo_compare(name, k_run, p_run, tol=LOGITS_RTOL):
+    """Two runs of one model (the second routed by the first's expert
+    choices): the logits of every step and the final hidden states of
+    every prefill position within ``tol`` of the second's largest."""
+    errs = []
+    for lk, lp in zip(k_run["logits"], p_run["logits"]):
+        check(bool(torch.isfinite(lk).all()), f"{name}: non-finite logits")
+        errs.append(float((lk - lp).abs().max() / lp.abs().max()))
+    hk, hp = k_run["hidden"], p_run["hidden"]
+    h_err = float((hk - hp).abs().max() / hp.abs().max())
+    print(f"{name}: logits max|diff| / max|ref| per step "
+          f"{[f'{e:.3e}' for e in errs]}; final hidden, every position, "
+          f"{h_err:.3e} (tolerance {tol})")
+    check(all(e <= tol for e in errs) and h_err <= tol,
+          f"{name}: beyond {tol}")
+    return {"logits_err": max(errs), "hidden_err": h_err}
+
+
+def zoo_kernels_vs_plain():
+    """Phase 42: flash at the zoo's shapes, the blocked plain attention and
+    rms_norm at the zoo's widths against their plain versions; then ms per
+    call of the new shapes beside the plain version, the library call and
+    the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    phase("42 zoo kernels vs plain: flash at D 160, GQA 7 and mixtral's "
+          "window; the blocked plain attention; rms_norm at the zoo's widths")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(42)
+    err = {"rms_norm": 0.0, "flash_attention": 0.0,
+           "flash_attention_d160": 0.0, "attention_blocked_ref": 0.0}
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in ZOO_ATTN_CASES:
+            B, H, Hkv, Sq, Sk, D, causal, window, off = case
+            q = torch.randn(B, H, Sq, D, generator=g, device=dev).to(dtype)
+            k = torch.randn(B, Hkv, Sk, D, generator=g, device=dev).to(dtype)
+            v = torch.randn(B, Hkv, Sk, D, generator=g, device=dev).to(dtype)
+            kw = dict(causal=causal, window=window, q_offset=off)
+            plain = ref.attention_blocked_ref if Sq * Sk > 2048 * 4096 \
+                else ref.attention_ref
+            ok, e = _allclose(fa.flash_attention(q, k, v, **kw),
+                              plain(q, k, v, **kw), ATTN_TOL[dtype])
+            check(ok, f"flash_attention {dtype} {case}: max err {e}")
+            key = "flash_attention_d160" if D == 160 else "flash_attention"
+            if dtype == torch.float32:
+                err[key] = max(err[key], e)
+            n += 1
+        for rows, d in ZOO_RMS:
+            x = torch.randn(rows, d, generator=g, device=dev).to(dtype)
+            r = torch.randn(rows, d, generator=g, device=dev).to(dtype)
+            w = torch.randn(d, generator=g, device=dev)
+            for res in (None, r):
+                ok, e = _allclose(rn.rms_norm(x, w, res),
+                                  ref.rms_norm_ref(x, w, res), RMS_TOL[dtype])
+                check(ok, f"rms_norm {dtype} {rows}x{d}: max err {e}")
+                if dtype == torch.float32:
+                    err["rms_norm"] = max(err["rms_norm"], e)
+                n += 1
+    for case in BLOCKED_CASES:
+        B, H, Hkv, Sq, Sk, D, causal, window, off = case
+        q = torch.randn(B, H, Sq, D, generator=g, device=dev)
+        k = torch.randn(B, Hkv, Sk, D, generator=g, device=dev)
+        v = torch.randn(B, Hkv, Sk, D, generator=g, device=dev)
+        kw = dict(causal=causal, window=window, q_offset=off)
+        ok, e = _allclose(ref.attention_blocked_ref(q, k, v, **kw),
+                          ref.attention_ref(q, k, v, **kw),
+                          (BLOCKED_TOL, BLOCKED_TOL))
+        check(ok, f"attention_blocked_ref {case}: max err {e}")
+        err["attention_blocked_ref"] = max(err["attention_blocked_ref"], e)
+        n += 1
+    torch.cuda.synchronize()
+    print(f"zoo cases {n} all within tolerance; float32 max abs err {err}")
+
+    lines, rows = [], {}
+    for r_, d in ZOO_RMS:
+        x = torch.randn(r_, d, generator=g, device=dev)
+        w = torch.randn(d, generator=g, device=dev)
+        t_k = _time_ms(lambda: rn.rms_norm(x, w), 100)
+        t_p = _time_ms(lambda: ref.rms_norm_ref(x, w), 100)
+        t_l = _time_ms(lambda: F.rms_norm(x, (d,), w, 1e-6), 100)
+        bound = (2 * r_ * d + d) * 4 / HBM_BYTES_PER_S * 1e3
+        lines.append(f"rms_norm {r_}x{d}: kernel {t_k:.6f} ms plain "
+                     f"{t_p:.6f} F.rms_norm {t_l:.6f} kernel/F.rms_norm "
+                     f"{t_k / t_l:.3f} bound {bound:.6f} ({bound / t_k * 100:.1f}"
+                     f" % of it per call)")
+        rows[f"rms_norm_{d}"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                     bound_ms=bound)
+
+    def attn_row(name, B, H, Hkv, S, D, window, plain):
+        q = torch.randn(B, H, S, D, generator=g, device=dev)
+        k = torch.randn(B, Hkv, S, D, generator=g, device=dev)
+        v = torch.randn(B, Hkv, S, D, generator=g, device=dev)
+        kw = dict(causal=True, window=window)
+        t_k = _time_ms(lambda: fa.flash_attention(q, k, v, **kw), 20, 3)
+        t_p = _time_ms(lambda: plain(q, k, v, **kw), 3, 1)
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=True, enable_gqa=True)
+        else:
+            i = torch.arange(S, device=dev)
+            m = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=m, enable_gqa=True)
+        t_l = _time_ms(lib, 10, 2)
+        d_k = _device_ms(lambda: fa.flash_attention(q, k, v, **kw),
+                         "flash_attention_kernel", 10, kernels=1)
+        h_k = _host_ms(lambda: fa.flash_attention(q, k, v, **kw), 100)
+        # the pairs the masks allow: query i sees min(i + 1, window) keys
+        pairs = sum(min(i + 1, window or S) for i in range(S))
+        flops = 4 * B * H * D * pairs
+        t_ops = 3 * flops / TF32_FLOP_PER_S
+        t_bytes = (2 * B * H * S * D + 2 * B * Hkv * S * D) * 4 \
+            / HBM_BYTES_PER_S
+        bound = max(t_ops, t_bytes) * 1e3
+        alone = d_k if d_k is not None else t_k
+        lines.append(f"{name} B{B} H{H}/{Hkv} S{S} D{D} window {window}: "
+                     f"kernel {t_k:.6f} ms (device "
+                     f"{d_k if d_k is None else f'{d_k:.6f}'}, host "
+                     f"{h_k:.6f}) plain {t_p:.6f} sdpa {t_l:.6f} kernel/sdpa "
+                     f"{t_k / t_l:.3f} bound {bound:.6f} (operations, "
+                     f"3xTF32; {bound / alone * 100:.1f} % of it alone)")
+        rows[name] = dict(ms=t_k, device_ms=d_k, host_ms=h_k, plain_ms=t_p,
+                          library_ms=t_l, bound_ms=bound,
+                          bound_by="operations" if t_ops >= t_bytes
+                          else "bytes",
+                          shape=f"float32 B{B} H{H} Hkv{Hkv} S{S} D{D} causal"
+                                + (f" window {window}" if window else ""))
+
+    for name, B, H, Hkv, S, D, window in ZOO_TIMED:
+        attn_row(name, B, H, Hkv, S, D, window,
+                 ref.attention_ref if window is None
+                 else ref.attention_blocked_ref)
+    print("float32 ms per call (CUDA events over back-to-back calls; device "
+          "= torch.profiler; host = host clock per call, no synchronise):")
+    for line in lines:
+        print("  " + line)
+    return {"err": err, "rows": rows}
+
+
+def zoo_main_path():
+    """Phase 43: the zoo's main path, ``launch.serve lm --arch
+    deepseek-v2-lite-16b`` at full width and depth."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    phase(f"43 serve (zoo main path): {ZOO_ARCH}, full width and depth")
+    cfg = get_arch(ZOO_ARCH)
+    c = ZOO_SERVE
+    argv = ["lm", "--arch", ZOO_ARCH, "--batch", str(c["batch"]),
+            "--prompt-len", str(c["prompt"]), "--device", "cuda"]
+    serve.main(argv + ["--gen-len", "2"])       # warm-up: first-call set-up
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_lm_counts()
+    torch.cuda.synchronize()
+    out = serve.main(argv + ["--gen-len", str(c["gen"])])
+    rms, flash = _lm_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_forward = _rms_per_forward(cfg)
+    check(out["logits_finite"], f"{ZOO_ARCH}: non-finite logits")
+    check(tuple(out["tokens"].shape) == (c["batch"], c["gen"]),
+          f"{ZOO_ARCH}: tokens of shape {tuple(out['tokens'].shape)}")
+    print(f"{ZOO_ARCH}: prefill {out['prefill_ms']:.3f} ms ({c['batch']} x "
+          f"{c['prompt']} tokens), decode {out['decode_ms_per_token']:.3f} "
+          f"ms/token ({c['gen'] - 1} steps of batch {c['batch']}); peak "
+          f"max_memory_allocated {peak} B ({peak / 1e9:.3f} GB); launches "
+          f"rms_norm {rms} (expected {per_forward} x {c['gen']} forwards), "
+          f"flash_attention {flash} (expected 0: MLA attends with the plain "
+          f"attention_ref, q.k 192 wide and v 128, as the JAX package does)")
+    check(rms == per_forward * c["gen"] and flash == 0,
+          f"{ZOO_ARCH}: launches rms_norm {rms}, flash_attention {flash}")
+    return {"rms_norm": rms, "flash_attention": flash, "peak_bytes": peak,
+            "prefill_ms": out["prefill_ms"],
+            "decode_ms_per_token": out["decode_ms_per_token"]}
+
+
+def _zoo_tokens(cfg, B, S, patches):
+    from repro_torch.data.tokens import synthetic_lm_batch
+    toks = torch.as_tensor(synthetic_lm_batch(0, B, S + 1, cfg.vocab)[
+        "tokens"], dtype=torch.long, device="cuda")
+    pe = None
+    if patches:
+        pe = torch.randn((B, patches, cfg.d_frontend), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(2))
+    return toks, pe
+
+
+def _zoo_arch_vs_plain(arch_id, B, S, layers, patches):
+    """One arch at full width (depth cut to ``layers`` when given): prefill
+    and ZOO_STEPS decode steps with the kernels, then with the plain
+    versions fed the same tokens; launches per prefill and decode step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import init_lm
+    cfg = get_arch(arch_id)
+    if layers is not None:
+        cfg = cfg.with_(n_layers=layers)
+    params = init_lm(cfg, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in
+                   torch.utils._pytree.tree_leaves(params))
+    toks, pe = _zoo_tokens(cfg, B, S, patches)
+    plain = cfg.with_(use_kernels=False)
+    k_run = _zoo_serve(params, cfg, toks, pe, ZOO_STEPS)
+    p_run = _zoo_serve(params, plain, toks, pe, ZOO_STEPS,
+                       feed=k_run["tokens"],
+                       forced=k_run["gates_prefill"] + k_run["gates_decode"])
+    share = {}
+    if k_run["gates_prefill"]:
+        own = _zoo_serve(params, plain, toks, pe, ZOO_STEPS,
+                         feed=k_run["tokens"])
+        share = _routing_share(f"{arch_id} kernels vs plain", k_run, own, B,
+                               patches + S)
+        del own
+    n_rms = _rms_per_forward(cfg)
+    n_flash = 0 if cfg.mla_kv_lora else cfg.n_layers
+    check(k_run["counts"][0] == (n_rms, n_flash),
+          f"{arch_id}: launches per prefill {k_run['counts'][0]}, expected "
+          f"{(n_rms, n_flash)}")
+    check(all(c == (n_rms, 0) for c in k_run["counts"][1:]),
+          f"{arch_id}: launches per decode step {k_run['counts'][1:]}")
+    check(all(c == (0, 0) for c in p_run["counts"]),
+          f"{arch_id}: the plain side launched {p_run['counts']}")
+    cmp = _zoo_compare(f"{arch_id} kernels vs plain (the plain side routed "
+                       f"by the kernels' choices)", k_run, p_run)
+    print(f"{arch_id}{'' if layers is None else f' ({layers} layers)'}: "
+          f"{n_params} params ({n_params * 4 / 1e9:.2f} GB), batch {B} x "
+          f"{patches + S} positions: prefill {k_run['ms'][0]:.3f} ms "
+          f"(plain {p_run['ms'][0]:.3f}), decode "
+          f"{sum(k_run['ms'][1:]) / ZOO_STEPS:.3f} ms/step (plain "
+          f"{sum(p_run['ms'][1:]) / ZOO_STEPS:.3f}); launches per prefill "
+          f"rms_norm {n_rms} flash_attention {n_flash}, per decode step "
+          f"rms_norm {n_rms}")
+    return params, cfg, toks, pe, {
+        "prefill_ms": k_run["ms"][0], "plain_prefill_ms": p_run["ms"][0],
+        "decode_ms": sum(k_run["ms"][1:]) / ZOO_STEPS,
+        "launches_prefill": {"rms_norm": n_rms, "flash_attention": n_flash},
+        "launches_decode": {"rms_norm": n_rms, "flash_attention": 0},
+        "launches": {"rms_norm": sum(c[0] for c in k_run["counts"]),
+                     "flash_attention": sum(c[1] for c in k_run["counts"])},
+        "n_params": n_params, "routing": share, **cmp}
+
+
+def zoo_deepseek_vs_plain():
+    """Phase 44: deepseek-v2-lite-16b's kernels vs plain at full width,
+    and one prefill and one decode step under the profiler."""
+    from repro_torch.train import make_decode_step
+    phase(f"44 {ZOO_ARCH}: kernels vs plain versions on the card (full "
+          f"width, batch {ZOO_SERVE['batch']} x {ZOO_SERVE['prompt']}, "
+          f"{ZOO_STEPS} decode steps; the plain side routed by the kernels' "
+          f"expert choices)")
+    params, cfg, toks, _, res = _zoo_arch_vs_plain(
+        ZOO_ARCH, ZOO_SERVE["batch"], ZOO_SERVE["prompt"], None, 0)
+    from repro_torch.train import make_prefill_step
+    prefill = make_prefill_step(cfg, toks.shape[0], toks.shape[1] + 2)
+    logits, caches = prefill(params, {"tokens": toks})
+    decode = make_decode_step(cfg)
+    decode(params, caches, _greedy(logits), toks.shape[1])
+    _profile_once("prefill:", lambda: prefill(params, {"tokens": toks}))
+    _profile_once("decode step:", lambda: decode(
+        params, caches, _greedy(logits), toks.shape[1]))
+    del params, caches
+    torch.cuda.empty_cache()
+    return res
+
+
+def zoo_other_archs():
+    """Phase 45: the other five configs at full width, each against its
+    plain versions."""
+    phase("45 the other five at full width: stablelm-12b, qwen3-1.7b, "
+          "minicpm-2b, internvl2-1b (256 patches + 768 tokens), "
+          "mixtral-8x7b (8 of 32 layers, 1 x 8192, window 4096)")
+    out = {}
+    for arch_id, B, S, layers, patches in ZOO_OTHERS:
+        t = time.perf_counter()
+        params, *_, res = _zoo_arch_vs_plain(arch_id, B, S, layers, patches)
+        del params
+        torch.cuda.empty_cache()
+        print(f"  {arch_id} seconds {time.perf_counter() - t:.1f}")
+        out[arch_id] = res
+    return out
+
+
+def zoo_card_vs_cpu():
+    """Phase 46: the six new archs at smoke width, card vs CPU from the
+    same weights: prefill and ZOO_STEPS decode logits (float32 and bfloat16
+    caches, phase 11's tolerances, rows routed differently set aside), then
+    one training step each (the backward kernels at the smoke head dims)."""
+    import dataclasses
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    phase("46 zoo card vs CPU (smoke width): serving and one training step "
+          "per arch")
+    B, S = 4, 32
+    tcfg = TrainConfig(adamw=dataclasses.replace(TrainConfig().adamw,
+                                                 eps=1e-3))
+    out = {}
+    for arch_id in (ZOO_ARCH,) + tuple(a for a, *_ in ZOO_OTHERS):
+        cfg = get_smoke_arch(arch_id)
+        patches = 4 if cfg.frontend == "patch" else 0
+        cpu = init_lm(cfg, seed=0, device="cpu")
+        gpu = pytree.tree_map(lambda t: t.to("cuda"), cpu)
+        toks, pe = _zoo_tokens(cfg, B, S, patches)
+        res = {}
+        for cache_dtype, rtol in SMOKE_RTOL.items():
+            name = f"{arch_id} smoke, {cache_dtype} cache, card vs CPU"
+            cpu_run = _zoo_serve(cpu, cfg, toks.cpu(),
+                                 None if pe is None else pe.cpu(), ZOO_STEPS,
+                                 cache_dtype=cache_dtype, keep_caches=True)
+            # the bfloat16 cache: the card decodes from the CPU's cache
+            # contents, held to one ulp of it apart
+            shared = None if cache_dtype != torch.bfloat16 else \
+                _to_cuda(cpu_run["caches"])
+            runs = {}
+            for tag, forced in (("own", None), ("forced", cpu_run)):
+                if forced is not None and not cpu_run["gates_prefill"]:
+                    runs[tag] = runs["own"]
+                    continue
+                runs[tag] = _zoo_serve(
+                    gpu, cfg, toks, pe, ZOO_STEPS, feed=cpu_run["tokens"],
+                    forced=None if forced is None else
+                    forced["gates_prefill"] + forced["gates_decode"],
+                    cache_dtype=cache_dtype, caches_from=shared,
+                    keep_caches=True)
+            ref_run = _to_cuda(cpu_run)
+            if shared is not None:     # after the prefill and each decode
+                for i, (got, want) in enumerate(zip(
+                        runs["forced"]["caches"], ref_run["caches"])):
+                    _caches_within_ulp(f"{name}, cache {i}", got, want)
+            res[str(cache_dtype)] = _zoo_compare(name, runs["forced"],
+                                                 ref_run, rtol)
+            if cpu_run["gates_prefill"]:
+                res[str(cache_dtype)]["routing"] = _routing_share(
+                    name, runs["own"], ref_run, B, patches + S, rtol)
+        b = synthetic_lm_batch(0, B, S + 1, cfg.vocab)
+        batch = {k: torch.as_tensor(v, dtype=torch.long) for k, v in b.items()}
+        if pe is not None:
+            batch["patch_embeds"] = pe.cpu()
+        steps = {}
+        for dev in ("cpu", "cuda"):
+            state = init_train_state(cfg, tcfg, device="cpu")
+            if dev == "cuda":      # the generator's state stays on the CPU
+                state = pytree.tree_map(
+                    lambda t: t.to("cuda") if isinstance(t, torch.Tensor)
+                    and t.dtype != torch.uint8 else t, state)
+            forced = None if dev == "cpu" else steps["cpu"][2]
+            with _Gates(forced) as gates:
+                new, m = make_train_step(cfg, tcfg)(
+                    state, {k: v.to(dev) for k, v in batch.items()})
+            steps[dev] = (new, m, [g.cpu() for g in gates.calls])
+        l_err = abs(float(steps["cuda"][1]["loss"])
+                    - float(steps["cpu"][1]["loss"])) \
+            / abs(float(steps["cpu"][1]["loss"]))
+        p_err = max(_rel_err(a.cpu(), b) for a, b in zip(
+            pytree.tree_leaves(steps["cuda"][0].params),
+            pytree.tree_leaves(steps["cpu"][0].params)))
+        print(f"{arch_id} smoke train step, card vs CPU (the card routed by "
+              f"the CPU's choices): loss rel err {l_err:.3e}, params max rel "
+              f"err {p_err:.3e} (tolerance 1e-5; AdamW eps 1e-3)")
+        check(l_err <= 1e-5 and p_err <= 1e-5,
+              f"{arch_id} smoke train step: card vs CPU beyond 1e-5")
+        res["train"] = {"loss_err": l_err, "params_err": p_err}
+        out[arch_id] = res
+    return out
+
+
+def _to_cuda(run):
+    from torch.utils import _pytree as pytree
+    return pytree.tree_map(lambda t: t.to("cuda")
+                           if isinstance(t, torch.Tensor) else t, run)
+
+
+def _caches_within_ulp(name, got, want):
+    """Every cache entry of ``got`` within one of its dtype's ulps of
+    ``want``'s, beyond the float32 rounding of the values rounded: |a - b|
+    <= eps |b| + 1e-5 max|b| per cache tensor (1e-5: the float32 cache's
+    tolerance; an entry near 0 from a cancellation, RoPE's, carries the
+    float32 difference of its larger terms, which is many of its own
+    ulps)."""
+    from torch.utils import _pytree as pytree
+    worst = 0.0
+    for a, b in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+        a, b, eps = a.float(), b.float(), torch.finfo(a.dtype).eps
+        bound = eps * b.abs() + 1e-5 * b.abs().max() + 1e-30
+        worst = max(worst, float(((a - b).abs() / bound).max()))
+    print(f"{name}: within {worst:.3f} of the "
+          f"bound (one ulp + 1e-5 of the largest entry)")
+    check(worst <= 1.0, f"{name}: a cache entry {worst:.3f} of the bound "
+                        f"apart")
+
+
+def _zoo_child():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"kernels": _timed(zoo_kernels_vs_plain),
+           "main": _timed(zoo_main_path),
+           "deepseek": _timed(zoo_deepseek_vs_plain),
+           "others": _timed(zoo_other_archs),
+           "smoke": _timed(zoo_card_vs_cpu)}
+    print(json.dumps(out, default=str))
+
+
+def zoo_phase():
+    t = time.perf_counter()
+    out = _child_phase([ZOO_CHILD], "42-46", timeout=900)
+    print(f"phases 42-46 seconds {time.perf_counter() - t:.1f}")
+    return out
+
+
+def zoo_rows(zoo, rows):
+    """The zoo's launches (phases 43 and 45) added to the ``rows`` of
+    rms_norm and flash, each arch's path apart (deepseek's main path runs
+    no flash: MLA attends with the plain version); returns the new row of
+    flash at D 160 (stablelm-12b's prefill)."""
+    paths = {f"serve_{ZOO_ARCH}": {"rms_norm": zoo["main"]["rms_norm"],
+                                   "flash_attention": 0},
+             **{f"serve_{a}": r["launches"]
+                for a, r in zoo["others"].items()}}
+    for row in rows:
+        if row["name"] in ("rms_norm", "flash_attention"):
+            for path, counts in paths.items():
+                if row["name"] == "flash_attention" and \
+                        path == "serve_stablelm-12b":
+                    continue          # D 160: flash_attention_d160's row
+                row["launches_by_path"][path] = counts[row["name"]]
+            row["launches"] = sum(row["launches_by_path"].values())
+    r = zoo["kernels"]["rows"]["flash_attention_d160"]
+    launches = zoo["others"]["stablelm-12b"]["launches"]["flash_attention"]
+    return [{"name": "flash_attention_d160", "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:94",
+             "launches": launches,
+             "launches_by_path": {"serve_stablelm-12b": launches},
+             "max_abs_err": zoo["kernels"]["err"]["flash_attention_d160"],
+             **r}]
+
+
 def lm_train_rows(train, bwd_err, bwd_main):
     """The kernels line's rows of the backward kernels: launches from
     phase 32 (both modes), the rest from phase 31."""
@@ -3738,6 +4435,7 @@ def main():
     mesh_train = _timed(mesh_train_phase, train, peaks)
     print(f"phases 37-40 seconds {time.perf_counter() - t_mesh:.1f}")
     audit = _timed(analysis_phase)
+    zoo = zoo_phase()
 
     def summed(results, kinds, name):
         return sum(r[name] for (mode, kind), r in results.items()
@@ -3807,6 +4505,7 @@ def main():
     for row in rows[:2]:
         row["launches_by_path"]["analysis"] = audit["launches"][row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
+    rows += zoo_rows(zoo, rows)
     print(f"total_seconds {time.perf_counter() - t0:.1f}")
     print(smi.splitlines()[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"kernels": rows}))
@@ -3821,6 +4520,8 @@ if __name__ == "__main__":
         _lm_train_child()
     elif sys.argv[1:] == [BWD_TIMES_CHILD]:
         _bwd_device_times_child()
+    elif sys.argv[1:] == [ZOO_CHILD]:
+        _zoo_child()
     elif sys.argv[1:2] == [MESH_CHILD]:
         which, rest = sys.argv[2], sys.argv[3:]
         if which == "38" and rest:

@@ -5,8 +5,8 @@ An ArchConfig is a complete, declarative description of one model: the
 layer pattern (a repeating unit looped over depth + optional prefix
 layers), the mixer/FFN hyperparameters, and the training-mode knobs
 (node_mode = the paper's neural-ODE depth formulation + gradient scheme).
-The MoE, Mamba and xLSTM config methods come with their modules (ROADMAP
-queue 1, item 13).
+The Mamba and xLSTM config methods come with their modules (ROADMAP queue
+1, item 13).
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 from repro_torch.nn.attention import AttnConfig
+from repro_torch.nn.moe import MoEConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +114,12 @@ class ArchConfig:
             mla=self.mla_kv_lora > 0, kv_lora=self.mla_kv_lora or 512,
             rope_head_dim=self.mla_rope_dim, nope_head_dim=self.mla_nope_dim,
             v_head_dim=self.mla_v_dim)
+
+    def moe_config(self) -> MoEConfig:
+        return MoEConfig(
+            d_model=self.d_model, d_ff=self.moe_d_ff or self.d_ff,
+            n_experts=self.moe_experts, top_k=self.moe_top_k,
+            n_shared=self.moe_shared, shared_d_ff=self.moe_shared_d_ff)
 
     def with_(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

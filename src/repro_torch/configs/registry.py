@@ -1,7 +1,8 @@
 """Arch registry: ``--arch <id>`` resolution for the launchers.
 
 Only the archs whose layers are ported resolve; the JAX package's other
-ids raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+ids (the recurrent layers and the enc-dec model) raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -10,13 +11,17 @@ import importlib
 from .base import ArchConfig
 
 _MODULES = {
+    "mixtral-8x7b": "mixtral_8x7b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "qwen3-1.7b": "qwen3_1_7b",
+    "minicpm-2b": "minicpm_2b",
     "qwen3-0.6b": "qwen3_0_6b",
+    "stablelm-12b": "stablelm_12b",
+    "internvl2-1b": "internvl2_1b",
 }
-# the JAX package's other archs: MLA, MoE, Mamba, xLSTM, enc-dec, the VLM
-# frontend, and the dense configs not ported yet
-_NOT_PORTED = ("mixtral-8x7b", "deepseek-v2-lite-16b", "qwen3-1.7b",
-               "minicpm-2b", "stablelm-12b", "internvl2-1b", "xlstm-1.3b",
-               "seamless-m4t-medium", "jamba-v0.1-52b")
+# the JAX package's other archs: Mamba (jamba), xLSTM and the enc-dec
+# model
+_NOT_PORTED = ("xlstm-1.3b", "seamless-m4t-medium", "jamba-v0.1-52b")
 
 ARCH_IDS = tuple(_MODULES)
 

@@ -15,7 +15,9 @@
 // dim contiguous (the wrapper checks).  out (B,H,Sq,D) is written through
 // its strides.  T is float, double, half or bfloat16; all arithmetic is
 // float (a double input is computed in float, as the JAX reference does),
-// the output is stored as T.  D is a template parameter: 16, 32, 64 or 128.
+// the output is stored as T.  D is a template parameter: 16, 32, 64, 128 or
+// 160 (stablelm-12b's head dim; not for double, whose tiles at D 160 do not
+// fit a CTA's shared memory).
 // The plain PyTorch version is repro_torch/kernels/ref.py::attention_ref.
 // Given a non-null lse, the kernel also writes each query row's log-sum-exp
 // of its scaled scores, lse[b,h,i] = log(sum_j exp(scale q.k_j)) (float,
@@ -50,7 +52,7 @@
 // gives 128 of its registers a thread to them (setmaxnreg 40 / 232).
 // Lane 0 of the producer's first warp issues every copy as TMA: Q once,
 // then the live K and V tiles of kBK keys (32; 16 for double, whose tiles
-// are twice the bytes) into a ring of two slots.  The producer's other
+// are twice the bytes, and for float at D 160) into a ring of two slots.  The producer's other
 // three warps write, per tile, the operands TMA cannot: K_lo beside K_hi
 // in the slot (another T than float: K_hi and K_lo from the raw tile) and
 // V transposed, hi and lo (D rows x kBK keys), since TF32 wgmma takes both
@@ -83,6 +85,18 @@
 // 163840;  double: Q_hi 65536 + 2 x (K hi/lo 16384 + raw K 16384 + raw V
 // 16384 + Vt hi/lo 16384) = 196608; each plus 1 KB of alignment slack and
 // the barriers.  Q_lo stays in registers (D/2 a thread), as do S and O.
+//
+// D 160.  Float at 32 keys a tile would need Q_hi 81920 + 2 x (40960 +
+// 20480 + 40960) = 286720 bytes, over the 232448 a CTA may have, and
+// 32 + 16 + 16 registers of S beside O's and Q_lo's 80 each; so float takes
+// 16 keys a tile there: Q_hi 81920 + 2 x (K hi/lo 20480 + raw V 10240 + Vt
+// hi/lo 20480) = 184320, and S's registers halve, which keeps a consumer
+// thread's count at D 128's.  Q.K^T then reduces over 20 steps of 8 with
+// m64n32k8 (Q_hi against [K_hi; K_lo]) and m64n16k8 (Q_lo against K_hi),
+// and P.V is m64n160k8 over the tile's 2 steps.  half and bfloat16 keep 32
+// keys (Q_hi 81920 + 2 x (K hi 20480 + raw K 10240 + raw V 10240 + Vt hi
+// 20480) = 204800); their 320-byte rows are no multiple of 128, so their
+// raw tiles land in TMA's 64-byte swizzle, chunks of 32 elements.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_fp16.h>
@@ -112,8 +126,6 @@ struct Cfg {
   static constexpr bool kF32 = std::is_same<T, float>::value;
   // inputs with a non-zero lo part (half and bfloat16 are exact in TF32)
   static constexpr bool kSplit = kF32 || std::is_same<T, double>::value;
-  // keys per kv tile: 16 for double, whose raw tiles are twice the bytes
-  static constexpr int kBK = sizeof(T) == 8 ? 16 : 32;
 };
 
 // Shared-memory plan.  Raw tiles (as TMA lands them) are rows of kRaw
@@ -122,10 +134,17 @@ struct Cfg {
 template <typename T, int D>
 struct Plan {
   using C = Cfg<T>;
-  static constexpr int kBK = C::kBK;
-  static constexpr int kRaw = D * (int)sizeof(T) < 128 ? D * (int)sizeof(T) : 128;
+  // keys per kv tile: 16 for double, whose raw tiles are twice the bytes,
+  // and for float at D 160 (see the note above)
+  static constexpr int kBK = sizeof(T) == 8 || (C::kF32 && D > 128) ? 16 : 32;
+  // raw rows: the whole row up to 128 bytes, else 128-byte chunks, or
+  // 64-byte ones where 128 does not divide the row (16-bit at D 160)
+  static constexpr int kRowBytes = D * (int)sizeof(T);
+  static constexpr int kRaw = kRowBytes <= 128 ? kRowBytes
+                              : kRowBytes % 128 == 0 ? 128 : 64;
   static constexpr int kRawElems = kRaw / (int)sizeof(T);
   static constexpr int kChunks = D / kRawElems;
+  static_assert(kChunks * kRawElems == D, "raw chunks tile a row");
   static constexpr int kOp = D * 4 < 128 ? D * 4 : 128;
   static constexpr int kTile = kBK * D * (int)sizeof(T);   // raw K or V tile
   static constexpr int kQh = kBQ * D * 4;
@@ -197,7 +216,7 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap qmap,
                        int window, int q_offset) {
   using C = Cfg<T>;
   using P = Plan<T, D>;
-  constexpr int kBK = C::kBK;
+  constexpr int kBK = P::kBK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -609,8 +628,8 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   }
   CUtensorMap qm, km, vm;
   int e = encode<T, D>(&qm, q, Sq, H, B, st, C::kF32 ? kBQ : kRowsWG);
-  if (e == 0) e = encode<T, D>(&km, k, Sk, Hkv, B, st + 3, C::kBK);
-  if (e == 0) e = encode<T, D>(&vm, v, Sk, Hkv, B, st + 6, C::kBK);
+  if (e == 0) e = encode<T, D>(&km, k, Sk, Hkv, B, st + 3, P::kBK);
+  if (e == 0) e = encode<T, D>(&vm, v, Sk, Hkv, B, st + 6, P::kBK);
   if (e != 0) return e;
   const Strides os{st[9], st[10], st[11]};
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
@@ -633,6 +652,11 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* out,
                          causal, has_window, window, q_offset, stream);
     FA_CASE(16) FA_CASE(32) FA_CASE(64) FA_CASE(128)
 #undef FA_CASE
+    case 160:
+      if constexpr (sizeof(T) == 8) return (int)cudaErrorInvalidValue;
+      else
+        return launch<T, 160>(q, k, v, out, lse, st, B, H, Hkv, Sq, Sk, scale,
+                              causal, has_window, window, q_offset, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

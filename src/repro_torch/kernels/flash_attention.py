@@ -21,6 +21,12 @@ The kernel reads q, k and v by TMA through their strides, so the
 transposed (B, H, S, D) views of (B, S, H, D) projections need no copy;
 the last dim must be contiguous, and the bases and the b, h, s strides
 16-byte aligned (TMA's rule; the wrapper raises ``ValueError`` otherwise).
+At D 160 (stablelm-12b) a float32 CTA takes kv tiles of 16 keys, which
+keeps its shared memory at 181 KB (32-key tiles would need 280 KB) and
+its registers at D 128's count; 16-bit inputs keep 32 keys and land in
+TMA's 64-byte swizzle (a 320-byte row is no multiple of 128).  float64
+does not fit at D 160 and raises, as does the backward at D 160 (ROADMAP
+queue 2).
 It writes its output into a (B, Sq, H, D) buffer and returns the
 (B, H, Sq, D) view of it, so that the caller's transpose back to
 (B, Sq, H*D) is free.
@@ -55,9 +61,12 @@ import torch
 from ._build import CudaLibrary, call, raise_on
 
 __all__ = ["flash_attention", "flash_attention_bwd", "tma_ready", "SOURCE",
-           "BWD_SOURCE", "HEAD_DIMS"]
+           "BWD_SOURCE", "HEAD_DIMS", "BWD_HEAD_DIMS", "check_bwd_head_dim"]
 
-HEAD_DIMS = (16, 32, 64, 128)
+# the forward's head dims; 160 (stablelm-12b) in float32, float16 and
+# bfloat16 only: float64's tiles at D 160 do not fit a CTA's shared memory
+HEAD_DIMS = (16, 32, 64, 128, 160)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
                torch.bfloat16: 3}
 _vp, _i32 = ctypes.c_void_p, ctypes.c_int
@@ -110,6 +119,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str):
                          f"q shape {tuple(q.shape)} (H % Hkv must be 0)")
     if D not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {D} not in {HEAD_DIMS}")
+    if D == 160 and q.dtype == torch.float64:
+        raise ValueError(f"{name}: head dim 160 takes float32, float16 or "
+                         f"bfloat16, not float64")
     for t in (q, k, v):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the last dim must be contiguous (got "
@@ -127,14 +139,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str):
             raise ValueError(f"{name}: tensors on {t.device} and {q.device}")
 
 
+def check_bwd_head_dim(D: int):
+    """Raise for a head dim that the backward kernels do not take."""
+    if D not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention_bwd: head dim {D} is not ported (the backward "
+            f"takes {BWD_HEAD_DIMS}; D 160 is open in ROADMAP queue 2, "
+            f"\"flash backward at D 160\")")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0, scale: Optional[float] = None,
                     return_lse: bool = False):
     """Attention on the card.  q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D), one
-    float dtype, D in ``HEAD_DIMS``, last dim contiguous.  ``q_offset`` is
-    the absolute position of query 0; with ``window`` w, query i attends
-    keys j with i - w < j <= i (absolute).  Returns (B, H, Sq, D) in q's
+    float dtype, D in ``HEAD_DIMS`` (160 not in float64), last dim
+    contiguous.  ``q_offset`` is the absolute position of query 0; with
+    ``window`` w, query i attends keys j with i - w < j <= i (absolute).  Returns (B, H, Sq, D) in q's
     dtype, a view of a (B, Sq, H, D) buffer; with ``return_lse``, also the
     rows' log-sum-exp (B, H, Sq) float32 (log(1e-30) for a row that sees no
     key)."""
@@ -179,6 +200,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, H, Sq, D) view of a (B, Sq, H, D) buffer, like the forward's output;
     dk and dv as (B, Hkv, Sk, D) views of (B, Sk, Hkv, D) buffers."""
     name = "flash_attention_bwd"
+    check_bwd_head_dim(q.shape[-1])
     code = _BWD_DTYPE_CODE.get(q.dtype)
     if code is None:
         raise TypeError(f"{name}: dtype {q.dtype} not supported "

@@ -118,13 +118,21 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               q_offset: int = 0, scale: Optional[float] = None,
               use_kernels: Optional[bool] = None) -> torch.Tensor:
     """GQA attention, q: (B, H, Sq, D), k, v: (B, Hkv, Sk, D) -> (B, H, Sq,
-    D).  The plain version materialises the (Sq, Sk) scores; the JAX
-    package's query-blocked plain path for long sequences
-    (``attention_blocked_ref``) is not ported."""
+    D).  The plain path takes the JAX package's route: the query-blocked
+    ``attention_blocked_ref`` when Sq >= 1024 and Sq * Sk > 2048 * 4096
+    (it never holds the (Sq, Sk) scores), else ``attention_ref``.  On the
+    kernel path a head dim that the backward kernels do not take raises
+    when a gradient is asked for, before any launch."""
     if _use_kernel(q, use_kernels):
         if _needs_grad(q, k, v):
+            _flash.check_bwd_head_dim(q.shape[-1])
             return _Attention.apply(q, k, v, causal, window, q_offset, scale)
         return _flash.flash_attention(q, k, v, causal=causal, window=window,
                                       q_offset=q_offset, scale=scale)
+    Sq, Sk = q.shape[2], k.shape[2]
+    if Sq * Sk > 2048 * 4096 and Sq >= 1024:
+        return ref.attention_blocked_ref(q, k, v, causal=causal,
+                                         window=window, q_offset=q_offset,
+                                         scale=scale)
     return ref.attention_ref(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, scale=scale)

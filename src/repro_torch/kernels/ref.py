@@ -10,7 +10,10 @@ card they are the yardstick the kernels are checked against, or what a
 caller picks on purpose with ``use_kernels=False``.
 
 ``decode_attention_ref`` has no kernel, in the JAX package either: decode
-runs it on every device.
+runs it on every device.  ``attention_blocked_ref`` is the plain attention
+of long sequences (``kernels/ops.py`` routes to it as the JAX package's
+``ops.attention`` does): the same arithmetic as ``attention_ref`` a block
+of queries at a time, so that the (Sq, Sk) scores are never whole.
 
 The backward versions (``rms_norm_bwd_ref``, ``attention_bwd_ref``, and
 ``attention_lse_ref`` for the forward's row log-sum-exp) compute in
@@ -26,6 +29,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -216,6 +220,45 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= kpos > qpos - window
     p = _masked_softmax(s.masked_fill(~mask, float("-inf")))
     return torch.matmul(p, vv).to(q.dtype)
+
+
+def attention_blocked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          window: Optional[int] = None, q_offset: int = 0,
+                          scale: Optional[float] = None,
+                          block_q: int = 512) -> torch.Tensor:
+    """Query-blocked attention: ``attention_ref``'s arithmetic on blocks of
+    ``block_q`` queries, so the peak is one (block_q, Sk) score block per
+    (batch, head), never (Sq, Sk).  Under autograd each block runs in
+    ``torch.utils.checkpoint`` (its scores are recomputed in the backward,
+    as the JAX package's ``jax.checkpoint``).  Sq not a multiple of the
+    block takes ``attention_ref``, as in the JAX package."""
+    B, H, Sq, D = q.shape
+    group = H // k.shape[1]
+    scale = scale if scale is not None else D ** -0.5
+    bq = min(block_q, Sq)
+    if Sq % bq != 0:
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset, scale=scale)
+    kk = torch.repeat_interleave(k, group, dim=1).to(torch.float32)
+    vv = torch.repeat_interleave(v, group, dim=1).to(torch.float32)
+    Sk = k.shape[2]
+    kt = kk.transpose(-1, -2)
+
+    def one_block(qi, i: int):
+        s = torch.matmul(qi.to(torch.float32), kt) * scale
+        mask = _mask(bq, Sk, causal, window, q_offset + i * bq, q.device)
+        p = _masked_softmax(s.masked_fill(~mask, float("-inf")))
+        return torch.matmul(p, vv)
+
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    blocks = []
+    for i in range(Sq // bq):
+        qi = q[:, :, i * bq:(i + 1) * bq]
+        blocks.append(checkpoint(one_block, qi, i, use_reentrant=False)
+                      if remat else one_block(qi, i))
+    return torch.cat(blocks, dim=2).to(q.dtype)
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,

@@ -42,7 +42,7 @@ from repro_torch.launch.analysis import (count_params, device_memory_bytes,
                                          hbm_headroom, model_flops_per_step)
 
 __all__ = ["run_cell", "run_static_analysis", "iter_cells", "main",
-           "ANALYSIS_CONFIGS"]
+           "active_params", "ANALYSIS_CONFIGS"]
 
 ANALYSIS_CONFIGS = ("node", "cnf")
 
@@ -74,20 +74,34 @@ def run_cell(arch_id: str, shape_name: str, *, device="cuda",
         parts["caches"] = _nbytes(init_caches(arch, B, S, device="meta"))
         n_tokens = B * S if shape.kind == "prefill" else B
     n_params = count_params(params)
+    n_active = active_params(arch, n_params)
     total = sum(parts.values())
     capacity = device_memory_bytes(device)
     result = {"arch": arch_id, "shape": shape_name, "mesh": "1",
               "n_chips": 1, "kind": shape.kind, "n_params": n_params,
-              "n_active_params": n_params, "n_tokens": n_tokens,
+              "n_active_params": n_active, "n_tokens": n_tokens,
               "bytes_per_device": parts,
               "state_gb": round(total / 2**30, 3),
               "device_bytes": capacity,
               "hbm_headroom": hbm_headroom(total, capacity),
               "model_flops_global": model_flops_per_step(
-                  n_params, n_tokens, shape.kind)}
+                  n_active, n_tokens, shape.kind)}
     if verbose:
         print(json.dumps(result))
     return result
+
+
+def active_params(arch, n_params: int) -> int:
+    """The parameters one token meets: an MoE arch's experts beyond its
+    top-k do not count (the JAX package's ``active_params``)."""
+    if arch.moe_experts == 0:
+        return n_params
+    moe = arch.moe_config()
+    per_expert = 3 * moe.d_ff * moe.d_model
+    n_moe_layers = sum(1 for s in (list(arch.prefix)
+                                   + list(arch.pattern) * arch.n_repeats)
+                       if s.ffn == "moe")
+    return n_params - n_moe_layers * (moe.n_experts - moe.top_k) * per_expert
 
 
 def run_static_analysis(targets=ANALYSIS_CONFIGS, out=None,

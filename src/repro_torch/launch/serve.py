@@ -3,7 +3,8 @@ ODE solve server.
 
     # batched LM serving: prefill a batch of prompts into a bfloat16 KV
     # cache, then decode token by token; --ckpt-dir serves the params of a
-    # training checkpoint (launch/train.py; the same --grad-mode)
+    # training checkpoint (launch/train.py; the same --grad-mode); a VLM
+    # (internvl2-1b) prefills 4 random patch embeddings first
     PYTHONPATH=src python -m repro_torch.launch.serve lm --arch qwen3-0.6b \\
         [--smoke] [--batch 8 --prompt-len 1024 --gen-len 32] [--device cpu] \\
         [--ckpt-dir runs/ckpt [--grad-mode symplectic]]
@@ -92,18 +93,27 @@ def _lm_main(argv: Optional[Sequence[str]] = None) -> dict:
               f"step {ck_step}")
     else:
         params = init_lm(arch, seed=args.seed, device=device)
-    max_len = args.prompt_len + args.gen_len
+    # the JAX launcher's 4 random patch embeddings take the VLM's first
+    # cache positions; decode starts after them (the cache holds them,
+    # unlike the JAX launcher's, whose last decode writes clamp to its end)
+    offset = 4 if arch.frontend == "patch" else 0
+    max_len = offset + args.prompt_len + args.gen_len
     prefill = make_prefill_step(arch, args.batch, max_len)
     decode = make_decode_step(arch)
 
     b = synthetic_lm_batch(0, args.batch, args.prompt_len + 1, arch.vocab,
                            seed=args.seed)
     tokens = torch.as_tensor(b["tokens"], dtype=torch.long, device=device)
+    batch = {"tokens": tokens}
+    if offset:
+        batch["patch_embeds"] = torch.randn(
+            (args.batch, offset, arch.d_frontend), generator=torch.Generator(
+                device=device).manual_seed(args.seed + 2), device=device)
     sampler = torch.Generator(device=device).manual_seed(args.seed)
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, caches = prefill(params, {"tokens": tokens})
+    logits, caches = prefill(params, batch)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 
@@ -113,7 +123,8 @@ def _lm_main(argv: Optional[Sequence[str]] = None) -> dict:
     out_tokens = [tok]
     t0 = time.perf_counter()
     for i in range(args.gen_len - 1):
-        logits, caches = decode(params, caches, tok, args.prompt_len + i)
+        logits, caches = decode(params, caches, tok,
+                                offset + args.prompt_len + i)
         finite &= torch.isfinite(logits).all()
         if args.temperature > 0:
             probs = torch.softmax(logits[:, -1] / args.temperature, -1)

@@ -221,6 +221,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     epoch_losses = []
     for step in range(start_step, total_steps):
         batch = next(pipe)
+        if arch.frontend == "patch":
+            # the JAX launcher's 4 random patch embeddings, keyed by step
+            batch["patch_embeds"] = torch.randn(
+                (args.global_batch, 4, arch.d_frontend),
+                generator=torch.Generator().manual_seed(step)).to(device)
 
         def do_step():
             if step == args.fail_at_step:

@@ -1,13 +1,14 @@
-"""Decoder-only LM over a layer pattern (the dense GQA layers so far).
+"""Decoder-only LM over a layer pattern: GQA or MLA mixers, dense or MoE
+FFNs, and the VLM's patch frontend.
 
 Depth structure: optional prefix layers followed by ``n_repeats`` copies of
 the repeating ``pattern`` unit, run by a plain Python loop (the JAX package
 scans over stacked unit params).
 
-Parameters: ``{"embed", "final_norm", ["lm_head"], ["prefix_<i>"],
-"unit"}`` where ``unit`` is a list of ``n_repeats`` tuples, one layer dict
-per pattern entry (the JAX package stacks each leaf over a leading R axis
-instead; ``params_from_jax`` unstacks it).  Caches likewise:
+Parameters: ``{"embed", "final_norm", ["lm_head"], ["frontend"],
+["prefix_<i>"], "unit"}`` where ``unit`` is a list of ``n_repeats``
+tuples, one layer dict per pattern entry (the JAX package stacks each leaf
+over a leading R axis instead; ``params_from_jax`` unstacks it).  Caches likewise:
 ``{"prefix": [...], "unit": [tuple of per-layer caches] * R}``.
 
 Training modes (``mode="train"``):
@@ -58,10 +59,10 @@ _MODES = ("train", "prefill", "decode")
 
 
 def _check_ported(cfg: ArchConfig):
-    if cfg.encdec or cfg.frontend != "none":
+    if cfg.encdec or cfg.frontend == "audio":
         raise NotImplementedError(
-            f"{cfg.name}: the enc-dec model and the audio/patch frontends "
-            f"are not ported yet (ROADMAP queue 1, item 13)")
+            f"{cfg.name}: the enc-dec model and the audio frontend are not "
+            f"ported yet (ROADMAP queue 1, item 13)")
 
 
 def init_lm(cfg: ArchConfig, *, seed: int = 0, device="cuda",
@@ -80,6 +81,9 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init((cfg.d_model, cfg.vocab), dtype, gen,
                                        device)
+    if cfg.frontend == "patch":
+        params["frontend"] = dense_init((cfg.d_frontend, cfg.d_model), dtype,
+                                        gen, device)
     for i, spec in enumerate(cfg.prefix):
         params[f"prefix_{i}"] = init_layer(gen, spec, cfg, dtype, device)
     params["unit"] = [tuple(init_layer(gen, spec, cfg, dtype, device)
@@ -104,7 +108,10 @@ def params_from_jax(np_tree, cfg: ArchConfig, *, device="cuda",
     """The JAX package's ``init_lm`` params (as numpy arrays, e.g. after
     ``tree_map(np.asarray, params)``) in this package's layout: the stacked
     ``unit`` leaves are split along their leading R axis into a list of R
-    per-unit tuples.  Tensors land on ``device`` (dtype kept unless given).
+    per-unit tuples (the MoE experts' (R, E, d, f) leaves become (E, d, f)
+    per unit).  ``prefix_<i>``, ``frontend`` and every other leaf keep
+    their shapes.  Tensors land on ``device``, in their own dtype unless
+    one is given (the float32 router of a float64 model stays float32).
     """
     def to_t(a):
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
@@ -117,6 +124,16 @@ def params_from_jax(np_tree, cfg: ArchConfig, *, device="cuda",
     return out
 
 
+def _embed(params, cfg: ArchConfig, tokens: torch.Tensor, extra_embeds):
+    """Token embeddings; with the patch frontend and ``extra_embeds`` (B, P,
+    d_frontend), the projected patches go before the tokens."""
+    x = params["embed"][tokens]
+    if cfg.frontend == "patch" and extra_embeds is not None:
+        pe = extra_embeds.to(x.dtype) @ params["frontend"]
+        x = torch.cat([pe, x], dim=1)
+    return x
+
+
 def _head_parts(params, cfg: ArchConfig, x: torch.Tensor):
     x = rmsnorm(params["final_norm"], x, eps=cfg.norm_eps,
                 use_kernels=cfg.use_kernels)
@@ -127,8 +144,9 @@ def _head_parts(params, cfg: ArchConfig, x: torch.Tensor):
 def _unit_forward(unit, x: torch.Tensor, cfg: ArchConfig, *, caches=None,
                   pos: Optional[int] = None, positions=None):
     """One repeat unit: its pattern's layers in order.  Returns (x, caches,
-    aux).  (The JAX package also checkpoints each layer of a multi-layer
-    unit under remat; no ported arch has one: ROADMAP queue 1, item 13.)"""
+    aux), aux the sum of its MoE layers' aux losses.  (The JAX package also
+    checkpoints each layer of a multi-layer unit under remat; no ported
+    arch has one: ROADMAP queue 1, item 13.)"""
     new_caches = []
     aux = 0.0
     for i, spec in enumerate(cfg.pattern):
@@ -150,13 +168,14 @@ def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
 
     tokens: (B, S) integer tensor; mode: "train" (no caches; node configs
     run the depth solve), "prefill" (fill ``caches`` from position 0),
-    "decode" (tokens (B, 1), write and attend at ``pos``)."""
+    "decode" (tokens (B, 1), write and attend at ``pos``).  With the patch
+    frontend, ``extra_embeds`` (B, P, d_frontend) are projected and put
+    before the tokens (the sequence is then P + S long); "aux" sums the
+    MoE layers' aux losses, the prefix layers' included (0.0 in node mode,
+    whose field drops them, as in the JAX package)."""
     _check_ported(cfg)
     if mode not in _MODES:
         raise ValueError(f"mode {mode!r} not in {_MODES}")
-    if extra_embeds is not None:
-        raise NotImplementedError("extra_embeds (the VLM patch frontend) is "
-                                  "not ported yet (ROADMAP queue 1, item 13)")
     if (mode == "train") != (caches is None) or \
             (mode == "decode") != (pos is not None):
         raise ValueError(f"mode {mode!r}: caches are required for prefill "
@@ -170,7 +189,7 @@ def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
         return {"logits": (h @ head).to(torch.float32), "caches": new_caches,
                 "aux": aux}
 
-    x = params["embed"][tokens]
+    x = _embed(params, cfg, tokens, extra_embeds)
     if cfg.node.mode == "node" and mode == "train":
         return finish(_node_depth_solve(params, cfg, x), None, 0.0)
 

@@ -1,11 +1,11 @@
-"""Attention blocks: GQA (with qk-norm, sliding window, partial rope).
+"""Attention blocks: GQA (with qk-norm, sliding window, partial rope), MLA.
 
 Shapes: activations (B, S, d_model); heads layout (B, H, S, Dh) internally.
-KV cache: {"k": (B, Smax, Hkv, Dh), "v": ...}, bfloat16 as a rule.  Prefill
-and decode write the cache IN PLACE and return the same dict (the JAX
-package returns an updated copy).  MLA (DeepSeek-V2) is not ported yet
-(ROADMAP queue 1, item 13): ``AttnConfig`` keeps its fields so the configs
-match the JAX package's.
+KV caches, bfloat16 as a rule: GQA {"k": (B, Smax, Hkv, Dh), "v": ...};
+MLA {"ckv": (B, Smax, kv_lora), "kr": (B, Smax, rope_dim)} (the compressed
+latent, DeepSeek-V2's memory win; decode runs the absorbed formulation
+against it).  Prefill and decode write the caches IN PLACE and return the
+same dict (the JAX package returns an updated copy).
 """
 from __future__ import annotations
 
@@ -111,3 +111,95 @@ def init_gqa_cache(cfg: AttnConfig, batch: int, max_len: int,
                              device=device),
             "v": torch.zeros((batch, max_len, Hkv, Dh), dtype=dtype,
                              device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def init_mla(generator: torch.Generator, cfg: AttnConfig,
+             dtype: torch.dtype = torch.float32, device="cuda"):
+    d, H = cfg.d_model, cfg.n_heads
+    qd = cfg.nope_head_dim + cfg.rope_head_dim
+    return {
+        "wq": dense_init((d, H * qd), dtype, generator, device),
+        "wdkv": dense_init((d, cfg.kv_lora), dtype, generator, device),
+        "kv_norm": init_rmsnorm(cfg.kv_lora, dtype, device),
+        "wuk": dense_init((cfg.kv_lora, H * cfg.nope_head_dim), dtype,
+                          generator, device),
+        "wuv": dense_init((cfg.kv_lora, H * cfg.v_head_dim), dtype,
+                          generator, device),
+        "wkr": dense_init((d, cfg.rope_head_dim), dtype, generator, device),
+        "wo": dense_init((H * cfg.v_head_dim, d), dtype, generator, device),
+    }
+
+
+def mla_attention(p, x: torch.Tensor, cfg: AttnConfig, *, positions=None,
+                  cache=None, pos: Optional[int] = None,
+                  use_kernels: Optional[bool] = None):
+    """DeepSeek-V2 MLA.  Prefill (``pos`` None) makes the per-head K
+    (nope + rope, dn + dr wide) and V (dv wide) from the latent and attends
+    with the plain ``attention_ref`` at scale (dn + dr)^-1/2, as the JAX
+    package does (q.k and v differ in width, which the flash kernel does not
+    take), over the un-rounded latent; a given cache gets positions [0, S)
+    of the latent and the rotated key.  Decode (``pos`` given, S == 1)
+    writes the token's latent at ``pos`` and attends in float32 against the
+    cache with the absorbed formulation: q_nope is taken through wuk into
+    the latent space, and the latent output through wuv.
+
+    Returns (out, cache_or_None)."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    inv = rope_freqs(dr, cfg.rope_theta, dr, device=x.device)
+    scale = (dn + dr) ** -0.5
+
+    q = (x @ p["wq"]).reshape(B, S, H, dn + dr).transpose(1, 2)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    ckv = rmsnorm(p["kv_norm"], x @ p["wdkv"], use_kernels=use_kernels)
+    kr = (x @ p["wkr"]).reshape(B, S, 1, dr).transpose(1, 2)
+
+    if pos is None:
+        pp = positions if positions is not None else \
+            torch.arange(S, device=x.device)
+        q_rope = apply_rope(q_rope, pp, inv)
+        kr = apply_rope(kr, pp, inv)
+        k_nope = (ckv @ p["wuk"]).reshape(B, S, H, dn).transpose(1, 2)
+        v = (ckv @ p["wuv"]).reshape(B, S, H, dv).transpose(1, 2)
+        k = torch.cat([k_nope, kr.expand(B, H, S, dr)], dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        out = kref.attention_ref(qq, k, v, causal=True, q_offset=0,
+                                 scale=scale)
+        if cache is not None:
+            cache["ckv"][:, :S].copy_(ckv)
+            cache["kr"][:, :S].copy_(kr[:, 0])
+    else:
+        ppos = torch.full((1,), pos, device=x.device)
+        q_rope = apply_rope(q_rope, ppos, inv)
+        kr = apply_rope(kr, ppos, inv)
+        cache["ckv"][:, pos:pos + 1].copy_(ckv)
+        cache["kr"][:, pos:pos + 1].copy_(kr[:, 0])
+        f32 = torch.float32
+        lat_cache = cache["ckv"].to(f32)                   # (B, Smax, dl)
+        rot_cache = cache["kr"].to(f32)                    # (B, Smax, dr)
+        wuk = p["wuk"].reshape(cfg.kv_lora, H, dn).to(f32)
+        q_abs = torch.einsum("bhsd,lhd->bhsl", q_nope.to(f32), wuk)
+        s = (torch.matmul(q_abs, lat_cache.transpose(1, 2)[:, None])
+             + torch.matmul(q_rope.to(f32),
+                            rot_cache.transpose(1, 2)[:, None])) * scale
+        kpos = torch.arange(lat_cache.shape[1], device=x.device)
+        s = s.masked_fill(kpos > pos, float("-inf"))
+        pr = torch.softmax(s, dim=-1)
+        lat = torch.matmul(pr, lat_cache[:, None])         # (B, H, 1, dl)
+        wuv = p["wuv"].reshape(cfg.kv_lora, H, dv).to(f32)
+        out = torch.einsum("bhsl,lhd->bhsd", lat, wuv).to(x.dtype)
+    out = out.transpose(1, 2).reshape(B, S, H * dv)
+    return out @ p["wo"], cache
+
+
+def init_mla_cache(cfg: AttnConfig, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16, device="cuda"):
+    return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora), dtype=dtype,
+                               device=device),
+            "kr": torch.zeros((batch, max_len, cfg.rope_head_dim),
+                              dtype=dtype, device=device)}

@@ -1,6 +1,7 @@
 """Serving steps for the decoder-only LM: prefill (build the caches, return
 the last position's logits) and decode (one token against the caches).
-The enc-dec model's steps come with it (ROADMAP queue 1, item 13).
+The VLM's patches go into the prefill ("patch_embeds"); the enc-dec
+model's steps come with it (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -19,8 +20,11 @@ def _check(arch: ArchConfig):
 
 def make_prefill_step(arch: ArchConfig, batch: int, max_len: int,
                       cache_dtype: torch.dtype = torch.bfloat16):
-    """prefill(params, {"tokens": (batch, S)}) -> (logits (batch, 1, V)
-    float32, caches of ``max_len`` positions on the tokens' device)."""
+    """prefill(params, {"tokens": (batch, S)[, "patch_embeds": (batch, P,
+    d_frontend)]}) -> (logits (batch, 1, V) float32, caches of ``max_len``
+    positions on the tokens' device).  With the patch frontend the P
+    patches fill cache positions [0, P) and the tokens [P, P + S), so
+    ``max_len`` counts them and decode starts at P + S."""
     _check(arch)
 
     @torch.no_grad()

@@ -5,8 +5,10 @@ optional microbatch gradient accumulation.
 The gradient scheme of a node-mode arch is its ``NodeConfig.grad_mode``
 (a registered strategy name or a ``repro_torch.core.GradientStrategy``),
 which the LM forward resolves through ``repro_torch.core.solve``.  The
-decoder LM is the arch this package trains; the enc-dec model and the
-patch frontend come with ROADMAP queue 1, item 13.
+decoder LM is the arch this package trains (with the patch frontend: the
+patch positions carry no label); the enc-dec model and the audio frontend
+come with ROADMAP queue 1, item 13.  An MoE arch adds its routers' aux
+loss to the cross-entropy.
 
 On a mesh (``shard=parallel.make_sharder(mesh)``, or a ``grad_constraint``)
 the step is data-parallel and SPMD: ``train.data_parallel`` holds its
@@ -28,7 +30,7 @@ from repro_torch.optim import (AdamWConfig, CompressionConfig, adamw_init,
                                compress_grads, decompress_grads,
                                init_error_state)
 from .data_parallel import DataParallel, Zero1, local_tensor, relay
-from .losses import lm_loss, lm_loss_chunked
+from .losses import IGNORE, lm_loss, lm_loss_chunked
 from .state import (TrainState, generator_from_state, init_solver_stats,
                     node_solver_counts)
 
@@ -47,10 +49,10 @@ class TrainConfig:
 
 
 def _check_arch(arch: ArchConfig):
-    if arch.encdec or arch.frontend != "none":
+    if arch.encdec or arch.frontend == "audio":
         raise NotImplementedError(
-            f"{arch.name}: training the enc-dec model or a patch/audio "
-            f"frontend is not ported yet (ROADMAP queue 1, item 13)")
+            f"{arch.name}: training the enc-dec model or the audio frontend "
+            f"is not ported yet (ROADMAP queue 1, item 13)")
 
 
 def init_train_state(arch: ArchConfig, tcfg: TrainConfig, *, seed: int = 0,
@@ -69,14 +71,23 @@ def init_train_state(arch: ArchConfig, tcfg: TrainConfig, *, seed: int = 0,
 
 
 def _forward_loss(params, batch, arch: ArchConfig, loss_chunk: int):
+    """(cross-entropy + aux loss, cross-entropy); with the patch frontend
+    the batch also holds "patch_embeds" (B, P, d_frontend), whose P
+    positions take the label IGNORE."""
     rh = loss_chunk > 0
-    out = lm_forward(params, arch, batch["tokens"], mode="train",
-                     return_hidden=rh)
+    labels = batch["labels"]
+    patches = batch.get("patch_embeds") if arch.frontend == "patch" else None
+    out = lm_forward(params, arch, batch["tokens"], extra_embeds=patches,
+                     mode="train", return_hidden=rh)
+    if patches is not None:
+        pad = torch.full(labels.shape[:1] + patches.shape[1:2], IGNORE,
+                         dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
     if rh:
-        loss = lm_loss_chunked(out["hidden"], out["head"], batch["labels"],
+        loss = lm_loss_chunked(out["hidden"], out["head"], labels,
                                loss_chunk)
     else:
-        loss = lm_loss(out["logits"], batch["labels"])
+        loss = lm_loss(out["logits"], labels)
     return loss + out["aux"], loss
 
 

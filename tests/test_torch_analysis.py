@@ -382,18 +382,36 @@ def test_dryrun_analysis_rows_have_jax_keys(monkeypatch, capsys):
     assert "static analysis OK" in capsys.readouterr().out
 
 
-def test_dryrun_cells_on_meta():
+def test_dryrun_cells_on_meta(monkeypatch):
+    import jax
+    from repro.configs import get_arch as j_get_arch
+    from repro.models import lm as jlm
+    # the JAX launcher sets XLA_FLAGS when first imported: keep the
+    # environment as it was
+    monkeypatch.setenv("XLA_FLAGS", os.environ.get("XLA_FLAGS", ""))
+    import repro.launch.dryrun as JD
+    from repro_torch.configs import ARCH_IDS, SHAPES, cell_is_applicable
     rows = dryrun.main(["--all", "--device", "cpu"])
     assert [(r["arch"], r["shape"]) for r in rows] == [
-        ("qwen3-0.6b", s) for s in ("train_4k", "prefill_32k",
-                                    "decode_32k")]
-    train = rows[0]
+        (a, s) for a in ARCH_IDS for s in SHAPES
+        if cell_is_applicable(a, s)]
+    by_cell = {(r["arch"], r["shape"]): r for r in rows}
+    train = by_cell[("qwen3-0.6b", "train_4k")]
     parts = train["bytes_per_device"]
     assert train["n_params"] == 596049920
     assert parts["params"] == parts["grads"] == 4 * train["n_params"]
     assert parts["opt_state"] == 2 * parts["params"] + 4   # m, v, step
     assert train["hbm_headroom"]["fits"]
+    # the MoE archs' parameter counts are the JAX package's init's
+    for arch_id in ("deepseek-v2-lite-16b", "mixtral-8x7b"):
+        shapes = jax.eval_shape(
+            lambda k, a=arch_id: jlm.init_lm(k, j_get_arch(a)),
+            jax.random.PRNGKey(0))
+        want = sum(int(l.size) for l in jax.tree_util.tree_leaves(shapes))
+        assert by_cell[(arch_id, "train_4k")]["n_params"] == want
+        assert by_cell[(arch_id, "train_4k")]["n_active_params"] == \
+            JD.active_params(j_get_arch(arch_id), want)
     with pytest.raises(NotImplementedError, match="item 13"):
-        dryrun.run_cell("mixtral-8x7b", "train_4k", device="cpu")
+        dryrun.run_cell("jamba-v0.1-52b", "train_4k", device="cpu")
     with pytest.raises(NotImplementedError, match="no H100 counterpart"):
         dryrun.main(["--multipod"])

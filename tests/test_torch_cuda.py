@@ -131,6 +131,35 @@ def test_flash_attention_kernel_matches_plain_on_card(case, dtype):
                                **TOL[dtype])
 
 
+# the LM zoo's shapes: head dim 160 (stablelm-12b, float32 tiles of 16 keys,
+# 16-bit rows in TMA's 64-byte swizzle): its prefill shape, long keys with an
+# offset, a window, ragged Sq; and internvl2-1b's GQA group of 7
+ZOO_ATTN_CASES = [
+    (8, 32, 8, 1024, 1024, 160, True, None, 0),  # stablelm-12b prefill
+    (1, 8, 2, 65, 4096, 160, True, None, 4031),  # Sq 65, long Sk, offset
+    (1, 8, 2, 300, 300, 160, True, 100, 0),      # GQA 4 + window
+    (1, 4, 4, 77, 77, 160, False, None, 0),      # ragged, non-causal
+    (2, 14, 2, 200, 200, 64, True, None, 0),     # internvl2-1b: group 7
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("case", ZOO_ATTN_CASES)
+def test_flash_attention_zoo_shapes_match_plain_on_card(case, dtype):
+    dev = _on_card()
+    _, _, _, _, _, _, causal, window, q_offset = case
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.tensor(a, device=dev).to(tdt)
+               for a in attn_inputs(case))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = flash_kern.flash_attention(q, k, v, **kw)
+    torch.testing.assert_close(got.float(),
+                               tref.attention_ref(q, k, v, **kw).float(),
+                               **TOL["float32" if dtype == "float32"
+                                     else "bfloat16"])
+
+
 @pytest.mark.cuda
 def test_flash_attention_refuses_unaligned_inputs_on_card():
     """TMA needs 16-byte aligned bases: a q at storage offset 1 raises

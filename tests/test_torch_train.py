@@ -529,8 +529,13 @@ def test_unported_training_paths_name_their_items():
         make_train_step(arch, TrainConfig(), shard=make_sharder(mesh))
     with pytest.raises(NotImplementedError, match="item 13"):
         make_train_step(arch.with_(encdec=True), TrainConfig())
+    # the patch frontend trains (tests/test_torch_zoo_train.py); the audio
+    # frontend is still item 13's
+    assert "frontend" in init_train_state(
+        arch.with_(frontend="patch", d_frontend=8), TrainConfig(),
+        device="cpu").params
     with pytest.raises(NotImplementedError, match="item 13"):
-        init_train_state(arch.with_(frontend="patch"), TrainConfig(),
+        init_train_state(arch.with_(frontend="audio"), TrainConfig(),
                          device="cpu")
     from repro_torch.launch import train
     with pytest.raises(NotImplementedError, match="no H100 counterpart"):
