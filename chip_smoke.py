@@ -374,12 +374,51 @@ weights need a card no earlier phase has filled):
                apart); then one training step per arch (the backward
                kernels at the smoke head dims), loss and params at 1e-5.
 
+The LM zoo's recurrent and enc-dec half, in a process of its own
+(``python3 chip_smoke.py --zoo2``: jamba's one block holds 53.2 GB):
+
+ 47. flash at the enc-dec shapes — seamless-m4t-medium's encoder (8,
+               16/16, 1024 x 1024, D 64, non-causal) and cross-attention
+               (256 x 1024, Sq != Sk), jamba's attention (GQA 32/8, D 128,
+               causal), float32 and bfloat16 against the plain version at
+               phase 8's tolerances, the float32 error printed per case;
+               then ms per call of the two enc-dec shapes beside the plain
+               version, SDPA and the bound.
+ 48-50. jamba-v0.1-52b (8 of its 32 layers: one block), xlstm-1.3b and
+               seamless-m4t-medium (random frames (8, 1024, 160)) served
+               through ``launch.serve lm`` at full width, batch 8 x 1024,
+               32 tokens: prefill ms, decode ms/token,
+               ``max_memory_allocated``, rms_norm and flash launches as the
+               layer specs give them; then kernels vs plain (prefill and 4
+               decode steps, 1e-3 of the plain side's largest logit and
+               final hidden state; jamba's plain side routed by the
+               kernels' expert choices, the unforced share reported;
+               xlstm's plain side started per layer and per sLSTM step from
+               the kernels' inputs (``_Trajectory``: the model is chaotic
+               under rounding at full width), every layer's output and
+               every sLSTM step's new state held to the same 1e-3 of the
+               plain side's largest entry, the unforced divergence
+               reported); one prefill and one decode step under the
+               profiler (every launch counted).
+ 51. card vs CPU (smoke width) — the three archs as phase 46, each run on
+               its own (jamba's card side also routed by the CPU's
+               choices; the enc-dec prefill reading the CPU's cross K/V in
+               the bfloat16 variant, the card's own held apart), and
+               against a float64 CPU run (``repro_torch.float64.lifted``):
+               with the float32 cache the logits, the final hidden states
+               and each cache tensor are held to 1e-5 of the CPU's largest
+               entry, or to twice the CPU float32 run's own distance from
+               the float64 one where that is larger; the train steps and
+               xlstm's node-mode step (euler, symplectic) leaf by leaf by
+               the same rule.
+
 The combines' ``launches`` in the ``kernels`` line sum phases 3, 21, 23,
 24, 27 and 41 (``launches_by_path`` splits them; the lane forms' rows sum
 phase 14, the per-sample cells of phases 24 and 27 and phase 28's drain
 run, and carry phase 30's numbers as ``serve_shape``); rms_norm's and
-flash's add the zoo's paths (phases 43 and 45; flash at D 160 has its own
-row, ``flash_attention_d160``, from stablelm-12b's run).  The card's
+flash's add the zoo's paths (phases 43, 45 and 48-50; flash at D 160 has
+its own row, ``flash_attention_d160``, from stablelm-12b's run; flash's
+row carries phase 47's enc-dec shapes as ``encdec_shapes``).  The card's
 name and power limit are printed early; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -994,15 +1033,19 @@ def profile_step():
     _profile_once("step", lambda: _loss_and_grads(cfg, params, u, eps))
 
 
-def _profile_once(label, fn):
+def _profile_once(label, fn, host_ops=True):
     """One call of ``fn`` under torch.profiler (warm it up first): wall
     time, summed kernel time, the device's busy share, kernel launches and
-    the kernels that take the most device time."""
+    the kernels that take the most device time (printed; the first four
+    returned, or None without a profiler).  ``host_ops`` False records the
+    device activity alone (a call of ~10^5 launches costs the host's op
+    records minutes to summarise)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        acts = [ProfilerActivity.CUDA] + \
+            ([ProfilerActivity.CPU] if host_ops else [])
+        with profile(activities=acts) as prof:
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -1016,13 +1059,15 @@ def _profile_once(label, fn):
                if str(ev.device_type).endswith("CUDA")
                and _self_device_us(ev) > 0]
     busy_us = sum(_self_device_us(ev) for ev in kernels)
+    launches = sum(ev.count for ev in kernels)
     print(f"{label} wall {wall_us / 1e3:.3f} ms, kernel time "
           f"{busy_us / 1e3:.3f} ms, device busy share "
-          f"{busy_us / wall_us:.4f}, kernel launches "
-          f"{sum(ev.count for ev in kernels)}")
+          f"{busy_us / wall_us:.4f}, kernel launches {launches}")
     for ev in sorted(kernels, key=_self_device_us, reverse=True)[:8]:
         print(f"  {_self_device_us(ev) / 1e3:9.3f} ms  x{ev.count:6d}  "
               f"{ev.key[:90]}")
+    return {"wall_ms": wall_us / 1e3, "kernel_ms": busy_us / 1e3,
+            "busy": busy_us / wall_us, "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -3759,11 +3804,31 @@ BLOCKED_CASES = [(2, 8, 2, 2048, 4096, 64, True, None, 0),
 BLOCKED_TOL = 1e-5               # the same float32 arithmetic, blocked
 
 
-def _rms_per_forward(cfg) -> int:
-    """rms_norm launches of one forward: the block and FFN norms, q and k
-    norms with qk_norm, MLA's kv_norm, and the final norm."""
-    per_layer = 2 + 2 * cfg.qk_norm + (cfg.mla_kv_lora > 0)
-    return cfg.n_layers * per_layer + 1
+def _rms_per_forward(cfg, decode=False) -> int:
+    """rms_norm launches of one forward: each layer's mixer norm and FFN
+    norm (xLSTM's blocks have no FFN), q and k norms with qk_norm, MLA's
+    kv_norm, and the final norm; the enc-dec model's decoder has three
+    norms a layer, and its prefill (not a decode step) runs the encoder
+    too: two a layer and its final norm."""
+    if cfg.encdec:
+        return 3 * cfg.n_layers + 1 + \
+            (0 if decode else 2 * cfg.enc_layers + 1)
+    n = 1
+    for spec in list(cfg.prefix) + list(cfg.pattern) * cfg.n_repeats:
+        n += 1 + (spec.ffn != "none") + (spec.mixer == "mla") \
+            + 2 * cfg.qk_norm * (spec.mixer == "attn")
+    return n
+
+
+def _flash_per_prefill(cfg) -> int:
+    """flash launches of one prefill (a decode step has none): one per GQA
+    layer (MLA attends with the plain version); the enc-dec model's
+    encoder layers and its decoder's self- and cross-attention."""
+    if cfg.encdec:
+        return cfg.enc_layers + 2 * cfg.n_layers
+    return sum(spec.mixer == "attn"
+               for spec in list(cfg.prefix)
+               + list(cfg.pattern) * cfg.n_repeats)
 
 
 class _Gates:
@@ -3797,9 +3862,125 @@ class _Gates:
         moe.route = self._route
 
 
+def _zoo_prefill(params, cfg, toks, patches, frames, max_len, cache_dtype,
+                 cross_from=None):
+    """``make_prefill_step``'s arithmetic, returning every position's final
+    hidden state: {"hidden", "head", "caches"}.  The enc-dec model's
+    decoder reads its cross K/V from the cache it just wrote (rounded to
+    the cache dtype); with ``cross_from`` (another run's cross caches) it
+    reads those instead, and the K/V it computed come back as
+    "own_cross"."""
+    if not cfg.encdec:
+        from repro_torch.models.lm import init_caches, lm_forward
+        caches = init_caches(cfg, toks.shape[0], max_len, cache_dtype,
+                             device=toks.device)
+        return lm_forward(params, cfg, toks, caches=caches,
+                          extra_embeds=patches, mode="prefill",
+                          return_hidden=True)
+    from repro_torch.models import encdec
+    memory = encdec.encode(params, frames, cfg)
+    caches = encdec.init_encdec_caches(cfg, toks.shape[0], max_len,
+                                       frames.shape[1], cache_dtype,
+                                       device=toks.device)
+    cross = encdec.precompute_cross_kv(params, memory, cfg)
+    own = None
+    for name in ("k", "v"):
+        caches["cross"][name].copy_(cross[name])
+    if cross_from is not None:
+        own = {k: v.clone() for k, v in caches["cross"].items()}
+        for name in ("k", "v"):
+            caches["cross"][name].copy_(cross_from[name])
+    out = encdec.decode_forward(params, cfg, toks, memory=memory,
+                                caches=caches, mode="prefill",
+                                return_hidden=True)
+    out["own_cross"] = own
+    return out
+
+
+class _Trajectory:
+    """Records, while active, each layer's input and output (in call order,
+    by wrapping ``repro_torch.models.lm.layer_forward``) and the state each
+    sLSTM cell step starts from and the one it makes (wrapping
+    ``repro_torch.nn.xlstm._slstm_cell``).  With ``forced`` (another run's
+    records, in the same call order) each layer and each cell step starts
+    from that run's input instead of its own, and its own output is held
+    against that run's: ``errors`` gathers, per layer call and per cell
+    step, max|own - forced| / max|own| (each tensor of a cell's state
+    apart; the replaying side is the reference), and ``used`` how many
+    records of each kind were taken.  The two runs then differ by one
+    layer's or one step's rounding, never by its growth through the stack
+    and the recurrence.  xlstm-1.3b at full width (the JAX init: sLSTM
+    recurrent weights of fan-in H, std 1/2, over dh 512) takes a 1e-7
+    difference to O(1) within ~32 sLSTM steps, and its 48 layers take
+    rms_norm's rounding to ~2e-4 at the first position (PERF.md), as a
+    router reroutes under rounding.  ``record`` False keeps no records (a
+    run only compared on its own)."""
+
+    def __init__(self, forced=None, record=True):
+        self.forced, self.record = forced, record
+
+    def __enter__(self):
+        import repro_torch.models.lm as lm
+        import repro_torch.nn.xlstm as xl
+        kinds = ("layers", "cells")
+        self.ins = {k: [] for k in kinds}
+        self.outs = {k: [] for k in kinds}
+        self.errors = {k: [] for k in kinds}
+        self.used = {k: 0 for k in kinds}
+        self._layer, self._cell = lm.layer_forward, xl._slstm_cell
+
+        def run(kind, step, own, out_of):
+            i = self.used[kind]
+            self.used[kind] += 1
+            x = own if self.forced is None else self.forced[kind][i]
+            res = step(x)
+            y = out_of(res)
+            if self.forced is not None:
+                self.errors[kind].append(_replay_err(
+                    y, self.forced[kind + "_out"][i]))
+            if self.record:
+                self.ins[kind].append(x)
+                self.outs[kind].append(y)
+            return res
+
+        def layer(p, x, *a, **kw):
+            return run("layers", lambda xx: self._layer(p, xx, *a, **kw), x,
+                       lambda r: r[0])
+
+        def cell(p, xt, st, H, dh):
+            return run("cells", lambda s0: self._cell(p, xt, s0, H, dh), st,
+                       lambda r: r)
+        lm.layer_forward, xl._slstm_cell = layer, cell
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.models.lm as lm
+        import repro_torch.nn.xlstm as xl
+        lm.layer_forward, xl._slstm_cell = self._layer, self._cell
+
+    def records(self):
+        return {"layers": self.ins["layers"], "cells": self.ins["cells"],
+                "layers_out": self.outs["layers"],
+                "cells_out": self.outs["cells"]}
+
+    def worst(self):
+        """Per kind: (the largest error, the number of outputs held)."""
+        return {k: (float(torch.stack(e).max()) if e else 0.0, len(e))
+                for k, e in self.errors.items()}
+
+
+def _replay_err(own, forced):
+    """max|own - forced| / max|own| of a tensor, or the largest over a
+    dict's tensors, as a 0-dim tensor on their device."""
+    pairs = [(own[k], forced[k]) for k in own] if isinstance(own, dict) \
+        else [(own, forced)]
+    return torch.stack([(a - b).abs().max() / a.abs().max().clamp_min(
+        1e-30) for a, b in pairs]).max()
+
+
 def _zoo_serve(params, cfg, toks, patches, steps, feed=None, forced=None,
                cache_dtype=torch.bfloat16, caches_from=None,
-               keep_caches=False):
+               keep_caches=False, frames=None, replay=None):
     """The serving path's prefill (``make_prefill_step``'s arithmetic,
     keeping every position's final hidden state) and ``steps`` decode
     steps on the tokens' device, greedy or fed ``feed``, routed by
@@ -3810,11 +3991,15 @@ def _zoo_serve(params, cfg, toks, patches, steps, feed=None, forced=None,
     copies) each decode step starts from those instead of its own, so
     that cache entries whose float32 values straddle a bfloat16 boundary
     on the two sides (and round apart) stay out of the logits' comparison
-    (the caches are compared apart).  Returns the
+    (the caches are compared apart; the enc-dec model's prefill reads the
+    other run's cross K/V, its own kept as "own_cross").  Returns the
     logits per step, the prefill hidden states, the tokens fed, the
-    routing records, the launches and the times."""
+    routing records, the launches and the times.  The enc-dec model takes
+    its source ``frames``.  ``replay`` (another run's "trajectory", or
+    True to record this run's) starts each layer and sLSTM step from the
+    recorded inputs and holds their outputs against the recorded ones
+    ("trajectory_err": ``_Trajectory.worst``)."""
     from torch.utils import _pytree as pytree
-    from repro_torch.models.lm import init_caches, lm_forward
     from repro_torch.train import make_decode_step
     B, S = toks.shape
     P = 0 if patches is None else patches.shape[1]
@@ -3831,14 +4016,17 @@ def _zoo_serve(params, cfg, toks, patches, steps, feed=None, forced=None,
         out["counts"].append(_lm_counts())
         return res
 
-    with torch.no_grad(), _Gates(forced) as gates:
-        caches = init_caches(cfg, B, P + S + steps, cache_dtype,
-                             device=toks.device)
-        res = timed(lambda: lm_forward(params, cfg, toks, caches=caches,
-                                       extra_embeds=patches, mode="prefill",
-                                       return_hidden=True))
+    forced_traj = replay if isinstance(replay, dict) else None
+    with torch.no_grad(), _Gates(forced) as gates, \
+            _Trajectory(forced_traj, record=replay is True) as traj:
+        cross_from = None if caches_from is None or not cfg.encdec else \
+            caches_from[0]["cross"]
+        res = timed(lambda: _zoo_prefill(params, cfg, toks, patches, frames,
+                                         P + S + steps, cache_dtype,
+                                         cross_from))
         logits = (res["hidden"][:, -1:] @ res["head"]).to(torch.float32)
         out["hidden"], caches = res["hidden"], res["caches"]
+        out["own_cross"] = res.get("own_cross")
         n_prefill = len(gates.calls)
         for i in range(steps):
             out["logits"].append(logits)
@@ -3857,6 +4045,13 @@ def _zoo_serve(params, cfg, toks, patches, steps, feed=None, forced=None,
             out["caches"].append(pytree.tree_map(torch.clone, caches))
     out["gates_prefill"] = gates.calls[:n_prefill]
     out["gates_decode"] = gates.calls[n_prefill:]
+    if replay is True:
+        out["trajectory"] = traj.records()
+    if forced_traj is not None:
+        check(all(traj.used[k] == len(forced_traj[k]) for k in traj.used),
+              f"the replay took {traj.used} records of "
+              f"{ {k: len(forced_traj[k]) for k in traj.used} }")
+        out["trajectory_err"] = traj.worst()
     return out
 
 
@@ -3914,10 +4109,48 @@ def _routing_share(name, k_run, p_run, B, S, tol=LOGITS_RTOL):
             "hidden_err_kept": h_err}
 
 
-def _zoo_compare(name, k_run, p_run, tol=LOGITS_RTOL):
+def _divergence(name, k_run, p_run, tol=LOGITS_RTOL):
+    """Two runs of a recurrent model on their own (no replayed state): the
+    first prefill position of each row whose final hidden state differs
+    by more than ``tol`` of the row's largest plain one, and the share of
+    positions from there on (reported, not held: the recurrence grows a
+    rounding difference, ``_Trajectory``)."""
+    hk, hp = k_run["hidden"], p_run["hidden"]
+    B, S = hk.shape[:2]
+    err = ((hk - hp).abs().amax(-1)
+           / hp.abs().amax(dim=(1, 2))[:, None])            # (B, S)
+    over = err > tol
+    first = torch.where(over.any(-1), over.int().argmax(-1),
+                        torch.full((B,), S, device=hk.device)).tolist()
+    share = 1 - sum(first) / (B * S)
+    print(f"{name}: on their own, each row's first prefill position past "
+          f"{tol} of its largest final hidden entry {first} (of {S}; share "
+          f"of positions from there on {share:.4f}); error at positions 0, "
+          f"8, 32, 128: {[f'{float(err[:, i].max()):.1e}' for i in (0, 8, 32, 128) if i < S]}")
+    return {"first_divergent_position": first, "share": share,
+            "positions": B * S}
+
+
+def _replay_held(name, worst, tol=LOGITS_RTOL):
+    """A replayed run's outputs (``_Trajectory.worst``): every layer's and
+    every sLSTM step's within ``tol`` of its own largest entry."""
+    (e_layer, n_layer), (e_cell, n_cell) = worst["layers"], worst["cells"]
+    print(f"{name}: each output from the other side's input, max|diff| / "
+          f"max|own|: every layer's ({n_layer} calls, prefill and decode) "
+          f"worst {e_layer:.3e}; every sLSTM step's new state ({n_cell} "
+          f"steps) worst {e_cell:.3e} (tolerance {tol})")
+    check(n_layer > 0 and e_layer <= tol and e_cell <= tol,
+          f"{name}: a replayed layer or sLSTM step beyond {tol}")
+    return {"layer_err": e_layer, "layers": n_layer, "cell_err": e_cell,
+            "cells": n_cell}
+
+
+def _zoo_compare(name, k_run, p_run, tol=LOGITS_RTOL, hidden_tol=None):
     """Two runs of one model (the second routed by the first's expert
     choices): the logits of every step and the final hidden states of
-    every prefill position within ``tol`` of the second's largest."""
+    every prefill position within ``tol`` (the hidden states within
+    ``hidden_tol`` when given) of the second's largest."""
+    hidden_tol = tol if hidden_tol is None else hidden_tol
     errs = []
     for lk, lp in zip(k_run["logits"], p_run["logits"]):
         check(bool(torch.isfinite(lk).all()), f"{name}: non-finite logits")
@@ -3925,10 +4158,11 @@ def _zoo_compare(name, k_run, p_run, tol=LOGITS_RTOL):
     hk, hp = k_run["hidden"], p_run["hidden"]
     h_err = float((hk - hp).abs().max() / hp.abs().max())
     print(f"{name}: logits max|diff| / max|ref| per step "
-          f"{[f'{e:.3e}' for e in errs]}; final hidden, every position, "
-          f"{h_err:.3e} (tolerance {tol})")
-    check(all(e <= tol for e in errs) and h_err <= tol,
-          f"{name}: beyond {tol}")
+          f"{[f'{e:.3e}' for e in errs]} (tolerance {tol:.3e}); final "
+          f"hidden, every position, {h_err:.3e} (tolerance "
+          f"{hidden_tol:.3e})")
+    check(all(e <= tol for e in errs) and h_err <= hidden_tol,
+          f"{name}: beyond the tolerance")
     return {"logits_err": max(errs), "hidden_err": h_err}
 
 
@@ -4093,15 +4327,27 @@ def zoo_main_path():
 
 
 def _zoo_tokens(cfg, B, S, patches):
+    """The prompt tokens, and the launcher's random inputs: ``patches``
+    patch embeddings (seed 2), or the enc-dec model's S source frames
+    (seed 1)."""
     from repro_torch.data.tokens import synthetic_lm_batch
     toks = torch.as_tensor(synthetic_lm_batch(0, B, S + 1, cfg.vocab)[
         "tokens"], dtype=torch.long, device="cuda")
     pe = None
-    if patches:
-        pe = torch.randn((B, patches, cfg.d_frontend), device="cuda",
+    if patches or cfg.encdec:
+        shape = (B, patches, cfg.d_frontend) if patches else \
+            (B, S, cfg.d_frontend)
+        pe = torch.randn(shape, device="cuda",
                          generator=torch.Generator(device="cuda")
-                         .manual_seed(2))
+                         .manual_seed(2 if patches else 1))
     return toks, pe
+
+
+def _init_params(cfg, device="cuda"):
+    from repro_torch.models.encdec import init_encdec
+    from repro_torch.models.lm import init_lm
+    return (init_encdec if cfg.encdec else init_lm)(cfg, seed=0,
+                                                    device=device)
 
 
 def _zoo_arch_vs_plain(arch_id, B, S, layers, patches):
@@ -4109,37 +4355,51 @@ def _zoo_arch_vs_plain(arch_id, B, S, layers, patches):
     and ZOO_STEPS decode steps with the kernels, then with the plain
     versions fed the same tokens; launches per prefill and decode step."""
     from repro_torch.configs import get_arch
-    from repro_torch.models.lm import init_lm
     cfg = get_arch(arch_id)
     if layers is not None:
         cfg = cfg.with_(n_layers=layers)
-    params = init_lm(cfg, seed=0, device="cuda")
+    params = _init_params(cfg)
     n_params = sum(t.numel() for t in
                    torch.utils._pytree.tree_leaves(params))
     toks, pe = _zoo_tokens(cfg, B, S, patches)
+    src = dict(patches=None, frames=pe) if cfg.encdec else \
+        dict(patches=pe)
     plain = cfg.with_(use_kernels=False)
-    k_run = _zoo_serve(params, cfg, toks, pe, ZOO_STEPS)
-    p_run = _zoo_serve(params, plain, toks, pe, ZOO_STEPS,
+    # a model with sLSTM layers is compared layer by layer and step by
+    # step (_Trajectory, _replay_held)
+    replay = any(s.mixer == "slstm" for s in cfg.pattern) or None
+    k_run = _zoo_serve(params, cfg, toks, steps=ZOO_STEPS, replay=replay,
+                       **src)
+    p_run = _zoo_serve(params, plain, toks, steps=ZOO_STEPS,
                        feed=k_run["tokens"],
-                       forced=k_run["gates_prefill"] + k_run["gates_decode"])
+                       forced=k_run["gates_prefill"] + k_run["gates_decode"],
+                       replay=k_run.pop("trajectory", None), **src)
     share = {}
-    if k_run["gates_prefill"]:
-        own = _zoo_serve(params, plain, toks, pe, ZOO_STEPS,
-                         feed=k_run["tokens"])
-        share = _routing_share(f"{arch_id} kernels vs plain", k_run, own, B,
-                               patches + S)
+    if k_run["gates_prefill"] or replay:
+        own = _zoo_serve(params, plain, toks, steps=ZOO_STEPS,
+                         feed=k_run["tokens"], **src)
+        if k_run["gates_prefill"]:
+            share = _routing_share(f"{arch_id} kernels vs plain", k_run,
+                                   own, B, patches + S)
+        else:
+            share = _divergence(f"{arch_id} kernels vs plain", k_run, own)
         del own
-    n_rms = _rms_per_forward(cfg)
-    n_flash = 0 if cfg.mla_kv_lora else cfg.n_layers
+    n_rms, n_rms_dec = _rms_per_forward(cfg), _rms_per_forward(cfg, True)
+    n_flash = _flash_per_prefill(cfg)
     check(k_run["counts"][0] == (n_rms, n_flash),
           f"{arch_id}: launches per prefill {k_run['counts'][0]}, expected "
           f"{(n_rms, n_flash)}")
-    check(all(c == (n_rms, 0) for c in k_run["counts"][1:]),
+    check(all(c == (n_rms_dec, 0) for c in k_run["counts"][1:]),
           f"{arch_id}: launches per decode step {k_run['counts'][1:]}")
     check(all(c == (0, 0) for c in p_run["counts"]),
           f"{arch_id}: the plain side launched {p_run['counts']}")
-    cmp = _zoo_compare(f"{arch_id} kernels vs plain (the plain side routed "
-                       f"by the kernels' choices)", k_run, p_run)
+    how = "each layer and sLSTM step started from the kernels' inputs" \
+        if replay else "routed by the kernels' choices"
+    cmp = _zoo_compare(f"{arch_id} kernels vs plain (the plain side {how})",
+                       k_run, p_run)
+    if replay:
+        cmp["replayed"] = _replay_held(f"{arch_id} kernels vs plain",
+                                       p_run["trajectory_err"])
     print(f"{arch_id}{'' if layers is None else f' ({layers} layers)'}: "
           f"{n_params} params ({n_params * 4 / 1e9:.2f} GB), batch {B} x "
           f"{patches + S} positions: prefill {k_run['ms'][0]:.3f} ms "
@@ -4147,12 +4407,12 @@ def _zoo_arch_vs_plain(arch_id, B, S, layers, patches):
           f"{sum(k_run['ms'][1:]) / ZOO_STEPS:.3f} ms/step (plain "
           f"{sum(p_run['ms'][1:]) / ZOO_STEPS:.3f}); launches per prefill "
           f"rms_norm {n_rms} flash_attention {n_flash}, per decode step "
-          f"rms_norm {n_rms}")
+          f"rms_norm {n_rms_dec}")
     return params, cfg, toks, pe, {
         "prefill_ms": k_run["ms"][0], "plain_prefill_ms": p_run["ms"][0],
         "decode_ms": sum(k_run["ms"][1:]) / ZOO_STEPS,
         "launches_prefill": {"rms_norm": n_rms, "flash_attention": n_flash},
-        "launches_decode": {"rms_norm": n_rms, "flash_attention": 0},
+        "launches_decode": {"rms_norm": n_rms_dec, "flash_attention": 0},
         "launches": {"rms_norm": sum(c[0] for c in k_run["counts"]),
                      "flash_attention": sum(c[1] for c in k_run["counts"])},
         "n_params": n_params, "routing": share, **cmp}
@@ -4198,91 +4458,180 @@ def zoo_other_archs():
     return out
 
 
-def zoo_card_vs_cpu():
-    """Phase 46: the six new archs at smoke width, card vs CPU from the
-    same weights: prefill and ZOO_STEPS decode logits (float32 and bfloat16
-    caches, phase 11's tolerances, rows routed differently set aside), then
-    one training step each (the backward kernels at the smoke head dims)."""
-    import dataclasses
+def _arch_card_vs_cpu(arch_id, B, S, tcfg, node=False, exact=False):
+    """One arch at smoke width, card vs CPU from the same CPU-made weights:
+    prefill and ZOO_STEPS decode logits (float32 and bfloat16 caches, phase
+    11's tolerances, the card routed by the CPU's expert choices, rows
+    routed differently on their own set aside), then one training step
+    (the backward kernels at the smoke head dims) and, with ``node``, one
+    node-mode step (euler, symplectic), loss and params at 1e-5.  With
+    ``exact``, float64 CPU runs (``repro_torch.float64.lifted``, routed by
+    the CPU's choices) measure the CPU's float32 rounding, and a
+    comparison whose CPU float32 result is itself more than half the
+    tolerance from the float64 one is held to twice that distance (two
+    float32 results each that far from exact): the float32-cache serving
+    run's logits, final hidden states and cache tensors
+    (``_float64_witness``), and each leaf of a step; the bfloat16 caches
+    are then held to one ulp beyond the float32 caches' held card-vs-CPU
+    difference per cache tensor (``_caches_within_ulp``'s slack)."""
     from torch.utils import _pytree as pytree
     from repro_torch.configs import get_smoke_arch
+    from repro_torch.configs.base import NodeConfig
     from repro_torch.data.tokens import synthetic_lm_batch
-    from repro_torch.models.lm import init_lm
-    from repro_torch.train import (TrainConfig, init_train_state,
-                                   make_train_step)
-    phase("46 zoo card vs CPU (smoke width): serving and one training step "
-          "per arch")
-    B, S = 4, 32
-    tcfg = TrainConfig(adamw=dataclasses.replace(TrainConfig().adamw,
-                                                 eps=1e-3))
-    out = {}
-    for arch_id in (ZOO_ARCH,) + tuple(a for a, *_ in ZOO_OTHERS):
-        cfg = get_smoke_arch(arch_id)
-        patches = 4 if cfg.frontend == "patch" else 0
-        cpu = init_lm(cfg, seed=0, device="cpu")
-        gpu = pytree.tree_map(lambda t: t.to("cuda"), cpu)
-        toks, pe = _zoo_tokens(cfg, B, S, patches)
-        res = {}
-        for cache_dtype, rtol in SMOKE_RTOL.items():
-            name = f"{arch_id} smoke, {cache_dtype} cache, card vs CPU"
-            cpu_run = _zoo_serve(cpu, cfg, toks.cpu(),
-                                 None if pe is None else pe.cpu(), ZOO_STEPS,
-                                 cache_dtype=cache_dtype, keep_caches=True)
-            # the bfloat16 cache: the card decodes from the CPU's cache
-            # contents, held to one ulp of it apart
-            shared = None if cache_dtype != torch.bfloat16 else \
-                _to_cuda(cpu_run["caches"])
-            runs = {}
-            for tag, forced in (("own", None), ("forced", cpu_run)):
-                if forced is not None and not cpu_run["gates_prefill"]:
-                    runs[tag] = runs["own"]
-                    continue
-                runs[tag] = _zoo_serve(
-                    gpu, cfg, toks, pe, ZOO_STEPS, feed=cpu_run["tokens"],
-                    forced=None if forced is None else
-                    forced["gates_prefill"] + forced["gates_decode"],
-                    cache_dtype=cache_dtype, caches_from=shared,
-                    keep_caches=True)
-            ref_run = _to_cuda(cpu_run)
-            if shared is not None:     # after the prefill and each decode
-                for i, (got, want) in enumerate(zip(
-                        runs["forced"]["caches"], ref_run["caches"])):
-                    _caches_within_ulp(f"{name}, cache {i}", got, want)
-            res[str(cache_dtype)] = _zoo_compare(name, runs["forced"],
-                                                 ref_run, rtol)
-            if cpu_run["gates_prefill"]:
-                res[str(cache_dtype)]["routing"] = _routing_share(
-                    name, runs["own"], ref_run, B, patches + S, rtol)
-        b = synthetic_lm_batch(0, B, S + 1, cfg.vocab)
-        batch = {k: torch.as_tensor(v, dtype=torch.long) for k, v in b.items()}
-        if pe is not None:
-            batch["patch_embeds"] = pe.cpu()
+    from repro_torch.float64 import lifted
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = get_smoke_arch(arch_id)
+    patches = 4 if cfg.frontend == "patch" else 0
+    cpu = _init_params(cfg, device="cpu")
+    gpu = pytree.tree_map(lambda t: t.to("cuda"), cpu)
+    toks, pe = _zoo_tokens(cfg, B, S, patches)
+
+    def src(dev, dtype=torch.float32):
+        x = None if pe is None else pe.to(dev, dtype)
+        return dict(patches=None, frames=x) if cfg.encdec else \
+            dict(patches=x)
+
+    res, gaps = {}, None
+    for cache_dtype, rtol in SMOKE_RTOL.items():
+        name = f"{arch_id} smoke, {cache_dtype} cache, card vs CPU"
+        cpu_run = _zoo_serve(cpu, cfg, toks.cpu(), steps=ZOO_STEPS,
+                             cache_dtype=cache_dtype, keep_caches=True,
+                             **src("cpu"))
+        gates = cpu_run["gates_prefill"] + cpu_run["gates_decode"]
+        # the bfloat16 cache: the card decodes from the CPU's cache
+        # contents, held to one ulp of it apart
+        shared = None if cache_dtype != torch.bfloat16 else \
+            _to_cuda(cpu_run["caches"])
+        runs = {}
+        for tag, forced in (("own", None), ("forced", gates or None)):
+            if tag == "forced" and forced is None:
+                runs[tag] = runs["own"]
+                continue
+            runs[tag] = _zoo_serve(
+                gpu, cfg, toks, steps=ZOO_STEPS, feed=cpu_run["tokens"],
+                forced=forced, cache_dtype=cache_dtype, caches_from=shared,
+                keep_caches=True, **src("cuda"))
+        ref_run = _to_cuda(cpu_run)
+        tols = {}
+        if exact and shared is None:     # the float32 caches
+            with lifted():
+                f64 = _zoo_serve(
+                    pytree.tree_map(lambda t: t.double(), cpu), cfg,
+                    toks.cpu(), steps=ZOO_STEPS, feed=cpu_run["tokens"],
+                    forced=gates or None, cache_dtype=torch.float64,
+                    keep_caches=True, **src("cpu", torch.float64))
+            tols, gaps, res["float64"] = _float64_witness(
+                name, runs["forced"], cpu_run, f64, rtol)
+            del f64
+        if shared is not None:     # after the prefill and each decode
+            if cfg.encdec:         # the cross K/V the card computed
+                _caches_within_ulp(f"{name}, the card's cross K/V",
+                                   runs["forced"]["own_cross"],
+                                   ref_run["caches"][0]["cross"], gaps)
+            for i, (got, want) in enumerate(zip(runs["forced"]["caches"],
+                                                ref_run["caches"])):
+                _caches_within_ulp(f"{name}, cache {i}", got, want, gaps)
+        res[str(cache_dtype)] = _zoo_compare(
+            name, runs["forced"], ref_run, tols.get("logits", rtol),
+            tols.get("hidden"))
+        if gates:
+            res[str(cache_dtype)]["routing"] = _routing_share(
+                name, runs["own"], ref_run, B, patches + S, rtol)
+    b = synthetic_lm_batch(0, B, S + 1, cfg.vocab)
+    batch = {k: torch.as_tensor(v, dtype=torch.long) for k, v in b.items()}
+    if pe is not None:
+        batch["frames" if cfg.encdec else "patch_embeds"] = pe.cpu()
+    modes = {"train": cfg}
+    if node:
+        modes["node_symplectic"] = cfg.with_(node=NodeConfig(
+            mode="node", method="euler", grad_mode="symplectic"))
+    for mode, mcfg in modes.items():
         steps = {}
+        old = init_train_state(mcfg, tcfg, device="cpu").params
         for dev in ("cpu", "cuda"):
-            state = init_train_state(cfg, tcfg, device="cpu")
+            state = init_train_state(mcfg, tcfg, device="cpu")
             if dev == "cuda":      # the generator's state stays on the CPU
                 state = pytree.tree_map(
                     lambda t: t.to("cuda") if isinstance(t, torch.Tensor)
                     and t.dtype != torch.uint8 else t, state)
             forced = None if dev == "cpu" else steps["cpu"][2]
             with _Gates(forced) as gates:
-                new, m = make_train_step(cfg, tcfg)(
+                new, m = make_train_step(mcfg, tcfg)(
                     state, {k: v.to(dev) for k, v in batch.items()})
             steps[dev] = (new, m, [g.cpu() for g in gates.calls])
         l_err = abs(float(steps["cuda"][1]["loss"])
                     - float(steps["cpu"][1]["loss"])) \
             / abs(float(steps["cpu"][1]["loss"]))
-        p_err = max(_rel_err(a.cpu(), b) for a, b in zip(
-            pytree.tree_leaves(steps["cuda"][0].params),
-            pytree.tree_leaves(steps["cpu"][0].params)))
-        print(f"{arch_id} smoke train step, card vs CPU (the card routed by "
-              f"the CPU's choices): loss rel err {l_err:.3e}, params max rel "
-              f"err {p_err:.3e} (tolerance 1e-5; AdamW eps 1e-3)")
-        check(l_err <= 1e-5 and p_err <= 1e-5,
-              f"{arch_id} smoke train step: card vs CPU beyond 1e-5")
-        res["train"] = {"loss_err": l_err, "params_err": p_err}
-        out[arch_id] = res
-    return out
+        leaves = [pytree.tree_leaves(t) for t in (
+            steps["cuda"][0].params, steps["cpu"][0].params, old,
+            steps["cpu"][0].opt["m"])]
+        errs = [_step_leaf_err(a.cpu(), b, o, m, tcfg)
+                for a, b, o, m in zip(*leaves)]
+        bounds = [1e-5] * len(errs)
+        if exact:
+            # the same weights (drawn outside: the float64 casts change
+            # the draws), in float64
+            state = pytree.tree_map(
+                lambda t: t.double() if isinstance(t, torch.Tensor)
+                and t.is_floating_point() else t,
+                init_train_state(mcfg, tcfg, device="cpu"))
+            with lifted(), _Gates(steps["cpu"][2]):
+                ref, _ = make_train_step(mcfg, tcfg)(state, {
+                    k: v.double() if v.is_floating_point() else v
+                    for k, v in batch.items()})
+            f32 = [_step_leaf_err(b, e, o, m, tcfg) for b, e, o, m in zip(
+                leaves[1], pytree.tree_leaves(ref.params), leaves[2],
+                leaves[3])]
+            bounds = [max(1e-5, 2 * e) for e in f32]
+            res.setdefault("float32_rounding", {})[mode] = max(f32)
+        p_err = max(errs)
+        worst = max(e / b for e, b in zip(errs, bounds))
+        print(f"{arch_id} smoke {mode} step, card vs CPU (the card routed "
+              f"by the CPU's choices): loss rel err {l_err:.3e}, params max "
+              f"rel err {p_err:.3e} (tolerance 1e-5; AdamW eps 1e-3; a leaf "
+              f"that starts at zero against lr max|g| / eps"
+              + ("" if not exact else
+                 f"; the CPU's float32 step from the float64 one, max "
+                 f"{res['float32_rounding'][mode]:.3e}; leaves held past "
+                 f"1e-5 by twice theirs: {sum(b > 1e-5 for b in bounds)} of "
+                 f"{len(bounds)}; worst share of its bound {worst:.3f}")
+              + ")")
+        check(l_err <= 1e-5 and worst <= 1.0,
+              f"{arch_id} smoke {mode} step: card vs CPU beyond the bound")
+        res[mode] = {"loss_err": l_err, "params_err": p_err,
+                     "share_of_bound": worst}
+    return res
+
+
+def _step_leaf_err(got, want, old, m_want, tcfg) -> float:
+    """One leaf after a training step: max |got - want| over the largest
+    entry of ``want``; for a leaf that was zero before the step (``old``:
+    a bias of Mamba, the mLSTM, the sLSTM or a LayerNorm), whose new value
+    is its first update alone, lr g / (|g| + eps) with |du/dg| <= lr / eps,
+    over lr max|g| / eps (g = m / (1 - b1)): what a gradient within the
+    tolerance of its largest entry can move it by (the float32 gradient's
+    rounding, 1 / eps up, is otherwise the whole leaf's scale;
+    ``tests/test_torch_zoo_rec_train.py``)."""
+    scale = want.double().abs().max()
+    if not bool(old.abs().max()):
+        adamw = tcfg.adamw
+        scale = tcfg.lr * m_want.double().abs().max() / (1 - adamw.b1) \
+            / adamw.eps
+    return float((got.double() - want.double()).abs().max()
+                 / scale.clamp_min(1e-300))
+
+
+def zoo_card_vs_cpu():
+    """Phase 46: the six new archs at smoke width, card vs CPU from the
+    same weights (``_arch_card_vs_cpu``)."""
+    import dataclasses
+    from repro_torch.train import TrainConfig
+    phase("46 zoo card vs CPU (smoke width): serving and one training step "
+          "per arch")
+    tcfg = TrainConfig(adamw=dataclasses.replace(TrainConfig().adamw,
+                                                 eps=1e-3))
+    return {arch_id: _arch_card_vs_cpu(arch_id, 4, 32, tcfg)
+            for arch_id in (ZOO_ARCH,) + tuple(a for a, *_ in ZOO_OTHERS)}
 
 
 def _to_cuda(run):
@@ -4291,23 +4640,70 @@ def _to_cuda(run):
                            if isinstance(t, torch.Tensor) else t, run)
 
 
-def _caches_within_ulp(name, got, want):
+def _caches_within_ulp(name, got, want, slack=None):
     """Every cache entry of ``got`` within one of its dtype's ulps of
     ``want``'s, beyond the float32 rounding of the values rounded: |a - b|
     <= eps |b| + 1e-5 max|b| per cache tensor (1e-5: the float32 cache's
     tolerance; an entry near 0 from a cancellation, RoPE's, carries the
     float32 difference of its larger terms, which is many of its own
-    ulps)."""
+    ulps).  ``slack`` (per cache tensor, of its largest entry) raises the
+    1e-5 to the float32 caches' own card-vs-CPU difference where that is
+    larger (measured by the caller on a float32-cache run)."""
     from torch.utils import _pytree as pytree
     worst = 0.0
-    for a, b in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+    leaves = list(zip(pytree.tree_leaves(got), pytree.tree_leaves(want)))
+    slack = slack or [1e-5] * len(leaves)
+    for (a, b), r in zip(leaves, slack):
         a, b, eps = a.float(), b.float(), torch.finfo(a.dtype).eps
-        bound = eps * b.abs() + 1e-5 * b.abs().max() + 1e-30
+        bound = eps * b.abs() + max(r, 1e-5) * b.abs().max() + 1e-30
         worst = max(worst, float(((a - b).abs() / bound).max()))
     print(f"{name}: within {worst:.3f} of the "
-          f"bound (one ulp + 1e-5 of the largest entry)")
+          f"bound (one ulp + 1e-5 of the largest entry"
+          + ("" if max(slack) <= 1e-5 else
+             f", or the float32 caches' difference, up to "
+             f"{max(slack):.3e}") + ")")
     check(worst <= 1.0, f"{name}: a cache entry {worst:.3f} of the bound "
                         f"apart")
+
+
+def _float64_witness(name, card, cpu, f64, tol):
+    """The float32 CPU serving run's rounding, from a float64 CPU run of the
+    same weights and inputs (``repro_torch.float64.lifted``, fed the same
+    tokens, routed by the same choices): the tolerances of the card-vs-CPU
+    comparison, ``tol`` or twice the CPU's own distance from the float64
+    run where that is larger (relative to the largest entry), for the
+    logits (over the steps), the final hidden states and each cache tensor
+    (over the steps); the float32 caches' card-vs-CPU differences are held
+    to theirs here, and returned as the bfloat16 run's slack."""
+    from torch.utils import _pytree as pytree
+
+    def worst(a, b):
+        return max(_rel_err(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+    def per_tensor(run):       # each cache tensor's values over the steps
+        return list(zip(*[pytree.tree_leaves(c) for c in run["caches"]]))
+    rounding = {"logits": worst(cpu["logits"], f64["logits"]),
+                "hidden": _rel_err(cpu["hidden"], f64["hidden"])}
+    card_exact = {"logits": worst(card["logits"], f64["logits"]),
+                  "hidden": _rel_err(card["hidden"].cpu(), f64["hidden"])}
+    tols = {k: max(tol, 2 * e) for k, e in rounding.items()}
+    c_round = [worst(a, b) for a, b in zip(per_tensor(cpu), per_tensor(f64))]
+    gaps = [worst(a, b) for a, b in zip(per_tensor(card), per_tensor(cpu))]
+    c_tols = [max(1e-5, 2 * e) for e in c_round]
+    share = max(g / t for g, t in zip(gaps, c_tols))
+    print(f"{name}: the CPU's float32 run from a float64 one (max|diff| / "
+          f"max|float64|): logits {rounding['logits']:.3e}, final hidden "
+          f"{rounding['hidden']:.3e}, cache tensors up to "
+          f"{max(c_round):.3e}; the card's: logits "
+          f"{card_exact['logits']:.3e}, final hidden "
+          f"{card_exact['hidden']:.3e}; card vs CPU held to "
+          f"{tols['logits']:.3e} (logits), {tols['hidden']:.3e} (hidden); "
+          f"cache tensors card vs CPU up to {max(gaps):.3e}, worst share "
+          f"of its bound (1e-5, or twice the CPU's rounding) {share:.3f}")
+    check(share <= 1.0, f"{name}: a float32 cache tensor beyond its bound")
+    return tols, gaps, {"cpu_rounding": rounding, "card_rounding":
+                        card_exact, "cache_rounding": max(c_round),
+                        "cache_gap": max(gaps), "cache_share": share}
 
 
 def _zoo_child():
@@ -4354,6 +4750,208 @@ def zoo_rows(zoo, rows):
              "launches_by_path": {"serve_stablelm-12b": launches},
              "max_abs_err": zoo["kernels"]["err"]["flash_attention_d160"],
              **r}]
+
+
+# ---------------------------------------------------------------------------
+# The LM zoo's recurrent and enc-dec half (phases 47-51), in a process of
+# its own (``python3 chip_smoke.py --zoo2``): jamba's one 8-layer block
+# holds 53.2 GB of float32 weights
+
+ZOO2_CHILD = "--zoo2"
+# (arch, layers or None for all): jamba cut to one 8-layer block of 32
+ZOO2_ARCHS = [("jamba-v0.1-52b", 8), ("xlstm-1.3b", None),
+              ("seamless-m4t-medium", None)]
+# flash at the enc-dec model's shapes (the encoder; cross-attention with
+# Sq != Sk) and jamba's attention layer (GQA 4 at D 128)
+ZOO2_ATTN_CASES = [
+    (8, 16, 16, 1024, 1024, 64, False, None, 0),
+    (8, 16, 16, 256, 1024, 64, False, None, 0),
+    (8, 32, 8, 1024, 1024, 128, True, None, 0),
+]
+# the timed enc-dec shapes: (name, B, H, Sq, Sk, D), non-causal MHA
+ZOO2_TIMED = [("flash_attention_encoder", 8, 16, 1024, 1024, 64),
+              ("flash_attention_cross", 8, 16, 256, 1024, 64)]
+
+
+def zoo2_flash():
+    """Phase 47: flash at the enc-dec model's shapes and jamba's, against
+    the plain version, the float32 error printed per case; then ms per call
+    of the two enc-dec shapes beside the plain version, SDPA and the
+    bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    phase("47 flash at the enc-dec shapes (non-causal, D 64, Sq 1024 and "
+          "256 against Sk 1024) and jamba's (GQA 32/8, D 128), vs plain")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(47)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in ZOO2_ATTN_CASES:
+            B, H, Hkv, Sq, Sk, D, causal, window, off = case
+            q = torch.randn(B, H, Sq, D, generator=g, device=dev).to(dtype)
+            k = torch.randn(B, Hkv, Sk, D, generator=g, device=dev).to(dtype)
+            v = torch.randn(B, Hkv, Sk, D, generator=g, device=dev).to(dtype)
+            kw = dict(causal=causal, window=window, q_offset=off)
+            ok, e = _allclose(fa.flash_attention(q, k, v, **kw),
+                              ref.attention_ref(q, k, v, **kw),
+                              ATTN_TOL[dtype])
+            check(ok, f"flash_attention {dtype} {case}: max err {e}")
+            if dtype == torch.float32:
+                errs[str(case)] = e
+    torch.cuda.synchronize()
+    for case, e in errs.items():
+        print(f"  float32 max abs err {e:.3e} at (B, H, Hkv, Sq, Sk, D, "
+              f"causal, window, q_offset) = {case} (ATTN_TOL "
+              f"{ATTN_TOL[torch.float32]})")
+    rows = {}
+    for name, B, H, Sq, Sk, D in ZOO2_TIMED:
+        q = torch.randn(B, H, Sq, D, generator=g, device=dev)
+        k = torch.randn(B, H, Sk, D, generator=g, device=dev)
+        v = torch.randn(B, H, Sk, D, generator=g, device=dev)
+        kw = dict(causal=False)
+        t_k = _time_ms(lambda: fa.flash_attention(q, k, v, **kw), 50, 5)
+        t_p = _time_ms(lambda: ref.attention_ref(q, k, v, **kw), 10, 2)
+        t_l = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                       20, 3)
+        d_k = _device_ms(lambda: fa.flash_attention(q, k, v, **kw),
+                         "flash_attention_kernel", 20, kernels=1)
+        h_k = _host_ms(lambda: fa.flash_attention(q, k, v, **kw), 200)
+        flops = 4 * B * H * D * Sq * Sk
+        t_ops = 3 * flops / TF32_FLOP_PER_S
+        t_bytes = (2 * B * H * Sq * D + 2 * B * H * Sk * D) * 4 \
+            / HBM_BYTES_PER_S
+        bound = max(t_ops, t_bytes) * 1e3
+        alone = d_k if d_k is not None else t_k
+        print(f"  {name} B{B} H{H} Sq{Sq} Sk{Sk} D{D} non-causal: kernel "
+              f"{t_k:.6f} ms (device "
+              f"{d_k if d_k is None else f'{d_k:.6f}'}, host {h_k:.6f}) "
+              f"plain {t_p:.6f} sdpa {t_l:.6f} kernel/sdpa {t_k / t_l:.3f} "
+              f"bound {bound:.6f} ({'operations, 3xTF32' if t_ops >= t_bytes else 'bytes'}; "
+              f"{bound / alone * 100:.1f} % of it alone)")
+        rows[name] = dict(ms=t_k, device_ms=d_k, host_ms=h_k, plain_ms=t_p,
+                          library_ms=t_l, bound_ms=bound,
+                          bound_by="operations" if t_ops >= t_bytes
+                          else "bytes",
+                          shape=f"float32 B{B} H{H} Sq{Sq} Sk{Sk} D{D} "
+                                f"non-causal")
+    return {"err": errs, "rows": rows}
+
+
+def _zoo2_arch(number, arch_id, layers):
+    """Phases 48-50: one arch served at full width through ``launch.serve
+    lm`` (depth cut to ``layers`` when given), batch 8 x 1024, 32 tokens:
+    prefill ms, decode ms/token, ``max_memory_allocated``, the kernels'
+    launches; then kernels vs plain (``_zoo_arch_vs_plain``, routing
+    replayed), and one prefill and one decode step under the profiler
+    (every launch counted)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.train import make_decode_step, make_prefill_step
+    c = ZOO_SERVE
+    cut = "" if layers is None else f", {layers} of its layers"
+    phase(f"{number} {arch_id}: serve at full width{cut}, batch "
+          f"{c['batch']} x {c['prompt']}, {c['gen']} tokens; kernels vs "
+          f"plain; profile")
+    cfg = get_arch(arch_id)
+    argv = ["lm", "--arch", arch_id, "--batch", str(c["batch"]),
+            "--prompt-len", str(c["prompt"]), "--device", "cuda"]
+    if layers is not None:
+        cfg = cfg.with_(n_layers=layers)
+        argv += ["--layers", str(layers)]
+    t = time.perf_counter()
+    serve.main(argv + ["--gen-len", "2"])       # warm-up: first-call set-up
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_lm_counts()
+    torch.cuda.synchronize()
+    out = serve.main(argv + ["--gen-len", str(c["gen"])])
+    rms, flash = _lm_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = (_rms_per_forward(cfg)
+            + (c["gen"] - 1) * _rms_per_forward(cfg, decode=True),
+            _flash_per_prefill(cfg))
+    check(out["logits_finite"], f"{arch_id}: non-finite logits")
+    check(tuple(out["tokens"].shape) == (c["batch"], c["gen"]),
+          f"{arch_id}: tokens of shape {tuple(out['tokens'].shape)}")
+    print(f"{arch_id}: prefill {out['prefill_ms']:.3f} ms ({c['batch']} x "
+          f"{c['prompt']} tokens), decode {out['decode_ms_per_token']:.3f} "
+          f"ms/token ({c['gen'] - 1} steps of batch {c['batch']}); peak "
+          f"max_memory_allocated {peak} B ({peak / 1e9:.3f} GB); launches "
+          f"rms_norm {rms} flash_attention {flash} (expected {want})")
+    check((rms, flash) == want,
+          f"{arch_id}: launches rms_norm {rms}, flash_attention {flash}")
+    main = {"rms_norm": rms, "flash_attention": flash, "peak_bytes": peak,
+            "prefill_ms": out["prefill_ms"],
+            "decode_ms_per_token": out["decode_ms_per_token"]}
+    del out
+    torch.cuda.empty_cache()
+    params, cfg, toks, src, res = _zoo_arch_vs_plain(
+        arch_id, c["batch"], c["prompt"], layers, 0)
+    batch = {"tokens": toks}
+    if cfg.encdec:
+        batch["frames"] = src
+    prefill = make_prefill_step(cfg, toks.shape[0], toks.shape[1] + 2)
+    decode = make_decode_step(cfg)
+    logits, caches = prefill(params, batch)
+    decode(params, caches, _greedy(logits), toks.shape[1])
+    t_prof = time.perf_counter()
+    prof = {"prefill": _profile_once("prefill:",
+                                     lambda: prefill(params, batch), False),
+            "decode": _profile_once("decode step:", lambda: decode(
+                params, caches, _greedy(logits), toks.shape[1]), False)}
+    print(f"  profiles seconds {time.perf_counter() - t_prof:.1f}")
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    print(f"  {arch_id} seconds {time.perf_counter() - t:.1f}")
+    return {"main": main, "vs_plain": res, "profile": prof}
+
+
+def zoo2_card_vs_cpu():
+    """Phase 51: the three archs at smoke width, card vs CPU
+    (``_arch_card_vs_cpu``), and xlstm-1.3b's node-mode step."""
+    import dataclasses
+    from repro_torch.train import TrainConfig
+    phase("51 card vs CPU (smoke width): jamba, xlstm, seamless serving and "
+          "one training step each; xlstm-1.3b's node-mode step (euler, "
+          "symplectic)")
+    tcfg = TrainConfig(adamw=dataclasses.replace(TrainConfig().adamw,
+                                                 eps=1e-3))
+    return {arch_id: _arch_card_vs_cpu(arch_id, 4, 32, tcfg,
+                                  node=arch_id == "xlstm-1.3b", exact=True)
+            for arch_id, _ in ZOO2_ARCHS}
+
+
+def _zoo2_child():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"flash": _timed(zoo2_flash)}
+    for number, (arch_id, layers) in zip((48, 49, 50), ZOO2_ARCHS):
+        out[arch_id] = _timed(_zoo2_arch, number, arch_id, layers)
+    out["smoke"] = _timed(zoo2_card_vs_cpu)
+    print(json.dumps(out, default=str))
+
+
+def zoo2_phase():
+    t = time.perf_counter()
+    out = _child_phase([ZOO2_CHILD], "47-51", timeout=600)
+    print(f"phases 47-51 seconds {time.perf_counter() - t:.1f}")
+    return out
+
+
+def zoo2_rows(zoo2, rows):
+    """The launches of phases 48-50's serving runs added to the ``rows`` of
+    rms_norm and flash, each arch's path apart, and the enc-dec shapes'
+    times (phase 47) beside flash's row."""
+    for row in rows:
+        if row["name"] in ("rms_norm", "flash_attention"):
+            for arch_id, _ in ZOO2_ARCHS:
+                row["launches_by_path"][f"serve_{arch_id}"] = \
+                    zoo2[arch_id]["main"][row["name"]]
+            row["launches"] = sum(row["launches_by_path"].values())
+        if row["name"] == "flash_attention":
+            row["encdec_shapes"] = zoo2["flash"]["rows"]
+            row["encdec_max_abs_err"] = zoo2["flash"]["err"]
 
 
 def lm_train_rows(train, bwd_err, bwd_main):
@@ -4436,6 +5034,7 @@ def main():
     print(f"phases 37-40 seconds {time.perf_counter() - t_mesh:.1f}")
     audit = _timed(analysis_phase)
     zoo = zoo_phase()
+    zoo2 = zoo2_phase()
 
     def summed(results, kinds, name):
         return sum(r[name] for (mode, kind), r in results.items()
@@ -4506,6 +5105,7 @@ def main():
         row["launches_by_path"]["analysis"] = audit["launches"][row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
     rows += zoo_rows(zoo, rows)
+    zoo2_rows(zoo2, rows)
     print(f"total_seconds {time.perf_counter() - t0:.1f}")
     print(smi.splitlines()[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"kernels": rows}))
@@ -4522,6 +5122,8 @@ if __name__ == "__main__":
         _bwd_device_times_child()
     elif sys.argv[1:] == [ZOO_CHILD]:
         _zoo_child()
+    elif sys.argv[1:] == [ZOO2_CHILD]:
+        _zoo2_child()
     elif sys.argv[1:2] == [MESH_CHILD]:
         which, rest = sys.argv[2], sys.argv[3:]
         if which == "38" and rest:

@@ -1,4 +1,4 @@
-"""Architecture registry (the ported subset of the JAX package's)."""
+"""Architecture registry (the JAX package's archs)."""
 from .base import SHAPES, ArchConfig, LayerSpec, NodeConfig, ShapeConfig
 from .registry import (ARCH_IDS, cell_is_applicable, get_arch,
                        get_smoke_arch)

@@ -5,8 +5,8 @@ An ArchConfig is a complete, declarative description of one model: the
 layer pattern (a repeating unit looped over depth + optional prefix
 layers), the mixer/FFN hyperparameters, and the training-mode knobs
 (node_mode = the paper's neural-ODE depth formulation + gradient scheme).
-The Mamba and xLSTM config methods come with their modules (ROADMAP queue
-1, item 13).
+The mixer configs (``AttnConfig``, ``MambaConfig``, ``XLSTMConfig``,
+``MoEConfig``) are the port's own, beside their modules in ``nn/``.
 """
 from __future__ import annotations
 
@@ -14,7 +14,9 @@ import dataclasses
 from typing import Optional, Tuple
 
 from repro_torch.nn.attention import AttnConfig
+from repro_torch.nn.mamba import MambaConfig
 from repro_torch.nn.moe import MoEConfig
+from repro_torch.nn.xlstm import XLSTMConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +122,15 @@ class ArchConfig:
             d_model=self.d_model, d_ff=self.moe_d_ff or self.d_ff,
             n_experts=self.moe_experts, top_k=self.moe_top_k,
             n_shared=self.moe_shared, shared_d_ff=self.moe_shared_d_ff)
+
+    def mamba_config(self) -> MambaConfig:
+        return MambaConfig(d_model=self.d_model,
+                           d_state=self.mamba_d_state,
+                           d_conv=self.mamba_d_conv,
+                           expand=self.mamba_expand)
+
+    def xlstm_config(self) -> XLSTMConfig:
+        return XLSTMConfig(d_model=self.d_model, n_heads=self.xlstm_heads)
 
     def with_(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

@@ -1,9 +1,5 @@
-"""Arch registry: ``--arch <id>`` resolution for the launchers.
-
-Only the archs whose layers are ported resolve; the JAX package's other
-ids (the recurrent layers and the enc-dec model) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
-"""
+"""Arch registry: ``--arch <id>`` resolution for the launchers; the same
+ids as the JAX package's."""
 from __future__ import annotations
 
 import importlib
@@ -18,10 +14,10 @@ _MODULES = {
     "qwen3-0.6b": "qwen3_0_6b",
     "stablelm-12b": "stablelm_12b",
     "internvl2-1b": "internvl2_1b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
-# the JAX package's other archs: Mamba (jamba), xLSTM and the enc-dec
-# model
-_NOT_PORTED = ("xlstm-1.3b", "seamless-m4t-medium", "jamba-v0.1-52b")
 
 ARCH_IDS = tuple(_MODULES)
 
@@ -33,10 +29,6 @@ FULL_ATTENTION_ARCHS = frozenset({
 
 
 def _mod(arch_id: str):
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported to repro_torch yet (ROADMAP "
-            f"queue 1, item 13); have {sorted(_MODULES)}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; have {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")

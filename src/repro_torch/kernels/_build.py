@@ -2,10 +2,17 @@
 
 Each source in ``csrc/`` is compiled with ``nvcc`` for Hopper (``sm_90a``)
 into its own shared library with a plain C interface, at first use, under
-``repro_torch/_build/`` (named by a hash of the source, the ``csrc/``
-headers it includes and the flags, so an edited source or header rebuilds
-what reads it and nothing else), and loaded with ``ctypes``.  No PyTorch
-headers are included, so a build takes seconds.  A failed build raises.
+``build_dir()`` (named by a hash of the source, the ``csrc/`` headers it
+includes and the flags, so an edited source or header rebuilds what reads
+it and nothing else), and loaded with ``ctypes``.  No PyTorch headers are
+included, so a build takes seconds.  A failed build raises; nothing falls
+back to a plain version.
+
+``build_dir()`` is ``repro_torch/_build/`` beside the sources
+(``BUILD_DIR``) when the package directory is writable (a checkout, an
+editable install); else, for an install into a read-only site-packages,
+``repro_torch/_build`` under the user's cache directory
+(``$XDG_CACHE_HOME``, or ``~/.cache``).
 """
 from __future__ import annotations
 
@@ -21,8 +28,8 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-__all__ = ["CudaLibrary", "build_all", "call", "raise_on", "NVCC_FLAGS",
-           "BUILD_DIR", "CSRC"]
+__all__ = ["CudaLibrary", "build_all", "build_dir", "call", "raise_on",
+           "NVCC_FLAGS", "BUILD_DIR", "CSRC"]
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -42,6 +49,18 @@ def _nvcc() -> str:
             "nvcc not found (looked in $CUDA_HOME/bin and on PATH): the "
             "CUDA kernels cannot be built")
     return found
+
+
+def build_dir() -> pathlib.Path:
+    """Where the built libraries go (see the module note): ``BUILD_DIR`` if
+    it exists writable or can be made in a writable package directory,
+    else the user cache directory."""
+    here = BUILD_DIR if BUILD_DIR.exists() else BUILD_DIR.parent
+    if os.access(here, os.W_OK | os.X_OK):
+        return BUILD_DIR
+    cache = os.environ.get("XDG_CACHE_HOME") or \
+        os.path.join(os.path.expanduser("~"), ".cache")
+    return pathlib.Path(cache) / "repro_torch" / "_build"
 
 
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
@@ -67,17 +86,24 @@ def _with_local_headers(source: pathlib.Path) -> bytes:
 def _compile(source: pathlib.Path):
     src = _with_local_headers(source)
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"{source.stem}_{tag}.so"
+    out_dir = build_dir()
+    so = out_dir / f"{source.stem}_{tag}.so"
     if so.exists():
         return so, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        out_dir.mkdir(parents=True, exist_ok=True)
+    except OSError as exc:
+        raise RuntimeError(
+            f"cannot make the kernel build directory {out_dir} ({exc}): "
+            f"the package's own _build/ when it is writable, else "
+            f"repro_torch/_build under $XDG_CACHE_HOME or ~/.cache") from exc
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed (rc={proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+            f"nvcc failed (rc={proc.returncode}) building into {out_dir}: "
+            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
     return so, proc.stdout + proc.stderr
 

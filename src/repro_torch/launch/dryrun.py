@@ -8,7 +8,9 @@ layouts have no H100 counterpart (``launch.mesh.make_production_mesh``
 raises), and eager PyTorch has no compiled module.  What is left per cell
 is the state a card must hold, from a ``meta``-device init (nothing is
 allocated): the parameters, and for a training shape their gradients and
-the AdamW state (``optim.adamw``), or for a serving shape the KV caches;
+the AdamW state (``optim.adamw``), or for a serving shape the caches (KV
+caches, the recurrent layers' float32 states; the enc-dec model's
+self and cross caches, the source as long as the target, as JAX sizes it);
 against the card's memory (``launch.analysis.hbm_headroom``).  No
 activations are counted.
 
@@ -55,6 +57,7 @@ def _nbytes(tree) -> int:
 def run_cell(arch_id: str, shape_name: str, *, device="cuda",
              verbose: bool = True) -> dict:
     """The state bytes of one (arch, shape) cell on one card."""
+    from repro_torch.models.encdec import init_encdec, init_encdec_caches
     from repro_torch.models.lm import init_caches, init_lm
     from repro_torch.train.train_step import TrainConfig, init_train_state
     shape = SHAPES[shape_name]
@@ -69,9 +72,14 @@ def run_cell(arch_id: str, shape_name: str, *, device="cuda",
         parts["opt_state"] = _nbytes(state.opt)
         n_tokens = B * S
     else:
-        params = init_lm(arch, device="meta")
+        if arch.encdec:
+            params = init_encdec(arch, device="meta")
+            caches = init_encdec_caches(arch, B, S, S, device="meta")
+        else:
+            params = init_lm(arch, device="meta")
+            caches = init_caches(arch, B, S, device="meta")
         parts["params"] = _nbytes(params)
-        parts["caches"] = _nbytes(init_caches(arch, B, S, device="meta"))
+        parts["caches"] = _nbytes(caches)
         n_tokens = B * S if shape.kind == "prefill" else B
     n_params = count_params(params)
     n_active = active_params(arch, n_params)

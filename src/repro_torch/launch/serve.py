@@ -4,10 +4,12 @@ ODE solve server.
     # batched LM serving: prefill a batch of prompts into a bfloat16 KV
     # cache, then decode token by token; --ckpt-dir serves the params of a
     # training checkpoint (launch/train.py; the same --grad-mode); a VLM
-    # (internvl2-1b) prefills 4 random patch embeddings first
+    # (internvl2-1b) prefills 4 random patch embeddings first; the enc-dec
+    # model (seamless-m4t-medium) encodes random source frames (batch,
+    # prompt-len, d_frontend) first
     PYTHONPATH=src python -m repro_torch.launch.serve lm --arch qwen3-0.6b \\
         [--smoke] [--batch 8 --prompt-len 1024 --gen-len 32] [--device cpu] \\
-        [--ckpt-dir runs/ckpt [--grad-mode symplectic]]
+        [--ckpt-dir runs/ckpt [--grad-mode symplectic]] [--layers 8]
 
     # ODE solve serving: a heterogeneous request stream through
     # repro_torch.serve.SolveEngine (drain, or Poisson arrivals with --rate)
@@ -34,6 +36,7 @@ from repro_torch.configs import get_arch, get_smoke_arch
 from repro_torch.configs.base import NodeConfig
 from repro_torch.core import AdaptiveConfig, get_tableau
 from repro_torch.data.tokens import synthetic_lm_batch
+from repro_torch.models.encdec import init_encdec
 from repro_torch.models.lm import init_lm
 from repro_torch.serve import (EngineConfig, SolveEngine, latency_summary,
                                naive_sequential_solve, params_from_checkpoint,
@@ -74,10 +77,19 @@ def _lm_main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--grad-mode", default=None)
     ap.add_argument("--node-method", default="euler")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (a whole "
+                    "number of the arch's repeat units), at full width: "
+                    "jamba-v0.1-52b's 206 GB of float32 weights fit one "
+                    "80 GB card as one 8-layer block")
     args = ap.parse_args(argv)
 
     device = _device(args.device)
     arch = get_smoke_arch(args.arch) if args.smoke else get_arch(args.arch)
+    if args.layers is not None:
+        arch = arch.with_(n_layers=args.layers)
+        if arch.n_repeats < 1:     # n_repeats raises for a part of a unit
+            raise ValueError(f"--layers {args.layers}: no whole unit")
     if args.grad_mode:
         # a node-mode arch serves with the discrete stack (models/lm.py)
         arch = arch.with_(node=NodeConfig(mode="node",
@@ -92,7 +104,8 @@ def _lm_main(argv: Optional[Sequence[str]] = None) -> dict:
         print(f"[serve] restored params from {args.ckpt_dir} "
               f"step {ck_step}")
     else:
-        params = init_lm(arch, seed=args.seed, device=device)
+        init = init_encdec if arch.encdec else init_lm
+        params = init(arch, seed=args.seed, device=device)
     # the JAX launcher's 4 random patch embeddings take the VLM's first
     # cache positions; decode starts after them (the cache holds them,
     # unlike the JAX launcher's, whose last decode writes clamp to its end)
@@ -109,6 +122,13 @@ def _lm_main(argv: Optional[Sequence[str]] = None) -> dict:
         batch["patch_embeds"] = torch.randn(
             (args.batch, offset, arch.d_frontend), generator=torch.Generator(
                 device=device).manual_seed(args.seed + 2), device=device)
+    if arch.encdec:
+        # the source: random fbank-stacked frames as long as the prompt,
+        # as the JAX launcher draws them
+        batch["frames"] = torch.randn(
+            (args.batch, args.prompt_len, arch.d_frontend),
+            generator=torch.Generator(device=device).manual_seed(
+                args.seed + 1), device=device)
     sampler = torch.Generator(device=device).manual_seed(args.seed)
 
     _sync(device)

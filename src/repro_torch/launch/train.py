@@ -221,6 +221,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     epoch_losses = []
     for step in range(start_step, total_steps):
         batch = next(pipe)
+        if arch.encdec:
+            # the enc-dec model's source: random fbank-stacked frames (one
+            # per target position), keyed by step, as the JAX launcher's
+            batch["frames"] = torch.randn(
+                (args.global_batch, args.seq_len, arch.d_frontend),
+                generator=torch.Generator().manual_seed(step)).to(device)
         if arch.frontend == "patch":
             # the JAX launcher's 4 random patch embeddings, keyed by step
             batch["patch_embeds"] = torch.randn(

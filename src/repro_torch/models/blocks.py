@@ -1,9 +1,10 @@
-"""Per-layer block dispatch: init / forward / cache-init.
+"""Per-layer block dispatch: init / forward / cache-init for every mixer.
 
-Ported mixers: ``attn`` (GQA) and ``mla`` (DeepSeek-V2 latent attention);
-FFNs: ``dense`` (SwiGLU), ``moe`` (``nn/moe.py``) and ``none``.  The
-recurrent mixers (``mamba``, ``mlstm``, ``slstm``) raise
-``NotImplementedError`` naming ROADMAP queue 1, item 13.
+Mixers: ``attn`` (GQA), ``mla`` (DeepSeek-V2 latent attention), ``mamba``
+(``nn/mamba.py``), ``mlstm`` and ``slstm`` (``nn/xlstm.py``); FFNs:
+``dense`` (SwiGLU), ``moe`` (``nn/moe.py``) and ``none``.  The recurrent
+mixers' caches are their states, float32 whatever the cache dtype (the
+JAX package's rule); attention caches take the cache dtype.
 """
 from __future__ import annotations
 
@@ -14,31 +15,37 @@ import torch
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.nn.attention import (gqa_attention, init_gqa, init_gqa_cache,
                                       init_mla, init_mla_cache, mla_attention)
+from repro_torch.nn.mamba import init_mamba, init_mamba_state, mamba_forward
 from repro_torch.nn.mlp import init_swiglu, swiglu
 from repro_torch.nn.moe import init_moe, moe_ffn
 from repro_torch.nn.norm import init_rmsnorm, rmsnorm
+from repro_torch.nn.xlstm import (init_mlstm, init_mlstm_state, init_slstm,
+                                  init_slstm_state, mlstm_forward,
+                                  slstm_forward)
 
 _MIXERS = ("attn", "mla", "mamba", "mlstm", "slstm")
 _FFNS = ("dense", "moe", "none")
-_PORTED_MIXERS = ("attn", "mla")
 
 
 def _check_spec(spec: LayerSpec):
     if spec.mixer not in _MIXERS or spec.ffn not in _FFNS:
         raise ValueError(f"unknown layer spec {spec}")
-    if spec.mixer not in _PORTED_MIXERS:
-        raise NotImplementedError(
-            f"layer {spec} is not ported to repro_torch yet (ROADMAP queue "
-            f"1, item 13: Mamba, xLSTM); the mixers "
-            f"{_PORTED_MIXERS} are")
 
 
 def init_layer(generator: torch.Generator, spec: LayerSpec, cfg: ArchConfig,
                dtype: torch.dtype = torch.float32, device="cuda"):
     _check_spec(spec)
-    init_mixer = init_gqa if spec.mixer == "attn" else init_mla
-    p = {"mixer_norm": init_rmsnorm(cfg.d_model, dtype, device),
-         "attn": init_mixer(generator, cfg.attn_config(), dtype, device)}
+    p = {"mixer_norm": init_rmsnorm(cfg.d_model, dtype, device)}
+    if spec.mixer == "attn":
+        p["attn"] = init_gqa(generator, cfg.attn_config(), dtype, device)
+    elif spec.mixer == "mla":
+        p["attn"] = init_mla(generator, cfg.attn_config(), dtype, device)
+    elif spec.mixer == "mamba":
+        p["mamba"] = init_mamba(generator, cfg.mamba_config(), dtype, device)
+    elif spec.mixer == "mlstm":
+        p["mlstm"] = init_mlstm(generator, cfg.xlstm_config(), dtype, device)
+    else:
+        p["slstm"] = init_slstm(generator, cfg.xlstm_config(), dtype, device)
     if spec.ffn != "none":
         p["ffn_norm"] = init_rmsnorm(cfg.d_model, dtype, device)
         if spec.ffn == "dense":
@@ -53,8 +60,17 @@ def init_layer_cache(spec: LayerSpec, cfg: ArchConfig, batch: int,
                      max_len: int, dtype: torch.dtype = torch.bfloat16,
                      device="cuda"):
     _check_spec(spec)
-    init = init_gqa_cache if spec.mixer == "attn" else init_mla_cache
-    return init(cfg.attn_config(), batch, max_len, dtype, device)
+    if spec.mixer == "attn":
+        return init_gqa_cache(cfg.attn_config(), batch, max_len, dtype,
+                              device)
+    if spec.mixer == "mla":
+        return init_mla_cache(cfg.attn_config(), batch, max_len, dtype,
+                              device)
+    if spec.mixer == "mamba":
+        return init_mamba_state(cfg.mamba_config(), batch, device=device)
+    if spec.mixer == "mlstm":
+        return init_mlstm_state(cfg.xlstm_config(), batch, device=device)
+    return init_slstm_state(cfg.xlstm_config(), batch, device=device)
 
 
 def layer_forward(p, x: torch.Tensor, spec: LayerSpec, cfg: ArchConfig, *,
@@ -63,7 +79,9 @@ def layer_forward(p, x: torch.Tensor, spec: LayerSpec, cfg: ArchConfig, *,
     """Pre-norm residual block: x + mixer(norm(x)), then + ffn(norm(x)).
 
     Returns (x, cache, aux_loss); the aux loss is the MoE router's (a
-    float32 scalar tensor), 0.0 for the other FFNs."""
+    float32 scalar tensor), 0.0 for the other FFNs.  The recurrent mixers
+    return a new state (S == 1 with a cache: one decode step; S > 1 with a
+    cache: prefill); attention writes its cache in place."""
     _check_spec(spec)
     eps = cfg.norm_eps
     uk = cfg.use_kernels
@@ -73,10 +91,19 @@ def layer_forward(p, x: torch.Tensor, spec: LayerSpec, cfg: ArchConfig, *,
         y, new_cache = gqa_attention(p["attn"], h, cfg.attn_config(),
                                      positions=positions, cache=cache,
                                      pos=pos, use_kernels=uk, causal=causal)
-    else:
+    elif spec.mixer == "mla":
         y, new_cache = mla_attention(p["attn"], h, cfg.attn_config(),
                                      positions=positions, cache=cache,
                                      pos=pos, use_kernels=uk)
+    elif spec.mixer == "mamba":
+        y, new_cache = mamba_forward(p["mamba"], h, cfg.mamba_config(),
+                                     state=cache)
+    elif spec.mixer == "mlstm":
+        y, new_cache = mlstm_forward(p["mlstm"], h, cfg.xlstm_config(),
+                                     state=cache)
+    else:
+        y, new_cache = slstm_forward(p["slstm"], h, cfg.xlstm_config(),
+                                     state=cache)
     x = x + rs * y
     aux = 0.0
     if spec.ffn != "none":

@@ -1,5 +1,6 @@
-"""Decoder-only LM over a layer pattern: GQA or MLA mixers, dense or MoE
-FFNs, and the VLM's patch frontend.
+"""Decoder-only LM over a layer pattern (dense / MoE / SSM / hybrid): GQA,
+MLA, Mamba, mLSTM or sLSTM mixers, dense or MoE FFNs, and the VLM's patch
+frontend.  (The enc-dec model is ``models/encdec.py``.)
 
 Depth structure: optional prefix layers followed by ``n_repeats`` copies of
 the repeating ``pattern`` unit, run by a plain Python loop (the JAX package
@@ -15,7 +16,9 @@ Training modes (``mode="train"``):
   * discrete (default): the residual stack; with ``cfg.remat`` each unit
     runs under one ``torch.utils.checkpoint`` (its activations are
     recomputed in the backward), as the JAX package's ``jax.checkpoint``
-    around each scanned unit.
+    around each scanned unit; a multi-layer unit (jamba's 8-layer block,
+    xlstm's 8 blocks) also checkpoints each layer, in node mode too, so a
+    unit's backward never holds all its layers' intermediates at once.
   * node mode (``cfg.node.mode == "node"``): the paper: depth becomes ODE
     time, f(x, t) = R * (unit_n(x) - x) with n = floor(t R) clipped to
     [0, R - 1], integrated over [0, 1] by ``cfg.node.method`` on
@@ -33,7 +36,8 @@ Training modes (``mode="train"``):
     within 2^-10 / R below a unit boundary.  As in the JAX package the
     prefix layers are not run in node mode.
 
-Serving: ``mode="prefill"`` fills the cache buffers in place and returns
+Serving: ``mode="prefill"`` fills the attention cache buffers in place
+(and returns the recurrent layers' new states in the caches) and returns
 the logits; ``mode="decode"`` advances one token at position ``pos``.  A
 node-mode config serves with the discrete stack (the JAX package takes the
 depth solve for training only), so a node-trained checkpoint serves as
@@ -58,11 +62,11 @@ from .blocks import init_layer, init_layer_cache, layer_forward
 _MODES = ("train", "prefill", "decode")
 
 
-def _check_ported(cfg: ArchConfig):
+def _check_decoder_only(cfg: ArchConfig):
     if cfg.encdec or cfg.frontend == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the enc-dec model and the audio frontend are not "
-            f"ported yet (ROADMAP queue 1, item 13)")
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder model (audio frontend): use "
+            f"repro_torch.models.encdec")
 
 
 def init_lm(cfg: ArchConfig, *, seed: int = 0, device="cuda",
@@ -71,7 +75,7 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     full-width weights are made on the card; a CPU device gives the same
     weights on every machine).  ``device="meta"`` gives the shapes alone,
     allocating nothing."""
-    _check_ported(cfg)
+    _check_decoder_only(cfg)
     gen = None if torch.device(device).type == "meta" else \
         torch.Generator(device=device).manual_seed(seed)
     params: dict = {
@@ -94,11 +98,18 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device="cuda",
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 dtype: torch.dtype = torch.bfloat16, device="cuda"):
+    """The serving caches: the prefix layers' from ``init_layer_cache``, the
+    repeat units' all zeros of the same shapes and dtypes, as the JAX
+    package stacks them (so a unit's sLSTM state n starts at 0, not at
+    ``init_slstm_state``'s 1e-6)."""
+    def zeros(spec):
+        return pytree.tree_map(torch.zeros_like, init_layer_cache(
+            spec, cfg, batch, max_len, dtype, device))
+
     return {
         "prefix": [init_layer_cache(s, cfg, batch, max_len, dtype, device)
                    for s in cfg.prefix],
-        "unit": [tuple(init_layer_cache(s, cfg, batch, max_len, dtype,
-                                        device) for s in cfg.pattern)
+        "unit": [tuple(zeros(s) for s in cfg.pattern)
                  for _ in range(cfg.n_repeats)],
     }
 
@@ -144,15 +155,24 @@ def _head_parts(params, cfg: ArchConfig, x: torch.Tensor):
 def _unit_forward(unit, x: torch.Tensor, cfg: ArchConfig, *, caches=None,
                   pos: Optional[int] = None, positions=None):
     """One repeat unit: its pattern's layers in order.  Returns (x, caches,
-    aux), aux the sum of its MoE layers' aux losses.  (The JAX package also
-    checkpoints each layer of a multi-layer unit under remat; no ported
-    arch has one: ROADMAP queue 1, item 13.)"""
+    aux), aux the sum of its MoE layers' aux losses.  Under ``cfg.remat``
+    a multi-layer unit without caches checkpoints each layer when a
+    gradient is being taken (the JAX package's per-layer
+    ``jax.checkpoint``)."""
     new_caches = []
     aux = 0.0
+    per_layer_remat = cfg.remat and len(cfg.pattern) > 1 and \
+        caches is None and torch.is_grad_enabled()
     for i, spec in enumerate(cfg.pattern):
         c = None if caches is None else caches[i]
-        x, nc, a = layer_forward(unit[i], x, spec, cfg, cache=c, pos=pos,
-                                 positions=positions)
+        if per_layer_remat:
+            x, nc, a = checkpoint(
+                lambda lp, xx, spec=spec: layer_forward(
+                    lp, xx, spec, cfg, positions=positions),
+                unit[i], x, use_reentrant=False)
+        else:
+            x, nc, a = layer_forward(unit[i], x, spec, cfg, cache=c,
+                                     pos=pos, positions=positions)
         new_caches.append(nc)
         aux = aux + a
     return x, tuple(new_caches), aux
@@ -173,7 +193,7 @@ def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
     before the tokens (the sequence is then P + S long); "aux" sums the
     MoE layers' aux losses, the prefix layers' included (0.0 in node mode,
     whose field drops them, as in the JAX package)."""
-    _check_ported(cfg)
+    _check_decoder_only(cfg)
     if mode not in _MODES:
         raise ValueError(f"mode {mode!r} not in {_MODES}")
     if (mode == "train") != (caches is None) or \

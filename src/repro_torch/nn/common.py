@@ -1,4 +1,4 @@
-"""Shared helpers: initializers.
+"""Shared helpers: initializers, dtype promotion, recomputation.
 
 Each draws in float32 from ``generator`` on the generator's own device and
 casts to ``dtype`` on ``device``: a CPU generator gives the same weights on
@@ -9,9 +9,11 @@ generator they draw on ``device`` itself: the ``meta`` device's shapes
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def _draw_device(generator, device):
@@ -38,3 +40,21 @@ def embed_init(shape, dtype: torch.dtype, generator: torch.Generator,
     z = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=_draw_device(generator, device))
     return (z * 0.02).to(device=device, dtype=dtype)
+
+
+def promoted(*tensors: torch.Tensor):
+    """The tensors in their common promoted dtype: JAX's matmul and einsum
+    promote mixed operands (a float32 gate weight of a float64 model),
+    torch's raise."""
+    dt = functools.reduce(torch.promote_types, (t.dtype for t in tensors))
+    return [t.to(dt) for t in tensors]
+
+
+def remat(fn, *args):
+    """``fn(*args)``, recomputed in the backward (``torch.utils.checkpoint``)
+    when a gradient flows through a tensor argument: the JAX package's
+    ``jax.checkpoint`` around a chunk, block or layer."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)

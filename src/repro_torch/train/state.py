@@ -103,12 +103,14 @@ def train_state_from_jax(np_tree, cfg, device="cuda") -> TrainState:
     after ``tree_map(np.asarray, state)``; read by field name) as this
     package's, on ``device``: params, and AdamW's m, v and master trees,
     through ``models.lm.params_from_jax`` (the stacked unit leaves split
-    per unit); the step, data cursor, solver counters and compression
+    per unit; ``models.encdec.params_from_jax`` for the enc-dec model); the step, data cursor, solver counters and compression
     residual as tensors.  The JAX PRNG key has no counterpart in a
     ``torch.Generator``: ``rng`` is the state ``init_train_state(...,
     seed=0)`` makes.  The dtypes are the JAX package's."""
     import numpy as np
-    from repro_torch.models.lm import params_from_jax
+    from repro_torch.models import encdec, lm
+    params_from_jax = encdec.params_from_jax if cfg.encdec else \
+        lm.params_from_jax
 
     def scalar(a, dt):
         return torch.as_tensor(np.array(a), dtype=dt, device=device)

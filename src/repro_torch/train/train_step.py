@@ -4,11 +4,12 @@ optional microbatch gradient accumulation.
 
 The gradient scheme of a node-mode arch is its ``NodeConfig.grad_mode``
 (a registered strategy name or a ``repro_torch.core.GradientStrategy``),
-which the LM forward resolves through ``repro_torch.core.solve``.  The
-decoder LM is the arch this package trains (with the patch frontend: the
-patch positions carry no label); the enc-dec model and the audio frontend
-come with ROADMAP queue 1, item 13.  An MoE arch adds its routers' aux
-loss to the cross-entropy.
+which the LM forward resolves through ``repro_torch.core.solve``.  One
+factory serves every arch: decoder LMs (dense / MoE / SSM / hybrid), the
+VLM (the patch positions carry no label) and the enc-dec model (the batch
+holds the source "frames"; the encoder's memory feeds the decoder's
+cross-attention).  An MoE arch adds its routers' aux loss to the
+cross-entropy.
 
 On a mesh (``shard=parallel.make_sharder(mesh)``, or a ``grad_constraint``)
 the step is data-parallel and SPMD: ``train.data_parallel`` holds its
@@ -24,6 +25,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.encdec import decode_forward, encode, init_encdec
 from repro_torch.models.lm import init_lm, lm_forward
 from repro_torch.optim import (AdamWConfig, CompressionConfig, adamw_init,
                                adamw_update, clip_by_global_norm,
@@ -48,20 +50,14 @@ class TrainConfig:
     loss_chunk: int = 512
 
 
-def _check_arch(arch: ArchConfig):
-    if arch.encdec or arch.frontend == "audio":
-        raise NotImplementedError(
-            f"{arch.name}: training the enc-dec model or the audio frontend "
-            f"is not ported yet (ROADMAP queue 1, item 13)")
-
-
 def init_train_state(arch: ArchConfig, tcfg: TrainConfig, *, seed: int = 0,
                      device="cuda") -> TrainState:
     """A fresh ``TrainState`` on ``device``: weights from ``seed`` (see
-    ``models.lm.init_lm``), the training generator seeded with seed + 1."""
-    _check_arch(arch)
-    params = init_lm(arch, seed=seed, device=device,
-                     dtype=getattr(torch, tcfg.param_dtype))
+    ``models.lm.init_lm``, ``models.encdec.init_encdec``), the training
+    generator seeded with seed + 1."""
+    init = init_encdec if arch.encdec else init_lm
+    params = init(arch, seed=seed, device=device,
+                  dtype=getattr(torch, tcfg.param_dtype))
     return TrainState(
         params=params, opt=adamw_init(params, tcfg.adamw),
         rng=torch.Generator().manual_seed(seed + 1).get_state(),
@@ -73,12 +69,18 @@ def init_train_state(arch: ArchConfig, tcfg: TrainConfig, *, seed: int = 0,
 def _forward_loss(params, batch, arch: ArchConfig, loss_chunk: int):
     """(cross-entropy + aux loss, cross-entropy); with the patch frontend
     the batch also holds "patch_embeds" (B, P, d_frontend), whose P
-    positions take the label IGNORE."""
+    positions take the label IGNORE; the enc-dec model's holds "frames"
+    (B, S_enc, d_frontend)."""
     rh = loss_chunk > 0
     labels = batch["labels"]
     patches = batch.get("patch_embeds") if arch.frontend == "patch" else None
-    out = lm_forward(params, arch, batch["tokens"], extra_embeds=patches,
-                     mode="train", return_hidden=rh)
+    if arch.encdec:
+        memory = encode(params, batch["frames"], arch)
+        out = decode_forward(params, arch, batch["tokens"], memory=memory,
+                             mode="train", return_hidden=rh)
+    else:
+        out = lm_forward(params, arch, batch["tokens"], extra_embeds=patches,
+                         mode="train", return_hidden=rh)
     if patches is not None:
         pad = torch.full(labels.shape[:1] + patches.shape[1:2], IGNORE,
                          dtype=labels.dtype, device=labels.device)
@@ -118,7 +120,6 @@ def make_train_step(arch: ArchConfig, tcfg: TrainConfig,
     global batch and takes its rows; the state is laid out by
     ``runtime.reshard_state(state, mesh, parallel.state_specs(state,
     mesh))`` for ZeRO-1, or held whole on every rank without it."""
-    _check_arch(arch)
     mesh = getattr(shard, "mesh", None) or getattr(grad_constraint, "mesh",
                                                    None)
     if grad_constraint is not None and not isinstance(grad_constraint,

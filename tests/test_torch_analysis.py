@@ -411,7 +411,17 @@ def test_dryrun_cells_on_meta(monkeypatch):
         assert by_cell[(arch_id, "train_4k")]["n_params"] == want
         assert by_cell[(arch_id, "train_4k")]["n_active_params"] == \
             JD.active_params(j_get_arch(arch_id), want)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        dryrun.run_cell("jamba-v0.1-52b", "train_4k", device="cpu")
+    # the recurrent archs' and the enc-dec model's too (jamba whole: 51.6 B)
+    from repro.models import encdec as jed
+    for arch_id in ("jamba-v0.1-52b", "xlstm-1.3b", "seamless-m4t-medium"):
+        init = jed.init_encdec if j_get_arch(arch_id).encdec else \
+            jlm.init_lm
+        shapes = jax.eval_shape(
+            lambda k, a=arch_id, f=init: f(k, j_get_arch(a)),
+            jax.random.PRNGKey(0))
+        want = sum(int(l.size) for l in jax.tree_util.tree_leaves(shapes))
+        assert by_cell[(arch_id, "train_4k")]["n_params"] == want
+        assert by_cell[(arch_id, "prefill_32k")]["bytes_per_device"][
+            "caches"] > 0
     with pytest.raises(NotImplementedError, match="no H100 counterpart"):
         dryrun.main(["--multipod"])

@@ -66,14 +66,11 @@ def test_qwen3_configs_equal_jax(name):
 def test_registry_resolves_ported_and_names_the_rest():
     assert get_arch("qwen3-0.6b") is tqwen.FULL
     assert get_smoke_arch("qwen3-0.6b") is tqwen.SMOKE
-    # the recurrent archs and the enc-dec model are still item 13's
-    unported = {"jamba-v0.1-52b", "xlstm-1.3b", "seamless-m4t-medium"}
+    # every JAX arch resolves, the recurrent archs and the enc-dec model
+    # included
     for arch_id in JAX_ARCH_IDS:
-        if arch_id in unported:
-            with pytest.raises(NotImplementedError, match="item 13"):
-                get_arch(arch_id)
-        else:
-            assert get_arch(arch_id).name == arch_id
+        assert get_arch(arch_id).name == arch_id
+        assert get_smoke_arch(arch_id).name == f"{arch_id}-smoke"
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 
@@ -82,19 +79,31 @@ def test_unported_layers_and_modes_raise(tmp_path):
     cfg = tqwen.SMOKE
     g = torch.Generator().manual_seed(0)
     from repro_torch.models import blocks
-    # MLA and MoE layers build (tests/test_torch_zoo*.py); the recurrent
-    # mixers are still item 13's
+    # MLA and MoE layers build (tests/test_torch_zoo*.py), and the
+    # recurrent mixers (tests/test_torch_{mamba,xlstm,zoo_rec}.py); an
+    # unknown spec raises
     zoo = get_smoke_arch("deepseek-v2-lite-16b")
     assert set(blocks.init_layer(g, tbase.LayerSpec("mla", "dense"), zoo,
                                  device="cpu")) == {
         "mixer_norm", "attn", "ffn_norm", "mlp"}
     assert "moe" in blocks.init_layer(g, tbase.LayerSpec("attn", "moe"), zoo,
                                       device="cpu")
+    x = torch.zeros((1, 3, cfg.d_model))
     for spec in (tbase.LayerSpec("mamba", "none"),
                  tbase.LayerSpec("mlstm", "none"),
                  tbase.LayerSpec("slstm", "dense")):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            blocks.init_layer(g, spec, cfg, device="cpu")
+        p = blocks.init_layer(g, spec, cfg, device="cpu")
+        assert spec.mixer in p and ("mlp" in p) == (spec.ffn == "dense")
+        y, new, _ = blocks.layer_forward(p, x, spec, cfg)
+        assert y.shape == x.shape and new is None
+        cache = blocks.init_layer_cache(spec, cfg, 1, 3, device="cpu")
+        assert all(t.dtype == torch.float32
+                   for t in cache.values())        # state, not bf16
+        y, new, _ = blocks.layer_forward(p, x, spec, cfg, cache=cache)
+        assert set(new) == set(cache)
+    with pytest.raises(ValueError, match="unknown layer spec"):
+        blocks.init_layer(g, tbase.LayerSpec("rnn", "none"), cfg,
+                          device="cpu")
     params = tlm.init_lm(cfg, seed=0, device="cpu")
     tokens = torch.zeros((1, 3), dtype=torch.long)
     # node mode is ported: it trains through the depth solve (euler, one
@@ -104,8 +113,15 @@ def test_unported_layers_and_modes_raise(tmp_path):
     torch.testing.assert_close(tlm.lm_forward(params, node, tokens)["logits"],
                                tlm.lm_forward(params, cfg, tokens)["logits"],
                                rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        make_prefill_step(cfg.with_(encdec=True), 1, 4)
+    # an enc-dec prefill runs (tests/test_torch_encdec.py)
+    from repro_torch.models.encdec import init_encdec
+    ed = get_smoke_arch("seamless-m4t-medium")
+    logits, caches = make_prefill_step(ed, 1, 4)(
+        init_encdec(ed, device="cpu"),
+        {"tokens": tokens, "frames": torch.zeros((1, 5, ed.d_frontend))})
+    assert logits.shape == (1, 1, ed.vocab)
+    assert caches["cross"]["k"].shape == (ed.n_layers, 1, 5, ed.n_heads,
+                                          ed.head_dim)
     with pytest.raises(ValueError, match="mode"):
         tlm.lm_forward(params, cfg, tokens, mode="prefill")
     # serve ode runs (tests/test_torch_serve.py) and boots from a training

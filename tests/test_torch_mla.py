@@ -5,7 +5,7 @@ against the JAX package, on the CPU.
 
 Tolerances, with their reasons:
   * float64 with the JAX package's float32 casts lifted to float64 on both
-    sides (``_lift``, ``_TorchLift``: RMSNorm, RoPE's angles, the scores
+    sides (``_lift``, ``Float64Torch``: RMSNorm, RoPE's angles, the scores
     and the absorbed decode): 1e-12 of the largest entry, float64
     rounding.  The cache is float64 there, so no entry is rounded.
   * float32 as shipped, bfloat16 cache: 1e-5 of the largest entry for the
@@ -31,6 +31,7 @@ jax.config.update("jax_enable_x64", True)
 import repro.kernels.ref as jref
 import repro.nn.attention as jattn
 import repro.nn.rope as jrope
+from repro_torch.float64 import Float64Torch
 import repro_torch.kernels.ops as tops
 import repro_torch.kernels.ref as tref
 import repro_torch.nn.attention as tattn
@@ -53,16 +54,11 @@ def _lift(module, monkeypatch):
     monkeypatch.setattr(module, "jnp", proxy)
 
 
-class _TorchLift:
-    def __getattr__(self, name):
-        return torch.float64 if name == "float32" else getattr(torch, name)
-
-
 def _lift_all(monkeypatch):
     for m in (jref, jattn, jrope):
         _lift(m, monkeypatch)
     for m in (tref, tattn, trope):
-        monkeypatch.setattr(m, "torch", _TorchLift())
+        monkeypatch.setattr(m, "torch", Float64Torch())
 
 
 def _rel(got, want, tol):
@@ -162,7 +158,7 @@ def test_attention_blocked_matches_jax(case, monkeypatch):
     w = rng.normal(size=(Bq, H, Sq, D))
     kw = dict(causal=causal, window=window, q_offset=q_offset, block_q=bq)
     _lift(jref, monkeypatch)
-    monkeypatch.setattr(tref, "torch", _TorchLift())
+    monkeypatch.setattr(tref, "torch", Float64Torch())
 
     def jloss(q, k, v):
         return jnp.sum(jref.attention_blocked_ref(q, k, v, **kw) * w)

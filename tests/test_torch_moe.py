@@ -28,6 +28,7 @@ import torch
 jax.config.update("jax_enable_x64", True)
 
 import repro.nn.moe as jmoe
+from repro_torch.float64 import Float64Torch
 import repro_torch.nn.moe as tmoe
 
 F64 = 1e-12
@@ -40,13 +41,6 @@ def _lift(module, monkeypatch):
                                      if not k.startswith("__")})
     proxy.float32 = jnp.float64
     monkeypatch.setattr(module, "jnp", proxy)
-
-
-class _TorchLift:
-    """``torch`` with ``float32`` taken to ``float64``."""
-
-    def __getattr__(self, name):
-        return torch.float64 if name == "float32" else getattr(torch, name)
 
 
 def _rel(got, want, tol):
@@ -138,7 +132,7 @@ def test_moe_ffn_float64_matches_jax(name, monkeypatch):
     _lift(jmoe, monkeypatch)
     jy, jaux = jax.jit(lambda p, x: jmoe.moe_ffn(p, x, cfg))(
         jax.tree_util.tree_map(jnp.asarray, p), jnp.asarray(x))
-    monkeypatch.setattr(tmoe, "torch", _TorchLift())
+    monkeypatch.setattr(tmoe, "torch", Float64Torch())
     ty, taux = tmoe.moe_ffn(_torch(p), torch.tensor(x), _tcfg(cfg))
     assert ty.dtype == torch.float64 and taux.dtype == torch.float64
     _rel(ty.numpy(), jy, F64)

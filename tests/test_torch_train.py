@@ -41,6 +41,7 @@ from repro.train import make_train_step as j_make_train_step
 from repro_torch.configs import qwen3_0_6b as tqwen
 from repro_torch.configs.base import NodeConfig
 from repro_torch.data.tokens import TokenPipeline, synthetic_lm_batch
+from repro_torch.float64 import Float64Torch
 from repro_torch.kernels import ref as tref
 from repro_torch.models import lm as tlm
 from repro_torch.train import (IGNORE, TrainConfig, init_train_state,
@@ -61,15 +62,6 @@ def _lift(module, monkeypatch):
                                      if not k.startswith("__")})
     proxy.float32 = jnp.float64
     monkeypatch.setattr(module, "jnp", proxy)
-
-
-class _TorchLift:
-    """``torch`` with ``float32`` taken to ``float64``: the port's plain
-    versions run in float64 on float64 inputs, as its float64 backward
-    kernels do on the card."""
-
-    def __getattr__(self, name):
-        return torch.float64 if name == "float32" else getattr(torch, name)
 
 
 def _rel(got, want, tol):
@@ -417,12 +409,12 @@ def test_node_symplectic_gradient_equals_backprop_float64(monkeypatch):
     autograd's gradient through the same solve (phase 4's rule, 1e-9 of
     the largest entry per leaf), and node mode with euler on R steps is
     the discrete stack (1e-8).  The plain versions' float32 casts are
-    lifted to float64 (``_TorchLift``): their autograd would otherwise
+    lifted to float64 (``Float64Torch``): their autograd would otherwise
     round each cotangent to float32, and the two strategies hand the field
     cotangents that differ by the factor h (the symplectic adjoint scales
     after the VJP), so those roundings differ."""
     from torch.utils import _pytree as pytree
-    monkeypatch.setattr(tref, "torch", _TorchLift())
+    monkeypatch.setattr(tref, "torch", Float64Torch())
     base = tqwen.SMOKE.with_(n_layers=3)
     params = tlm.init_lm(base, seed=3, device="cpu", dtype=torch.float64)
     _, batch = _batch(2, B=2, S=12)
@@ -527,14 +519,19 @@ def test_unported_training_paths_name_their_items():
                              "axis_names": ("data", "model")})
     with pytest.raises(NotImplementedError, match="item 17"):
         make_train_step(arch, TrainConfig(), shard=make_sharder(mesh))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        make_train_step(arch.with_(encdec=True), TrainConfig())
+    # the enc-dec model trains (tests/test_torch_zoo_rec_node.py): its
+    # state holds the encoder and decoder stacks
+    from repro_torch.configs import get_smoke_arch
+    ed = get_smoke_arch("seamless-m4t-medium")
+    assert callable(make_train_step(ed, TrainConfig()))
+    assert {"enc_unit", "dec_unit", "frontend"} <= set(init_train_state(
+        ed, TrainConfig(), device="cpu").params)
     # the patch frontend trains (tests/test_torch_zoo_train.py); the audio
-    # frontend is still item 13's
+    # frontend belongs to the enc-dec model, not to the decoder-only LM
     assert "frontend" in init_train_state(
         arch.with_(frontend="patch", d_frontend=8), TrainConfig(),
         device="cpu").params
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="models.encdec"):
         init_train_state(arch.with_(frontend="audio"), TrainConfig(),
                          device="cpu")
     from repro_torch.launch import train

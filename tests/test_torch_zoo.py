@@ -1,8 +1,10 @@
-"""PyTorch port: the LM zoo's attention-and-expert half (deepseek-v2-lite-
-16b, mixtral-8x7b, qwen3-1.7b, minicpm-2b, stablelm-12b, internvl2-1b)
-against the JAX package, at smoke width on the CPU: each config field for
-field, the registry, and the dense archs' serving (the MoE archs' is in
-``test_torch_zoo_moe.py``, training in ``test_torch_zoo_train.py``).
+"""PyTorch port: the LM zoo (deepseek-v2-lite-16b, mixtral-8x7b, qwen3-1.7b,
+minicpm-2b, stablelm-12b, internvl2-1b; jamba-v0.1-52b, xlstm-1.3b,
+seamless-m4t-medium) against the JAX package, at smoke width on the CPU:
+each config field for field, the registry, and the dense archs' serving
+(the MoE archs' is in ``test_torch_zoo_moe.py``, training in
+``test_torch_zoo_train.py``, the recurrent and enc-dec archs' in
+``test_torch_zoo_rec.py``).
 
 Serving parity (``torch_zoo.serve_pair``): JAX's smoke weights carried by
 ``params_from_jax``; prefill, then three teacher-forced decode steps.
@@ -29,7 +31,7 @@ from repro_torch.models import lm as tlm
 NEW_ARCHS = ("deepseek-v2-lite-16b", "mixtral-8x7b", "qwen3-1.7b",
              "minicpm-2b", "stablelm-12b", "internvl2-1b")
 DENSE = ("qwen3-1.7b", "minicpm-2b", "stablelm-12b", "internvl2-1b")
-UNPORTED = ("jamba-v0.1-52b", "xlstm-1.3b", "seamless-m4t-medium")
+REC_ARCHS = ("jamba-v0.1-52b", "xlstm-1.3b", "seamless-m4t-medium")
 
 
 def _fields(cfg):
@@ -43,7 +45,7 @@ def _fields(cfg):
 
 
 @pytest.mark.parametrize("which", ["FULL", "SMOKE"])
-@pytest.mark.parametrize("arch_id", NEW_ARCHS)
+@pytest.mark.parametrize("arch_id", NEW_ARCHS + REC_ARCHS)
 def test_configs_equal_jax(arch_id, which):
     j = getattr(jreg._mod(arch_id), which)
     t = getattr(treg._mod(arch_id), which)
@@ -53,24 +55,42 @@ def test_configs_equal_jax(arch_id, which):
         dataclasses.asdict(j.attn_config())
     assert dataclasses.asdict(t.moe_config()) == \
         dataclasses.asdict(j.moe_config())
+    assert dataclasses.asdict(t.mamba_config()) == \
+        dataclasses.asdict(j.mamba_config())
+    assert dataclasses.asdict(t.xlstm_config()) == \
+        dataclasses.asdict(j.xlstm_config())
+    assert t.mamba_config().d_inner == j.mamba_config().d_inner
+    assert t.mamba_config().rank == j.mamba_config().rank
     assert t.n_repeats == j.n_repeats
     assert (get_arch if which == "FULL" else get_smoke_arch)(arch_id) is t
 
 
 def test_registry_resolves_the_zoo_and_names_the_rest():
-    assert set(treg.ARCH_IDS) == set(NEW_ARCHS) | {"qwen3-0.6b"}
-    assert set(treg.ARCH_IDS) | set(UNPORTED) == set(jreg.ARCH_IDS)
-    for arch_id in UNPORTED:
-        with pytest.raises(NotImplementedError, match="item 13"):
-            get_arch(arch_id)
+    """Every JAX arch resolves: the port's ids are JAX's (the rest, an
+    unknown id, raises KeyError)."""
+    assert set(treg.ARCH_IDS) == set(jreg.ARCH_IDS)
+    assert set(treg.ARCH_IDS) == set(NEW_ARCHS + REC_ARCHS) | {"qwen3-0.6b"}
+    for arch_id in REC_ARCHS:
+        assert get_arch(arch_id).name == arch_id
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("no-such-arch")
     assert treg.FULL_ATTENTION_ARCHS == jreg.FULL_ATTENTION_ARCHS
+    for arch_id in jreg.ARCH_IDS:
+        for shape in ("train_4k", "long_500k"):
+            assert treg.cell_is_applicable(arch_id, shape) == \
+                jreg.cell_is_applicable(arch_id, shape)
 
 
 def test_audio_frontend_and_encdec_still_raise():
+    """The decoder-only LM refuses an enc-dec config (audio frontend), and
+    names the module that builds one (``models/encdec.py``)."""
     cfg = get_smoke_arch("qwen3-1.7b")
-    for bad in (cfg.with_(frontend="audio"), cfg.with_(encdec=True)):
-        with pytest.raises(NotImplementedError, match="item 13"):
+    for bad in (cfg.with_(frontend="audio"), cfg.with_(encdec=True),
+                get_smoke_arch("seamless-m4t-medium")):
+        with pytest.raises(ValueError, match="models.encdec"):
             tlm.init_lm(bad, device="cpu")
+        with pytest.raises(ValueError, match="models.encdec"):
+            tlm.lm_forward({}, bad, torch.zeros((1, 2), dtype=torch.long))
 
 
 def test_params_from_jax_carries_the_new_leaves():

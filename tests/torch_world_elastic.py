@@ -11,8 +11,8 @@ engine boots from a checkpoint onto a lane mesh.
 (two steps each) at smoke width in float64 against the single-process step
 on the same global batch.  The port's plain RMSNorm and attention compute
 in float32 whatever their input (the JAX package's rule), so the float64
-run takes their ``float32`` to float64 (``tests/test_torch_train.py``'s
-``_TorchLift``): the gradients are then float64-exact, and the ranks' sum
+run takes their ``float32`` to float64
+(``repro_torch.float64.Float64Torch``): the gradients are then float64-exact, and the ranks' sum
 of half-batch gradients is the full batch's to rounding, not to float32.
 """
 from __future__ import annotations
@@ -24,6 +24,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.configs import get_smoke_arch
 from repro_torch.data.tokens import synthetic_lm_batch
+from repro_torch.float64 import Float64Torch
 from repro_torch.launch.mesh import make_debug_mesh, make_lane_mesh
 from repro_torch.parallel import comm, make_sharder, state_specs
 from repro_torch.runtime import (Checkpointer, OwnedShard, full_leaf,
@@ -157,16 +158,9 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
 
 
-class _TorchLift:
-    """``torch`` with ``float32`` taken to ``float64``."""
-
-    def __getattr__(self, name):
-        return torch.float64 if name == "float32" else getattr(torch, name)
-
-
 def _check_dp(zero1: bool):
     import repro_torch.kernels.ref as ref
-    ref.torch = _TorchLift()
+    ref.torch = Float64Torch()
     try:
         _dp_steps(zero1)
     finally:

@@ -1,8 +1,11 @@
-"""Shared set-up of the LM zoo's parity tests (``test_torch_zoo*.py``): the
-JAX package's smoke-width weights of one arch carried into the port by
+"""Shared set-up of the LM zoo's parity tests (``test_torch_zoo*.py``,
+``test_torch_mamba.py``, ``test_torch_xlstm.py``, ``test_torch_encdec.py``):
+the JAX package's smoke-width weights of one arch carried into the port by
 ``params_from_jax``, both packages' serving runs on the same inputs, and
 the float32 casts of both packages lifted to float64 for the float64
-comparisons."""
+comparisons (a float64 run also takes JAX's float32 leaves, the routers and
+Mamba's A_log, D, dt_bias, to float64, as ``params_from_jax(...,
+dtype=torch.float64)`` does for the port)."""
 import types
 
 import jax
@@ -13,32 +16,27 @@ import torch
 jax.config.update("jax_enable_x64", True)
 
 import repro.kernels.ref as jref
+import repro.models.encdec as jencdec
 import repro.models.lm as jlm
 import repro.nn.attention as jattn
+import repro.nn.mamba as jmamba
 import repro.nn.moe as jmoe
+import repro.nn.norm as jnorm
 import repro.nn.rope as jrope
+import repro.nn.xlstm as jxlstm
 import repro.train.serve_step as jserve
-import repro_torch.kernels.ref as tref
 import repro_torch.models.lm as tlm
-import repro_torch.nn.attention as tattn
-import repro_torch.nn.moe as tmoe
-import repro_torch.nn.rope as trope
 import repro_torch.train.serve_step as tserve
+from repro_torch import float64
 from repro.configs import get_smoke_arch as j_smoke
 from repro_torch.configs import get_smoke_arch as t_smoke
 from repro_torch.data.tokens import synthetic_lm_batch
 
 B, S, GEN, PATCHES = 2, 12, 3, 4
-# the modules whose float32 casts are lifted (JAX's, then the port's)
-J_CASTS = (jref, jattn, jrope, jmoe, jlm, jserve)
-T_CASTS = (tref, tattn, trope, tmoe, tlm, tserve)
-
-
-class _TorchLift:
-    """``torch`` with ``float32`` taken to ``float64``."""
-
-    def __getattr__(self, name):
-        return torch.float64 if name == "float32" else getattr(torch, name)
+# the JAX modules whose float32 casts are lifted (the port's:
+# ``repro_torch.float64.CAST_MODULES``)
+J_CASTS = (jref, jattn, jrope, jmoe, jlm, jserve, jmamba, jxlstm, jnorm,
+           jencdec)
 
 
 def lift(monkeypatch):
@@ -48,8 +46,18 @@ def lift(monkeypatch):
                                          if not k.startswith("__")})
         proxy.float32 = jnp.float64
         monkeypatch.setattr(module, "jnp", proxy)
-    for module in T_CASTS:
-        monkeypatch.setattr(module, "torch", _TorchLift())
+    for module in float64.cast_modules():
+        monkeypatch.setattr(module, "torch", float64.Float64Torch())
+
+
+def one_thread():
+    """A fixture body: torch on one intra-op thread for the test, then as
+    it was (the smoke-width tensors are tiny, and a time loop's thousands
+    of small ops cost several times more with a thread pool behind each)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def rel(got, want, tol):
@@ -59,6 +67,13 @@ def rel(got, want, tol):
     err = float(np.abs(got - want).max()) / max(float(np.abs(want).max()),
                                                 1e-300)
     assert err <= tol, f"max |diff| / max |want| = {err:.3e} > {tol}"
+
+
+def upcast(tree):
+    """A JAX param tree with every floating leaf in float64."""
+    return jax.tree_util.tree_map(
+        lambda a: a.astype(jnp.float64)
+        if jnp.issubdtype(a.dtype, jnp.floating) else a, tree)
 
 
 def inputs(arch):
@@ -82,6 +97,8 @@ def serve_pair(arch_id, dtype, monkeypatch, cache=None):
     jdt = jnp.float64 if dtype == "float64" else jnp.float32
     params = jax.jit(jlm.init_lm, static_argnums=(1, 2))(
         jax.random.PRNGKey(0), jarch, jdt)
+    if dtype == "float64":
+        params = upcast(params)
     tparams = tlm.params_from_jax(
         jax.tree_util.tree_map(np.asarray, params), tarch, device="cpu",
         dtype=torch.float64 if dtype == "float64" else None)
