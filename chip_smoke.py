@@ -274,7 +274,9 @@ depth; the backward kernels of rms_norm and flash attention):
                ordering), and where node-symplectic's chunk-64 peak passes
                5.5 GB (the zero cotangents of untouched units are back).
  35. resume — three ``python -m repro_torch.launch.train`` processes at
-               full width, float32, batch 4 x seq 512, 4 steps: one
+               full width and 4 of the 28 layers (``--layers 4``, cut for
+               the script's time), float32, batch 4 x seq 512,
+               4 steps: one
                uninterrupted and, beside it on the card, one killed once
                its step-2 checkpoint is published; then one that resumes
                from it.  The metrics lines
@@ -310,7 +312,22 @@ The mesh (``repro_torch.parallel``), each phase in a process of its own:
  40. data-parallel training — ``launch.train --mesh debug`` (ZeRO-1, a
                world of 1, NCCL) for 3 discrete steps at batch 8 x 1024:
                metrics bitwise phase 32's discrete run's; s/step, the
-               collectives per step, and peak bytes.
+               collectives per step, and peak bytes.  Then ``--microbatches
+               2 --compression int8`` without and with ``--mesh debug``:
+               metrics bitwise, collectives per step by kind exactly (every
+               leaf reduced whole, the loss, the norm, ZeRO-1's gathers).
+ 52. tensor parallelism — 2 gloo ranks sharing the card on a ("data" 1,
+               "model" 2) mesh (``python3 chip_smoke.py --mesh 52``, run
+               after phase 40): qwen3-0.6b at full width, batch 8 x 1024,
+               float32, ZeRO-1, 2 discrete steps (remat) and 1
+               node-symplectic step from phase 32's state, batches and
+               schedule: loss and grad_norm within ``TP_LOSS_RTOL`` /
+               ``TP_GNORM_RTOL`` of phase 32's, the ranks' params that
+               "model" does not split bitwise equal, launches per step of
+               every kernel equal to phase 32's (flash at H 8/4, rms_norm on 512
+               of the 1024 positions), the collectives per step exactly
+               ``step_collectives``; s/step, bytes per step by kind and peak
+               bytes per rank.
 
 The auditor, in a process of its own (``python3 chip_smoke.py --mesh 41``):
 
@@ -384,7 +401,8 @@ The LM zoo's recurrent and enc-dec half, in a process of its own
                phase 8's tolerances, the float32 error printed per case;
                then ms per call of the two enc-dec shapes beside the plain
                version, SDPA and the bound.
- 48-50. jamba-v0.1-52b (8 of its 32 layers: one block), xlstm-1.3b and
+ 48-50. jamba-v0.1-52b (8 of its 32 layers: one block), xlstm-1.3b (24
+               of its 48 layers, for the script's time) and
                seamless-m4t-medium (random frames (8, 1024, 160)) served
                through ``launch.serve lm`` at full width, batch 8 x 1024,
                32 tokens: prefill ms, decode ms/token,
@@ -469,8 +487,11 @@ def check(cond: bool, msg: str):
         fail(msg)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str):
-    print(f"== {name}", flush=True)
+    print(f"== {name} [t {time.perf_counter() - _T0:.1f} s]", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1895,7 +1916,8 @@ def physics_main_path():
 
 def _cell_measure(fn, repeats=3):
     """Peak bytes and combine launches of the first (warm-up) call, then
-    the median ms of ``repeats`` synchronised calls."""
+    the median ms of ``repeats`` synchronised calls; "last" holds the last
+    call's result."""
     import statistics
     _zero_combine_counts()
     peak = _peak_bytes(fn)
@@ -1904,12 +1926,12 @@ def _cell_measure(fn, repeats=3):
     for _ in range(repeats):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        fn()
+        last = fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
     return {"peak_bytes": peak, "ms": statistics.median(times),
             "times": times, "butcher_combine": one,
-            "butcher_combine_rows": rows}
+            "butcher_combine_rows": rows, "last": last}
 
 
 def saveat_cells():
@@ -1930,10 +1952,10 @@ def saveat_cells():
               for mode in ("symplectic", "backprop", "adjoint")]
     out = {}
     for mode, kind, cfg in cells:
+        # the checks read the last timed call (no call of their own)
         res = _cell_measure(lambda: _value_and_grads(
             physics.rollout_loss, params, u, cfg))
-        val, grads = _value_and_grads(physics.rollout_loss, params, u,
-                                         cfg)
+        val, grads = res.pop("last")
         check(math.isfinite(float(val)) and
               all(bool(torch.isfinite(g).all()) for g in grads),
               f"SaveAt cell {mode} {kind}: non-finite loss or gradient")
@@ -2303,6 +2325,7 @@ def cnf_flow_path_phase():
             u, eps = u.float(), eps.float()
         res = _cell_measure(lambda: _value_and_grads(_flow_nll, params, u,
                                                      eps, cfg, ts))
+        res.pop("last")
         out[kind] = res
         print(f"flow path {kind}: one loss+gradient over 8 observations: "
               f"ms {res['ms']:.3f} (median of 3: "
@@ -2613,7 +2636,10 @@ def serve_report(launches):
 # backward kernels of rms_norm and flash attention
 
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
-RESUME = dict(batch=4, seq=512, steps=4)
+# phase 35 at 4 of the 28 layers, to keep the whole script inside its
+# limit (each of its checkpoints' writes and reads falls from 7.2 to 2.6 GB;
+# resuming does not depend on the depth)
+RESUME = dict(batch=4, seq=512, steps=4, layers=4)
 BWD_TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
 RMS_BWD_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 NODE_PEAK_CHUNK64 = 5.5e9       # bytes, phase 34's node-symplectic bound
@@ -3092,7 +3118,8 @@ def _resume_cmd(metrics, *extra):
             "qwen3-0.6b", "--global-batch", str(RESUME["batch"]),
             "--seq-len", str(RESUME["seq"]), "--steps",
             str(RESUME["steps"]), "--ckpt-every", "2", "--metrics-out",
-            str(metrics), "--device", "cuda", *extra]
+            str(metrics), "--device", "cuda", "--layers",
+            str(RESUME["layers"]), *extra]
 
 
 def _metric_lines(path):
@@ -3104,8 +3131,9 @@ def _metric_lines(path):
 def lm_resume():
     """Phase 35: uninterrupted vs killed-and-resumed, three processes."""
     import shutil
-    phase(f"35 resume on the card (full width, float32, batch "
-          f"{RESUME['batch']} x {RESUME['seq']}, {RESUME['steps']} steps)")
+    phase(f"35 resume on the card (full width, {RESUME['layers']} of 28 "
+          f"layers, float32, batch {RESUME['batch']} x {RESUME['seq']}, "
+          f"{RESUME['steps']} steps)")
     work = ROOT / "runs" / "chip_smoke_resume"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -3166,9 +3194,9 @@ def lm_train_to_serve(ckpt):
     phase("36 train -> serve (launch.serve lm --ckpt-dir)")
     out = serve.main(["lm", "--arch", "qwen3-0.6b", "--ckpt-dir", str(ckpt),
                       "--batch", "2", "--prompt-len", "64", "--gen-len", "4",
-                      "--device", "cuda"])
+                      "--device", "cuda", "--layers", str(RESUME["layers"])])
     check(out["logits_finite"], "serve from checkpoint: non-finite logits")
-    arch = get_arch("qwen3-0.6b")
+    arch = get_arch("qwen3-0.6b").with_(n_layers=RESUME["layers"])
     like = init_train_state(arch, TrainConfig(), seed=1, device="cuda")
     state, step = Checkpointer(str(ckpt)).restore(like)
     toks = torch.as_tensor(synthetic_lm_batch(0, 2, 65, arch.vocab)[
@@ -3516,6 +3544,7 @@ def _mesh_train_child(want_json):
     cuBLAS workspace set before CUDA starts."""
     from repro_torch.launch import train
     from repro_torch.parallel import comm
+    from repro_torch.train.data_parallel import step_collectives
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     want = json.loads(want_json) if want_json != "none" else None
@@ -3554,9 +3583,70 @@ def _mesh_train_child(want_json):
           f"s/step {[round(x, 4) for x in want['step_seconds']]}")
     check(grad + colls.get("all_reduce", 0) == steps * (n_leaves + 2),
           f"phase 40: {colls} in {steps} steps of {n_leaves} leaves")
+    kinds = _zero1_kinds(res["state"])
+    del res
+    torch.cuda.empty_cache()
+    # microbatches and int8 compression: the meshless run, then the meshed
+    # one (ZeRO-1 over a world of 1): bitwise
+    extra = ("--microbatches", "2", "--compression", "int8")
+    plain = train.main(_train_argv(*extra))
+    want_mc, plain_secs = plain["rows"], plain["step_seconds"]
+    del plain
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_all_counts()
+    comm.reset_counts()
+    res = train.main(_train_argv("--mesh", "debug", *extra))
+    torch.cuda.synchronize()
+    counts_mc, colls_mc = _all_counts(), comm.counts()
+    bytes_mc = dict(comm.BYTES)
+    peak_mc = torch.cuda.max_memory_allocated()
+    rows = res["rows"]
+    check([[r[k] for k in keys] for r in rows]
+          == [[r[k] for k in keys] for r in want_mc],
+          f"phase 40: microbatches 2 + int8 metrics {rows} differ from the "
+          f"meshless run's {want_mc}")
+    # per step: every leaf reduced whole (compression), the loss and the
+    # norm, then ZeRO-1's gathers of the new params
+    want_c = step_collectives(res["arch"], _SpecMesh(1, 1), n_leaves,
+                              seq_len=TRAIN_SEQ, kinds=kinds,
+                              microbatches=2, compression="int8")
+    check(colls_mc == {k: v * steps for k, v in want_c.items()},
+          f"phase 40: microbatches 2 + int8 collectives {colls_mc}, want "
+          f"{want_c} per step")
+    print(f"  ZeRO-1 microbatches 2 + int8: metrics bitwise the meshless "
+          f"run's ({rows}); s/step "
+          f"{[round(x, 4) for x in res['step_seconds']]} (meshless "
+          f"{[round(x, 4) for x in plain_secs]}); collectives per "
+          f"step { {k: v / steps for k, v in colls_mc.items()} }, bytes per "
+          f"step { {k: v / steps for k, v in bytes_mc.items()} }; peak "
+          f"allocated {peak_mc} B; launches per step "
+          f"{ {k: v / steps for k, v in counts_mc.items()} }")
     print(json.dumps({"counts": counts, "collectives": colls,
                       "step_seconds": res["step_seconds"], "peak": peak,
-                      "steps": steps}), flush=True)
+                      "steps": steps,
+                      "mb2_int8": {"counts": counts_mc,
+                                   "collectives": colls_mc,
+                                   "bytes": bytes_mc, "peak": peak_mc,
+                                   "step_seconds": res["step_seconds"],
+                                   "meshless_step_seconds": plain_secs,
+                                   "rows": rows}}), flush=True)
+
+
+class _SpecMesh:
+    """The spec rules' duck-typed mesh (sizes and names only)."""
+
+    def __init__(self, data, model):
+        self.shape = {"data": data, "model": model}
+        self.axis_names = ("data", "model")
+
+
+def _zero1_kinds(state, data=1, model=1):
+    """ZeRO-1's kind of each param leaf (split / owned / whole) on a
+    (data, model) mesh, from ``parallel.state_specs`` (no process group)."""
+    from repro_torch.train.data_parallel import zero1_layout
+    return zero1_layout(state, _SpecMesh(data, model))[0]
 
 
 def mesh_train_phase(train=None, peaks=None):
@@ -3573,6 +3663,243 @@ def mesh_train_phase(train=None, peaks=None):
               f"{peaks['discrete_remat']} B")
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# phase 52: tensor parallelism, 2 gloo ranks sharing the card on a
+# ("data" 1, "model" 2) mesh
+# ---------------------------------------------------------------------------
+
+# relative distance of phase 52's loss and grad_norm from phase 32's: the
+# card's readings were 0 (loss, every step) and at most 2.505e-7
+# (grad_norm) in four whole runs; 1e-5 is 40x the largest (PERF.md §6).
+# Leaving the partial leaves unsummed over "model" moves them by more
+# (tools/tp_rounding.py at smoke width with tensor.sum_partial a no-op)
+TP_LOSS_RTOL = 1e-5
+TP_GNORM_RTOL = 1e-5
+TP_KERNELS = ("rms_norm", "flash_attention", "rms_norm_bwd",
+              "flash_attention_bwd", "butcher_combine")
+
+
+def _tp_rank(rank, port, want_json):
+    """Phase 52's rank: qwen3-0.6b at full width on its "model" block (8 of
+    16 heads, 4 of 8 kv heads, 1536 of 3072 ffn columns, 75968 of 151936
+    vocab rows; the residual stream's 512 of 1024 positions), ZeRO-1 over
+    a "data" axis of 1: 2 discrete steps (remat) and 1 node-symplectic
+    step, each from phase 32's seed-0 state on its batches and schedule."""
+    import gc
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import NodeConfig
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.parallel import comm, make_sharder, state_specs
+    from repro_torch.runtime import reshard_state
+    from repro_torch.train import TrainConfig, init_train_state, \
+        make_train_step
+    from repro_torch.train.data_parallel import Zero1, step_collectives
+    from torch.utils import _pytree as pytree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    torch.cuda.set_device(0)
+    mesh = make_debug_mesh(1, 2, device_type="cuda")
+    want = json.loads(want_json)
+    out = {}
+    tcfg = TrainConfig()
+    # phase 32's seed-0 state, laid out once: both modes start from it
+    # (a step leaves its input state valid)
+    state0 = init_train_state(get_arch("qwen3-0.6b"), tcfg, device="cuda")
+    kinds = _zero1_kinds(state0, 1, 2)
+    n_leaves = len(pytree.tree_leaves(state0.params))
+    state0 = reshard_state(state0, mesh, state_specs(state0, mesh))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for mode, steps in (("discrete", 2), ("node_symplectic", 1)):
+        arch = get_arch("qwen3-0.6b")
+        if mode != "discrete":
+            arch = arch.with_(node=NodeConfig(mode="node", method="euler",
+                                              grad_mode="symplectic"))
+        state = state0
+        step = make_train_step(arch, tcfg, lr_fn=cosine_schedule(3e-4, 5, 3),
+                               shard=make_sharder(mesh),
+                               grad_constraint=Zero1(mesh, state))
+        pipe = iter(TokenPipeline(TRAIN_BATCH, TRAIN_SEQ, arch.vocab,
+                                  device="cuda"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_all_counts()
+        rows, secs, colls, nbytes = [], [], [], []
+        for _ in range(steps):
+            batch = next(pipe)
+            comm.reset_counts()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            rows.append({k: float(m[k]) for k in ("loss", "grad_norm",
+                                                  "lr")})
+            secs.append(time.perf_counter() - t)
+            colls.append(comm.counts())
+            nbytes.append(dict(comm.BYTES))
+        torch.cuda.synchronize()
+        counts, peak = _all_counts(), torch.cuda.max_memory_allocated()
+        need = TP_KERNELS[:4] + (TP_KERNELS[4:] if mode != "discrete"
+                                 else ())
+        for name in need:
+            check(counts[name] > 0,
+                  f"phase 52 rank {rank} {mode}: {name} never launched")
+        ref = want.get(mode)
+        check(ref is not None and len(ref["rows"]) >= steps,
+              f"phase 52 rank {rank} {mode}: phase 32 ran no such "
+              f"{steps} steps to compare with ({sorted(want)})")
+        per32 = {k: v / ref["steps"] for k, v in ref["counts"].items()}
+        per = {k: v / steps for k, v in counts.items()}
+        check(all(per[k] == per32[k] for k in need),
+              f"phase 52 rank {rank} {mode}: launches per step {per}, "
+              f"phase 32's {per32}")
+        errs = []
+        for i, (got, w) in enumerate(zip(rows, ref["rows"])):
+            e = {k: abs(got[k] - w[k]) / abs(w[k])
+                 for k in ("loss", "grad_norm")}
+            errs.append(e)
+            check(e["loss"] <= TP_LOSS_RTOL
+                  and e["grad_norm"] <= TP_GNORM_RTOL
+                  and got["lr"] == w["lr"],
+                  f"phase 52 rank {rank} {mode} step {i}: {got} vs "
+                  f"phase 32's {w} (rel {e}; bounds {TP_LOSS_RTOL}, "
+                  f"{TP_GNORM_RTOL})")
+        want_c = step_collectives(arch, mesh, n_leaves, seq_len=TRAIN_SEQ,
+                                  kinds=kinds, loss_chunk=tcfg.loss_chunk)
+        for i, c in enumerate(colls):
+            check(c == want_c, f"phase 52 rank {rank} {mode} step {i}: "
+                               f"collectives {c}, want {want_c}")
+        print(f"  rank {rank} {mode}: losses {[r['loss'] for r in rows]}, "
+              f"grad_norm {[r['grad_norm'] for r in rows]} (rel to phase "
+              f"32: {errs}); s/step {[round(x, 4) for x in secs]}; "
+              f"collectives per step {colls[-1]}; bytes per step "
+              f"{nbytes[-1]}; launches per step "
+              f"{ {k: v / steps for k, v in counts.items()} }; peak "
+              f"allocated {peak} B", flush=True)
+        out[mode] = {"counts": counts, "steps": steps, "rows": rows,
+                     "errs": errs, "step_seconds": secs,
+                     "collectives": colls, "bytes": nbytes, "peak": peak,
+                     "replicated": _replicated_digest(state, mesh)}
+        del state, step, batch, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["collective_ms"] = _tp_collective_ms(mesh)
+    print(f"  rank {rank}: one gloo collective of the residual stream "
+          f"(ms, host clock, mean of 5): {out['collective_ms']}", flush=True)
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def _replicated_digest(state, mesh):
+    """sha256 of the param leaves "model" does not split, as this rank
+    holds them: the ranks of "model" agree bit for bit unless a partial
+    gradient (``parallel.tensor.partial_leaves``) went unsummed, whatever
+    that does to grad_norm."""
+    import hashlib
+
+    from repro_torch.parallel import tensor as tp_rules
+    from repro_torch.train.data_parallel import local_tensor
+    from torch.utils import _pytree as pytree
+    digest = hashlib.sha256()
+    for leaf, split in zip(pytree.tree_leaves(state.params),
+                           tp_rules.model_split(state.params, mesh)):
+        if not split:
+            digest.update(local_tensor(leaf).detach().cpu().numpy()
+                          .tobytes())
+    return digest.hexdigest()
+
+
+def _tp_collective_ms(mesh, calls=5):
+    """ms per call (host clock around synchronised calls: gloo blocks the
+    host) of phase 52's two activation collectives: the all_gather of a
+    rank's (8, 512, 1024) float32 block and the reduce_scatter of a whole
+    (8, 1024, 1024)."""
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.layout import axes_group
+    g = axes_group(mesh, ["model"])
+    block = torch.randn(TRAIN_BATCH, TRAIN_SEQ // 2, 1024, device="cuda")
+    whole = torch.randn(TRAIN_BATCH, TRAIN_SEQ, 1024, device="cuda")
+    out = {}
+    for name, fn in (("all_gather",
+                      lambda: comm.gather_from_sequence(block, g, 1)),
+                     ("reduce_scatter",
+                      lambda: comm.scatter_to_sequence(whole, g, 1))):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t) / calls * 1e3
+    return out
+
+
+def _tp_ranks(want_json):
+    """Phase 52's 2 rank processes, started from this process (phase 32's
+    metrics as JSON, or "none" to run phase 32 first); returns their
+    results."""
+    if want_json == "none":
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                               LM_TRAIN_CHILD], capture_output=True,
+                              text=True, timeout=600)
+        check(proc.returncode == 0, f"phase 52: phase 32's run failed:\n"
+                                    f"{proc.stderr[-3000:]}")
+        ran = json.loads(proc.stdout.rstrip("\n").splitlines()[-1])
+        want_json = json.dumps({m: {k: r[k] for k in ("rows", "counts",
+                                                      "steps")}
+                                for m, r in ran.items()})
+    torch.cuda.empty_cache()
+    port = str(_free_port())
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               MESH_CHILD, "52", str(r), port, want_json],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=500))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = {}
+    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+        lines = o.rstrip("\n").splitlines()
+        print("\n".join(lines[:-1]), flush=True)
+        check(p.returncode == 0 and lines,
+              f"phase 52 rank {r} failed (rc {p.returncode}):\n{o[-3000:]}"
+              f"\n{e[-3000:]}")
+        res[f"rank{r}"] = json.loads(lines[-1])
+    for mode in ("discrete", "node_symplectic"):
+        check(res["rank0"][mode]["replicated"]
+              == res["rank1"][mode]["replicated"],
+              f"phase 52 {mode}: the ranks' replicated params differ")
+    print(f"  the ranks' replicated params agree bit for bit after each mode",
+          flush=True)
+    return res
+
+
+def _tp_child(want_json):
+    """``chip_smoke.py --mesh 52 [json|none]``: phase 52 alone."""
+    print(json.dumps(_tp_ranks(want_json)), flush=True)
+
+
+def mesh_tp_phase(train=None):
+    phase(f"52 LM train tensor-parallel (2 gloo ranks sharing the card, "
+          f"(data 1, model 2), ZeRO-1): qwen3-0.6b full width, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, float32, 2 discrete steps (remat) "
+          f"and 1 node-symplectic step")
+    want = "none" if train is None else json.dumps(
+        {m: {k: r[k] for k in ("rows", "counts", "steps")}
+         for m, r in train.items()})
+    return _tp_ranks(want)
 
 
 # ---------------------------------------------------------------------------
@@ -4759,7 +5086,9 @@ def zoo_rows(zoo, rows):
 
 ZOO2_CHILD = "--zoo2"
 # (arch, layers or None for all): jamba cut to one 8-layer block of 32
-ZOO2_ARCHS = [("jamba-v0.1-52b", 8), ("xlstm-1.3b", None),
+# xlstm-1.3b at 24 of its 48 layers (3 of its 6 blocks), to keep the whole
+# script inside its limit (its prefill is host-bound: ~136k launches whole)
+ZOO2_ARCHS = [("jamba-v0.1-52b", 8), ("xlstm-1.3b", 24),
               ("seamless-m4t-medium", None)]
 # flash at the enc-dec model's shapes (the encoder; cross-attention with
 # Sq != Sk) and jamba's attention layer (GQA 4 at D 128)
@@ -5031,7 +5360,8 @@ def main():
     mesh_gloo = _timed(mesh_gloo_phase)
     mesh_engine = _timed(mesh_engine_phase, serve_ode)
     mesh_train = _timed(mesh_train_phase, train, peaks)
-    print(f"phases 37-40 seconds {time.perf_counter() - t_mesh:.1f}")
+    mesh_tp = _timed(mesh_tp_phase, train)
+    print(f"phases 37-40, 52 seconds {time.perf_counter() - t_mesh:.1f}")
     audit = _timed(analysis_phase)
     zoo = zoo_phase()
     zoo2 = zoo2_phase()
@@ -5098,6 +5428,15 @@ def main():
                            "flash_attention_bwd"):
             row["launches_by_path"]["lm_train_dp"] = \
                 mesh_train["counts"][row["name"]]
+            row["launches_by_path"]["lm_train_dp_mb2_int8"] = \
+                mesh_train["mb2_int8"]["counts"][row["name"]]
+            row["launches"] = sum(row["launches_by_path"].values())
+    # phase 52: both ranks' launches, both modes
+    for row in rows:
+        if row["name"] in TP_KERNELS:
+            row["launches_by_path"]["lm_train_tp"] = sum(
+                r[m]["counts"][row["name"]] for r in mesh_tp.values()
+                for m in ("discrete", "node_symplectic"))
             row["launches"] = sum(row["launches_by_path"].values())
     # the auditor (phase 41): both combines, single-trajectory and lane
     # forms together (one counter per kernel)
@@ -5128,9 +5467,11 @@ if __name__ == "__main__":
         which, rest = sys.argv[2], sys.argv[3:]
         if which == "38" and rest:
             _mesh_gloo_rank(int(rest[0]), int(rest[1]))
+        elif which == "52" and len(rest) == 3:
+            _tp_rank(int(rest[0]), rest[1], rest[2])
         else:
             {"37": _mesh_solve_child, "38": _mesh_gloo_child,
              "39": _mesh_engine_child, "40": _mesh_train_child,
-             "41": _analysis_child}[which](*rest)
+             "41": _analysis_child, "52": _tp_child}[which](*rest)
     else:
         main()

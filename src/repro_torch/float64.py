@@ -26,7 +26,8 @@ CAST_MODULES = ("repro_torch.kernels.ref", "repro_torch.nn.attention",
                 "repro_torch.nn.norm", "repro_torch.models.lm",
                 "repro_torch.models.encdec", "repro_torch.train.serve_step",
                 "repro_torch.train.losses", "repro_torch.train.train_step",
-                "repro_torch.optim.adamw", "repro_torch.optim.clip")
+                "repro_torch.train.data_parallel", "repro_torch.optim.adamw",
+                "repro_torch.optim.clip", "repro_torch.optim.compress")
 
 
 class Float64Torch:

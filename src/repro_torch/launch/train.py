@@ -4,17 +4,23 @@
         [--smoke] [--steps 20 | --epochs 3 --steps-per-epoch 20] \\
         [--grad-mode symplectic --node-method euler] \\
         [--ckpt-dir runs/ckpt --ckpt-every 10 [--resume]] \\
-        [--metrics-out runs/metrics.jsonl] [--device cpu]
+        [--metrics-out runs/metrics.jsonl] [--device cpu] [--layers 14]
 
 The JAX launcher's flags, plus ``--device`` (default ``cuda``; raises when
-there is no CUDA device).  ``--grad-mode`` trains the arch in node mode
-(the paper: depth as ODE time, ``--node-method`` with one step per repeat
-unit) with that gradient strategy; without it the discrete stack trains.
+there is no CUDA device) and ``--layers`` (the depth cut to whole repeat
+units at full width, as ``launch.serve lm --layers``).  ``--grad-mode``
+trains the arch in node mode (the paper: depth as ODE time,
+``--node-method`` with one step per repeat unit) with that gradient
+strategy; without it the discrete stack trains.
 ``--mesh debug`` trains data-parallel with ZeRO-1 over a ("data", "model")
-mesh of (world, 1) ranks (``launch.mesh.make_debug_mesh``): one process per
-rank, started by ``torchrun --nproc-per-node N`` (or alone: a world of 1),
-each taking its rows of the one global batch, so the run equals the
-single-process run; the state is laid out by ``parallel.state_specs`` and
+mesh (``launch.mesh.make_debug_mesh``): (2, 2) on a world of 4, JAX's
+default, which is also tensor-parallel over "model" (qwen3-0.6b and the
+other dense GQA decoders: ``parallel.tensor``), else (world, 1); one
+process per rank, started by ``torchrun --nproc-per-node N`` (or alone: a
+world of 1), each data rank taking its rows of the one global batch, so
+the run equals the single-process run (bitwise on a world of 1, to
+rounding otherwise); ``--microbatches`` and ``--compression`` run there in
+JAX's order.  The state is laid out by ``parallel.state_specs`` and
 checkpoints hold full arrays, written by rank 0.  ``--mesh pod`` and
 ``multipod`` (the TPU pod layouts) raise; the JAX launcher's
 ``--tpu-flags`` (XLA flags for TPU collectives) has no counterpart here and
@@ -85,6 +91,10 @@ def _args(argv):
                     help="sleep after each step — paces the loop so the "
                     "fault harness can SIGKILL mid-epoch deterministically")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (a whole "
+                    "number of the arch's repeat units), at full width, "
+                    "as launch.serve lm --layers")
     return ap.parse_args(argv)
 
 
@@ -152,10 +162,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     elif args.mesh == "debug":
         import torch.distributed as dist
         own_world = _join_world(device)
-        mesh = make_debug_mesh(dist.get_world_size(), 1,
+        world = dist.get_world_size()
+        # a world of 4 takes JAX's make_debug_mesh() default, (2, 2): data
+        # and tensor parallel; other worlds are all data
+        mesh = make_debug_mesh(*((2, 2) if world == 4 else (world, 1)),
                                device_type=device.type)
     writer = comm.is_writer()
     arch = get_smoke_arch(args.arch) if args.smoke else get_arch(args.arch)
+    if args.layers is not None:
+        arch = arch.with_(n_layers=args.layers)
+        if arch.n_repeats < 1:     # n_repeats raises for a part of a unit
+            raise ValueError(f"--layers {args.layers}: no whole unit")
     if args.grad_mode:
         arch = arch.with_(node=NodeConfig(mode="node",
                                           method=args.node_method,
@@ -287,7 +304,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         print(f"[train] done (solver stats {sstats})")
     if own_world:
         import torch.distributed as dist
+
+        from repro_torch.parallel.layout import forget_groups
         dist.destroy_process_group()
+        forget_groups()
     return {"rows": rows, "step_seconds": step_seconds, "state": state,
             "arch": arch}
 

@@ -75,22 +75,31 @@ def init_layer_cache(spec: LayerSpec, cfg: ArchConfig, batch: int,
 
 def layer_forward(p, x: torch.Tensor, spec: LayerSpec, cfg: ArchConfig, *,
                   cache: Optional[Any] = None, pos: Optional[int] = None,
-                  positions=None, causal: bool = True):
+                  positions=None, causal: bool = True, tp=None):
     """Pre-norm residual block: x + mixer(norm(x)), then + ffn(norm(x)).
 
     Returns (x, cache, aux_loss); the aux loss is the MoE router's (a
     float32 scalar tensor), 0.0 for the other FFNs.  The recurrent mixers
     return a new state (S == 1 with a cache: one decode step; S > 1 with a
-    cache: prefill); attention writes its cache in place."""
+    cache: prefill); attention writes its cache in place.
+
+    With ``tp`` (a ``parallel.tensor.TensorParallel``: training on a
+    "model" axis) ``x`` is the rank's sequence block (``seq_carry``) or
+    whole, the weights are the rank's blocks, and the attention and a split
+    SwiGLU take their input through ``enter`` and give their output through
+    ``leave``; the norms run on the rows the rank holds."""
     _check_spec(spec)
     eps = cfg.norm_eps
     uk = cfg.use_kernels
     rs = cfg.residual_scale
     h = rmsnorm(p["mixer_norm"], x, eps=eps, use_kernels=uk)
     if spec.mixer == "attn":
-        y, new_cache = gqa_attention(p["attn"], h, cfg.attn_config(),
+        y, new_cache = gqa_attention(p["attn"], h if tp is None
+                                     else tp.enter(h), cfg.attn_config(),
                                      positions=positions, cache=cache,
                                      pos=pos, use_kernels=uk, causal=causal)
+        if tp is not None:
+            y = tp.leave(y)
     elif spec.mixer == "mla":
         y, new_cache = mla_attention(p["attn"], h, cfg.attn_config(),
                                      positions=positions, cache=cache,
@@ -108,7 +117,9 @@ def layer_forward(p, x: torch.Tensor, spec: LayerSpec, cfg: ArchConfig, *,
     aux = 0.0
     if spec.ffn != "none":
         h = rmsnorm(p["ffn_norm"], x, eps=eps, use_kernels=uk)
-        if spec.ffn == "dense":
+        if spec.ffn == "dense" and tp is not None and tp.ffn_split:
+            y = tp.leave(swiglu(p["mlp"], tp.enter(h)))
+        elif spec.ffn == "dense":
             y = swiglu(p["mlp"], h)
         else:
             y, aux = moe_ffn(p["moe"], h, cfg.moe_config())

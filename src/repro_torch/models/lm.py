@@ -36,6 +36,12 @@ Training modes (``mode="train"``):
     within 2^-10 / R below a unit boundary.  As in the JAX package the
     prefix layers are not run in node mode.
 
+Tensor parallelism (``lm_forward``'s ``tp``, training only): the
+params are the rank's blocks, the lookup and the head are vocab-parallel
+(``_embed_tp``; ``train.losses.lm_loss_chunked``), and under ``seq_carry``
+the residual stream, the node-mode solve's state, its checkpoints and its
+combines hold the rank's sequence block (1/TP of each).
+
 Serving: ``mode="prefill"`` fills the attention cache buffers in place
 (and returns the recurrent layers' new states in the caches) and returns
 the logits; ``mode="decode"`` advances one token at position ``pos``.  A
@@ -135,14 +141,34 @@ def params_from_jax(np_tree, cfg: ArchConfig, *, device="cuda",
     return out
 
 
-def _embed(params, cfg: ArchConfig, tokens: torch.Tensor, extra_embeds):
+def _embed(params, cfg: ArchConfig, tokens: torch.Tensor, extra_embeds,
+           tp=None):
     """Token embeddings; with the patch frontend and ``extra_embeds`` (B, P,
-    d_frontend), the projected patches go before the tokens."""
+    d_frontend), the projected patches go before the tokens.  With ``tp``
+    the rank's sequence block (``seq_carry``) or the whole."""
+    if tp is not None:
+        return _embed_tp(params["embed"], tokens, tp)
     x = params["embed"][tokens]
     if cfg.frontend == "patch" and extra_embeds is not None:
         pe = extra_embeds.to(x.dtype) @ params["frontend"]
         x = torch.cat([pe, x], dim=1)
     return x
+
+
+def _embed_tp(embed: torch.Tensor, tokens: torch.Tensor, tp):
+    """The vocab-parallel lookup: ``embed`` is the rank's vocab block; an
+    id outside it gives 0, and the blocks' rows are summed over "model"
+    (onto the rank's sequence block under ``seq_carry``), which is the
+    one-device lookup exactly (one non-zero term per row).  A vocab that
+    "model" does not divide leaves ``embed`` whole: the rank's rows of the
+    plain lookup, no collective."""
+    if not tp.vocab_split:
+        return tp.rows(embed[tokens])
+    lo, hi = tp.vocab_block(embed.shape[0])
+    local = tokens - lo
+    inside = (local >= 0) & (local < hi - lo)
+    x = embed[torch.where(inside, local, torch.zeros_like(local))]
+    return tp.leave(x.masked_fill(~inside[..., None], 0))
 
 
 def _head_parts(params, cfg: ArchConfig, x: torch.Tensor):
@@ -153,7 +179,7 @@ def _head_parts(params, cfg: ArchConfig, x: torch.Tensor):
 
 
 def _unit_forward(unit, x: torch.Tensor, cfg: ArchConfig, *, caches=None,
-                  pos: Optional[int] = None, positions=None):
+                  pos: Optional[int] = None, positions=None, tp=None):
     """One repeat unit: its pattern's layers in order.  Returns (x, caches,
     aux), aux the sum of its MoE layers' aux losses.  Under ``cfg.remat``
     a multi-layer unit without caches checkpoints each layer when a
@@ -168,11 +194,11 @@ def _unit_forward(unit, x: torch.Tensor, cfg: ArchConfig, *, caches=None,
         if per_layer_remat:
             x, nc, a = checkpoint(
                 lambda lp, xx, spec=spec: layer_forward(
-                    lp, xx, spec, cfg, positions=positions),
+                    lp, xx, spec, cfg, positions=positions, tp=tp),
                 unit[i], x, use_reentrant=False)
         else:
             x, nc, a = layer_forward(unit[i], x, spec, cfg, cache=c,
-                                     pos=pos, positions=positions)
+                                     pos=pos, positions=positions, tp=tp)
         new_caches.append(nc)
         aux = aux + a
     return x, tuple(new_caches), aux
@@ -180,7 +206,7 @@ def _unit_forward(unit, x: torch.Tensor, cfg: ArchConfig, *, caches=None,
 
 def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
                caches=None, pos: Optional[int] = None, extra_embeds=None,
-               mode: str = "train", return_hidden: bool = False):
+               mode: str = "train", return_hidden: bool = False, tp=None):
     """Returns {"logits", "caches", "aux"} — or, with return_hidden=True,
     {"hidden", "head", "caches", "aux"} so the caller can apply the head to
     the positions it needs (or a chunked loss) without the full (B, S, V)
@@ -192,7 +218,10 @@ def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
     frontend, ``extra_embeds`` (B, P, d_frontend) are projected and put
     before the tokens (the sequence is then P + S long); "aux" sums the
     MoE layers' aux losses, the prefix layers' included (0.0 in node mode,
-    whose field drops them, as in the JAX package)."""
+    whose field drops them, as in the JAX package).
+
+    ``tp`` (a ``parallel.tensor.TensorParallel``, training only): the
+    params are the rank's blocks; see the module note."""
     _check_decoder_only(cfg)
     if mode not in _MODES:
         raise ValueError(f"mode {mode!r} not in {_MODES}")
@@ -203,18 +232,24 @@ def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
 
     def finish(xf, new_caches, aux):
         h, head = _head_parts(params, cfg, xf)
+        if tp is not None and not return_hidden:
+            raise ValueError("under tensor parallelism the head is the "
+                             "rank's vocab block: ask for return_hidden "
+                             "(the loss is vocab-parallel)")
         if return_hidden:
             return {"hidden": h, "head": head, "caches": new_caches,
                     "aux": aux}
         return {"logits": (h @ head).to(torch.float32), "caches": new_caches,
                 "aux": aux}
 
-    x = _embed(params, cfg, tokens, extra_embeds)
+    x = _embed(params, cfg, tokens, extra_embeds, tp)
     if cfg.node.mode == "node" and mode == "train":
-        return finish(_node_depth_solve(params, cfg, x), None, 0.0)
+        return finish(_node_depth_solve(params, cfg, x, tp), None, 0.0)
 
-    positions = torch.arange(x.shape[1], device=x.device) \
-        if pos is None else None
+    # the whole sequence's positions (x holds the rank's block under
+    # seq_carry; the attention runs on the whole sequence)
+    seq = x.shape[1] * (tp.size if tp is not None and tp.seq_carry else 1)
+    positions = torch.arange(seq, device=x.device) if pos is None else None
     aux = 0.0
     new_prefix = []
     for i, spec in enumerate(cfg.prefix):
@@ -228,12 +263,13 @@ def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
     for r, unit in enumerate(params["unit"]):
         if remat:
             x, ncs, a = checkpoint(
-                lambda u, xx: _unit_forward(u, xx, cfg, positions=positions),
+                lambda u, xx: _unit_forward(u, xx, cfg, positions=positions,
+                                            tp=tp),
                 unit, x, use_reentrant=False)
         else:
             x, ncs, a = _unit_forward(
                 unit, x, cfg, pos=pos, positions=positions,
-                caches=None if caches is None else caches["unit"][r])
+                caches=None if caches is None else caches["unit"][r], tp=tp)
         new_unit.append(ncs)
         aux = aux + a
 
@@ -257,14 +293,14 @@ def depth_unit(t, R: int) -> int:
     return min(max(n, 0), R - 1)
 
 
-def _depth_field(cfg: ArchConfig):
+def _depth_field(cfg: ArchConfig, tp=None):
     """f(x, t) = R * (unit_n(x) - x), n = ``depth_unit(t, R)``: the
     depth-time vector field shared by the training solve and the
-    depth-observation probe."""
+    depth-observation probe (``tp``: on the rank's blocks)."""
     R = cfg.n_repeats
 
     def field(xs, t, units):
-        y, _, _ = _unit_forward(units[depth_unit(t, R)], xs, cfg)
+        y, _, _ = _unit_forward(units[depth_unit(t, R)], xs, cfg, tp=tp)
         return (y - xs) * float(R)
 
     return field
@@ -276,9 +312,9 @@ def _node_solve(cfg: ArchConfig, field, x, units, saveat, n_steps: int):
                  backend=cfg.node.combine_backend).ys
 
 
-def _node_depth_solve(params, cfg: ArchConfig, x: torch.Tensor):
+def _node_depth_solve(params, cfg: ArchConfig, x: torch.Tensor, tp=None):
     n_steps = cfg.node.n_steps or cfg.n_repeats
-    return _node_solve(cfg, _depth_field(cfg), x, params["unit"],
+    return _node_solve(cfg, _depth_field(cfg, tp), x, params["unit"],
                        SaveAt(t1=1.0), n_steps)
 
 

@@ -66,7 +66,11 @@ def gqa_attention(p, x: torch.Tensor, cfg: AttnConfig, *, positions=None,
     Returns (out, cache_or_None).
     """
     B, S, _ = x.shape
-    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Dh = cfg.head_dim
+    # the heads of this rank's column blocks of wq / wk (all of them on one
+    # device; H / TP and Hkv / TP under tensor parallelism, each q head with
+    # its kv group)
+    H, Hkv = p["wq"].shape[-1] // Dh, p["wk"].shape[-1] // Dh
     rd = int(Dh * cfg.rotary_pct)
     inv = rope_freqs(Dh, cfg.rope_theta, rd, device=x.device)
 

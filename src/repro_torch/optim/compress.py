@@ -6,8 +6,8 @@ the optimizer:
   * "int8": per-tensor symmetric int8 quantization with error feedback:
     the residual is carried in the train state and added back next step.
 
-On one card there is no all-reduce; the round trip is the same arithmetic
-the multi-card path would apply (item 15 brings the collectives).
+The data-parallel step (``train.data_parallel``) compresses the reduced
+gradient, as the JAX program compresses that of the global batch.
 """
 from __future__ import annotations
 
@@ -31,9 +31,17 @@ def init_error_state(params, cfg: CompressionConfig):
     return None
 
 
-def compress_grads(grads, cfg: CompressionConfig, error_state=None):
+def compress_grads(grads, cfg: CompressionConfig, error_state=None,
+                   leaf_max=None, groups=None):
     """Returns (compressed representation, new error state).  int8 leaves
-    become (int8 tensor, float32 0-dim scale) pairs."""
+    become (int8 tensor, float32 0-dim scale) pairs.  ``leaf_max`` (int8)
+    maps the stacked per-leaf max |g| of this rank's blocks to those of the
+    whole leaves (tensor parallelism: ``DataParallel.leaf_max``); without
+    it the leaves are whole.  ``groups`` (int8) gives each leaf, in
+    ``tree_leaves`` order, a key: the leaves of one key share one scale,
+    from the largest |g| among them.  The JAX package stacks a model's
+    repeated units into one leaf, whose per-tensor scale spans every unit
+    (``train.train_step.stack_groups``)."""
     if cfg.mode == "none":
         return grads, error_state
     if cfg.mode == "bf16":
@@ -43,12 +51,22 @@ def compress_grads(grads, cfg: CompressionConfig, error_state=None):
         leaves_g, spec = pytree.tree_flatten(grads)
         leaves_e = [None] * len(leaves_g) if error_state is None else \
             pytree.tree_leaves(error_state)
-        qs, errs = [], []
+        g32s = []
         for g, e in zip(leaves_g, leaves_e):
             g32 = g.to(torch.float32)
-            if e is not None:
-                g32 = g32 + e
-            scale = torch.clamp(torch.max(torch.abs(g32)), min=1e-12) / 127.0
+            g32s.append(g32 + e if e is not None else g32)
+        amax = [torch.max(torch.abs(g32)) for g32 in g32s]
+        if leaf_max is not None and amax:
+            amax = list(leaf_max(torch.stack(amax)).unbind())
+        if groups is not None:
+            top: dict = {}
+            for key, mx in zip(groups, amax):
+                top[key] = mx if key not in top else torch.maximum(top[key],
+                                                                   mx)
+            amax = [top[key] for key in groups]
+        qs, errs = [], []
+        for g32, mx in zip(g32s, amax):
+            scale = torch.clamp(mx, min=1e-12) / 127.0
             qi = torch.clamp(torch.round(g32 / scale), -127, 127).to(
                 torch.int8)
             qs.append((qi, scale))

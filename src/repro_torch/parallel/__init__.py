@@ -7,7 +7,11 @@ device, each running the same program on its own block (the JAX package's
 * ``mesh_rules`` / ``shardings``: the logical-axis rules and the spec
   layer for params, optimizer state (ZeRO-1), batches and caches;
 * ``layout``: specs, placements, process groups over mesh axes;
-* ``comm``: the one wrapper every collective goes through (counted).
+* ``comm``: the one wrapper every collective goes through (counted), and
+  the differentiable regions of tensor parallelism;
+* ``tensor``: tensor parallelism over "model" (the eager counterpart of
+  the logical rules: column / row blocks, ``seq_carry``, vocab-parallel
+  lookup and loss).
 
 ``__all__`` is the JAX package's, plus ``PartitionSpec`` / ``P`` (JAX has
 its own), ``Owned`` (a unit's optimizer leaf held whole, the per-unit form

@@ -4,7 +4,10 @@ through a function here, which counts it by kind in ``COUNTS`` and the
 bytes of its output by kind in ``BYTES`` (both reset with
 ``reset_counts``), so a test or the card's smoke run can read how many
 collectives a solve, an engine step or a train step made, and how much
-they moved.
+they moved.  The differentiable regions of tensor parallelism (Megatron's
+copy-to / reduce-from, gather-from- / scatter-to-sequence:
+``parallel.tensor``) are ``autograd.Function``s over the same functions, so
+the counts hold their backward's collectives too.
 
 Only ``torch.distributed`` names present in both torch 2.11 and 2.13 are
 used: the list forms of all_gather and reduce_scatter (the ``*_tensor``
@@ -92,3 +95,94 @@ def is_writer() -> bool:
     """Rank 0 of the world (or no process group at all): the one process
     that writes what every rank holds alike."""
     return not dist.is_initialized() or dist.get_rank() == 0
+
+
+# ---------------------------------------------------------------------------
+# differentiable regions (Megatron's): each forward and backward collective
+# goes through the counted functions above, so COUNTS and BYTES see the
+# backward's too.  ``group`` is a ``layout.Group``: ``order[b]`` is the group
+# rank that holds block b, so a tensor split over the group is cut and
+# joined in block order whatever the process group's rank order.
+# ---------------------------------------------------------------------------
+
+def _join(parts: List[torch.Tensor], group, dim: int) -> torch.Tensor:
+    return torch.cat([parts[g] for g in group.order], dim)
+
+
+def _scatter_sum(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Sum ``x`` over the group and keep this member's block along
+    ``dim`` (block b goes to the member at group rank order[b])."""
+    blocks = torch.chunk(x, len(group.order), dim=dim)
+    chunks = [None] * len(group.order)
+    for b, g in enumerate(group.order):
+        chunks[g] = blocks[b]
+    return reduce_scatter(chunks, group.group)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _join(all_gather(x, group.group), group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum(g, ctx.group, ctx.dim), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _scatter_sum(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _join(all_gather(g, ctx.group.group), ctx.group,
+                     ctx.dim), None, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; the gradient summed over ``group`` (all_reduce):
+    the input of column-parallel layers on a replicated activation."""
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` (all_reduce); identity backward: the
+    output of row-parallel layers."""
+    return _ReduceFrom.apply(x, group)
+
+
+def gather_from_sequence(x: torch.Tensor, group, dim: int = 1):
+    """The members' blocks of ``x`` joined along ``dim`` (all_gather); the
+    gradient summed over ``group`` and cut back to this member's block
+    (reduce_scatter)."""
+    return _GatherSeq.apply(x, group, dim)
+
+
+def scatter_to_sequence(x: torch.Tensor, group, dim: int = 1):
+    """``x`` summed over ``group`` and cut to this member's block along
+    ``dim`` (reduce_scatter); the gradient's blocks joined (all_gather)."""
+    return _ScatterSeq.apply(x, group, dim)

@@ -205,6 +205,12 @@ def axes_group(mesh, axes: Sequence[str]) -> Group:
     return _GROUPS[key]
 
 
+def forget_groups() -> None:
+    """Drop the cached groups: call it after destroying the process group
+    they belong to, before a new world makes a mesh of the same ranks."""
+    _GROUPS.clear()
+
+
 def gather_local(local: torch.Tensor, mesh, place) -> torch.Tensor:
     """The full tensor of which ``local`` is this rank's block under
     ``place``, on every rank (every rank of the mesh must call it): one

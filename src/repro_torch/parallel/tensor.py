@@ -1,0 +1,200 @@
+"""Tensor parallelism over a mesh's "model" axis, eager and SPMD: the
+counterpart of the JAX package's logical rules (``mesh_rules.LOGICAL_RULES``:
+heads, kv_heads, ffn and vocab on "model", and ``seq_carry`` on "model") and
+of its Megatron column / row leaf rules (``shardings.COL_NAMES`` /
+``ROW_NAMES``), which XLA turns into collectives there.
+
+The model code computes on each rank's local blocks (``DTensor.to_local()``
+of a state laid out by ``parallel.state_specs``): a column-split weight
+(wq, wk, wv, wg, wu) holds the rank's heads or ffn columns, a row-split one
+(wo, wd) the matching rows, ``embed`` and ``lm_head`` the rank's vocab
+block.  Where the activation's layout changes the code calls a region of
+``parallel.comm``:
+
+* ``enter`` at a column-parallel layer's input: the activation whole on
+  every rank, gathered from the sequence blocks under ``seq_carry``
+  (all_gather; backward reduce_scatter) or marked as replicated
+  (``copy_to``; backward all_reduce);
+* ``leave`` at a row-parallel layer's output: the partial products summed
+  over "model", onto the sequence blocks under ``seq_carry``
+  (reduce_scatter; backward all_gather) or whole (``reduce_from``:
+  all_reduce).
+
+Under ``seq_carry`` (the sequence divides by the "model" size: JAX never
+constrains a dim that does not divide) the residual stream between the
+regions is sequence-sharded: the norms, the residual adds and a node-mode
+solve's state hold the rank's rows only.  A dim that "model" does not
+divide leaves its leaf whole (``shardings`` ``pad``): that layer then runs
+on the rank's rows (``seq_carry``) or on the replicated activation, with
+no collective.
+
+A leaf that "model" does not split but that computes on
+"model"-partitioned data has a partial gradient on each rank
+(``partial_leaves``: the q/k norms on the local heads, and under
+``seq_carry`` every such leaf: the norms, a whole ffn or vocab); the data-
+parallel step sums those over "model" (one fused all_reduce per step).
+
+The data-parallel step makes a rank's context (``TensorParallel``) and
+passes it down as the ``tp`` argument of ``train_step.loss_and_grads``,
+``models.lm.lm_forward``, ``models.blocks.layer_forward`` and
+``train.losses.lm_loss_chunked`` (None on one device); a checkpoint's
+recompute and a node-mode field hold it in their closures.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import torch
+from torch.utils import _pytree as pytree
+
+from . import comm
+from .layout import Group, axes_group, axis_names, axis_sizes, coordinate
+
+#: what a later slice ports (the mesh's "model" axis for these archs)
+LATER = ("ROADMAP item 17's second half: MoE with TP-in-expert and --ep, "
+         "MLA, Mamba with --replicate-mamba, xLSTM, the enc-dec model and "
+         "the patch frontend")
+
+
+def check_arch(arch, size: int) -> None:
+    """Raise unless a "model" axis of ``size`` can compute ``arch``: a
+    decoder of GQA attention and dense SwiGLU layers (tied or untied head)
+    whose kv heads ``size`` divides."""
+    if size <= 1:
+        return
+    what = []
+    if arch.encdec:
+        what.append("the enc-dec model")
+    if arch.frontend != "none":
+        what.append(f"the {arch.frontend} frontend")
+    for spec in tuple(arch.prefix) + tuple(arch.pattern):
+        if spec.mixer != "attn":
+            what.append(f"the {spec.mixer} mixer")
+        if spec.ffn != "dense":
+            what.append(f"ffn {spec.ffn!r}")
+    if what:
+        raise NotImplementedError(
+            f"tensor-parallel training of {arch.name} on 'model' = {size}: "
+            f"{', '.join(sorted(set(what)))} not ported ({LATER})")
+    if arch.n_kv_heads % size or arch.n_heads % size:
+        raise NotImplementedError(
+            f"tensor-parallel training of {arch.name}: 'model' = {size} "
+            f"does not divide its {arch.n_heads} heads / {arch.n_kv_heads} "
+            f"kv heads (replicated attention is {LATER})")
+
+
+def divides(n: int, size: int) -> bool:
+    """The ``shardings`` rule: "model" splits a dim it divides and that is
+    at least its size."""
+    return n % size == 0 and n >= size
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """A rank's view of the "model" axis: its group (``layout.Group``),
+    size and coordinate; whether the vocab and the ffn dims are split; and
+    whether ``seq_carry`` shards the residual stream of the step at hand
+    (``for_seq``)."""
+    group: Group
+    size: int
+    rank: int
+    vocab_split: bool
+    ffn_split: bool
+    seq_carry: bool = False
+
+    @classmethod
+    def of(cls, mesh, arch) -> Optional["TensorParallel"]:
+        """The context of ``mesh``'s "model" axis for ``arch`` (None when
+        the axis is absent or of size 1).  Collective on first use (the
+        group is made by every rank)."""
+        size = axis_sizes(mesh).get("model", 1)
+        if size <= 1:
+            return None
+        check_arch(arch, size)
+        rank = coordinate(mesh)[axis_names(mesh).index("model")]
+        return cls(axes_group(mesh, ["model"]), size, rank,
+                   divides(arch.vocab, size), divides(arch.d_ff, size))
+
+    def for_seq(self, seq_len: int) -> "TensorParallel":
+        return dataclasses.replace(self,
+                                   seq_carry=divides(seq_len, self.size))
+
+    # -- regions ---------------------------------------------------------
+    def enter(self, h: torch.Tensor) -> torch.Tensor:
+        """A column-parallel layer's input (B, S[/TP], d) whole."""
+        if self.seq_carry:
+            return comm.gather_from_sequence(h, self.group, 1)
+        return comm.copy_to(h, self.group)
+
+    def leave(self, y: torch.Tensor) -> torch.Tensor:
+        """A row-parallel layer's partial output summed over "model", on
+        this rank's sequence block under ``seq_carry``."""
+        if self.seq_carry:
+            return comm.scatter_to_sequence(y, self.group, 1)
+        return comm.reduce_from(y, self.group)
+
+    def rows(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's sequence block of a whole tensor under
+        ``seq_carry`` (a view), else ``x``."""
+        if not self.seq_carry:
+            return x
+        n = x.shape[dim] // self.size
+        return x.narrow(dim, self.rank * n, n)
+
+    def vocab_block(self, local_vocab: int):
+        """The vocab ids [lo, hi) this rank's embed / head block holds."""
+        lo = self.rank * local_vocab
+        return lo, lo + local_vocab
+
+
+def _path_names(path):
+    return [str(e.key) for e in path if hasattr(e, "key")]
+
+
+def model_split(params, mesh) -> List[bool]:
+    """Per leaf of ``params`` (in ``tree_leaves`` order): True where
+    ``parallel.param_specs`` splits it over "model"."""
+    from .layout import P
+    from .shardings import param_specs
+    specs = pytree.tree_leaves(param_specs(params, mesh),
+                               is_leaf=lambda x: isinstance(x, P))
+    return [any(e == "model" or (isinstance(e, tuple) and "model" in e)
+                for e in spec) for spec in specs]
+
+
+def partial_leaves(params, mesh, seq_carry: bool) -> List[bool]:
+    """Per leaf of ``params`` (in ``tree_leaves`` order): True where the
+    rank's gradient is a partial sum over "model" (see the module note)."""
+    paths = [p for p, _ in pytree.tree_flatten_with_path(params)[0]]
+    out = []
+    for split, path in zip(model_split(params, mesh), paths):
+        names = _path_names(path)
+        out.append(not split and (seq_carry or "q_norm" in names
+                                  or "k_norm" in names))
+    return out
+
+
+def sum_partial(grads: List[Optional[torch.Tensor]], partial: List[bool],
+                tp: TensorParallel) -> List[Optional[torch.Tensor]]:
+    """``grads`` with each partial leaf summed over "model": one all_reduce
+    of the partial leaves flattened together (one per dtype)."""
+    out = list(grads)
+    by_dtype: dict = {}
+    for i, (g, p) in enumerate(zip(grads, partial)):
+        if p and g is not None:
+            by_dtype.setdefault(g.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([grads[i].reshape(-1) for i in idx])
+        comm.all_reduce(flat, tp.group.group)
+        for i, part in zip(idx, torch.split(
+                flat, [grads[i].numel() for i in idx])):
+            out[i] = part.view_as(grads[i])
+    return out
+
+
+def reduce_max(values: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """The elementwise max of ``values`` (a stacked vector) over "model":
+    one all_gather (``comm`` has no MAX reduction)."""
+    parts = comm.all_gather(values, tp.group.group)
+    return torch.stack(parts).amax(0)

@@ -23,12 +23,30 @@ Then, per step:
   float32 master) and the new params are gathered: one all_gather per
   split leaf, one broadcast per owned leaf.
 
-Tensor parallelism (a "model" axis larger than 1) is not here: see
-``check_mesh``.
+With ``microbatches`` > 1 the step takes JAX's microbatches (microbatch
+i is rows [i B / mb, (i + 1) B / mb) of the global batch) and each rank its
+block of each, weighted n_r,i / N_i; a rank accumulates its float32
+gradient over them and reduces once, so the count of collectives per step
+does not grow with mb.  With gradient compression every leaf is reduced
+whole (an all_reduce, in its own dtype): compression runs on the reduced
+gradient, as JAX's program compresses the gradient of the global batch
+(the int8 of a sum is not the sum of int8s); each rank compresses the
+whole leaf and, under ZeRO-1, keeps its shard for AdamW.
+
+On a mesh whose "model" axis is larger than 1 the step is also
+tensor-parallel (``parallel.tensor``): the params and the optimizer state
+are the rank's model blocks (ZeRO-1 splits a different dim over "data",
+``P("data", "model")``), the forward and backward issue the regions'
+collectives, and the leaves whose gradient is a partial sum over "model"
+(``tensor.partial_leaves``) are summed in one fused all_reduce per step
+before the data reduction.  The clip norm then takes one all_reduce over
+("data", "model"), and int8's per-leaf scales one all_gather of the
+stacked local maxima over "model".  ``check_mesh`` says which archs.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+import collections
+from typing import Dict, List, Optional, Sequence
 
 import torch
 from torch.utils import _pytree as pytree
@@ -39,30 +57,37 @@ from ..parallel import comm
 from ..parallel.layout import (axes_group, axis_names, axis_sizes,
                                coordinate, from_local, local_piece,
                                placements)
+from ..parallel import tensor
 from ..parallel.shardings import Owned, batch_specs, state_specs
 from .losses import IGNORE
 
 
-def check_mesh(mesh) -> None:
-    """A data-parallel step runs on a mesh whose only axis larger than 1 is
-    "data"."""
+def check_mesh(mesh, arch=None) -> None:
+    """A data-parallel step runs on a mesh with a "data" axis, whose other
+    axes larger than 1 are at most "model"; a "model" axis larger than 1
+    computes ``arch`` tensor-parallel, which only a decoder of GQA
+    attention and dense SwiGLU layers takes so far
+    (``parallel.tensor.check_arch``)."""
+    sizes = _check_axes(mesh)
+    if sizes.get("model", 1) > 1:
+        if arch is None:
+            raise ValueError("a step on a 'model' axis larger than 1 needs "
+                             "the arch it computes")
+        tensor.check_arch(arch, sizes["model"])
+
+
+def _check_axes(mesh):
     sizes = axis_sizes(mesh)
     if "data" not in sizes:
         raise ValueError(f"data-parallel training needs a 'data' mesh axis; "
                          f"got {tuple(sizes)}")
-    if sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a training step on a mesh with 'model' = {sizes['model']}: "
-            "tensor-parallel compute of the LM (Megatron column/row layers "
-            "on DTensor, the kernels under local_map) is not ported yet "
-            "(ROADMAP queue 1, item 17); its state and checkpoints lay out "
-            "on such a mesh already (parallel.state_specs, runtime.elastic)")
     other = [a for a, n in sizes.items() if a not in ("data", "model")
              and n > 1]
     if other:
         raise NotImplementedError(
             f"data-parallel training over mesh axes {other}: only 'data' "
-            "is ported")
+            "and 'model' are ported")
+    return sizes
 
 
 def local_tensor(leaf):
@@ -80,73 +105,154 @@ def local_tensor(leaf):
 
 class DataParallel:
     """The collectives of a data-parallel step over ``mesh``'s "data"
-    axis; ``grad_constraint`` (a ``Zero1``) makes it ZeRO-1."""
+    axis, tensor-parallel over its "model" axis when that is larger than 1
+    (``arch`` is what the step computes); ``grad_constraint`` (a
+    ``Zero1``) makes it ZeRO-1."""
 
-    def __init__(self, mesh, grad_constraint: Optional["Zero1"] = None):
-        check_mesh(mesh)
+    def __init__(self, mesh, grad_constraint: Optional["Zero1"] = None,
+                 arch=None):
+        check_mesh(mesh, arch)
         self.mesh = mesh
         self.zero1 = grad_constraint
         self.group = axes_group(mesh, ["data"])
-        self.data_rank = coordinate(mesh)[axis_names(mesh).index("data")]
+        names = axis_names(mesh)
+        self.data_rank = coordinate(mesh)[names.index("data")]
+        self.tp = None if arch is None else \
+            tensor.TensorParallel.of(mesh, arch)
+        # the clip norm's group: every rank holding a distinct piece
+        self.norm_group = self.group if self.tp is None else \
+            axes_group(mesh, ["data", "model"])
+        self._roles: dict = {}
 
     # -- batch and loss ------------------------------------------------------
     def local_batch(self, batch):
-        """This rank's rows of the global batch, and its weight n_r / N."""
+        """This rank's rows of the global batch, and its weight n_r / N / c,
+        c the number of data ranks that hold the same rows: 1 where the
+        data axis splits the batch, all of them where it does not divide
+        the rows and the batch stays whole on every rank (``batch_specs``),
+        as JAX's program then computes the batch once."""
         specs = batch_specs(batch, self.mesh)
         local = {k: local_piece(local_tensor(v), self.mesh,
                                 placements(self.mesh, specs[k]))
                  for k, v in batch.items()}
+        labels = local_tensor(batch["labels"])
         n = (local["labels"] != IGNORE).sum()
-        total = (local_tensor(batch["labels"]) != IGNORE).sum()
+        total = (labels != IGNORE).sum()
+        copies = axis_sizes(self.mesh)["data"] * local["labels"].shape[0] \
+            // labels.shape[0]
         return local, n.to(torch.float64) / total.clamp(min=1).to(
-            torch.float64)
+            torch.float64) / copies
+
+    def tensor_parallel(self, batch):
+        """The "model" context for a step on ``batch``: ``seq_carry`` when
+        "model" divides its sequence; None without a "model" axis."""
+        if self.tp is None:
+            return None
+        return self.tp.for_seq(batch["tokens"].shape[1])
 
     def loss(self, weighted: torch.Tensor) -> torch.Tensor:
         """The global loss: the sum of the ranks' weighted losses."""
         return comm.all_reduce(weighted.clone(), self.group.group)
 
     # -- gradients -------------------------------------------------------------
+    def roles(self, params, tp):
+        """(model_split, partial) flags per leaf of the state's ``params``
+        (``tree_leaves`` order) under the step's context ``tp``: split
+        over "model", and a partial sum over "model"."""
+        key = tp is not None and tp.seq_carry
+        if key not in self._roles:
+            if tp is None:
+                n = len(pytree.tree_leaves(params))
+                self._roles[key] = ([False] * n, [False] * n)
+            else:
+                self._roles[key] = (tensor.model_split(params, self.mesh),
+                                    tensor.partial_leaves(params, self.mesh,
+                                                          key))
+        return self._roles[key]
+
+    def check_layout(self, p_leaves, split) -> None:
+        """Tensor parallelism computes on the rank's model blocks: every
+        leaf "model" splits must be laid out (``runtime.reshard_state``
+        with ``parallel.state_specs``)."""
+        from torch.distributed.tensor import DTensor
+        if any(s and not isinstance(l, DTensor)
+               for l, s in zip(p_leaves, split)):
+            raise ValueError(
+                "a tensor-parallel step takes a state laid out on the mesh: "
+                "runtime.reshard_state(state, mesh, parallel.state_specs("
+                "state, mesh[, zero1=False]))")
+
+    def sum_model(self, grads: List[torch.Tensor], partial: List[bool]):
+        """The partial leaves summed over "model" (one fused all_reduce);
+        as they are without a "model" axis."""
+        if self.tp is None or not any(partial):
+            return grads
+        return tensor.sum_partial(grads, partial, self.tp)
+
     def reduce(self, grads):
         """One collective per leaf: each rank's gradient tree summed over
         the data axis, onto this rank's ZeRO-1 shard when there is one."""
         if self.zero1 is not None:
             return self.zero1(grads)
+        return self.reduce_whole(grads)
+
+    def reduce_whole(self, grads):
+        """One all_reduce per leaf over the data axis: every rank holds
+        each reduced leaf whole (the compression path)."""
         return pytree.tree_map(
             lambda g: comm.all_reduce(g.contiguous(), self.group.group),
             grads)
 
-    def norm(self, pieces) -> torch.Tensor:
+    def pieces(self, whole: List[torch.Tensor]):
+        """This rank's piece of each whole reduced leaf: its ZeRO-1 shard
+        (None where it holds none), or the leaf."""
+        if self.zero1 is None:
+            return list(whole)
+        return [self.zero1.piece(i, g) for i, g in enumerate(whole)]
+
+    def leaf_max(self, maxima: torch.Tensor) -> torch.Tensor:
+        """Per-leaf maxima (stacked) over "model": int8's per-tensor scale
+        of the whole leaf from the rank's block."""
+        return tensor.reduce_max(maxima, self.tp)
+
+    def norm(self, pieces, split) -> torch.Tensor:
         """The global gradient norm from this rank's pieces, each leaf's
         squares summed in leaf order as ``optim.clip.global_norm`` does.
-        Without ZeRO-1 every rank holds every reduced leaf whole: no
-        collective.  With it each rank sums what it alone holds (a leaf
-        every rank holds whole counts on data rank 0): one all_reduce."""
+        Without ZeRO-1 and "model" every rank holds every reduced leaf
+        whole: no collective.  Otherwise each rank sums what it alone
+        holds (a leaf every data rank holds whole counts on data rank 0,
+        one "model" does not split (``split[i]`` False) on model rank 0):
+        one all_reduce."""
         leaves = pytree.tree_leaves(pieces, is_leaf=_none)
-        if self.zero1 is None:
+        if self.zero1 is None and self.tp is None:
             return global_norm(leaves)
+        kinds = self.zero1.kinds if self.zero1 is not None else \
+            ["whole"] * len(leaves)
         acc = torch.promote_types(
             next(g for g in leaves if g is not None).dtype, torch.float32) \
             if any(g is not None for g in leaves) else torch.float32
         total = torch.zeros((), dtype=acc, device=self._dev)
-        for g, kind in zip(leaves, self.zero1.kinds):
-            if g is None or (kind == "whole" and self.data_rank != 0):
+        for g, kind, s in zip(leaves, kinds, split):
+            if g is None or (kind == "whole" and self.data_rank != 0) or \
+                    (not s and self.tp is not None and self.tp.rank != 0):
                 continue
             lf = g.to(torch.promote_types(g.dtype, torch.float32))
             total = total + torch.sum(lf * lf)
-        return torch.sqrt(comm.all_reduce(total, self.group.group))
+        return torch.sqrt(comm.all_reduce(total, self.norm_group.group))
 
     @property
     def _dev(self):
         return torch.device(self.mesh.device_type)
 
     # -- the update ------------------------------------------------------------
-    def update(self, p_leaves, full, opt, pieces, scale, lr, adamw_cfg):
+    def update(self, p_leaves, local, opt, pieces, scale, lr, adamw_cfg):
         """AdamW on the leaves this rank holds (``pieces``: its reduced
         gradient of each param leaf, None where it holds none), scaled by
-        the clip ``scale``; then each param made whole again (ZeRO-1's
-        gathers).  ``p_leaves`` are the state's param leaves and ``full``
-        their whole tensors.  Returns (param leaves, opt tree), each leaf
-        in the representation of the state's leaf it replaces."""
+        the clip ``scale``; then each param made whole again over "data"
+        (ZeRO-1's gathers).  ``p_leaves`` are the state's param leaves and
+        ``local`` their tensors on this rank (whole, or the model block).
+        Returns (param leaves, opt tree), each leaf in the representation
+        of the state's leaf it replaces."""
         z = self.zero1
         mine = [i for i, g in enumerate(pieces) if g is not None]
         slot = {i: j for j, i in enumerate(mine)}
@@ -163,13 +269,13 @@ class DataParallel:
         own = {k: [ls[i] for i in mine] for k, ls in held.items()}
         own["step"] = local_tensor(opt["step"])
         new_p, new_opt = adamw_update(
-            [full[i] if z is None else z.piece(i, full[i]) for i in mine],
+            [local[i] if z is None else z.piece(i, local[i]) for i in mine],
             [clip(pieces[i]) for i in mine], own, lr, adamw_cfg)
         params = []
         for i, like in enumerate(p_leaves):
             piece = new_p[slot[i]] if i in slot else None
-            whole = piece if z is None else z.gather(i, piece, full[i])
-            params.append(relay(_block(whole, like), like))
+            whole = piece if z is None else z.gather(i, piece, local[i])
+            params.append(relay(whole, like))
         out = {}
         for k in opt:               # the state's key order
             if k == "step":
@@ -191,15 +297,6 @@ def _laid_out(x) -> bool:
     return x is None or isinstance(x, OwnedShard)
 
 
-def _block(whole, like):
-    """This rank's block of a whole param laid out as the state's leaf
-    ``like`` (a DTensor's block; a plain leaf is whole)."""
-    from torch.distributed.tensor import DTensor
-    if not isinstance(like, DTensor):
-        return whole
-    return local_piece(whole, like.device_mesh, tuple(like.placements))
-
-
 class Zero1:
     """``grad_constraint`` of a ZeRO-1 data-parallel step: the optimizer
     state lives split over "data" per ``parallel.state_specs`` (the state
@@ -210,32 +307,15 @@ class Zero1:
     Per param leaf, ``kinds[i]`` is "split" (dim ``dims[i]`` over "data"),
     "owned" (a unit's leaf held whole by data rank ``owners[i]``) or
     "whole" (nothing splits it: every rank keeps the all-reduced
-    gradient and updates it alike)."""
+    gradient and updates it alike).  On a "model" axis each rank's leaves
+    are its model blocks, which "data" splits on another dim."""
 
     def __init__(self, mesh, state):
-        check_mesh(mesh)
+        _check_axes(mesh)
         self.mesh = mesh
-        specs = state_specs(state, mesh)["opt"]["m"]
-        self.specs = pytree.tree_leaves(
-            specs, is_leaf=lambda x: isinstance(x, Owned))
-        names = axis_names(mesh)
         self.group = axes_group(mesh, ["data"])
-        self.data_rank = coordinate(mesh)[names.index("data")]
-        self.kinds: List[str] = []
-        self.dims: List[Optional[int]] = []
-        self.owners: List[Optional[int]] = []
-        from torch.distributed.tensor import Shard
-        for spec in self.specs:
-            if isinstance(spec, Owned):
-                self.kinds.append("owned")
-                self.dims.append(None)
-                self.owners.append(spec.index)
-                continue
-            p = placements(mesh, spec)[names.index("data")]
-            split = isinstance(p, Shard)
-            self.kinds.append("split" if split else "whole")
-            self.dims.append(p.dim if split else None)
-            self.owners.append(None)
+        self.data_rank = coordinate(mesh)[axis_names(mesh).index("data")]
+        self.kinds, self.dims, self.owners = zero1_layout(state, mesh)
 
     def __call__(self, grads):
         leaves, tree = pytree.tree_flatten(grads)
@@ -281,6 +361,112 @@ class Zero1:
             return comm.broadcast(buf, self.group.ranks[self.owners[i]],
                                   group)
         return piece
+
+
+def zero1_layout(state, mesh):
+    """ZeRO-1's layout of each param leaf from ``parallel.state_specs``:
+    (kinds, data dims, owners), as ``Zero1`` documents.  Reads the mesh's
+    axis sizes and names only (a duck-typed mesh will do)."""
+    from torch.distributed.tensor import Shard
+    specs = pytree.tree_leaves(state_specs(state, mesh)["opt"]["m"],
+                               is_leaf=lambda x: isinstance(x, Owned))
+    data = axis_names(mesh).index("data")
+    kinds: List[str] = []
+    dims: List[Optional[int]] = []
+    owners: List[Optional[int]] = []
+    for spec in specs:
+        if isinstance(spec, Owned):
+            kinds.append("owned")
+            dims.append(None)
+            owners.append(spec.index)
+            continue
+        p = placements(mesh, spec)[data]
+        split = isinstance(p, Shard)
+        kinds.append("split" if split else "whole")
+        dims.append(p.dim if split else None)
+        owners.append(None)
+    return kinds, dims, owners
+
+
+def step_collectives(arch, mesh, n_leaves: int, *, seq_len: int,
+                     kinds: Optional[Sequence[str]] = None,
+                     loss_chunk: int = 512, microbatches: int = 1,
+                     compression: str = "none") -> Dict[str, int]:
+    """The collectives of one data-parallel step, by kind (what
+    ``parallel.comm.counts()`` reads after it), for ``arch`` on ``mesh``
+    (axis sizes read only), ``n_leaves`` param leaves, sequences of
+    ``seq_len``, and ZeRO-1's leaf ``kinds`` (``zero1_layout``; None
+    without ZeRO-1).
+
+    "model" > 1: each layer pass enters the attention and the SwiGLU
+    (``TensorParallel.enter``) and leaves them (``leave``).  Under
+    seq_carry (the sequence divides by "model") an enter is an all_gather
+    forward and a reduce_scatter backward, a leave the reverse; without it
+    an enter is nothing forward and an all_reduce backward, a leave an
+    all_reduce forward and nothing backward.  Discrete with remat: a
+    forward per layer, the unit's recompute in the backward (which stops
+    after the last tensor the backward needs: the unit's last leave, whose
+    output only feeds the residual add, is not recomputed), and a backward
+    per layer.  Node mode: a forward per solver step, and in the
+    symplectic adjoint's backward a forward and a backward per step.  The
+    vocab-parallel lookup is one more leave, the head's input one more
+    enter, and each loss chunk one all_gather.  A d_ff or vocab that
+    "model" does not divide leaves its layer whole: no enter or leave (and
+    a unit's recompute then ends at the attention's leave, which it
+    needs); a whole head's loss over the rank's rows is summed once
+    (all_reduce) under seq_carry.  All of that once per microbatch.
+
+    Then once per step: one collective per gradient leaf over "data"
+    (ZeRO-1's reduce_scatter / reduce / all_reduce by leaf kind; all_reduce
+    without ZeRO-1 or with compression), the fused all_reduce of the
+    partial leaves over "model", the loss's all_reduce, the clip norm's
+    all_reduce (ZeRO-1 or "model"), int8's all_gather of the leaf maxima
+    over "model", and ZeRO-1's gathers of the new params (all_gather per
+    split leaf, broadcast per owned one)."""
+    c: collections.Counter = collections.Counter()
+    m = axis_sizes(mesh).get("model", 1)
+    if m > 1:
+        ffn = tensor.divides(arch.d_ff, m)
+        vocab = tensor.divides(arch.vocab, m)
+        per_pass = (1 + ffn) * len(arch.pattern)  # enters (= leaves) a unit
+        if arch.node.mode != "node":
+            units = arch.n_repeats
+            enter_f = per_pass * units * (2 if arch.remat else 1)
+            leave_f = enter_f - (units if arch.remat and ffn else 0)
+            back = per_pass * units
+        else:
+            steps = arch.node.n_steps or arch.n_repeats
+            enter_f = leave_f = 2 * per_pass * steps
+            back = per_pass * steps
+        # the lookup's leave and the head's enter (a whole vocab: neither)
+        enter_f, leave_f, back = enter_f + vocab, leave_f + vocab, \
+            back + vocab
+        seq = tensor.divides(seq_len, m)
+        per = collections.Counter(
+            {"all_gather": enter_f + back, "reduce_scatter": leave_f + back}
+            if seq else {"all_reduce": leave_f + back})
+        if vocab:
+            per["all_gather"] += -(-seq_len // min(loss_chunk, seq_len))
+        elif seq:
+            per["all_reduce"] += 1              # the rows' loss, summed
+        for k, v in per.items():
+            c[k] += v * microbatches
+        c["all_reduce"] += 1                    # the partial leaves
+    c["all_reduce"] += 1                        # the loss
+    if kinds is not None or m > 1:
+        c["all_reduce"] += 1                    # the clip norm
+    if compression == "int8" and m > 1:
+        c["all_gather"] += 1                    # the leaf maxima
+    if kinds is None or compression != "none":
+        c["all_reduce"] += n_leaves
+    else:
+        for kind in kinds:
+            c[{"split": "reduce_scatter", "owned": "reduce",
+               "whole": "all_reduce"}[kind]] += 1
+    for kind in kinds or ():
+        if kind != "whole":
+            c[{"split": "all_gather", "owned": "broadcast"}[kind]] += 1
+    return {k: v for k, v in c.items() if v}
 
 
 def relay(new: Optional[torch.Tensor], like):

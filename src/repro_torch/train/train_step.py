@@ -13,8 +13,12 @@ cross-entropy.
 
 On a mesh (``shard=parallel.make_sharder(mesh)``, or a ``grad_constraint``)
 the step is data-parallel and SPMD: ``train.data_parallel`` holds its
-collectives (one per gradient leaf, plus the loss and the clip norm), and
-``grad_constraint=data_parallel.Zero1(mesh, state)`` makes it ZeRO-1.
+collectives (one per gradient leaf, plus the loss and the clip norm),
+``grad_constraint=data_parallel.Zero1(mesh, state)`` makes it ZeRO-1, and
+a "model" axis larger than 1 makes it tensor-parallel as well
+(``parallel.tensor``).  Microbatches and compression run on a mesh in
+JAX's order (microbatches accumulated, then reduced once, then compress
+-> clip -> AdamW).
 """
 from __future__ import annotations
 
@@ -66,11 +70,13 @@ def init_train_state(arch: ArchConfig, tcfg: TrainConfig, *, seed: int = 0,
         compress_err=init_error_state(params, tcfg.compression))
 
 
-def _forward_loss(params, batch, arch: ArchConfig, loss_chunk: int):
+def _forward_loss(params, batch, arch: ArchConfig, loss_chunk: int,
+                  tp=None):
     """(cross-entropy + aux loss, cross-entropy); with the patch frontend
     the batch also holds "patch_embeds" (B, P, d_frontend), whose P
     positions take the label IGNORE; the enc-dec model's holds "frames"
-    (B, S_enc, d_frontend)."""
+    (B, S_enc, d_frontend).  ``tp``: the rank's tensor-parallel context
+    (``parallel.tensor.TensorParallel``), None on one device."""
     rh = loss_chunk > 0
     labels = batch["labels"]
     patches = batch.get("patch_embeds") if arch.frontend == "patch" else None
@@ -80,31 +86,79 @@ def _forward_loss(params, batch, arch: ArchConfig, loss_chunk: int):
                              mode="train", return_hidden=rh)
     else:
         out = lm_forward(params, arch, batch["tokens"], extra_embeds=patches,
-                         mode="train", return_hidden=rh)
+                         mode="train", return_hidden=rh, tp=tp)
     if patches is not None:
         pad = torch.full(labels.shape[:1] + patches.shape[1:2], IGNORE,
                          dtype=labels.dtype, device=labels.device)
         labels = torch.cat([pad, labels], dim=1)
     if rh:
         loss = lm_loss_chunked(out["hidden"], out["head"], labels,
-                               loss_chunk)
+                               loss_chunk, tp=tp)
     else:
         loss = lm_loss(out["logits"], labels)
     return loss + out["aux"], loss
 
 
-def loss_and_grads(params, batch, arch: ArchConfig, loss_chunk: int = 512):
+def loss_and_grads(params, batch, arch: ArchConfig, loss_chunk: int = 512,
+                   tp=None):
     """(total loss, gradient tree like ``params``) of one batch; the params
-    are not modified (the gradient is taken on detached copies)."""
+    are not modified (the gradient is taken on detached copies).  ``tp``:
+    as ``_forward_loss``."""
     leaves, spec = pytree.tree_flatten(params)
     with torch.enable_grad():
         live = [l.detach().requires_grad_() for l in leaves]
         total, _ = _forward_loss(pytree.tree_unflatten(live, spec), batch,
-                                 arch, loss_chunk)
+                                 arch, loss_chunk, tp)
         grads = torch.autograd.grad(total, live, allow_unused=True)
     grads = [torch.zeros_like(l) if g is None else g
              for g, l in zip(grads, leaves)]
     return total.detach(), pytree.tree_unflatten(grads, spec)
+
+
+def _accumulate(mb: int, batch, grads_of):
+    """The microbatch loop of both steps: microbatch i is rows [i B / mb,
+    (i + 1) B / mb) of ``batch`` (JAX's ``scan`` over ``reshape(mb, B /
+    mb)``) and ``grads_of(part)`` its (loss, gradient leaves).  Returns the
+    summed loss and gradient leaves: with mb > 1 the gradients accumulate
+    in float32, as JAX's do; one microbatch's are returned as they are."""
+    if mb == 1:
+        return grads_of(batch)
+    loss_sum, g_acc = None, None
+    for i in range(mb):
+        total, g = grads_of({k: torch.chunk(v, mb, dim=0)[i]
+                             for k, v in batch.items()})
+        loss_sum = total if loss_sum is None else loss_sum + total
+        if g_acc is None:
+            g_acc = [torch.zeros(x.shape, dtype=torch.float32,
+                                 device=x.device) for x in g]
+        g_acc = [a + x.to(a.dtype) for a, x in zip(g_acc, g)]
+    return loss_sum, g_acc
+
+
+#: the params keys whose lists hold the units that the JAX package stacks
+#: into one leaf per layer leaf (``models.lm.params_from_jax``,
+#: ``models.encdec.params_from_jax``)
+_STACKED = ("unit", "enc_unit", "dec_unit")
+
+
+def stack_groups(params) -> list:
+    """Per leaf of ``params`` (``tree_leaves`` order), the key of the JAX
+    package's leaf it belongs to: its path without the unit index that
+    follows a stacked key (``_STACKED``).  The leaves of one key are the
+    units of one stacked JAX leaf: int8 compression gives them one scale
+    (``optim.compress_grads``)."""
+    keys = []
+    for path, _ in pytree.tree_flatten_with_path(params)[0]:
+        key, skip = [], False
+        for e in path:
+            if skip:
+                skip = False
+                continue
+            name = getattr(e, "key", getattr(e, "idx", None))
+            key.append(name)
+            skip = getattr(e, "key", None) in _STACKED
+        keys.append(tuple(key))
+    return keys
 
 
 def make_train_step(arch: ArchConfig, tcfg: TrainConfig,
@@ -119,19 +173,18 @@ def make_train_step(arch: ArchConfig, tcfg: TrainConfig,
     data-parallel over the mesh's "data" axis: every rank passes the same
     global batch and takes its rows; the state is laid out by
     ``runtime.reshard_state(state, mesh, parallel.state_specs(state,
-    mesh))`` for ZeRO-1, or held whole on every rank without it."""
+    mesh))`` for ZeRO-1, or held whole on every rank without it.  With a
+    "model" axis larger than 1 the state must be laid out
+    (``state_specs(..., zero1=False)`` without ZeRO-1): each rank computes
+    on its model blocks."""
     mesh = getattr(shard, "mesh", None) or getattr(grad_constraint, "mesh",
                                                    None)
     if grad_constraint is not None and not isinstance(grad_constraint,
                                                       Zero1):
         raise TypeError("grad_constraint must be a data_parallel.Zero1 "
                         f"(ZeRO-1 over a mesh); got {type(grad_constraint)}")
-    if mesh is not None and (tcfg.microbatches > 1
-                             or tcfg.compression.mode != "none"):
-        raise NotImplementedError(
-            "data-parallel training with microbatches or gradient "
-            "compression is not ported (one microbatch, no compression)")
-    dp = DataParallel(mesh, grad_constraint) if mesh is not None else None
+    dp = DataParallel(mesh, grad_constraint, arch) if mesh is not None \
+        else None
     if lr_fn is None:
         lr_fn = lambda step: torch.full(  # noqa: E731
             (), tcfg.lr, dtype=torch.float32, device=step.device)
@@ -164,55 +217,85 @@ def make_train_step(arch: ArchConfig, tcfg: TrainConfig,
         return new_state, metrics
 
     def dp_step(state, batch):
-        """The data-parallel step (see ``train.data_parallel``)."""
+        """The data-parallel (and tensor-parallel) step; see
+        ``train.data_parallel``."""
         p_leaves, p_tree = pytree.tree_flatten(state["params"])
-        full = [local_tensor(l) for l in p_leaves]
-        local, weight = dp.local_batch(batch)
-        total, grads = loss_and_grads(pytree.tree_unflatten(full, p_tree),
-                                      local, arch, tcfg.loss_chunk)
-        loss = dp.loss(total * weight.to(total.dtype))
-        grads = pytree.tree_map(lambda g: g * weight.to(g.dtype), grads)
+        local = [local_tensor(l) for l in p_leaves]
+        params = pytree.tree_unflatten(local, p_tree)
+        batch = {k: local_tensor(v) for k, v in batch.items()}
+        tp = dp.tensor_parallel(batch)
+        split, partial = dp.roles(state["params"], tp)
+        dp.check_layout(p_leaves, split)
+        mb = tcfg.microbatches
+
+        def grads_of(part):         # this rank's rows, weighted n_r,i / N_i
+            rows, weight = dp.local_batch(part)
+            total, g = loss_and_grads(params, rows, arch, tcfg.loss_chunk,
+                                      tp)
+            return total * weight.to(total.dtype), \
+                [x * weight.to(x.dtype) for x in pytree.tree_leaves(g)]
+
+        loss_sum, g_acc = _accumulate(mb, batch, grads_of)
+        loss = dp.loss(loss_sum)
+
+        def mean(leaves):           # the microbatches' mean
+            return leaves if mb == 1 else \
+                [None if x is None else x / mb for x in leaves]
+
         with torch.no_grad():
-            pieces = pytree.tree_leaves(dp.reduce(grads),
-                                        is_leaf=lambda x: x is None)
-            gnorm = dp.norm(pieces)
+            grads = dp.sum_model(g_acc, partial)
+            err = state.get("compress_err")
+            new_err = err
+            if tcfg.compression.mode == "none":
+                pieces = mean(pytree.tree_leaves(
+                    dp.reduce(pytree.tree_unflatten(grads, p_tree)),
+                    is_leaf=lambda x: x is None))
+            else:
+                # compress the reduced (global batch) gradient, JAX's order
+                e_leaves, e_tree = pytree.tree_flatten(err)
+                comp, e_new = compress_grads(
+                    mean(dp.reduce_whole(grads)), tcfg.compression,
+                    None if err is None else [local_tensor(e)
+                                              for e in e_leaves],
+                    leaf_max=None if tp is None else dp.leaf_max,
+                    groups=stack_groups(params))
+                pieces = dp.pieces(decompress_grads(comp, tcfg.compression))
+                if err is not None:
+                    new_err = pytree.tree_unflatten(
+                        [relay(e, like) for e, like in zip(e_new, e_leaves)],
+                        e_tree)
+            gnorm = dp.norm(pieces, split)
             scale = torch.clamp(tcfg.max_grad_norm
                                 / torch.clamp(gnorm, min=1e-9), max=1.0)
             lr = lr_fn(local_tensor(state["opt"]["step"]))
-            params, opt = dp.update(p_leaves, full, state["opt"], pieces,
+            params, opt = dp.update(p_leaves, local, state["opt"], pieces,
                                     scale, lr, tcfg.adamw)
-        metrics = {"loss": loss.detach(), "grad_norm": gnorm, "lr": lr}
+        metrics = {"loss": (loss if mb == 1 else loss / mb).detach(),
+                   "grad_norm": gnorm, "lr": lr}
         return advance(state, pytree.tree_unflatten(params, p_tree), opt,
-                       state.get("compress_err"), metrics)
+                       new_err, metrics)
 
     def train_step(state, batch):
         if dp is not None:
             return dp_step(state, batch)
         params = state["params"]
-        if tcfg.microbatches > 1:
-            mb = tcfg.microbatches
-            g_acc = pytree.tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            loss_sum = None
-            for i in range(mb):
-                part = {k: torch.chunk(v, mb, dim=0)[i]
-                        for k, v in batch.items()}
-                total, g = loss_and_grads(params, part, arch, tcfg.loss_chunk)
-                g_acc = pytree.tree_map(lambda a, b: a + b.to(a.dtype),
-                                        g_acc, g)
-                loss_sum = total if loss_sum is None else loss_sum + total
-            grads = pytree.tree_map(lambda g: g / mb, g_acc)
-            loss = loss_sum / mb
-        else:
-            loss, grads = loss_and_grads(params, batch, arch,
-                                         tcfg.loss_chunk)
+        mb = tcfg.microbatches
+
+        def grads_of(part):
+            total, g = loss_and_grads(params, part, arch, tcfg.loss_chunk)
+            return total, pytree.tree_leaves(g)
+
+        loss, leaves = _accumulate(mb, batch, grads_of)
+        if mb > 1:
+            loss, leaves = loss / mb, [g / mb for g in leaves]
+        grads = pytree.tree_unflatten(leaves, pytree.tree_structure(params))
 
         with torch.no_grad():
-            # gradient compression (the JAX package compresses before its
-            # data-parallel all-reduce; the port's data-parallel step
-            # takes none)
+            # gradient compression (on a mesh: of the reduced gradient,
+            # dp_step)
             err = state.get("compress_err")
-            comp, new_err = compress_grads(grads, tcfg.compression, err)
+            comp, new_err = compress_grads(grads, tcfg.compression, err,
+                                           groups=stack_groups(params))
             grads = decompress_grads(comp, tcfg.compression)
             grads, gnorm = clip_by_global_norm(grads, tcfg.max_grad_norm)
             lr = lr_fn(state["opt"]["step"])

@@ -8,8 +8,9 @@ compared on one card in turns (parent, change, change, parent).
 A tree is a directory holding ``chip_smoke.py`` and ``src/`` (for the
 parent commit: ``git archive <commit> | tar -x -C runs/parent``).  Each run
 builds the kernels (phase 1), then calls the phases' functions of that
-tree's ``chip_smoke.py``; 35 runs 36 after it; 40 run alone runs phase
-32's discrete run first, in its own process, to compare with.  Each run's whole output goes
+tree's ``chip_smoke.py``; 35 runs 36 after it; 40 and 52 take phase
+32's metrics when 32 runs before them in the list, else they run phase 32
+first, in its own process, to compare with.  Each run's whole output goes
 to ``<log-dir>/phases_<i>.log`` (``--log-dir``, default ``runs/phases``);
 the lines that carry numbers are printed.  Exits 1 when a run fails.
 """
@@ -30,7 +31,8 @@ PHASES = {25: ["saveat_exactness"],
           38: ["mesh_gloo_phase"],
           39: ["mesh_engine_phase"],
           40: ["mesh_train_phase"],
-          41: ["analysis_phase"]}
+          41: ["analysis_phase"],
+          52: ["mesh_tp_phase"]}
 KEEP = ("==", "phase seconds", "s/step", "launches per step", "wall",
         "ms (device", "peak", "bitwise", "rel err", "dopri8 grid", "FAILED",
         "Error", "error", "ptxas flash_attention_bwd", "collectives",
@@ -46,11 +48,18 @@ def _child(tree: str, names):
     torch.backends.cudnn.allow_tf32 = False
     import chip_smoke as cs
     cs.build()
-    out = None
+    out, train = None, None
     for name in names:
         t = time.perf_counter()
         fn = getattr(cs, name)
-        out = fn(out) if name == "lm_train_to_serve" else fn()
+        if name == "lm_train_to_serve":
+            out = fn(out)
+        elif name in ("mesh_train_phase", "mesh_tp_phase"):
+            out = fn(train)
+        else:
+            out = fn()
+        if name == "lm_train_main_path":
+            train = out
         print(f"phase seconds {name} {time.perf_counter() - t:.1f}",
               flush=True)
 
