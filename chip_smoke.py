@@ -149,9 +149,9 @@ it (the physics workload of the paper's Table 4, the CNF flow path):
                combines' launches of the run (zeroed just before, > 0) and
                of one loss+gradient alone, and that loss+gradient under
                torch.profiler (busy share, top kernels).
- 24. SaveAt cells — one float32 ``rollout_loss`` loss+gradient (horizon 8:
-               32 windows of 9 consecutive snapshots of phase 23's
-               trajectories; KdV, dopri8, fixed 4 steps per interval) for
+ 24. SaveAt cells — one float32 ``rollout_loss`` loss+gradient (horizon
+               ``SAVEAT_HORIZON``, 2: 32 windows of 3 consecutive snapshots
+               of phase 23's trajectories; KdV, dopri8, fixed 4 steps per interval) for
                all five strategies, then the adaptive ts cells (symplectic,
                backprop, adjoint; rtol 1e-6, atol 1e-8, max_steps 64)
                single and ``per_sample=True``: peak allocated bytes and
@@ -291,7 +291,9 @@ slice's new call shapes: the Hermite lane rows (s 3, 8 lanes, the CNF's and
 the physics' leaves) and dopri8's s 12 (and 13 with the FSAL error slope)
 one-row and rows calls at the physics shape (n 32 x 64).
 
-The mesh (``repro_torch.parallel``), each phase in a process of its own:
+The mesh (``repro_torch.parallel``), each phase in a process of its own
+(38 and, below, 41 run beside phases 33-35, which time nothing either: they
+print when joined after phase 35):
 
  37. mesh solve — a world of 1 over NCCL: phase 14's per-sample CNF (256
                lanes, dopri5, rtol 1e-4 / atol 1e-6, max_steps 48) through
@@ -317,17 +319,30 @@ The mesh (``repro_torch.parallel``), each phase in a process of its own:
                metrics bitwise, collectives per step by kind exactly (every
                leaf reduced whole, the loss, the norm, ZeRO-1's gathers).
  52. tensor parallelism — 2 gloo ranks sharing the card on a ("data" 1,
-               "model" 2) mesh (``python3 chip_smoke.py --mesh 52``, run
-               after phase 40): qwen3-0.6b at full width, batch 8 x 1024,
-               float32, ZeRO-1, 2 discrete steps (remat) and 1
-               node-symplectic step from phase 32's state, batches and
-               schedule: loss and grad_norm within ``TP_LOSS_RTOL`` /
-               ``TP_GNORM_RTOL`` of phase 32's, the ranks' params that
+               "model" 2) mesh (``python3 chip_smoke.py --mesh 52``):
+               qwen3-0.6b at full width cut to ``TP_LAYERS`` (4) of its 28
+               layers, batch 8 x 1024, float32, ZeRO-1, 2 discrete steps
+               (remat) and 1 node-symplectic step, each from the seed-0
+               state, against the same steps in one process (in this
+               process, before the ranks start): loss and grad_norm within
+               ``TP_LOSS_RTOL`` / ``TP_GNORM_RTOL``, the ranks' params that
                "model" does not split bitwise equal, launches per step of
-               every kernel equal to phase 32's (flash at H 8/4, rms_norm on 512
-               of the 1024 positions), the collectives per step exactly
-               ``step_collectives``; s/step, bytes per step by kind and peak
-               bytes per rank.
+               every kernel equal to the single process's (flash at H 8/4,
+               rms_norm on 512 of the 1024 positions), the collectives per
+               step exactly ``step_collectives``; s/step, bytes per step by
+               kind and peak bytes per rank.
+ 53. tensor parallelism of the zoo — the same mesh (``python3
+               chip_smoke.py --zoo-tp``): deepseek-v2-lite-16b at 3 of its
+               27 layers, 2 discrete steps TP-in-expert, 1 node-symplectic
+               step, 1 discrete step expert parallel; internvl2-1b at 4 of
+               24 layers with 256 patches + 768 tokens, 1 step; each
+               against a single-process run (in this process, before the
+               ranks start) whose expert choices the ranks replay: loss and grad_norm within
+               ``ZOO_TP_LOSS_RTOL`` / ``ZOO_TP_GNORM_RTOL``, the ranks' own
+               top-k choices and unsplit params bitwise equal, each named
+               kernel launched, the collectives exactly
+               ``step_collectives``; the unforced share of rerouted rows,
+               s/step, bytes per step and peak bytes per rank.
 
 The auditor, in a process of its own (``python3 chip_smoke.py --mesh 41``):
 
@@ -401,8 +416,8 @@ The LM zoo's recurrent and enc-dec half, in a process of its own
                phase 8's tolerances, the float32 error printed per case;
                then ms per call of the two enc-dec shapes beside the plain
                version, SDPA and the bound.
- 48-50. jamba-v0.1-52b (8 of its 32 layers: one block), xlstm-1.3b (24
-               of its 48 layers, for the script's time) and
+ 48-50. jamba-v0.1-52b (8 of its 32 layers: one block), xlstm-1.3b (8
+               of its 48 layers, one block, for the script's time) and
                seamless-m4t-medium (random frames (8, 1024, 160)) served
                through ``launch.serve lm`` at full width, batch 8 x 1024,
                32 tokens: prefill ms, decode ms/token,
@@ -1848,6 +1863,9 @@ def per_sample_adjoint_memory(ps_mem):
 
 PHYS_TRAJ = dict(n_traj=6, grid=64, n_snapshots=16, substeps=80)
 SAVEAT_ADAPTIVE = dict(adaptive=True, rtol=1e-6, atol=1e-8, max_steps=64)
+# phase 24's rollout: observations per window (each cell's time grows with
+# it, host-bound; short for the script's time limit, PERF.md §4)
+SAVEAT_HORIZON = 2
 
 
 _TRAJS = {}
@@ -1938,9 +1956,9 @@ def saveat_cells():
     """One rollout_loss loss+gradient per SaveAt cell on the card."""
     import dataclasses
     from repro_torch.models import physics
-    phase("24 SaveAt cells (float32, rollout_loss, horizon 8, batch 32, "
-          "dopri8)")
-    u = _physics_windows(32)
+    phase(f"24 SaveAt cells (float32, rollout_loss, horizon "
+          f"{SAVEAT_HORIZON}, batch 32, dopri8)")
+    u = _physics_windows(32, horizon=SAVEAT_HORIZON)
     base = physics.PhysicsConfig()
     params = physics.init_energy_net(base, seed=0, device="cuda")
     cells = [(mode, "fixed", dataclasses.replace(base, grad_mode=mode))
@@ -2685,6 +2703,9 @@ def _zero_all_counts():
 # (B, H, Hkv, Sq, Sk, D, causal, window, q_offset)
 BWD_CASES = [
     (8, 16, 8, 1024, 1024, 128, True, None, 0),   # qwen3-0.6b training
+    # internvl2-1b's per-rank training shape on "model" 2 (phase 53): 7 of
+    # its 14 heads over 1 of 2 kv heads, GQA group 7
+    (8, 7, 1, 1024, 1024, 64, True, None, 0),
     (1, 4, 1, 128, 128, 128, True, 64, 0),        # MQA + window
     (1, 4, 2, 100, 100, 64, True, None, 0),       # ragged
     (1, 4, 4, 64, 256, 64, True, None, 192),      # q_offset, Sq != Sk
@@ -3244,19 +3265,75 @@ def _world(backend, world=1, rank=0, port=None):
     return make_lane_mesh((world,), device_type="cuda")
 
 
+_CHILDREN = []                   # started by _child_start, not yet joined
+
+
+def _descendants(pid):
+    """The processes below ``pid`` (its rank processes), from /proc."""
+    out = []
+    try:
+        for task in os.listdir(f"/proc/{pid}/task"):
+            with open(f"/proc/{pid}/task/{task}/children") as f:
+                out += [int(c) for c in f.read().split()]
+    except OSError:
+        return []
+    return out + [d for c in out for d in _descendants(c)]
+
+
+def _kill_children():
+    """At exit (a failed check included): kill every child not joined,
+    with the processes it started."""
+    import signal
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            for pid in [*_descendants(proc.pid), proc.pid]:
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except OSError:
+                    pass
+            proc.wait()
+
+
+def _child_start(argv, timeout=600):
+    """Start ``chip_smoke.py argv`` in its own process, its output to
+    temporary files; ``_child_finish`` joins it."""
+    import atexit
+    import tempfile
+    if not _CHILDREN:
+        atexit.register(_kill_children)
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             *argv], stdout=out, stderr=err, text=True)
+    _CHILDREN.append(proc)
+    return proc, out, err, time.perf_counter() + timeout
+
+
+def _child_finish(child, which):
+    """Wait for a ``_child_start`` child (phase ``which``) until its
+    deadline; returns its last line's JSON (the lines before it are
+    printed)."""
+    proc, out, err, deadline = child
+    try:
+        proc.wait(timeout=max(deadline - time.perf_counter(), 0))
+    except subprocess.TimeoutExpired:
+        fail(f"phase {which} process still running at its time limit")
+    _CHILDREN.remove(proc)
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    lines = stdout.rstrip("\n").splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    check(proc.returncode == 0 and lines,
+          f"phase {which} process failed (rc {proc.returncode}):\n"
+          f"{stdout[-4000:]}\n{stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
 def _child_phase(argv, which, timeout=600):
     """Run ``chip_smoke.py argv`` (phase ``which``) in its own process;
     returns its last line's JSON (the lines before it are printed)."""
     torch.cuda.empty_cache()
-    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                           *argv],
-                          capture_output=True, text=True, timeout=timeout)
-    lines = proc.stdout.rstrip("\n").splitlines()
-    print("\n".join(lines[:-1]), flush=True)
-    check(proc.returncode == 0 and lines,
-          f"phase {which} process failed (rc {proc.returncode}):\n"
-          f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
-    return json.loads(lines[-1])
+    return _child_finish(_child_start(argv, timeout), which)
 
 
 def _mesh_phase(which, *args, timeout=600):
@@ -3461,9 +3538,13 @@ def _mesh_gloo_child():
     print(json.dumps(res), flush=True)
 
 
+MESH_GLOO_TITLE = (f"38 mesh solve, world of 2 over gloo on the one card: "
+                   f"{MESH_GLOO_B // 2} lanes each, float64, symplectic "
+                   f"adjoint")
+
+
 def mesh_gloo_phase():
-    phase(f"38 mesh solve, world of 2 over gloo on the one card: "
-          f"{MESH_GLOO_B // 2} lanes each, float64, symplectic adjoint")
+    phase(MESH_GLOO_TITLE)
     return _mesh_phase(38)
 
 
@@ -3670,9 +3751,10 @@ def mesh_train_phase(train=None, peaks=None):
 # ("data" 1, "model" 2) mesh
 # ---------------------------------------------------------------------------
 
-# relative distance of phase 52's loss and grad_norm from phase 32's: the
-# card's readings were 0 (loss, every step) and at most 2.505e-7
-# (grad_norm) in four whole runs; 1e-5 is 40x the largest (PERF.md §6).
+# relative distance of phase 52's loss and grad_norm from the single-
+# process run's: at 28 layers against phase 32 the card's readings were 0
+# (loss, every step) and at most 2.505e-7 (grad_norm) in four whole runs;
+# 1e-5 is 40x the largest (PERF.md §6).
 # Leaving the partial leaves unsummed over "model" moves them by more
 # (tools/tp_rounding.py at smoke width with tensor.sum_partial a no-op)
 TP_LOSS_RTOL = 1e-5
@@ -3681,17 +3763,71 @@ TP_KERNELS = ("rms_norm", "flash_attention", "rms_norm_bwd",
               "flash_attention_bwd", "butcher_combine")
 
 
+TP_LAYERS = 4                    # phase 52's depth cut (whole layers, as --layers)
+# phase 52's runs, each from the seed-0 state: (mode, steps)
+TP_RUNS = (("discrete", 2), ("node_symplectic", 1))
+
+
+def _tp_arch(mode):
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import NodeConfig
+    arch = get_arch("qwen3-0.6b").with_(n_layers=TP_LAYERS)
+    if mode != "discrete":
+        arch = arch.with_(node=NodeConfig(mode="node", method="euler",
+                                          grad_mode="symplectic"))
+    return arch
+
+
+def _tp_reference():
+    """Phase 52's single-process runs, in this process: each mode's steps
+    (``TP_RUNS``) from the seed-0 state on the ranks' batches and schedule;
+    per mode the metrics, launches and steps, the card's memory given
+    back."""
+    import gc
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.train import TrainConfig, init_train_state, \
+        make_train_step
+    tcfg = TrainConfig()
+    state0 = init_train_state(_tp_arch("discrete"), tcfg, device="cuda")
+    out = {}
+    for mode, steps in TP_RUNS:
+        arch = _tp_arch(mode)
+        state = state0
+        step = make_train_step(arch, tcfg, lr_fn=cosine_schedule(3e-4, 5, 3))
+        pipe = iter(TokenPipeline(TRAIN_BATCH, TRAIN_SEQ, arch.vocab,
+                                  device="cuda"))
+        torch.cuda.synchronize()
+        _zero_all_counts()
+        rows, secs = [], []
+        for _ in range(steps):
+            t = time.perf_counter()
+            state, m = step(state, next(pipe))
+            rows.append({k: float(m[k]) for k in ("loss", "grad_norm",
+                                                  "lr")})
+            secs.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        out[mode] = {"rows": rows, "counts": _all_counts(), "steps": steps}
+        print(f"  {mode} (one process): {rows}, s/step "
+              f"{[round(x, 4) for x in secs]}", flush=True)
+        del state, step, m
+    del state0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _tp_rank(rank, port, want_json):
-    """Phase 52's rank: qwen3-0.6b at full width on its "model" block (8 of
-    16 heads, 4 of 8 kv heads, 1536 of 3072 ffn columns, 75968 of 151936
-    vocab rows; the residual stream's 512 of 1024 positions), ZeRO-1 over
-    a "data" axis of 1: 2 discrete steps (remat) and 1 node-symplectic
-    step, each from phase 32's seed-0 state on its batches and schedule."""
+    """Phase 52's rank: qwen3-0.6b at full width, cut to ``TP_LAYERS``
+    layers, on its "model" block (8 of 16 heads, 4 of 8 kv heads, 1536 of
+    3072 ffn columns, 75968 of 151936 vocab rows; the residual stream's 512
+    of 1024 positions), ZeRO-1 over a "data" axis of 1: 2 discrete steps
+    (remat) and 1 node-symplectic step, each from the seed-0 state on the
+    single-process run's batches and schedule."""
     import gc
 
     import torch.distributed as dist
-    from repro_torch.configs import get_arch
-    from repro_torch.configs.base import NodeConfig
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.optim import cosine_schedule
@@ -3710,19 +3846,16 @@ def _tp_rank(rank, port, want_json):
     want = json.loads(want_json)
     out = {}
     tcfg = TrainConfig()
-    # phase 32's seed-0 state, laid out once: both modes start from it
-    # (a step leaves its input state valid)
-    state0 = init_train_state(get_arch("qwen3-0.6b"), tcfg, device="cuda")
+    # the seed-0 state, laid out once: both modes start from it (a step
+    # leaves its input state valid)
+    state0 = init_train_state(_tp_arch("discrete"), tcfg, device="cuda")
     kinds = _zero1_kinds(state0, 1, 2)
     n_leaves = len(pytree.tree_leaves(state0.params))
     state0 = reshard_state(state0, mesh, state_specs(state0, mesh))
     gc.collect()
     torch.cuda.empty_cache()
-    for mode, steps in (("discrete", 2), ("node_symplectic", 1)):
-        arch = get_arch("qwen3-0.6b")
-        if mode != "discrete":
-            arch = arch.with_(node=NodeConfig(mode="node", method="euler",
-                                              grad_mode="symplectic"))
+    for mode, steps in TP_RUNS:
+        arch = _tp_arch(mode)
         state = state0
         step = make_train_step(arch, tcfg, lr_fn=cosine_schedule(3e-4, 5, 3),
                                shard=make_sharder(mesh),
@@ -3752,13 +3885,13 @@ def _tp_rank(rank, port, want_json):
                   f"phase 52 rank {rank} {mode}: {name} never launched")
         ref = want.get(mode)
         check(ref is not None and len(ref["rows"]) >= steps,
-              f"phase 52 rank {rank} {mode}: phase 32 ran no such "
-              f"{steps} steps to compare with ({sorted(want)})")
-        per32 = {k: v / ref["steps"] for k, v in ref["counts"].items()}
+              f"phase 52 rank {rank} {mode}: the single-process run ran no "
+              f"such {steps} steps to compare with ({sorted(want)})")
+        per_ref = {k: v / ref["steps"] for k, v in ref["counts"].items()}
         per = {k: v / steps for k, v in counts.items()}
-        check(all(per[k] == per32[k] for k in need),
-              f"phase 52 rank {rank} {mode}: launches per step {per}, "
-              f"phase 32's {per32}")
+        check(all(per[k] == per_ref[k] for k in need),
+              f"phase 52 rank {rank} {mode}: launches per step {per}, the "
+              f"single-process run's {per_ref}")
         errs = []
         for i, (got, w) in enumerate(zip(rows, ref["rows"])):
             e = {k: abs(got[k] - w[k]) / abs(w[k])
@@ -3767,8 +3900,8 @@ def _tp_rank(rank, port, want_json):
             check(e["loss"] <= TP_LOSS_RTOL
                   and e["grad_norm"] <= TP_GNORM_RTOL
                   and got["lr"] == w["lr"],
-                  f"phase 52 rank {rank} {mode} step {i}: {got} vs "
-                  f"phase 32's {w} (rel {e}; bounds {TP_LOSS_RTOL}, "
+                  f"phase 52 rank {rank} {mode} step {i}: {got} vs the "
+                  f"single-process {w} (rel {e}; bounds {TP_LOSS_RTOL}, "
                   f"{TP_GNORM_RTOL})")
         want_c = step_collectives(arch, mesh, n_leaves, seq_len=TRAIN_SEQ,
                                   kinds=kinds, loss_chunk=tcfg.loss_chunk)
@@ -3776,8 +3909,8 @@ def _tp_rank(rank, port, want_json):
             check(c == want_c, f"phase 52 rank {rank} {mode} step {i}: "
                                f"collectives {c}, want {want_c}")
         print(f"  rank {rank} {mode}: losses {[r['loss'] for r in rows]}, "
-              f"grad_norm {[r['grad_norm'] for r in rows]} (rel to phase "
-              f"32: {errs}); s/step {[round(x, 4) for x in secs]}; "
+              f"grad_norm {[r['grad_norm'] for r in rows]} (rel to the "
+              f"single-process run: {errs}); s/step {[round(x, 4) for x in secs]}; "
               f"collectives per step {colls[-1]}; bytes per step "
               f"{nbytes[-1]}; launches per step "
               f"{ {k: v / steps for k, v in counts.items()} }; peak "
@@ -3841,19 +3974,8 @@ def _tp_collective_ms(mesh, calls=5):
 
 
 def _tp_ranks(want_json):
-    """Phase 52's 2 rank processes, started from this process (phase 32's
-    metrics as JSON, or "none" to run phase 32 first); returns their
-    results."""
-    if want_json == "none":
-        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                               LM_TRAIN_CHILD], capture_output=True,
-                              text=True, timeout=600)
-        check(proc.returncode == 0, f"phase 52: phase 32's run failed:\n"
-                                    f"{proc.stderr[-3000:]}")
-        ran = json.loads(proc.stdout.rstrip("\n").splitlines()[-1])
-        want_json = json.dumps({m: {k: r[k] for k in ("rows", "counts",
-                                                      "steps")}
-                                for m, r in ran.items()})
+    """Phase 52's 2 rank processes, started from this process (the single-
+    process run's metrics as JSON); returns their results."""
     torch.cuda.empty_cache()
     port = str(_free_port())
     procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
@@ -3886,20 +4008,326 @@ def _tp_ranks(want_json):
     return res
 
 
-def _tp_child(want_json):
-    """``chip_smoke.py --mesh 52 [json|none]``: phase 52 alone."""
-    print(json.dumps(_tp_ranks(want_json)), flush=True)
+def _tp_child():
+    """``chip_smoke.py --mesh 52``: phase 52 alone (the kernels built
+    lazily)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(json.dumps(mesh_tp_phase()), flush=True)
 
 
-def mesh_tp_phase(train=None):
+def mesh_tp_phase():
     phase(f"52 LM train tensor-parallel (2 gloo ranks sharing the card, "
-          f"(data 1, model 2), ZeRO-1): qwen3-0.6b full width, batch "
-          f"{TRAIN_BATCH} x {TRAIN_SEQ}, float32, 2 discrete steps (remat) "
-          f"and 1 node-symplectic step")
-    want = "none" if train is None else json.dumps(
-        {m: {k: r[k] for k in ("rows", "counts", "steps")}
-         for m, r in train.items()})
-    return _tp_ranks(want)
+          f"(data 1, model 2), ZeRO-1): qwen3-0.6b full width, "
+          f"{TP_LAYERS} of 28 layers, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"float32, 2 discrete steps (remat) and 1 node-symplectic step, "
+          f"against their single-process run")
+    return _tp_ranks(json.dumps(_tp_reference()))
+
+
+# ---------------------------------------------------------------------------
+# phase 53: tensor parallelism of the MoE, MLA and patch-frontend archs, 2
+# gloo ranks sharing the card on ("data" 1, "model" 2)
+# ---------------------------------------------------------------------------
+
+ZOO_TP_CHILD = "--zoo-tp"
+# the depth cuts (whole units at full width, as --layers): deepseek-v2-lite-
+# 16b to its dense prefix layer and 2 MoE units (1.67 B params; whole it is
+# 15.7 B, which no card trains in float32; with 3 units, 2.25 B, each rank
+# ran out of the shared card's memory in AdamW's out-of-place update at
+# 35.94 GiB: PERF.md §6); internvl2-1b to 4 of its 24 layers
+ZOO_TP_LAYERS = {"deepseek-v2-lite-16b": 3, "internvl2-1b": 4}
+ZOO_TP_PATCHES = 256             # internvl2: one tile before 768 tokens
+# each arch's runs, each from the seed-0 state: (name, mode, steps, ep; ep
+# lays the ranks' state out expert-parallel, the single process's alike)
+ZOO_TP_RUNS = {
+    "deepseek-v2-lite-16b": (("discrete", "discrete", 2, False),
+                             ("node_symplectic", "node", 1, False),
+                             ("ep", "discrete", 1, True)),
+    "internvl2-1b": (("discrete", "discrete", 1, False),)}
+# relative distance of each rank's loss and grad_norm from the single-
+# process run's (the MoE's expert choices replayed from it), fixed before
+# the first card run (PERF.md §6): tools/tp_rounding.py at smoke
+# width reads at most 1.6e-7 (loss) and 2.1e-7 (grad_norm); the faults it
+# plants move grad_norm by 6.3e-3 (the router's and MLA's partial leaves
+# unsummed), 1.7e-4 (the aux loss's gradient counted per rank) and 2.1e-3
+# (the frontend gather's other backward)
+ZOO_TP_LOSS_RTOL = 1e-5
+ZOO_TP_GNORM_RTOL = 1e-5
+ZOO_TP_KERNELS = {
+    "deepseek-v2-lite-16b": ("rms_norm", "rms_norm_bwd"),
+    "internvl2-1b": ("rms_norm", "flash_attention", "rms_norm_bwd",
+                     "flash_attention_bwd")}
+
+
+def _zoo_tp_arch(arch_id, mode):
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import NodeConfig
+    arch = get_arch(arch_id).with_(n_layers=ZOO_TP_LAYERS[arch_id])
+    if mode == "node":
+        arch = arch.with_(node=NodeConfig(mode="node", method="euler",
+                                          grad_mode="symplectic"))
+    return arch
+
+
+def _zoo_tp_state(arch, tcfg, mesh, ep):
+    """The seed-0 train state, laid out on ``mesh`` (``ep``: expert
+    parallel) when given; on a mesh the ranks make it one after the other
+    (each makes the whole state, ~20 GB for deepseek, before it keeps its
+    blocks)."""
+    import gc
+
+    from repro_torch.train import init_train_state
+    if mesh is None:
+        return init_train_state(arch, tcfg, device="cuda")
+    import torch.distributed as dist
+    from repro_torch.parallel import state_specs
+    from repro_torch.runtime import reshard_state
+    state = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            whole = init_train_state(arch, tcfg, device="cuda")
+            state = reshard_state(whole, mesh, state_specs(whole, mesh,
+                                                           ep=ep))
+            del whole
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return state
+
+
+def _route_digest(idx) -> str:
+    import hashlib
+    return hashlib.sha256(idx.cpu().numpy().tobytes()).hexdigest()
+
+
+def _zoo_tp_runs(arch_id, mesh=None, forced=None):
+    """The arch's runs (``ZOO_TP_RUNS``) on the card: in one process
+    (``mesh`` None), or this rank's on ``mesh`` replaying ``forced``
+    ({run: [each step's expert choices, per MoE call]}).  Per run: the
+    metrics, s/step, launches, collectives and their bytes per step, peak
+    bytes, and each step's own expert choices per MoE call (on a mesh: as
+    digests, with the rows whose choices differ from the replayed ones
+    counted, and a digest of the unsplit params)."""
+    import gc
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.parallel import comm, make_sharder
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.data_parallel import Zero1, step_collectives
+    from torch.utils import _pytree as pytree
+    tcfg = TrainConfig()
+    out = {}
+    for run, mode, steps, ep in ZOO_TP_RUNS[arch_id]:
+        arch = _zoo_tp_arch(arch_id, mode)
+        P = ZOO_TP_PATCHES if arch.frontend == "patch" else 0
+        state = _zoo_tp_state(arch, tcfg, mesh, ep)
+        n_leaves = len(pytree.tree_leaves(state.params))
+        z = None if mesh is None else Zero1(mesh, state)
+        step = make_train_step(arch, tcfg, lr_fn=cosine_schedule(3e-4, 5, 3),
+                               shard=None if mesh is None
+                               else make_sharder(mesh), grad_constraint=z)
+        pipe = iter(TokenPipeline(TRAIN_BATCH, TRAIN_SEQ - P, arch.vocab,
+                                  device="cuda"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_all_counts()
+        rows, secs, colls, nbytes, own, rerouted = [], [], [], [], [], []
+        for i in range(steps):
+            batch = next(pipe)
+            if P:
+                batch["patch_embeds"] = torch.randn(
+                    (TRAIN_BATCH, P, arch.d_frontend), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(i))
+            comm.reset_counts()
+            with _Gates(None if forced is None else forced[run][i]) as g:
+                t = time.perf_counter()
+                state, m = step(state, batch)
+                rows.append({k: float(m[k]) for k in ("loss", "grad_norm",
+                                                      "lr")})
+                secs.append(time.perf_counter() - t)
+            colls.append(comm.counts())
+            nbytes.append(dict(comm.BYTES))
+            if forced is None:
+                own.append([c.cpu() for c in g.own])
+                continue
+            own.append([_route_digest(c) for c in g.own])
+            moved = torch.zeros(TRAIN_BATCH, dtype=torch.bool, device="cuda")
+            for mine, theirs in zip(g.own, g.calls):
+                moved |= (mine != theirs).flatten(1).any(1)
+            rerouted.append(int(moved.sum()))
+            want = step_collectives(arch, mesh, n_leaves,
+                                    seq_len=TRAIN_SEQ - P, kinds=z.kinds,
+                                    loss_chunk=tcfg.loss_chunk, patches=P)
+            check(colls[-1] == want,
+                  f"phase 53 {arch_id} {run} step {i}: collectives "
+                  f"{colls[-1]}, want {want}")
+        torch.cuda.synchronize()
+        res = {"rows": rows, "step_seconds": secs, "counts": _all_counts(),
+               "collectives": colls, "bytes": nbytes,
+               "peak": torch.cuda.max_memory_allocated(), "own": own}
+        if mesh is not None:
+            res["rerouted_rows"] = rerouted
+            res["replicated"] = _replicated_digest(state, mesh)
+        who = "one process" if mesh is None else \
+            f"rank {torch.distributed.get_rank()}"
+        print(f"  {arch_id} {run} ({who}): {rows}, s/step "
+              f"{[round(x, 4) for x in secs]}, peak {res['peak']} B",
+              flush=True)
+        out[run] = res
+        del state, step, batch, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _zoo_tp_reference(d):
+    """Phase 53's single-process runs, in this process (TF32 off, as
+    ``main`` sets it); saves each step's expert choices to DIR/routes.pt
+    for the ranks and returns the rest, the card's memory given back."""
+    import gc
+    routes, out = {}, {}
+    for arch_id in ZOO_TP_RUNS:
+        runs = _zoo_tp_runs(arch_id)
+        routes[arch_id] = {run: r.pop("own") for run, r in runs.items()}
+        out[arch_id] = runs
+    torch.save(routes, os.path.join(d, "routes.pt"))
+    del routes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zoo_tp_rank(rank, port, d):
+    """``chip_smoke.py --zoo-tp rank R PORT DIR``: phase 53's rank R of 2
+    on ("data" 1, "model" 2), replaying DIR/routes.pt; prints its results
+    as its last line."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    torch.cuda.set_device(0)
+    mesh = make_debug_mesh(1, 2, device_type="cuda")
+    routes = torch.load(os.path.join(d, "routes.pt"), map_location="cuda")
+    out = {arch_id: _zoo_tp_runs(arch_id, mesh, routes[arch_id])
+           for arch_id in ZOO_TP_RUNS}
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def _zoo_tp_procs(argvs, timeout):
+    """Run ``chip_smoke.py`` children together; their last lines as
+    JSON (the rest of their output printed)."""
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               *a], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for a in argvs]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = []
+    for a, p, (o, e) in zip(argvs, procs, outs):
+        lines = o.rstrip("\n").splitlines()
+        print("\n".join(lines[:-1]), flush=True)
+        check(p.returncode == 0 and lines,
+              f"phase 53 {' '.join(a)} failed (rc {p.returncode}):\n"
+              f"{o[-3000:]}\n{e[-3000:]}")
+        res.append(json.loads(lines[-1]))
+    return res
+
+
+def zoo_tp_phase():
+    import tempfile
+    phase(f"53 LM train tensor-parallel, the zoo (2 gloo ranks sharing the "
+          f"card, (data 1, model 2), ZeRO-1, float32): deepseek-v2-lite-16b "
+          f"(3 of 27 layers) 2 discrete steps TP-in-expert, 1 node-"
+          f"symplectic, 1 discrete expert-parallel; internvl2-1b (4 of 24 "
+          f"layers, {ZOO_TP_PATCHES} patches + "
+          f"{TRAIN_SEQ - ZOO_TP_PATCHES} tokens) 1 discrete step; batch "
+          f"{TRAIN_BATCH}, each against its single-process run")
+    torch.cuda.empty_cache()
+    print(f"  this process holds {torch.cuda.memory_allocated()} B of the "
+          f"card", flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        ref = _zoo_tp_reference(d)
+        port = str(_free_port())
+        ranks = _zoo_tp_procs([[ZOO_TP_CHILD, "rank", str(r), port, d]
+                               for r in range(2)], 600)
+    for arch_id, runs in ZOO_TP_RUNS.items():
+        for run, mode, steps, ep in runs:
+            want = ref[arch_id].get(run)
+            check(want is not None and len(want["rows"]) >= steps,
+                  f"phase 53 {arch_id} {run}: the single-process run ran "
+                  f"no such {steps} steps to compare with")
+            got = [r[arch_id][run] for r in ranks]
+            need = ZOO_TP_KERNELS[arch_id] + (
+                ("butcher_combine",) if mode == "node" else ())
+            for rank, res in enumerate(got):
+                for name in need:
+                    check(res["counts"][name] > 0,
+                          f"phase 53 rank {rank} {arch_id} {run}: {name} "
+                          f"never launched")
+                errs = []
+                for i, (g, w) in enumerate(zip(res["rows"], want["rows"])):
+                    e = {k: abs(g[k] - w[k]) / abs(w[k])
+                         for k in ("loss", "grad_norm")}
+                    errs.append(e)
+                    check(e["loss"] <= ZOO_TP_LOSS_RTOL
+                          and e["grad_norm"] <= ZOO_TP_GNORM_RTOL
+                          and g["lr"] == w["lr"],
+                          f"phase 53 rank {rank} {arch_id} {run} step {i}: "
+                          f"{g} vs the single-process {w} (rel {e}; "
+                          f"bounds {ZOO_TP_LOSS_RTOL}, {ZOO_TP_GNORM_RTOL})")
+                res["errs"] = errs
+                print(f"  rank {rank} {arch_id} {run}: losses "
+                      f"{[r['loss'] for r in res['rows']]}, grad_norm "
+                      f"{[r['grad_norm'] for r in res['rows']]} (rel to the "
+                      f"single-process run: {errs}); s/step "
+                      f"{[round(x, 4) for x in res['step_seconds']]} (single "
+                      f"process {[round(x, 4) for x in want['step_seconds']]}"
+                      f"); collectives per step {res['collectives'][-1]}; "
+                      f"bytes per step {res['bytes'][-1]}; launches "
+                      f"{res['counts']}; peak allocated {res['peak']} B "
+                      f"(single process {want['peak']} B)", flush=True)
+            check(got[0]["replicated"] == got[1]["replicated"],
+                  f"phase 53 {arch_id} {run}: the ranks' unsplit params "
+                  f"differ")
+            check(got[0]["own"] == got[1]["own"],
+                  f"phase 53 {arch_id} {run}: the ranks' own expert choices "
+                  f"differ")
+            calls = sum(len(s) for s in got[0]["own"])
+            if calls:
+                print(f"  {arch_id} {run}: both ranks' own top-k choices "
+                      f"bitwise equal at all {calls} MoE calls; replayed "
+                      f"from the single-process run, whose choices they "
+                      f"differ from on their own in "
+                      f"{got[0]['rerouted_rows']} of {TRAIN_BATCH} rows per "
+                      f"step (unforced share "
+                      f"{[n / TRAIN_BATCH for n in got[0]['rerouted_rows']]}"
+                      f")", flush=True)
+    print("  the ranks' unsplit params agree bit for bit after every run",
+          flush=True)
+    return {"ref": ref, "ranks": ranks}
+
+
+def _zoo_tp_child(*rest):
+    """``chip_smoke.py --zoo-tp``: phase 53 alone (the kernels built
+    lazily); with ``rank R PORT DIR``: one of its rank processes."""
+    if rest[:1] == ("rank",):
+        _zoo_tp_rank(int(rest[1]), rest[2], rest[3])
+    else:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(json.dumps(zoo_tp_phase()), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4074,11 +4502,37 @@ def _row(r):
     return [r.strategy, r.method, r.peak_small, r.peak_big]
 
 
+ANALYSIS_TITLE = ("41 analysis: repro_torch.analysis on the cuda backend "
+                  "(every case, the sharded cells on a gloo world of 1, the "
+                  "engine's attempt, Table 1), recorder vs allocator")
+
+
 def analysis_phase():
-    phase("41 analysis: repro_torch.analysis on the cuda backend (every "
-          "case, the sharded cells on a gloo world of 1, the engine's "
-          "attempt, Table 1), recorder vs allocator")
+    phase(ANALYSIS_TITLE)
     return _mesh_phase(41)
+
+
+def side_phases_start():
+    """Phases 38 and 41 hold bits, counts and byte classes, and time
+    nothing that other work on the card would disturb: ``main`` starts
+    them beside phases 33-35 (float64 exactness, peak bytes, resume, which
+    time nothing either) and joins them after."""
+    torch.cuda.empty_cache()
+    t = time.perf_counter() - _T0
+    return t, {38: _child_start([MESH_CHILD, "38"]),
+               41: _child_start([MESH_CHILD, "41"])}
+
+
+def side_phases_finish(started):
+    t, children = started
+    out = {}
+    for which, title in ((38, MESH_GLOO_TITLE), (41, ANALYSIS_TITLE)):
+        phase(f"{title} (started at t {t:.1f} s, beside phases 33-35)")
+        t_wait = time.perf_counter()
+        out[which] = _child_finish(children[which], which)
+        print(f"phase seconds {time.perf_counter() - t_wait:.1f} (waited "
+              f"here)")
+    return out
 
 
 
@@ -4164,17 +4618,19 @@ class _Gates:
     ``forced`` (another run's records, in the same call order) each call
     takes those expert ids instead of its own top-k, with gate weights from
     its own probabilities (renormalised as ``route`` does): the two runs
-    then differ by their rounding alone, never by a routing decision."""
+    then differ by their rounding alone, never by a routing decision.
+    ``calls`` holds the ids taken, ``own`` each call's own top-k."""
 
     def __init__(self, forced=None):
         self.forced = forced
 
     def __enter__(self):
         import repro_torch.nn.moe as moe
-        self.calls, self._route = [], moe.route
+        self.calls, self.own, self._route = [], [], moe.route
 
         def route(p, x, cfg):
             probs, w, idx = self._route(p, x, cfg)
+            self.own.append(idx)
             if self.forced is not None:
                 idx = self.forced[len(self.calls)].to(idx.device)
                 w = torch.gather(probs, -1, idx)
@@ -5086,9 +5542,11 @@ def zoo_rows(zoo, rows):
 
 ZOO2_CHILD = "--zoo2"
 # (arch, layers or None for all): jamba cut to one 8-layer block of 32
-# xlstm-1.3b at 24 of its 48 layers (3 of its 6 blocks), to keep the whole
-# script inside its limit (its prefill is host-bound: ~136k launches whole)
-ZOO2_ARCHS = [("jamba-v0.1-52b", 8), ("xlstm-1.3b", 24),
+# xlstm-1.3b to one 8-layer block of its 6, to keep the whole script
+# inside its limit (its prefill is host-bound: ~136k launches whole; the
+# script took 1121.4 s with 24 layers and phase 53 on one card: PERF.md
+# §6)
+ZOO2_ARCHS = [("jamba-v0.1-52b", 8), ("xlstm-1.3b", 8),
               ("seamless-m4t-medium", None)]
 # flash at the enc-dec model's shapes (the encoder; cross-attention with
 # Sq != Sk) and jamba's attention layer (GQA 4 at D 128)
@@ -5350,19 +5808,23 @@ def main():
     t_train = time.perf_counter()
     bwd_err, bwd_main = _timed(backward_kernels_vs_plain)
     train = _timed(lm_train_main_path)
+    side = side_phases_start()
     _timed(lm_exactness)
     peaks = _timed(lm_memory)
     ckpt = _timed(lm_resume)
+    side = side_phases_finish(side)
+    mesh_gloo, audit = side[38], side[41]
     _timed(lm_train_to_serve, ckpt)
-    print(f"phases 31-36 seconds {time.perf_counter() - t_train:.1f}")
+    print(f"phases 31-36 (38 and 41 beside 33-35) seconds "
+          f"{time.perf_counter() - t_train:.1f}")
     t_mesh = time.perf_counter()
     mesh_solve = _timed(mesh_solve_phase)
-    mesh_gloo = _timed(mesh_gloo_phase)
     mesh_engine = _timed(mesh_engine_phase, serve_ode)
     mesh_train = _timed(mesh_train_phase, train, peaks)
-    mesh_tp = _timed(mesh_tp_phase, train)
-    print(f"phases 37-40, 52 seconds {time.perf_counter() - t_mesh:.1f}")
-    audit = _timed(analysis_phase)
+    mesh_tp = _timed(mesh_tp_phase)
+    zoo_tp = _timed(zoo_tp_phase)
+    print(f"phases 37, 39, 40, 52, 53 seconds "
+          f"{time.perf_counter() - t_mesh:.1f}")
     zoo = zoo_phase()
     zoo2 = zoo2_phase()
 
@@ -5438,6 +5900,13 @@ def main():
                 r[m]["counts"][row["name"]] for r in mesh_tp.values()
                 for m in ("discrete", "node_symplectic"))
             row["launches"] = sum(row["launches_by_path"].values())
+    # phase 53: both ranks' launches, every run of both archs
+    for row in rows:
+        if row["name"] in TP_KERNELS:
+            row["launches_by_path"]["lm_train_tp_zoo"] = sum(
+                res["counts"][row["name"]] for r in zoo_tp["ranks"]
+                for runs in r.values() for res in runs.values())
+            row["launches"] = sum(row["launches_by_path"].values())
     # the auditor (phase 41): both combines, single-trajectory and lane
     # forms together (one counter per kernel)
     for row in rows[:2]:
@@ -5463,6 +5932,8 @@ if __name__ == "__main__":
         _zoo_child()
     elif sys.argv[1:] == [ZOO2_CHILD]:
         _zoo2_child()
+    elif sys.argv[1:2] == [ZOO_TP_CHILD]:
+        _zoo_tp_child(*sys.argv[2:])
     elif sys.argv[1:2] == [MESH_CHILD]:
         which, rest = sys.argv[2], sys.argv[3:]
         if which == "38" and rest:

@@ -75,7 +75,8 @@ def init_layer_cache(spec: LayerSpec, cfg: ArchConfig, batch: int,
 
 def layer_forward(p, x: torch.Tensor, spec: LayerSpec, cfg: ArchConfig, *,
                   cache: Optional[Any] = None, pos: Optional[int] = None,
-                  positions=None, causal: bool = True, tp=None):
+                  positions=None, causal: bool = True, tp=None,
+                  aux_group=None):
     """Pre-norm residual block: x + mixer(norm(x)), then + ffn(norm(x)).
 
     Returns (x, cache, aux_loss); the aux loss is the MoE router's (a
@@ -85,25 +86,25 @@ def layer_forward(p, x: torch.Tensor, spec: LayerSpec, cfg: ArchConfig, *,
 
     With ``tp`` (a ``parallel.tensor.TensorParallel``: training on a
     "model" axis) ``x`` is the rank's sequence block (``seq_carry``) or
-    whole, the weights are the rank's blocks, and the attention and a split
-    SwiGLU take their input through ``enter`` and give their output through
-    ``leave``; the norms run on the rows the rank holds."""
+    whole, the weights are the rank's blocks, and the attention (GQA or
+    MLA), a split SwiGLU and an MoE FFN (routed and shared experts
+    together) take their input through ``enter`` and give their output
+    through ``leave``; the norms run on the rows the rank holds.
+    ``aux_group``: the data ranks of a data-parallel step, over whose rows
+    the MoE aux loss runs (``nn.moe.moe_ffn``)."""
     _check_spec(spec)
     eps = cfg.norm_eps
     uk = cfg.use_kernels
     rs = cfg.residual_scale
     h = rmsnorm(p["mixer_norm"], x, eps=eps, use_kernels=uk)
-    if spec.mixer == "attn":
-        y, new_cache = gqa_attention(p["attn"], h if tp is None
-                                     else tp.enter(h), cfg.attn_config(),
-                                     positions=positions, cache=cache,
-                                     pos=pos, use_kernels=uk, causal=causal)
+    if spec.mixer in ("attn", "mla"):
+        attn = gqa_attention if spec.mixer == "attn" else mla_attention
+        kw = {"causal": causal} if spec.mixer == "attn" else {}
+        y, new_cache = attn(p["attn"], h if tp is None else tp.enter(h),
+                            cfg.attn_config(), positions=positions,
+                            cache=cache, pos=pos, use_kernels=uk, **kw)
         if tp is not None:
             y = tp.leave(y)
-    elif spec.mixer == "mla":
-        y, new_cache = mla_attention(p["attn"], h, cfg.attn_config(),
-                                     positions=positions, cache=cache,
-                                     pos=pos, use_kernels=uk)
     elif spec.mixer == "mamba":
         y, new_cache = mamba_forward(p["mamba"], h, cfg.mamba_config(),
                                      state=cache)
@@ -121,7 +122,12 @@ def layer_forward(p, x: torch.Tensor, spec: LayerSpec, cfg: ArchConfig, *,
             y = tp.leave(swiglu(p["mlp"], tp.enter(h)))
         elif spec.ffn == "dense":
             y = swiglu(p["mlp"], h)
+        elif tp is not None:
+            y, aux = moe_ffn(p["moe"], tp.enter(h), cfg.moe_config(), tp,
+                             aux_group)
+            y = tp.leave(y)
         else:
-            y, aux = moe_ffn(p["moe"], h, cfg.moe_config())
+            y, aux = moe_ffn(p["moe"], h, cfg.moe_config(),
+                             aux_group=aux_group)
         x = x + rs * y
     return x, new_cache, aux

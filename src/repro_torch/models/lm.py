@@ -38,7 +38,9 @@ Training modes (``mode="train"``):
 
 Tensor parallelism (``lm_forward``'s ``tp``, training only): the
 params are the rank's blocks, the lookup and the head are vocab-parallel
-(``_embed_tp``; ``train.losses.lm_loss_chunked``), and under ``seq_carry``
+(``_embed_tp``; ``train.losses.lm_loss_chunked``), the prefix layers and
+the units run on the rank's blocks alike, the patch frontend's output is
+joined before the tokens (``_embed_patches_tp``), and under ``seq_carry``
 the residual stream, the node-mode solve's state, its checkpoints and its
 combines hold the rank's sequence block (1/TP of each).
 
@@ -63,6 +65,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import SaveAt, as_gradient, solve
 from repro_torch.nn.common import dense_init, embed_init
 from repro_torch.nn.norm import init_rmsnorm, rmsnorm
+from repro_torch.parallel import comm
 from .blocks import init_layer, init_layer_cache, layer_forward
 
 _MODES = ("train", "prefill", "decode")
@@ -146,13 +149,26 @@ def _embed(params, cfg: ArchConfig, tokens: torch.Tensor, extra_embeds,
     """Token embeddings; with the patch frontend and ``extra_embeds`` (B, P,
     d_frontend), the projected patches go before the tokens.  With ``tp``
     the rank's sequence block (``seq_carry``) or the whole."""
+    patches = cfg.frontend == "patch" and extra_embeds is not None
     if tp is not None:
+        if patches:
+            return _embed_patches_tp(params, tokens, extra_embeds, tp)
         return _embed_tp(params["embed"], tokens, tp)
     x = params["embed"][tokens]
-    if cfg.frontend == "patch" and extra_embeds is not None:
+    if patches:
         pe = extra_embeds.to(x.dtype) @ params["frontend"]
         x = torch.cat([pe, x], dim=1)
     return x
+
+
+def _lookup_block(embed: torch.Tensor, tokens: torch.Tensor, tp):
+    """The rank's vocab block's part of the lookup: its rows of ``embed``
+    for the ids it holds, 0 for the others."""
+    lo, hi = tp.vocab_block(embed.shape[0])
+    local = tokens - lo
+    inside = (local >= 0) & (local < hi - lo)
+    x = embed[torch.where(inside, local, torch.zeros_like(local))]
+    return x.masked_fill(~inside[..., None], 0)
 
 
 def _embed_tp(embed: torch.Tensor, tokens: torch.Tensor, tp):
@@ -162,13 +178,31 @@ def _embed_tp(embed: torch.Tensor, tokens: torch.Tensor, tp):
     one-device lookup exactly (one non-zero term per row).  A vocab that
     "model" does not divide leaves ``embed`` whole: the rank's rows of the
     plain lookup, no collective."""
-    if not tp.vocab_split:
-        return tp.rows(embed[tokens])
-    lo, hi = tp.vocab_block(embed.shape[0])
-    local = tokens - lo
-    inside = (local >= 0) & (local < hi - lo)
-    x = embed[torch.where(inside, local, torch.zeros_like(local))]
-    return tp.leave(x.masked_fill(~inside[..., None], 0))
+    if not tp.vocab_split:       # the kernels take contiguous rows
+        return tp.rows(embed[tokens]).contiguous()
+    return tp.leave(_lookup_block(embed, tokens, tp))
+
+
+def _embed_patches_tp(params, tokens: torch.Tensor, patches: torch.Tensor,
+                      tp):
+    """The embedding of the patches and the tokens under ``tp``: the
+    sequence is P + S long and ``seq_carry`` is decided on it, so both
+    parts are made whole on every rank, joined, and the rank takes its
+    rows.  The tokens: the vocab blocks' lookups summed (``reduce_from``)
+    or the whole vocab's lookup; the patches: through the frontend's
+    column blocks joined (``join_columns``).  Under ``seq_carry`` the
+    joined sequence's gradient holds the rank's rows alone (partial), so
+    the summed lookup's backward sums it too (``copy_to``); without it the
+    gradient is whole and alike on every rank."""
+    embed = params["embed"]
+    if tp.vocab_split:
+        x = comm.reduce_from(_lookup_block(embed, tokens, tp), tp.group)
+        if tp.seq_carry:
+            x = comm.copy_to(x, tp.group)
+    else:
+        x = embed[tokens]
+    pe = patches.to(x.dtype) @ tp.join_columns(params["frontend"])
+    return tp.rows(torch.cat([pe, x], dim=1)).contiguous()
 
 
 def _head_parts(params, cfg: ArchConfig, x: torch.Tensor):
@@ -179,7 +213,8 @@ def _head_parts(params, cfg: ArchConfig, x: torch.Tensor):
 
 
 def _unit_forward(unit, x: torch.Tensor, cfg: ArchConfig, *, caches=None,
-                  pos: Optional[int] = None, positions=None, tp=None):
+                  pos: Optional[int] = None, positions=None, tp=None,
+                  aux_group=None):
     """One repeat unit: its pattern's layers in order.  Returns (x, caches,
     aux), aux the sum of its MoE layers' aux losses.  Under ``cfg.remat``
     a multi-layer unit without caches checkpoints each layer when a
@@ -194,11 +229,13 @@ def _unit_forward(unit, x: torch.Tensor, cfg: ArchConfig, *, caches=None,
         if per_layer_remat:
             x, nc, a = checkpoint(
                 lambda lp, xx, spec=spec: layer_forward(
-                    lp, xx, spec, cfg, positions=positions, tp=tp),
+                    lp, xx, spec, cfg, positions=positions, tp=tp,
+                    aux_group=aux_group),
                 unit[i], x, use_reentrant=False)
         else:
             x, nc, a = layer_forward(unit[i], x, spec, cfg, cache=c,
-                                     pos=pos, positions=positions, tp=tp)
+                                     pos=pos, positions=positions, tp=tp,
+                                     aux_group=aux_group)
         new_caches.append(nc)
         aux = aux + a
     return x, tuple(new_caches), aux
@@ -206,7 +243,8 @@ def _unit_forward(unit, x: torch.Tensor, cfg: ArchConfig, *, caches=None,
 
 def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
                caches=None, pos: Optional[int] = None, extra_embeds=None,
-               mode: str = "train", return_hidden: bool = False, tp=None):
+               mode: str = "train", return_hidden: bool = False, tp=None,
+               aux_group=None):
     """Returns {"logits", "caches", "aux"} — or, with return_hidden=True,
     {"hidden", "head", "caches", "aux"} so the caller can apply the head to
     the positions it needs (or a chunked loss) without the full (B, S, V)
@@ -221,7 +259,9 @@ def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
     whose field drops them, as in the JAX package).
 
     ``tp`` (a ``parallel.tensor.TensorParallel``, training only): the
-    params are the rank's blocks; see the module note."""
+    params are the rank's blocks; see the module note.  ``aux_group``
+    (data-parallel training): the data ranks, over whose rows the MoE aux
+    loss runs (``nn.moe.moe_ffn``)."""
     _check_decoder_only(cfg)
     if mode not in _MODES:
         raise ValueError(f"mode {mode!r} not in {_MODES}")
@@ -255,7 +295,8 @@ def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
     for i, spec in enumerate(cfg.prefix):
         c = None if caches is None else caches["prefix"][i]
         x, nc, a = layer_forward(params[f"prefix_{i}"], x, spec, cfg,
-                                 cache=c, pos=pos, positions=positions)
+                                 cache=c, pos=pos, positions=positions,
+                                 tp=tp, aux_group=aux_group)
         new_prefix.append(nc)
         aux = aux + a
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
@@ -264,12 +305,13 @@ def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
         if remat:
             x, ncs, a = checkpoint(
                 lambda u, xx: _unit_forward(u, xx, cfg, positions=positions,
-                                            tp=tp),
+                                            tp=tp, aux_group=aux_group),
                 unit, x, use_reentrant=False)
         else:
             x, ncs, a = _unit_forward(
                 unit, x, cfg, pos=pos, positions=positions,
-                caches=None if caches is None else caches["unit"][r], tp=tp)
+                caches=None if caches is None else caches["unit"][r], tp=tp,
+                aux_group=aux_group)
         new_unit.append(ncs)
         aux = aux + a
 

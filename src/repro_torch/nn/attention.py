@@ -151,10 +151,17 @@ def mla_attention(p, x: torch.Tensor, cfg: AttnConfig, *, positions=None,
     cache with the absorbed formulation: q_nope is taken through wuk into
     the latent space, and the latent output through wuv.
 
+    Under tensor parallelism (training) ``wq``, ``wuk`` and ``wuv`` are
+    the rank's column blocks (whole heads) and ``wo`` its rows: the rank
+    attends with its heads; the latent and the rotated key (``wdkv``,
+    ``kv_norm``, ``wkr``, whole) are computed alike on every rank.
+
     Returns (out, cache_or_None)."""
     B, S, _ = x.shape
-    H = cfg.n_heads
     dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    # the heads of this rank's column block of wq (all of them on one
+    # device)
+    H = p["wq"].shape[-1] // (dn + dr)
     inv = rope_freqs(dr, cfg.rope_theta, dr, device=x.device)
     scale = (dn + dr) ** -0.5
 

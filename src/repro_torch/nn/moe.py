@@ -16,6 +16,22 @@ JAX package scatter-adds with ``.at[ids].add``, which on the card would be
 ``index_add_`` with atomics, in an order that changes from run to run).
 Two calls give bitwise equal results on any device.
 
+Under tensor parallelism (``tp``, training on a "model" axis) the FFN runs
+on the entered, whole sequence, so routing, capacity and the aux loss are
+the one-device ones, alike on every rank.  The rank holds the f/TP columns
+of every expert (``wg``, ``wu``; the rows of ``wd``: TP-in-expert) or,
+from a state laid out by ``parallel.state_specs(..., ep=True)``, E/TP
+experts whole (expert parallelism), whose buffers alone it runs (a token's
+slot with another rank's expert reads the zero row); the shared expert is
+column / row split.  Its output is then a partial sum that the layer's
+``leave`` sums over "model".
+
+On a data-parallel step each rank holds some rows of the batch; the aux
+loss is the one of the whole batch, as JAX's program computes it: with
+``aux_group`` (the data ranks) its token means are sums over every rank's
+rows (an all_reduce forward, ``comm.reduce_from``, and backward,
+``comm.copy_to``: every rank takes the sums into its own loss).
+
 Initialisation follows the JAX package exactly: the stacked expert weights
 ``(E, d, f)`` take ``dense_init``'s fan-in from their leading axis (E), and
 the router is float32 whatever the params' dtype.
@@ -27,6 +43,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import comm
 from .common import dense_init
 
 
@@ -112,31 +129,73 @@ def dispatch(gate_idx: torch.Tensor, gate_w: torch.Tensor, E: int, C: int):
     return slot, slot_token.reshape(B, E, C), slot_gate.reshape(B, E, C)
 
 
-def moe_ffn(p, x: torch.Tensor, cfg: MoEConfig):
-    """x: (B, S, d) -> (y (B, S, d), aux_loss float32 scalar)."""
+def _experts(p, cfg: MoEConfig, tp):
+    """(first expert, number of experts) whose buffers this rank runs: all
+    of them on one device and under TP-in-expert, the rank's E/TP under
+    expert parallelism (the banks' leading dim)."""
+    E, held = cfg.n_experts, p["wg"].shape[0]
+    if held == E:
+        if tp is not None and p["wg"].shape[-1] == cfg.d_ff:
+            raise ValueError(
+                f"an MoE FFN on a 'model' axis of {tp.size} holds its "
+                f"{E} experts whole: neither f {cfg.d_ff} nor E is split")
+        return 0, E
+    return tp.rank * held, held
+
+
+def _token_means(probs, gate_idx, E: int, group):
+    """The router's mean probabilities and the experts' mean top-k counts
+    (each (E,)) over the tokens of every rank of ``group`` (a
+    ``parallel.layout.Group``): one all_reduce of their sums and the token
+    count, and one of the sums' gradient."""
+    counts = F.one_hot(gate_idx, E).to(probs.dtype).sum(dim=(0, 1, 2))
+    n = probs.new_full((1,), probs.shape[0] * probs.shape[1])
+    sums = comm.copy_to(comm.reduce_from(
+        torch.cat([probs.sum(dim=(0, 1)), counts, n]), group), group)
+    return sums[:E] / sums[-1], sums[E:2 * E] / sums[-1]
+
+
+def moe_ffn(p, x: torch.Tensor, cfg: MoEConfig, tp=None, aux_group=None):
+    """x: (B, S, d) -> (y (B, S, d), aux_loss float32 scalar).  With ``tp``
+    (a ``parallel.tensor.TensorParallel``) x is the whole sequence on every
+    rank, p the rank's blocks and y the rank's partial sum (see the module
+    note); the aux loss's gradient is 1/TP on each rank (``tp.once``).
+    With ``aux_group`` (the data ranks of a data-parallel step) the aux
+    loss is the whole batch's."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = capacity(cfg, S)
     probs, gate_w, gate_idx = route(p, x, cfg)
 
     # aux load-balance loss (GShard/Switch)
-    me = probs.mean(dim=(0, 1))                                    # (E,)
-    ce = F.one_hot(gate_idx, E).to(torch.float32).sum(2).mean(dim=(0, 1))
+    if aux_group is None:
+        me = probs.mean(dim=(0, 1))                                # (E,)
+        ce = F.one_hot(gate_idx, E).to(torch.float32).sum(2).mean(
+            dim=(0, 1))
+    else:
+        me, ce = _token_means(probs, gate_idx, E, aux_group)
     aux = (cfg.router_aux_weight * E * torch.sum(me * ce)).to(torch.float32)
+    if tp is not None:
+        aux = tp.once(aux)
 
     slot, slot_token, slot_gate = dispatch(gate_idx, gate_w, E, C)
-    # gather the tokens into expert-major buffers (E, B C, d); an empty
+    lo, El = _experts(p, cfg, tp)
+    # gather the tokens into expert-major buffers (El, B C, d); an empty
     # slot reads row S - 1 and is weighted 0 below
-    rows = torch.clamp(slot_token, max=S - 1) \
+    rows = torch.clamp(slot_token[:, lo:lo + El], max=S - 1) \
         + S * torch.arange(B, device=x.device)[:, None, None]
-    xe = x.reshape(B * S, d)[rows.transpose(0, 1).reshape(E, B * C)]
+    xe = x.reshape(B * S, d)[rows.transpose(0, 1).reshape(El, B * C)]
     h = F.silu(torch.bmm(xe, p["wg"])) * torch.bmm(xe, p["wu"])
-    ye = torch.bmm(h, p["wd"]).reshape(E, B, C, d).transpose(0, 1)
-    ye = ye * slot_gate[..., None].to(ye.dtype)                   # (B,E,C,d)
+    ye = torch.bmm(h, p["wd"]).reshape(El, B, C, d).transpose(0, 1)
+    ye = ye * slot_gate[:, lo:lo + El, :, None].to(ye.dtype)     # (B,El,C,d)
 
-    # back to the tokens: each gathers its kept slots (a dropped one reads
-    # the zero row E C) and sums them over its k slots, in slot order
-    flat = torch.cat([ye.reshape(B, E * C, d),
+    # back to the tokens: each gathers its kept slots (a dropped one, or
+    # one of another rank's experts, reads the zero row El C) and sums them
+    # over its k slots, in slot order
+    if El < E:
+        mine = (slot >= lo * C) & (slot < (lo + El) * C)
+        slot = torch.where(mine, slot - lo * C, El * C)
+    flat = torch.cat([ye.reshape(B, El * C, d),
                       ye.new_zeros((B, 1, d))], dim=1)
     y = torch.gather(flat, 1, slot[..., None].expand(B, S * k, d))
     y = y.reshape(B, S, k, d).sum(dim=2)

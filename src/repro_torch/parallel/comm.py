@@ -163,6 +163,20 @@ class _ScatterSeq(torch.autograd.Function):
                      ctx.dim), None, None
 
 
+class _GatherColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, summed):
+        ctx.group, ctx.summed, ctx.n = group, summed, x.shape[-1]
+        return _join(all_gather(x, group.group), group, x.dim() - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            return _scatter_sum(g, ctx.group, g.dim() - 1), None, None
+        block = ctx.group.order.index(dist.get_rank(ctx.group.group))
+        return g.narrow(-1, block * ctx.n, ctx.n), None, None
+
+
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
     """Identity forward; the gradient summed over ``group`` (all_reduce):
     the input of column-parallel layers on a replicated activation."""
@@ -180,6 +194,15 @@ def gather_from_sequence(x: torch.Tensor, group, dim: int = 1):
     gradient summed over ``group`` and cut back to this member's block
     (reduce_scatter)."""
     return _GatherSeq.apply(x, group, dim)
+
+
+def gather_columns(x: torch.Tensor, group, summed: bool):
+    """The members' column blocks of ``x`` joined along its last dim
+    (all_gather); the gradient cut back to this member's block, summed over
+    ``group`` first when ``summed`` (reduce_scatter; the members' gradients
+    are partial), else as it is (no collective; they are whole and
+    alike)."""
+    return _GatherColumns.apply(x, group, summed)
 
 
 def scatter_to_sequence(x: torch.Tensor, group, dim: int = 1):

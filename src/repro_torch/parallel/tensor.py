@@ -30,9 +30,23 @@ no collective.
 
 A leaf that "model" does not split but that computes on
 "model"-partitioned data has a partial gradient on each rank
-(``partial_leaves``: the q/k norms on the local heads, and under
-``seq_carry`` every such leaf: the norms, a whole ffn or vocab); the data-
-parallel step sums those over "model" (one fused all_reduce per step).
+(``partial_leaves``): the q/k norms on the local heads; MLA's latent
+(``wdkv``, ``kv_norm``) and rotated key (``wkr``), which only the rank's
+heads read; the MoE router, whose gates weight the rank's partial expert
+outputs; and under ``seq_carry`` every such leaf (the norms, a whole ffn or
+vocab).  The data-parallel step sums those over "model" (one fused
+all_reduce per step).  A term of the loss that every rank computes alike
+from whole inputs (the MoE aux loss) enters through ``once``: its gradient
+is 1/TP on each rank, so those sums count it once.
+
+An MoE FFN runs on the entered, whole sequence (routing and capacity count
+every token of a row) with the rank's f columns of every expert (TP-in-
+expert) or, from a state laid out by ``state_specs(..., ep=True)``, its
+E/TP experts whole (expert parallelism); either way its output is a
+partial sum that the layer's ``leave`` sums.  With the patch frontend the
+sequence is the P patches and the S tokens, ``seq_carry`` is decided on
+P + S, and the embedding is made whole before the rank takes its rows
+(``models.lm._embed_patches_tp``).
 
 The data-parallel step makes a rank's context (``TensorParallel``) and
 passes it down as the ``tp`` argument of ``train_step.loss_and_grads``,
@@ -52,27 +66,27 @@ from . import comm
 from .layout import Group, axes_group, axis_names, axis_sizes, coordinate
 
 #: what a later slice ports (the mesh's "model" axis for these archs)
-LATER = ("ROADMAP item 17's second half: MoE with TP-in-expert and --ep, "
-         "MLA, Mamba with --replicate-mamba, xLSTM, the enc-dec model and "
-         "the patch frontend")
+LATER = ("ROADMAP item 17's second half: Mamba with --replicate-mamba, "
+         "xLSTM and the enc-dec model")
 
 
 def check_arch(arch, size: int) -> None:
     """Raise unless a "model" axis of ``size`` can compute ``arch``: a
-    decoder of GQA attention and dense SwiGLU layers (tied or untied head)
-    whose kv heads ``size`` divides."""
+    decoder of GQA or MLA attention and dense SwiGLU or MoE layers (prefix
+    layers, tied or untied head, the patch frontend) whose heads and kv
+    heads ``size`` divides, and, with MoE, its experts' f (and the shared
+    experts' f); with the patch frontend, d_model."""
     if size <= 1:
         return
     what = []
     if arch.encdec:
         what.append("the enc-dec model")
-    if arch.frontend != "none":
+    if arch.frontend not in ("none", "patch"):
         what.append(f"the {arch.frontend} frontend")
-    for spec in tuple(arch.prefix) + tuple(arch.pattern):
-        if spec.mixer != "attn":
+    specs = tuple(arch.prefix) + tuple(arch.pattern)
+    for spec in specs:
+        if spec.mixer not in ("attn", "mla"):
             what.append(f"the {spec.mixer} mixer")
-        if spec.ffn != "dense":
-            what.append(f"ffn {spec.ffn!r}")
     if what:
         raise NotImplementedError(
             f"tensor-parallel training of {arch.name} on 'model' = {size}: "
@@ -81,7 +95,22 @@ def check_arch(arch, size: int) -> None:
         raise NotImplementedError(
             f"tensor-parallel training of {arch.name}: 'model' = {size} "
             f"does not divide its {arch.n_heads} heads / {arch.n_kv_heads} "
-            f"kv heads (replicated attention is {LATER})")
+            f"kv heads (replicated attention is not ported)")
+    dims = {}
+    if any(s.ffn == "moe" for s in specs):
+        moe = arch.moe_config()
+        dims["expert f"] = moe.d_ff
+        if moe.n_shared:
+            dims["shared expert f"] = moe.shared_d_ff or \
+                moe.d_ff * moe.n_shared
+    if arch.frontend == "patch":
+        dims["d_model (the frontend's columns)"] = arch.d_model
+    whole = [f"{name} {n}" for name, n in dims.items()
+             if not divides(n, size)]
+    if whole:
+        raise NotImplementedError(
+            f"tensor-parallel training of {arch.name}: 'model' = {size} "
+            f"does not divide its {', '.join(whole)}")
 
 
 def divides(n: int, size: int) -> bool:
@@ -147,20 +176,61 @@ class TensorParallel:
         lo = self.rank * local_vocab
         return lo, lo + local_vocab
 
+    def once(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``, a term every rank computes alike from whole inputs, with
+        1/TP of its gradient on each rank: the sums over "model" downstream
+        of it (``enter``'s backward, ``sum_partial``) then count it once."""
+        return _ShareGrad.apply(t, self.size)
+
+    def join_columns(self, w: torch.Tensor) -> torch.Tensor:
+        """The rank's column block of a column-split weight made whole
+        along its last dim (all_gather).  Backward: under ``seq_carry``,
+        where what it computes is then cut to the rank's rows, the ranks'
+        gradients are partial and are summed onto the rank's block
+        (reduce_scatter); without it they are whole and alike, and the rank
+        takes its block (no collective)."""
+        return comm.gather_columns(w, self.group, self.seq_carry)
+
+
+class _ShareGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, size):
+        ctx.size = size
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.size, None
+
 
 def _path_names(path):
     return [str(e.key) for e in path if hasattr(e, "key")]
 
 
+#: unsplit leaves that compute on whole data for the rank's heads or
+#: partial expert outputs alone: their gradient is partial without
+#: ``seq_carry`` too (see the module note)
+PARTIAL_NAMES = frozenset({"q_norm", "k_norm", "wdkv", "kv_norm", "wkr",
+                           "router"})
+
+
 def model_split(params, mesh) -> List[bool]:
-    """Per leaf of ``params`` (in ``tree_leaves`` order): True where
-    ``parallel.param_specs`` splits it over "model"."""
-    from .layout import P
-    from .shardings import param_specs
-    specs = pytree.tree_leaves(param_specs(params, mesh),
-                               is_leaf=lambda x: isinstance(x, P))
-    return [any(e == "model" or (isinstance(e, tuple) and "model" in e)
-                for e in spec) for spec in specs]
+    """Per leaf of ``params`` (in ``tree_leaves`` order): True where the
+    leaf, as laid out, is split over ``mesh``'s "model" axis: read from a
+    DTensor's own placements (so a state laid out with ``state_specs(...,
+    ep=True)`` reads as such); a plain tensor is not split."""
+    from torch.distributed.tensor import DTensor
+    leaves = pytree.tree_leaves(params)
+    if "model" not in axis_names(mesh):
+        return [False] * len(leaves)
+    out = []
+    for leaf in leaves:
+        split = False
+        if isinstance(leaf, DTensor):
+            dim = leaf.device_mesh.mesh_dim_names.index("model")
+            split = leaf.placements[dim].is_shard()
+        out.append(split)
+    return out
 
 
 def partial_leaves(params, mesh, seq_carry: bool) -> List[bool]:
@@ -170,8 +240,8 @@ def partial_leaves(params, mesh, seq_carry: bool) -> List[bool]:
     out = []
     for split, path in zip(model_split(params, mesh), paths):
         names = _path_names(path)
-        out.append(not split and (seq_carry or "q_norm" in names
-                                  or "k_norm" in names))
+        out.append(not split and (seq_carry
+                                  or not PARTIAL_NAMES.isdisjoint(names)))
     return out
 
 

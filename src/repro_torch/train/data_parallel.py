@@ -65,15 +65,20 @@ from .losses import IGNORE
 def check_mesh(mesh, arch=None) -> None:
     """A data-parallel step runs on a mesh with a "data" axis, whose other
     axes larger than 1 are at most "model"; a "model" axis larger than 1
-    computes ``arch`` tensor-parallel, which only a decoder of GQA
-    attention and dense SwiGLU layers takes so far
-    (``parallel.tensor.check_arch``)."""
+    computes ``arch`` tensor-parallel, which a decoder of GQA or MLA
+    attention and dense SwiGLU or MoE layers takes so far, with prefix
+    layers and the patch frontend (``parallel.tensor.check_arch``)."""
     sizes = _check_axes(mesh)
     if sizes.get("model", 1) > 1:
         if arch is None:
             raise ValueError("a step on a 'model' axis larger than 1 needs "
                              "the arch it computes")
         tensor.check_arch(arch, sizes["model"])
+
+
+def _has_moe(arch) -> bool:
+    return arch is not None and any(
+        s.ffn == "moe" for s in tuple(arch.prefix) + tuple(arch.pattern))
 
 
 def _check_axes(mesh):
@@ -113,8 +118,12 @@ class DataParallel:
                  arch=None):
         check_mesh(mesh, arch)
         self.mesh = mesh
+        self.patch = arch is not None and arch.frontend == "patch"
         self.zero1 = grad_constraint
         self.group = axes_group(mesh, ["data"])
+        # the MoE aux loss's batch spans the data ranks' rows
+        self.aux_group = self.group if _has_moe(arch) and \
+            axis_sizes(mesh)["data"] > 1 else None
         names = axis_names(mesh)
         self.data_rank = coordinate(mesh)[names.index("data")]
         self.tp = None if arch is None else \
@@ -145,10 +154,14 @@ class DataParallel:
 
     def tensor_parallel(self, batch):
         """The "model" context for a step on ``batch``: ``seq_carry`` when
-        "model" divides its sequence; None without a "model" axis."""
+        "model" divides its sequence (with the patch frontend, the P
+        patches and the S tokens); None without a "model" axis."""
         if self.tp is None:
             return None
-        return self.tp.for_seq(batch["tokens"].shape[1])
+        seq = batch["tokens"].shape[1]
+        if self.patch and "patch_embeds" in batch:
+            seq += batch["patch_embeds"].shape[1]
+        return self.tp.for_seq(seq)
 
     def loss(self, weighted: torch.Tensor) -> torch.Tensor:
         """The global loss: the sum of the ranks' weighted losses."""
@@ -158,25 +171,25 @@ class DataParallel:
     def roles(self, params, tp):
         """(model_split, partial) flags per leaf of the state's ``params``
         (``tree_leaves`` order) under the step's context ``tp``: split
-        over "model", and a partial sum over "model"."""
-        key = tp is not None and tp.seq_carry
+        over "model" (as the state is laid out), and a partial sum over
+        "model"."""
+        if tp is None:
+            n = len(pytree.tree_leaves(params))
+            return [False] * n, [False] * n
+        split = tensor.model_split(params, self.mesh)
+        key = (tp.seq_carry, tuple(split))
         if key not in self._roles:
-            if tp is None:
-                n = len(pytree.tree_leaves(params))
-                self._roles[key] = ([False] * n, [False] * n)
-            else:
-                self._roles[key] = (tensor.model_split(params, self.mesh),
-                                    tensor.partial_leaves(params, self.mesh,
-                                                          key))
+            self._roles[key] = (split, tensor.partial_leaves(
+                params, self.mesh, tp.seq_carry))
         return self._roles[key]
 
-    def check_layout(self, p_leaves, split) -> None:
-        """Tensor parallelism computes on the rank's model blocks: every
-        leaf "model" splits must be laid out (``runtime.reshard_state``
-        with ``parallel.state_specs``)."""
+    def check_layout(self, p_leaves) -> None:
+        """Tensor parallelism computes on the rank's model blocks: the
+        params must be laid out (``runtime.reshard_state`` with
+        ``parallel.state_specs``)."""
         from torch.distributed.tensor import DTensor
-        if any(s and not isinstance(l, DTensor)
-               for l, s in zip(p_leaves, split)):
+        if self.tp is not None and not all(isinstance(l, DTensor)
+                                           for l in p_leaves):
             raise ValueError(
                 "a tensor-parallel step takes a state laid out on the mesh: "
                 "runtime.reshard_state(state, mesh, parallel.state_specs("
@@ -247,19 +260,21 @@ class DataParallel:
     # -- the update ------------------------------------------------------------
     def update(self, p_leaves, local, opt, pieces, scale, lr, adamw_cfg):
         """AdamW on the leaves this rank holds (``pieces``: its reduced
-        gradient of each param leaf, None where it holds none), scaled by
-        the clip ``scale``; then each param made whole again over "data"
-        (ZeRO-1's gathers).  ``p_leaves`` are the state's param leaves and
-        ``local`` their tensors on this rank (whole, or the model block).
-        Returns (param leaves, opt tree), each leaf in the representation
-        of the state's leaf it replaces."""
+        gradient of each param leaf, None where it holds none), scaled in
+        place by the clip ``scale``; then each param made whole again over
+        "data" (ZeRO-1's gathers).  ``p_leaves`` are the state's param
+        leaves and ``local`` their tensors on this rank (whole, or the
+        model block).  Returns (param leaves, opt tree), each leaf in the
+        representation of the state's leaf it replaces."""
         z = self.zero1
         mine = [i for i, g in enumerate(pieces) if g is not None]
         slot = {i: j for j, i in enumerate(mine)}
 
-        def clip(g):
+        def clip(g):                # in place: the pieces are the step's own
             acc = torch.promote_types(g.dtype, torch.float32)
-            return (g.to(acc) * scale.to(acc)).to(g.dtype)
+            if g.dtype == acc:
+                return g.mul_(scale.to(acc))
+            return g.copy_((g.to(acc) * scale.to(acc)).to(g.dtype))
 
         def flat(tree):
             return pytree.tree_flatten(tree, is_leaf=_laid_out)
@@ -364,23 +379,32 @@ class Zero1:
 
 
 def zero1_layout(state, mesh):
-    """ZeRO-1's layout of each param leaf from ``parallel.state_specs``:
-    (kinds, data dims, owners), as ``Zero1`` documents.  Reads the mesh's
-    axis sizes and names only (a duck-typed mesh will do)."""
-    from torch.distributed.tensor import Shard
+    """ZeRO-1's layout of each param leaf: (kinds, data dims, owners), as
+    ``Zero1`` documents; from the layout of each of ``state``'s AdamW m
+    leaves where it is laid out (so a state laid out by ``state_specs(...,
+    ep=True)`` reads as such), else from ``parallel.state_specs``.  A state
+    not laid out needs the mesh's axis sizes and names only (a duck-typed
+    mesh will do)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from ..runtime.elastic import OwnedShard
     specs = pytree.tree_leaves(state_specs(state, mesh)["opt"]["m"],
                                is_leaf=lambda x: isinstance(x, Owned))
+    held = pytree.tree_leaves(state["opt"]["m"], is_leaf=_laid_out)
     data = axis_names(mesh).index("data")
     kinds: List[str] = []
     dims: List[Optional[int]] = []
     owners: List[Optional[int]] = []
-    for spec in specs:
+    for spec, leaf in zip(specs, held):
+        if isinstance(leaf, OwnedShard):
+            spec = leaf.sharding.spec
         if isinstance(spec, Owned):
             kinds.append("owned")
             dims.append(None)
             owners.append(spec.index)
             continue
-        p = placements(mesh, spec)[data]
+        p = leaf.placements[leaf.device_mesh.mesh_dim_names.index("data")] \
+            if isinstance(leaf, DTensor) else placements(mesh, spec)[data]
         split = isinstance(p, Shard)
         kinds.append("split" if split else "whole")
         dims.append(p.dim if split else None)
@@ -388,38 +412,58 @@ def zero1_layout(state, mesh):
     return kinds, dims, owners
 
 
+def _entered(spec, ffn_split: bool) -> int:
+    """The enters (= leaves) of one pass of a layer on a "model" axis: its
+    attention's (GQA or MLA), and its FFN's when that is an MoE or a split
+    SwiGLU."""
+    return 1 + (spec.ffn == "moe" or (spec.ffn == "dense" and ffn_split))
+
+
 def step_collectives(arch, mesh, n_leaves: int, *, seq_len: int,
                      kinds: Optional[Sequence[str]] = None,
                      loss_chunk: int = 512, microbatches: int = 1,
-                     compression: str = "none") -> Dict[str, int]:
+                     compression: str = "none",
+                     patches: int = 0) -> Dict[str, int]:
     """The collectives of one data-parallel step, by kind (what
     ``parallel.comm.counts()`` reads after it), for ``arch`` on ``mesh``
     (axis sizes read only), ``n_leaves`` param leaves, sequences of
-    ``seq_len``, and ZeRO-1's leaf ``kinds`` (``zero1_layout``; None
-    without ZeRO-1).
+    ``seq_len`` tokens after ``patches`` patch positions (the patch
+    frontend's P; 0 without), and ZeRO-1's leaf ``kinds``
+    (``zero1_layout``; None without ZeRO-1).
 
-    "model" > 1: each layer pass enters the attention and the SwiGLU
-    (``TensorParallel.enter``) and leaves them (``leave``).  Under
-    seq_carry (the sequence divides by "model") an enter is an all_gather
-    forward and a reduce_scatter backward, a leave the reverse; without it
-    an enter is nothing forward and an all_reduce backward, a leave an
-    all_reduce forward and nothing backward.  Discrete with remat: a
-    forward per layer, the unit's recompute in the backward (which stops
-    after the last tensor the backward needs: the unit's last leave, whose
-    output only feeds the residual add, is not recomputed), and a backward
-    per layer.  Node mode: a forward per solver step, and in the
-    symplectic adjoint's backward a forward and a backward per step.  The
-    vocab-parallel lookup is one more leave, the head's input one more
-    enter, and each loss chunk one all_gather.  A d_ff or vocab that
-    "model" does not divide leaves its layer whole: no enter or leave (and
-    a unit's recompute then ends at the attention's leave, which it
-    needs); a whole head's loss over the rank's rows is summed once
+    "model" > 1: each layer pass enters the attention (GQA or MLA) and an
+    MoE or a split SwiGLU (``TensorParallel.enter``) and leaves them
+    (``leave``); expert parallelism counts as TP-in-expert.  Under
+    seq_carry (the sequence, P + S, divides by "model") an enter is an
+    all_gather forward and a reduce_scatter backward, a leave the reverse;
+    without it an enter is nothing forward and an all_reduce backward, a
+    leave an all_reduce forward and nothing backward.  Discrete with
+    remat: the prefix layers a forward and a backward, the units a forward
+    per layer, the unit's recompute in the backward (which stops after the
+    last tensor the backward needs: a unit whose last layer's FFN is
+    entered does not recompute that FFN's leave, whose output only feeds
+    the residual add; a whole SwiGLU needs the attention's leave, which is
+    then recomputed), and a backward per layer.  Node mode (no prefix
+    layers): a forward per solver step, and in the symplectic adjoint's
+    backward a forward and a backward per step.  The vocab-parallel lookup
+    is one more leave, the head's input one more enter, and each loss
+    chunk one all_gather.  With patches the embedding is made whole
+    instead: the frontend's columns joined (an all_gather forward; a
+    reduce_scatter backward under seq_carry), the vocab blocks' lookups
+    summed (an all_reduce forward; another backward under seq_carry).  A
+    d_ff or vocab that "model" does not divide leaves its layer whole: no
+    enter or leave; a whole head's loss over the rank's rows is summed once
     (all_reduce) under seq_carry.  All of that once per microbatch.
+
+    An MoE layer on a "data" axis larger than 1, discrete: one all_reduce
+    of the aux loss's sums per forward (a recompute's too) and one per
+    backward (node mode drops the aux loss), once per microbatch.
 
     Then once per step: one collective per gradient leaf over "data"
     (ZeRO-1's reduce_scatter / reduce / all_reduce by leaf kind; all_reduce
     without ZeRO-1 or with compression), the fused all_reduce of the
-    partial leaves over "model", the loss's all_reduce, the clip norm's
+    partial leaves over "model" (when there are any: under seq_carry, or
+    with q/k norms, MLA or MoE), the loss's all_reduce, the clip norm's
     all_reduce (ZeRO-1 or "model"), int8's all_gather of the leaf maxima
     over "model", and ZeRO-1's gathers of the new params (all_gather per
     split leaf, broadcast per owned one)."""
@@ -428,30 +472,52 @@ def step_collectives(arch, mesh, n_leaves: int, *, seq_len: int,
     if m > 1:
         ffn = tensor.divides(arch.d_ff, m)
         vocab = tensor.divides(arch.vocab, m)
-        per_pass = (1 + ffn) * len(arch.pattern)  # enters (= leaves) a unit
+        length = seq_len + patches
+        seq = tensor.divides(length, m)
+        per_pass = sum(_entered(s, ffn) for s in arch.pattern)
         if arch.node.mode != "node":
             units = arch.n_repeats
-            enter_f = per_pass * units * (2 if arch.remat else 1)
-            leave_f = enter_f - (units if arch.remat and ffn else 0)
-            back = per_pass * units
+            pre = sum(_entered(s, ffn) for s in arch.prefix)
+            last = _entered(arch.pattern[-1], ffn) > 1
+            ef = pre + per_pass * units * (2 if arch.remat else 1)
+            lf = ef - (units if arch.remat and last else 0)
+            eb = lb = pre + per_pass * units
         else:
             steps = arch.node.n_steps or arch.n_repeats
-            enter_f = leave_f = 2 * per_pass * steps
-            back = per_pass * steps
-        # the lookup's leave and the head's enter (a whole vocab: neither)
-        enter_f, leave_f, back = enter_f + vocab, leave_f + vocab, \
-            back + vocab
-        seq = tensor.divides(seq_len, m)
-        per = collections.Counter(
-            {"all_gather": enter_f + back, "reduce_scatter": leave_f + back}
-            if seq else {"all_reduce": leave_f + back})
+            ef = lf = 2 * per_pass * steps
+            eb = lb = per_pass * steps
+        ef, eb = ef + vocab, eb + vocab         # the head's enter
+        per: collections.Counter = collections.Counter(
+            {"all_gather": ef + lb, "reduce_scatter": lf + eb} if seq
+            else {"all_reduce": lf + eb})
+        if not patches:
+            if vocab:                           # the lookup's leave
+                per["reduce_scatter" if seq else "all_reduce"] += 1
+                per["all_gather" if seq else "all_reduce"] += seq
+        else:
+            per["all_gather"] += 1              # the frontend's columns
+            per["reduce_scatter"] += seq
+            per["all_reduce"] += vocab * (1 + seq)   # the summed lookup
         if vocab:
-            per["all_gather"] += -(-seq_len // min(loss_chunk, seq_len))
+            per["all_gather"] += -(-length // min(loss_chunk, length))
         elif seq:
             per["all_reduce"] += 1              # the rows' loss, summed
         for k, v in per.items():
             c[k] += v * microbatches
-        c["all_reduce"] += 1                    # the partial leaves
+        specs = tuple(arch.prefix) + tuple(arch.pattern)
+        if seq or any((s.mixer == "attn" and arch.qk_norm)
+                      or s.mixer == "mla" or s.ffn == "moe" for s in specs):
+            c["all_reduce"] += 1                # the partial leaves
+    moe = [s.ffn == "moe" for s in arch.pattern]
+    if axis_sizes(mesh)["data"] > 1 and any(moe + [s.ffn == "moe" for s in
+                                                   arch.prefix]) \
+            and arch.node.mode != "node":
+        # the MoE aux loss's sums over "data": one all_reduce per MoE layer
+        # forward (the recompute's too) and one per backward
+        pre = sum(s.ffn == "moe" for s in arch.prefix)
+        passes = sum(moe) * arch.n_repeats
+        c["all_reduce"] += (2 * pre + passes * (3 if arch.remat else 2)) \
+            * microbatches
     c["all_reduce"] += 1                        # the loss
     if kinds is not None or m > 1:
         c["all_reduce"] += 1                    # the clip norm

@@ -71,12 +71,14 @@ def init_train_state(arch: ArchConfig, tcfg: TrainConfig, *, seed: int = 0,
 
 
 def _forward_loss(params, batch, arch: ArchConfig, loss_chunk: int,
-                  tp=None):
+                  tp=None, aux_group=None):
     """(cross-entropy + aux loss, cross-entropy); with the patch frontend
     the batch also holds "patch_embeds" (B, P, d_frontend), whose P
     positions take the label IGNORE; the enc-dec model's holds "frames"
     (B, S_enc, d_frontend).  ``tp``: the rank's tensor-parallel context
-    (``parallel.tensor.TensorParallel``), None on one device."""
+    (``parallel.tensor.TensorParallel``), None on one device;
+    ``aux_group``: the data ranks whose rows make the batch of the MoE aux
+    loss (``models.lm.lm_forward``), None on one device."""
     rh = loss_chunk > 0
     labels = batch["labels"]
     patches = batch.get("patch_embeds") if arch.frontend == "patch" else None
@@ -86,7 +88,8 @@ def _forward_loss(params, batch, arch: ArchConfig, loss_chunk: int,
                              mode="train", return_hidden=rh)
     else:
         out = lm_forward(params, arch, batch["tokens"], extra_embeds=patches,
-                         mode="train", return_hidden=rh, tp=tp)
+                         mode="train", return_hidden=rh, tp=tp,
+                         aux_group=aux_group)
     if patches is not None:
         pad = torch.full(labels.shape[:1] + patches.shape[1:2], IGNORE,
                          dtype=labels.dtype, device=labels.device)
@@ -100,15 +103,20 @@ def _forward_loss(params, batch, arch: ArchConfig, loss_chunk: int,
 
 
 def loss_and_grads(params, batch, arch: ArchConfig, loss_chunk: int = 512,
-                   tp=None):
+                   tp=None, aux_group=None, weight=None):
     """(total loss, gradient tree like ``params``) of one batch; the params
-    are not modified (the gradient is taken on detached copies).  ``tp``:
-    as ``_forward_loss``."""
+    are not modified (the gradient is taken on detached copies).  ``tp``,
+    ``aux_group``: as ``_forward_loss``.  ``weight`` (a data rank's share
+    of the batch) scales the loss before its gradient is taken, so that a
+    term summed over the data ranks (the MoE aux loss's sums) gets the
+    ranks' weights in its backward."""
     leaves, spec = pytree.tree_flatten(params)
     with torch.enable_grad():
         live = [l.detach().requires_grad_() for l in leaves]
         total, _ = _forward_loss(pytree.tree_unflatten(live, spec), batch,
-                                 arch, loss_chunk, tp)
+                                 arch, loss_chunk, tp, aux_group)
+        if weight is not None:
+            total = total * weight.to(total.dtype)
         grads = torch.autograd.grad(total, live, allow_unused=True)
     grads = [torch.zeros_like(l) if g is None else g
              for g, l in zip(grads, leaves)]
@@ -225,15 +233,14 @@ def make_train_step(arch: ArchConfig, tcfg: TrainConfig,
         batch = {k: local_tensor(v) for k, v in batch.items()}
         tp = dp.tensor_parallel(batch)
         split, partial = dp.roles(state["params"], tp)
-        dp.check_layout(p_leaves, split)
+        dp.check_layout(p_leaves)
         mb = tcfg.microbatches
 
         def grads_of(part):         # this rank's rows, weighted n_r,i / N_i
             rows, weight = dp.local_batch(part)
             total, g = loss_and_grads(params, rows, arch, tcfg.loss_chunk,
-                                      tp)
-            return total * weight.to(total.dtype), \
-                [x * weight.to(x.dtype) for x in pytree.tree_leaves(g)]
+                                      tp, dp.aux_group, weight)
+            return total, pytree.tree_leaves(g)
 
         loss_sum, g_acc = _accumulate(mb, batch, grads_of)
         loss = dp.loss(loss_sum)
@@ -244,6 +251,7 @@ def make_train_step(arch: ArchConfig, tcfg: TrainConfig,
 
         with torch.no_grad():
             grads = dp.sum_model(g_acc, partial)
+            del g_acc               # held by ``grads`` (or reduced in place)
             err = state.get("compress_err")
             new_err = err
             if tcfg.compression.mode == "none":
@@ -264,6 +272,7 @@ def make_train_step(arch: ArchConfig, tcfg: TrainConfig,
                     new_err = pytree.tree_unflatten(
                         [relay(e, like) for e, like in zip(e_new, e_leaves)],
                         e_tree)
+            del grads               # the pieces are what the update takes
             gnorm = dp.norm(pieces, split)
             scale = torch.clamp(tcfg.max_grad_norm
                                 / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -289,6 +298,7 @@ def make_train_step(arch: ArchConfig, tcfg: TrainConfig,
         if mb > 1:
             loss, leaves = loss / mb, [g / mb for g in leaves]
         grads = pytree.tree_unflatten(leaves, pytree.tree_structure(params))
+        del leaves                  # the clip's copies replace them
 
         with torch.no_grad():
             # gradient compression (on a mesh: of the reduced gradient,
@@ -297,6 +307,7 @@ def make_train_step(arch: ArchConfig, tcfg: TrainConfig,
             comp, new_err = compress_grads(grads, tcfg.compression, err,
                                            groups=stack_groups(params))
             grads = decompress_grads(comp, tcfg.compression)
+            del comp
             grads, gnorm = clip_by_global_norm(grads, tcfg.max_grad_norm)
             lr = lr_fn(state["opt"]["step"])
             params, opt = adamw_update(params, grads, state["opt"], lr,

@@ -29,9 +29,10 @@ what each rank runs is in ``torch_world_tp``), at the smoke qwen3-0.6b.
 * CHECKPOINT — a (2, 2) state after two tensor-parallel steps with int8
   compression restores bitwise on (4, 1) (in the world) and on (1, 1) (a
   gloo world of 1 here).
-* REFUSALS — every arch but the dense GQA decoder raises on "model" > 1,
+* REFUSALS — Mamba, xLSTM and the enc-dec model raise on "model" > 1,
   naming item 17's second half; so does a "model" size that does not
-  divide the kv heads.
+  divide the kv heads.  (The MoE, MLA and patch-frontend archs train there:
+  ``tests/test_torch_tensor_parallel_zoo.py``.)
 """
 import dataclasses
 import importlib
@@ -334,12 +335,9 @@ class _Mesh:
 
 
 @pytest.mark.parametrize("arch_id, what", [
-    ("mixtral-8x7b", "ffn 'moe'"),
-    ("deepseek-v2-lite-16b", "the mla mixer"),
     ("jamba-v0.1-52b", "the mamba mixer"),
     ("xlstm-1.3b", "the mlstm mixer"),
     ("seamless-m4t-medium", "the enc-dec model"),
-    ("internvl2-1b", "the patch frontend"),
 ])
 def test_other_archs_raise_on_a_model_axis(arch_id, what):
     from repro_torch.parallel import make_sharder

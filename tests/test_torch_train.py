@@ -513,16 +513,16 @@ def test_node_depth_states_match_jax():
 def test_unported_training_paths_name_their_items():
     arch = tqwen.SMOKE
     # data parallelism is ported (tests/test_torch_elastic.py), and so is a
-    # training step on a "model" axis for the dense GQA decoder
-    # (tests/test_torch_tensor_parallel.py); for MoE (and the zoo's other
-    # mixers, the enc-dec model, the patch frontend) it is item 17's second
-    # half
+    # training step on a "model" axis for the GQA and MLA decoders, MoE and
+    # the patch frontend (tests/test_torch_tensor_parallel.py,
+    # test_torch_tensor_parallel_zoo.py); for Mamba (and xLSTM, the enc-dec
+    # model) it is item 17's second half
     from repro_torch.configs import get_smoke_arch
     from repro_torch.parallel import make_sharder
     mesh = type("Mesh", (), {"shape": {"data": 2, "model": 2},
                              "axis_names": ("data", "model")})
     with pytest.raises(NotImplementedError, match="item 17"):
-        make_train_step(get_smoke_arch("mixtral-8x7b"), TrainConfig(),
+        make_train_step(get_smoke_arch("jamba-v0.1-52b"), TrainConfig(),
                         shard=make_sharder(mesh))
     # the enc-dec model trains (tests/test_torch_zoo_rec_node.py): its
     # state holds the encoder and decoder stacks

@@ -8,9 +8,9 @@ compared on one card in turns (parent, change, change, parent).
 A tree is a directory holding ``chip_smoke.py`` and ``src/`` (for the
 parent commit: ``git archive <commit> | tar -x -C runs/parent``).  Each run
 builds the kernels (phase 1), then calls the phases' functions of that
-tree's ``chip_smoke.py``; 35 runs 36 after it; 40 and 52 take phase
-32's metrics when 32 runs before them in the list, else they run phase 32
-first, in its own process, to compare with.  Each run's whole output goes
+tree's ``chip_smoke.py``; 35 runs 36 after it; 40 takes phase 32's
+metrics when 32 runs before it in the list, else it runs phase 32 first,
+in its own process, to compare with.  Each run's whole output goes
 to ``<log-dir>/phases_<i>.log`` (``--log-dir``, default ``runs/phases``);
 the lines that carry numbers are printed.  Exits 1 when a run fails.
 """
@@ -21,7 +21,8 @@ import subprocess
 import sys
 import time
 
-PHASES = {25: ["saveat_exactness"],
+PHASES = {24: ["saveat_cells"],
+          25: ["saveat_exactness"],
           31: ["backward_kernels_vs_plain"],
           32: ["lm_train_main_path"],
           33: ["lm_exactness"],
@@ -32,7 +33,8 @@ PHASES = {25: ["saveat_exactness"],
           39: ["mesh_engine_phase"],
           40: ["mesh_train_phase"],
           41: ["analysis_phase"],
-          52: ["mesh_tp_phase"]}
+          52: ["mesh_tp_phase"],
+          53: ["zoo_tp_phase"]}
 KEEP = ("==", "phase seconds", "s/step", "launches per step", "wall",
         "ms (device", "peak", "bitwise", "rel err", "dopri8 grid", "FAILED",
         "Error", "error", "ptxas flash_attention_bwd", "collectives",
@@ -54,7 +56,7 @@ def _child(tree: str, names):
         fn = getattr(cs, name)
         if name == "lm_train_to_serve":
             out = fn(out)
-        elif name in ("mesh_train_phase", "mesh_tp_phase"):
+        elif name == "mesh_train_phase":
             out = fn(train)
         else:
             out = fn()
