@@ -344,6 +344,28 @@ print when joined after phase 35):
                ``step_collectives``; the unforced share of rerouted rows,
                s/step, bytes per step and peak bytes per rank.
 
+The recurrent archs and the enc-dec model on a mesh (``python3
+chip_smoke.py --rec-tp`` alone), its single-process runs in the script's
+process while its two rank processes start:
+
+ 54. tensor parallelism of Mamba, xLSTM and the enc-dec model — phase 53's
+               mesh: jamba-v0.1-52b at its layer 0 (Mamba with a dense
+               FFN) with Mamba laid out by channel and laid out whole
+               (``extra_replicated=MAMBA_PARAM_NAMES``); xlstm-1.3b at 8
+               of its 48 layers, discrete and node-symplectic, its labels
+               past position ``REC_TP_KEEP`` (32) IGNORE (the random
+               sLSTM's float32 gradient overflows beyond ~100 steps) and
+               its forward replayed (``_TrainReplay``: each layer's input
+               and each sLSTM step's state from the single-process run);
+               seamless-m4t-medium at 2 of 12 layers each side, 1024
+               source frames and 256 target tokens; batch 8, one step
+               each against a single-process run (in the phase's process,
+               before the ranks start): loss and grad_norm within
+               ``REC_TP_LOSS_RTOL`` / ``REC_TP_GNORM_RTOL``, the ranks'
+               unsplit params bitwise equal, each named kernel launched,
+               the collectives exactly ``step_collectives``; s/step, bytes
+               per step by kind and peak bytes per rank.
+
 The auditor, in a process of its own (``python3 chip_smoke.py --mesh 41``):
 
  41. analysis — ``repro_torch.analysis.run_analysis(device="cuda")``: every
@@ -415,7 +437,11 @@ The LM zoo's recurrent and enc-dec half, in a process of its own
                causal), float32 and bfloat16 against the plain version at
                phase 8's tolerances, the float32 error printed per case;
                then ms per call of the two enc-dec shapes beside the plain
-               version, SDPA and the bound.
+               version, SDPA and the bound.  Then flash's backward at
+               seamless's per-rank training shapes on "model" 2 (phase
+               54's: 8 heads, the encoder 1024 x 1024, the cross-attention
+               256 x 1024, the decoder's causal 256 x 256; D 64) against
+               its plain version (``BWD_TOL``), and timed the same way.
  48-50. jamba-v0.1-52b (8 of its 32 layers: one block), xlstm-1.3b (8
                of its 48 layers, one block, for the script's time) and
                seamless-m4t-medium (random frames (8, 1024, 160)) served
@@ -3294,16 +3320,27 @@ def _kill_children():
             proc.wait()
 
 
-def _child_start(argv, timeout=600):
+#: set for a child started ahead of its phase: the file it waits for
+GO_ENV = "CHIP_SMOKE_GO"
+
+
+def _child_start(argv, timeout=600, go=None):
     """Start ``chip_smoke.py argv`` in its own process, its output to
-    temporary files; ``_child_finish`` joins it."""
+    temporary files; ``_child_finish`` joins it.  With ``go`` (a path) the
+    child imports torch and then waits for that file (``_child_go``)
+    before it touches the card, so its start-up overlaps the phases before
+    its own."""
     import atexit
     import tempfile
     if not _CHILDREN:
         atexit.register(_kill_children)
     out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    env = dict(os.environ)
+    if go is not None:
+        env[GO_ENV] = go
     proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
-                             *argv], stdout=out, stderr=err, text=True)
+                             *argv], stdout=out, stderr=err, text=True,
+                            env=env)
     _CHILDREN.append(proc)
     return proc, out, err, time.perf_counter() + timeout
 
@@ -3329,11 +3366,48 @@ def _child_finish(child, which):
     return json.loads(lines[-1])
 
 
+def _child_go(child, go, which):
+    """Let a child started with ``go`` run its phase, and join it."""
+    _publish(go, lambda tmp: open(tmp, "w").close())
+    return _child_finish(child, which)
+
+
 def _child_phase(argv, which, timeout=600):
     """Run ``chip_smoke.py argv`` (phase ``which``) in its own process;
     returns its last line's JSON (the lines before it are printed)."""
     torch.cuda.empty_cache()
     return _child_finish(_child_start(argv, timeout), which)
+
+
+def _rank_children(argvs, timeout=900):
+    """Start a phase's rank processes (``chip_smoke.py argv`` each) before
+    its single-process reference runs, so their start-up (~8 s each, in
+    parallel) overlaps it: each joins its process group and waits for the
+    reference's file (``_await_file``) before it touches the card."""
+    return [_child_start(a, timeout) for a in argvs]
+
+
+def _rank_results(children, which):
+    """Each rank child's last line as JSON (``_child_finish``), rank 0
+    first."""
+    return [_child_finish(c, f"{which} rank {r}")
+            for r, c in enumerate(children)]
+
+
+def _publish(path, save):
+    """``save(tmp)`` then a rename to ``path``: a rank waiting for ``path``
+    never reads it half written."""
+    save(path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def _await_file(path, timeout=900):
+    """Block until ``path`` exists (the single-process reference's results,
+    published by ``_publish``)."""
+    deadline = time.perf_counter() + timeout
+    while not os.path.exists(path):
+        check(time.perf_counter() < deadline, f"{path} never appeared")
+        time.sleep(0.1)
 
 
 def _mesh_phase(which, *args, timeout=600):
@@ -3818,7 +3892,7 @@ def _tp_reference():
     return out
 
 
-def _tp_rank(rank, port, want_json):
+def _tp_rank(rank, port, want_path):
     """Phase 52's rank: qwen3-0.6b at full width, cut to ``TP_LAYERS``
     layers, on its "model" block (8 of 16 heads, 4 of 8 kv heads, 1536 of
     3072 ffn columns, 75968 of 151936 vocab rows; the residual stream's 512
@@ -3843,7 +3917,9 @@ def _tp_rank(rank, port, want_json):
                             world_size=2, rank=rank)
     torch.cuda.set_device(0)
     mesh = make_debug_mesh(1, 2, device_type="cuda")
-    want = json.loads(want_json)
+    _await_file(want_path)
+    with open(want_path) as f:
+        want = json.load(f)
     out = {}
     tcfg = TrainConfig()
     # the seed-0 state, laid out once: both modes start from it (a step
@@ -3973,32 +4049,10 @@ def _tp_collective_ms(mesh, calls=5):
     return out
 
 
-def _tp_ranks(want_json):
-    """Phase 52's 2 rank processes, started from this process (the single-
-    process run's metrics as JSON); returns their results."""
-    torch.cuda.empty_cache()
-    port = str(_free_port())
-    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
-                               MESH_CHILD, "52", str(r), port, want_json],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for r in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=500))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    res = {}
-    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
-        lines = o.rstrip("\n").splitlines()
-        print("\n".join(lines[:-1]), flush=True)
-        check(p.returncode == 0 and lines,
-              f"phase 52 rank {r} failed (rc {p.returncode}):\n{o[-3000:]}"
-              f"\n{e[-3000:]}")
-        res[f"rank{r}"] = json.loads(lines[-1])
+def _tp_ranks(results):
+    """Phase 52's ranks' results, rank by rank: their replicated params
+    must agree after each mode."""
+    res = {f"rank{r}": out for r, out in enumerate(results)}
     for mode in ("discrete", "node_symplectic"):
         check(res["rank0"][mode]["replicated"]
               == res["rank1"][mode]["replicated"],
@@ -4022,7 +4076,20 @@ def mesh_tp_phase():
           f"{TP_LAYERS} of 28 layers, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
           f"float32, 2 discrete steps (remat) and 1 node-symplectic step, "
           f"against their single-process run")
-    return _tp_ranks(json.dumps(_tp_reference()))
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "want.json")
+        port = str(_free_port())
+        ranks = _rank_children([[MESH_CHILD, "52", str(r), port, path]
+                                for r in range(2)])
+        want = _tp_reference()
+
+        def save(tmp):
+            with open(tmp, "w") as f:
+                json.dump(want, f)
+        _publish(path, save)
+        torch.cuda.empty_cache()
+        return _tp_ranks(_rank_results(ranks, "52"))
 
 
 # ---------------------------------------------------------------------------
@@ -4070,11 +4137,12 @@ def _zoo_tp_arch(arch_id, mode):
     return arch
 
 
-def _zoo_tp_state(arch, tcfg, mesh, ep):
+def _zoo_tp_state(arch, tcfg, mesh, ep, extra=frozenset(), together=False):
     """The seed-0 train state, laid out on ``mesh`` (``ep``: expert
-    parallel) when given; on a mesh the ranks make it one after the other
-    (each makes the whole state, ~20 GB for deepseek, before it keeps its
-    blocks)."""
+    parallel; ``extra``: leaf names laid out whole) when given; on a mesh
+    the ranks make it one after the other (each makes the whole state, ~20
+    GB for deepseek, before it keeps its blocks), or all at once
+    (``together``: a state small enough for two on the card)."""
     import gc
 
     from repro_torch.train import init_train_state
@@ -4085,14 +4153,16 @@ def _zoo_tp_state(arch, tcfg, mesh, ep):
     from repro_torch.runtime import reshard_state
     state = None
     for r in range(dist.get_world_size()):
-        if r == dist.get_rank():
+        if together or r == dist.get_rank():
             whole = init_train_state(arch, tcfg, device="cuda")
-            state = reshard_state(whole, mesh, state_specs(whole, mesh,
-                                                           ep=ep))
+            state = reshard_state(whole, mesh, state_specs(
+                whole, mesh, ep=ep, extra_replicated=extra))
             del whole
             gc.collect()
             torch.cuda.empty_cache()
         dist.barrier()
+        if together:
+            break
     return state
 
 
@@ -4192,7 +4262,8 @@ def _zoo_tp_reference(d):
         runs = _zoo_tp_runs(arch_id)
         routes[arch_id] = {run: r.pop("own") for run, r in runs.items()}
         out[arch_id] = runs
-    torch.save(routes, os.path.join(d, "routes.pt"))
+    _publish(os.path.join(d, "routes.pt"),
+             lambda tmp: torch.save(routes, tmp))
     del routes
     gc.collect()
     torch.cuda.empty_cache()
@@ -4211,38 +4282,12 @@ def _zoo_tp_rank(rank, port, d):
                             world_size=2, rank=rank)
     torch.cuda.set_device(0)
     mesh = make_debug_mesh(1, 2, device_type="cuda")
+    _await_file(os.path.join(d, "routes.pt"))
     routes = torch.load(os.path.join(d, "routes.pt"), map_location="cuda")
     out = {arch_id: _zoo_tp_runs(arch_id, mesh, routes[arch_id])
            for arch_id in ZOO_TP_RUNS}
     dist.destroy_process_group()
     print(json.dumps(out), flush=True)
-
-
-def _zoo_tp_procs(argvs, timeout):
-    """Run ``chip_smoke.py`` children together; their last lines as
-    JSON (the rest of their output printed)."""
-    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
-                               *a], stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for a in argvs]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    res = []
-    for a, p, (o, e) in zip(argvs, procs, outs):
-        lines = o.rstrip("\n").splitlines()
-        print("\n".join(lines[:-1]), flush=True)
-        check(p.returncode == 0 and lines,
-              f"phase 53 {' '.join(a)} failed (rc {p.returncode}):\n"
-              f"{o[-3000:]}\n{e[-3000:]}")
-        res.append(json.loads(lines[-1]))
-    return res
 
 
 def zoo_tp_phase():
@@ -4258,10 +4303,11 @@ def zoo_tp_phase():
     print(f"  this process holds {torch.cuda.memory_allocated()} B of the "
           f"card", flush=True)
     with tempfile.TemporaryDirectory() as d:
-        ref = _zoo_tp_reference(d)
         port = str(_free_port())
-        ranks = _zoo_tp_procs([[ZOO_TP_CHILD, "rank", str(r), port, d]
-                               for r in range(2)], 600)
+        children = _rank_children([[ZOO_TP_CHILD, "rank", str(r), port, d]
+                                   for r in range(2)])
+        ref = _zoo_tp_reference(d)
+        ranks = _rank_results(children, "53")
     for arch_id, runs in ZOO_TP_RUNS.items():
         for run, mode, steps, ep in runs:
             want = ref[arch_id].get(run)
@@ -4328,6 +4374,400 @@ def _zoo_tp_child(*rest):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         print(json.dumps(zoo_tp_phase()), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 54: tensor parallelism of Mamba, xLSTM and the enc-dec model, 2 gloo
+# ranks sharing the card on ("data" 1, "model" 2), in a process of its own
+# (``python3 chip_smoke.py --rec-tp``)
+# ---------------------------------------------------------------------------
+
+REC_TP_CHILD = "--rec-tp"
+# each arch's depth cut (the widths whole) and runs, each from the seed-0
+# state: (run, mode, layout: "whole" lays Mamba out with
+# extra_replicated=MAMBA_PARAM_NAMES); jamba-v0.1-52b to its layer 0
+# (Mamba with a dense FFN: the MoE layers hold 2.8 B params each),
+# xlstm-1.3b to 8 of 48 layers (7 mLSTM, 1 sLSTM), seamless-m4t-medium to
+# 2 of 12 layers on each side
+REC_TP_ARCHS = {
+    "jamba-v0.1-52b": ({"n_layers": 1}, (("split", "discrete", "split"),
+                                         ("whole", "discrete", "whole"))),
+    "xlstm-1.3b": ({"n_layers": 8}, (("discrete", "discrete", "split"),
+                                     ("node_symplectic", "node", "split"))),
+    "seamless-m4t-medium": ({"n_layers": 2, "enc_layers": 2},
+                            (("discrete", "discrete", "split"),))}
+# (target tokens, source frames) per row: seamless's decoder 256 tokens
+# against 1024 frames (its cross-attention Sq 256 != Sk 1024, as phase 47)
+REC_TP_SEQ = {"seamless-m4t-medium": (256, 1024)}
+# xlstm-1.3b's labels past the first REC_TP_KEEP positions of each row are
+# IGNORE: at full width the random sLSTM's backward grows ~e^0.5 a step,
+# so a float32 gradient through more than ~100 steps overflows
+# (tools/slstm_rounding.py: one full-width sLSTM layer's input gradient is
+# inf from 128 positions back); the forward and backward still run over
+# all 1024 positions
+REC_TP_KEEP = 32
+# relative distance of each rank's loss and grad_norm from the single-
+# process run's, fixed before the first card run (PERF.md §6): the CPU's
+# float32 rounding at smoke width (tools/tp_rounding.py --arch ...) and, for
+# xlstm's replayed full-width sLSTM, tools/slstm_rounding.py (float32
+# against float64: grad norm 2.3e-7 over 32 kept positions)
+REC_TP_LOSS_RTOL = 1e-5
+REC_TP_GNORM_RTOL = 1e-5
+REC_TP_KERNELS = {
+    "jamba-v0.1-52b": ("rms_norm", "rms_norm_bwd"),
+    "xlstm-1.3b": ("rms_norm", "rms_norm_bwd"),
+    "seamless-m4t-medium": ("rms_norm", "flash_attention", "rms_norm_bwd",
+                            "flash_attention_bwd")}
+# flash's backward at seamless's per-rank training shapes on "model" 2 (8
+# of 16 heads): the encoder, the cross-attention, the decoder's causal
+# self-attention: (name, B, H, Sq, Sk, D, causal)
+REC_TP_BWD = [("encoder", 8, 8, 1024, 1024, 64, False),
+              ("cross", 8, 8, 256, 1024, 64, False),
+              ("decoder_self", 8, 8, 256, 256, 64, True)]
+
+
+def _rec_tp_arch(arch_id, mode):
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import NodeConfig
+    cut, _ = REC_TP_ARCHS[arch_id]
+    arch = get_arch(arch_id).with_(**cut)
+    if arch_id == "jamba-v0.1-52b":
+        arch = arch.with_(pattern=arch.pattern[:1])
+    if mode == "node":
+        arch = arch.with_(node=NodeConfig(mode="node", method="euler",
+                                          grad_mode="symplectic"))
+    return arch
+
+
+def _rec_tp_batch(arch):
+    """The run's one batch, alike in every process: 8 rows from the token
+    pipeline (xlstm's labels past ``REC_TP_KEEP`` IGNORE; seamless's 1024
+    source frames from a seeded generator on the card)."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.train import IGNORE
+    S, S_enc = REC_TP_SEQ.get(arch.name, (TRAIN_SEQ, 0))
+    batch = next(iter(TokenPipeline(TRAIN_BATCH, S, arch.vocab,
+                                    device="cuda")))
+    if arch.name == "xlstm-1.3b":
+        labels = batch["labels"].clone()
+        labels[:, REC_TP_KEEP:] = IGNORE
+        batch["labels"] = labels
+    if arch.encdec:
+        batch["frames"] = torch.randn(
+            (TRAIN_BATCH, S_enc, arch.d_frontend), device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(54))
+    return batch, S, S_enc
+
+
+class _TrainReplay:
+    """A training step's replay of another run's forward (xlstm-1.3b is
+    chaotic under rounding at full width: ``_Trajectory``).  Without
+    ``forced`` it records each layer's input (the first call per layer:
+    the forward pass; a layer is keyed by its mixer norm's storage) and the
+    state each sLSTM cell step starts from (by sLSTM layer and position,
+    read from the step input's offset in the layer's (B, S, 4 d) input
+    projection).  With ``forced`` (those records) every call of a layer, in
+    the forward, the recomputes and the symplectic adjoint, takes the
+    recorded input (the rank's rows under ``seq_carry``) and every cell
+    step the recorded state (the rank's heads: its block ``block`` of
+    them), as x + (recorded - x).detach(): the values are the
+    recorded run's and the gradient passes through as the identity, so
+    the two runs differ by one layer's or one step's rounding alone."""
+
+    def __init__(self, forced=None, block=0):
+        self.forced, self.block = forced, block
+
+    def __enter__(self):
+        import repro_torch.models.lm as lm
+        import repro_torch.nn.xlstm as xl
+        self.layers, self.cells = {}, {}
+        self._keys, self._cell_keys = {}, {}
+        self.used = {"layers": 0, "cells": 0}
+        self._layer, self._cell = lm.layer_forward, xl._slstm_cell
+
+        def pin(x, want):
+            return x + (want.to(x.dtype) - x).detach()
+
+        def layer(p, x, *a, **kw):
+            key = self._keys.setdefault(p["mixer_norm"]["w"].data_ptr(),
+                                        len(self._keys))
+            if self.forced is None:
+                if key not in self.layers:
+                    self.layers[key] = x.detach().clone()
+            else:
+                tp = kw.get("tp")
+                want = self.forced["layers"][key]
+                x = pin(x, want if tp is None else tp.rows(want))
+                self.used["layers"] += 1
+            return self._layer(p, x, *a, **kw)
+
+        def cell(p, xt, st, H, dh):
+            layer_key = self._cell_keys.setdefault(
+                p["r"].untyped_storage().data_ptr(), len(self._cell_keys))
+            key = (layer_key, xt.storage_offset() // xt.shape[-1])
+            if self.forced is None:
+                if key not in self.cells:
+                    self.cells[key] = {k: v.detach().clone()
+                                       for k, v in st.items()}
+            else:
+                want = self.forced["cells"][key]
+                h0 = self.block * H
+                st = {k: pin(v, want[k][:, h0:h0 + H])
+                      for k, v in st.items()}
+                self.used["cells"] += 1
+            return self._cell(p, xt, st, H, dh)
+        lm.layer_forward, xl._slstm_cell = layer, cell
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.models.lm as lm
+        import repro_torch.nn.xlstm as xl
+        lm.layer_forward, xl._slstm_cell = self._layer, self._cell
+
+    def records(self):
+        return {"layers": self.layers, "cells": self.cells}
+
+
+def _rec_tp_runs(arch_id, mesh=None, d=None):
+    """The arch's runs (``REC_TP_ARCHS``) on the card: in one process
+    (``mesh`` None; xlstm's forward recorded to DIR/replay_RUN.pt), or this
+    rank's on ``mesh`` (xlstm replaying those records).  Per run: the
+    metrics, s/step, launches, collectives and their bytes, peak bytes,
+    and on a mesh a digest of the unsplit params."""
+    import gc
+
+    from repro_torch.parallel import comm, make_sharder
+    from repro_torch.parallel.shardings import MAMBA_PARAM_NAMES
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.data_parallel import Zero1, step_collectives
+    from torch.utils import _pytree as pytree
+    tcfg = TrainConfig()
+    out = {}
+    replay = arch_id == "xlstm-1.3b"
+    for run, mode, layout in REC_TP_ARCHS[arch_id][1]:
+        if mesh is None and layout == "whole":
+            continue            # one process has no layout: "split"'s run
+        arch = _rec_tp_arch(arch_id, mode)
+        extra = MAMBA_PARAM_NAMES if layout == "whole" else frozenset()
+        t_state = time.perf_counter()
+        state = _zoo_tp_state(arch, tcfg, mesh, False, extra, together=True)
+        t_state = time.perf_counter() - t_state
+        n_leaves = len(pytree.tree_leaves(state.params))
+        z = None if mesh is None else Zero1(mesh, state)
+        # the constant lr (3e-4): the one step moves the params, so the
+        # ranks' unsplit params are held after an update
+        step = make_train_step(arch, tcfg, shard=None if mesh is None
+                               else make_sharder(mesh), grad_constraint=z)
+        batch, S, S_enc = _rec_tp_batch(arch)
+        forced, block = None, 0
+        if replay and mesh is not None:
+            forced = torch.load(os.path.join(d, f"replay_{run}.pt"),
+                                map_location="cuda")
+            block = torch.distributed.get_rank()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_all_counts()
+        comm.reset_counts()
+        with _TrainReplay(forced, block) as rp:
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            row = {k: float(m[k]) for k in ("loss", "grad_norm", "lr")}
+            secs = time.perf_counter() - t
+        res = {"rows": [row], "step_seconds": [secs],
+               "state_seconds": t_state,
+               "counts": _all_counts(), "collectives": [comm.counts()],
+               "bytes": [dict(comm.BYTES)],
+               "peak": torch.cuda.max_memory_allocated()}
+        if replay and mesh is None:
+            torch.save(rp.records(), os.path.join(d, f"replay_{run}.pt"))
+            res["recorded"] = [len(rp.layers), len(rp.cells)]
+        elif replay:
+            res["replayed"] = dict(rp.used)
+        if mesh is not None:
+            want = step_collectives(arch, mesh, n_leaves, seq_len=S,
+                                    kinds=z.kinds,
+                                    loss_chunk=tcfg.loss_chunk,
+                                    source_len=S_enc,
+                                    whole_mamba=layout == "whole")
+            check(res["collectives"][0] == want,
+                  f"phase 54 {arch_id} {run}: collectives "
+                  f"{res['collectives'][0]}, want {want}")
+            res["replicated"] = _replicated_digest(state, mesh)
+        who = "one process" if mesh is None else \
+            f"rank {torch.distributed.get_rank()}"
+        print(f"  {arch_id} {run} ({who}): {row}, s/step {secs:.4f} (state "
+              f"made in {t_state:.2f} s), peak {res['peak']} B", flush=True)
+        out[run] = res
+        del state, step, batch, m, forced
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rec_tp_rank(rank, port, d):
+    """``chip_smoke.py --rec-tp rank R PORT DIR``: phase 54's rank R of 2
+    on ("data" 1, "model" 2); prints its results as its last line."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    torch.cuda.set_device(0)
+    mesh = make_debug_mesh(1, 2, device_type="cuda")
+    _await_file(os.path.join(d, "go"))
+    out = {arch_id: _rec_tp_runs(arch_id, mesh, d)
+           for arch_id in REC_TP_ARCHS}
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def zoo2_flash_bwd():
+    """Phase 47's backward: flash's backward at seamless's per-rank
+    training shapes on "model" 2 (phase 54's) against its plain version
+    (``BWD_TOL``) and bitwise against itself; then ms per call beside the
+    plain version, SDPA's backward and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    print("  flash's backward at seamless-m4t-medium's per-rank training "
+          "shapes (8 of 16 heads, D 64), vs plain", flush=True)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(54)
+    rows, err = {}, 0.0
+    for name, B, H, Sq, Sk, D, causal in REC_TP_BWD:
+        q, do = (torch.randn(B, H, Sq, D, generator=g, device=dev)
+                 for _ in range(2))
+        k, v = (torch.randn(B, H, Sk, D, generator=g, device=dev)
+                for _ in range(2))
+        o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+        errs = [_rel_err(a, b) for a, b in zip(got, want)]
+        check(max(errs) <= BWD_TOL[torch.float32],
+              f"flash_attention_bwd {name}: rel errs {errs}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flash_attention_bwd {name}: two calls differ")
+        err = max(err, max(float((a - b).abs().max())
+                           for a, b in zip(got, want)))
+        del got, again, want
+        t_k = _time_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal), 10, 2)
+        t_p = _time_ms(lambda: ref.attention_bwd_ref(
+            q, k, v, o, lse, do, causal=causal), 3, 1)
+        qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal)
+        t_l = _time_ms(lambda: torch.autograd.grad(
+            o_lib, (qr, kr, vr), do, retain_graph=True), 10, 2)
+        d_k = _device_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal), "attn_bwd", 10, 3)
+        h_k = _host_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal), 20)
+        # five products (S, dP, dV, dK, dQ) over the pairs attended
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+        t_ops = 3 * 2.5 * 4 * B * H * D * pairs / TF32_FLOP_PER_S
+        nbytes = (4 * B * H * Sq * D + 4 * B * H * Sk * D + B * H * Sq) * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        bound = max(t_ops, t_bytes) * 1e3
+        rows[name] = dict(ms=t_k, device_ms=d_k, host_ms=h_k, plain_ms=t_p,
+                          library_ms=t_l, bound_ms=bound,
+                          bound_by="operations" if t_ops >= t_bytes
+                          else "bytes", max_rel_err=max(errs),
+                          shape=f"float32 B{B} H{H} Sq{Sq} Sk{Sk} D{D} "
+                                f"{'causal' if causal else 'non-causal'}")
+        print(f"  flash_attention_bwd {name} B{B} H{H} Sq{Sq} Sk{Sk} D{D} "
+              f"{'causal' if causal else 'non-causal'}: rel errs "
+              f"{[f'{e:.2e}' for e in errs]}; kernel {t_k:.6f} ms (device, "
+              f"3 kernels {d_k if d_k is None else f'{d_k:.6f}'}, host "
+              f"{h_k:.6f}) plain {t_p:.6f} sdpa backward {t_l:.6f} "
+              f"kernel/library {t_k / t_l:.3f} bound {bound:.6f} "
+              f"({rows[name]['bound_by']}"
+              f"{'' if d_k is None else f'; {bound / d_k * 100:.1f}% of it alone'})",
+              flush=True)
+        del q, k, v, o, lse, do, qr, kr, vr, o_lib
+    torch.cuda.empty_cache()
+    return {"rows": rows, "max_abs_err": err}
+
+
+def _rec_tp_child(*rest):
+    """``chip_smoke.py --rec-tp``: phase 54 alone (the kernels built
+    lazily); with ``rank R PORT DIR``: one of its rank processes."""
+    if rest[:1] == ("rank",):
+        _rec_tp_rank(int(rest[1]), rest[2], rest[3])
+        return
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(json.dumps(rec_tp_phase()), flush=True)
+
+
+def rec_tp_phase():
+    """Phase 54: the single-process runs in this process while the 2 rank
+    processes start, then the ranks (they wait for DIR/go); each rank held
+    against its single-process run."""
+    import tempfile
+    phase("54 LM train tensor-parallel, Mamba, xLSTM and the enc-dec model "
+          "(2 gloo ranks sharing the card, (data 1, model 2), ZeRO-1, "
+          "float32): jamba-v0.1-52b layer 0 (Mamba by channel and Mamba "
+          "laid out whole), xlstm-1.3b 8 of 48 layers (discrete and node-"
+          "symplectic, its forward replayed), seamless-m4t-medium 2 + 2 of "
+          "12 + 12 layers; each 1 step against its single-process run")
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        port = str(_free_port())
+        children = _rank_children([[REC_TP_CHILD, "rank", str(r), port, d]
+                                   for r in range(2)])
+        ref = {arch_id: _rec_tp_runs(arch_id, None, d)
+               for arch_id in REC_TP_ARCHS}
+        torch.cuda.empty_cache()
+        _publish(os.path.join(d, "go"), lambda tmp: open(tmp, "w").close())
+        ranks = _rank_results(children, "54")
+    for arch_id, (_, runs) in REC_TP_ARCHS.items():
+        for run, mode, layout in runs:
+            want = ref[arch_id]["split" if layout == "whole" else run]
+            got = [r[arch_id][run] for r in ranks]
+            need = REC_TP_KERNELS[arch_id] + (
+                ("butcher_combine",) if mode == "node" else ())
+            for rank, res in enumerate(got):
+                for name in need:
+                    check(res["counts"][name] > 0,
+                          f"phase 54 rank {rank} {arch_id} {run}: {name} "
+                          f"never launched")
+                g, w = res["rows"][0], want["rows"][0]
+                e = {k: abs(g[k] - w[k]) / abs(w[k])
+                     for k in ("loss", "grad_norm")}
+                res["errs"] = [e]
+                check(e["loss"] <= REC_TP_LOSS_RTOL
+                      and e["grad_norm"] <= REC_TP_GNORM_RTOL
+                      and g["lr"] == w["lr"],
+                      f"phase 54 rank {rank} {arch_id} {run}: {g} vs the "
+                      f"single-process {w} (rel {e}; bounds "
+                      f"{REC_TP_LOSS_RTOL}, {REC_TP_GNORM_RTOL})")
+                if "replayed" in res:
+                    check(res["replayed"]["layers"] > 0
+                          and res["replayed"]["cells"] > 0,
+                          f"phase 54 rank {rank} {arch_id} {run}: nothing "
+                          f"replayed ({res['replayed']})")
+                print(f"  rank {rank} {arch_id} {run}: loss {g['loss']}, "
+                      f"grad_norm {g['grad_norm']} (rel to the single-"
+                      f"process run: {e}); s/step "
+                      f"{[round(x, 4) for x in res['step_seconds']]} (single "
+                      f"process {[round(x, 4) for x in want['step_seconds']]}"
+                      f"); collectives per step {res['collectives'][0]}; "
+                      f"bytes per step {res['bytes'][0]}; launches "
+                      f"{res['counts']}; peak allocated {res['peak']} B "
+                      f"(single process {want['peak']} B)"
+                      + (f"; replayed {res['replayed']} (recorded "
+                         f"{want['recorded']})" if "replayed" in res
+                         else ""), flush=True)
+            check(got[0]["replicated"] == got[1]["replicated"],
+                  f"phase 54 {arch_id} {run}: the ranks' unsplit params "
+                  f"differ")
+    print("  the ranks' unsplit params agree bit for bit after every run",
+          flush=True)
+    print(f"phase 54 seconds {time.perf_counter() - t:.1f}", flush=True)
+    return {"ref": ref, "ranks": ranks}
 
 
 # ---------------------------------------------------------------------------
@@ -5500,9 +5940,12 @@ def _zoo_child():
     print(json.dumps(out, default=str))
 
 
-def zoo_phase():
+def zoo_phase(ahead=None):
+    """Phases 42-46 in their own process: started here, or ``ahead``
+    (``(child, go)``: started earlier with ``_child_start(..., go=)``)."""
     t = time.perf_counter()
-    out = _child_phase([ZOO_CHILD], "42-46", timeout=900)
+    out = _child_phase([ZOO_CHILD], "42-46", timeout=900) if ahead is None \
+        else _child_go(*ahead, "42-46")
     print(f"phases 42-46 seconds {time.perf_counter() - t:.1f}")
     return out
 
@@ -5712,16 +6155,18 @@ def zoo2_card_vs_cpu():
 def _zoo2_child():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    out = {"flash": _timed(zoo2_flash)}
+    out = {"flash": _timed(zoo2_flash), "flash_bwd": _timed(zoo2_flash_bwd)}
     for number, (arch_id, layers) in zip((48, 49, 50), ZOO2_ARCHS):
         out[arch_id] = _timed(_zoo2_arch, number, arch_id, layers)
     out["smoke"] = _timed(zoo2_card_vs_cpu)
     print(json.dumps(out, default=str))
 
 
-def zoo2_phase():
+def zoo2_phase(ahead=None):
+    """Phases 47-51 in their own process, as ``zoo_phase``."""
     t = time.perf_counter()
-    out = _child_phase([ZOO2_CHILD], "47-51", timeout=600)
+    out = _child_phase([ZOO2_CHILD], "47-51", timeout=600) if ahead is None \
+        else _child_go(*ahead, "47-51")
     print(f"phases 47-51 seconds {time.perf_counter() - t:.1f}")
     return out
 
@@ -5739,6 +6184,9 @@ def zoo2_rows(zoo2, rows):
         if row["name"] == "flash_attention":
             row["encdec_shapes"] = zoo2["flash"]["rows"]
             row["encdec_max_abs_err"] = zoo2["flash"]["err"]
+        if row["name"] == "flash_attention_bwd":
+            row["encdec_shapes"] = zoo2["flash_bwd"]["rows"]
+            row["encdec_max_abs_err"] = zoo2["flash_bwd"]["max_abs_err"]
 
 
 def lm_train_rows(train, bwd_err, bwd_main):
@@ -5823,10 +6271,21 @@ def main():
     mesh_train = _timed(mesh_train_phase, train, peaks)
     mesh_tp = _timed(mesh_tp_phase)
     zoo_tp = _timed(zoo_tp_phase)
-    print(f"phases 37, 39, 40, 52, 53 seconds "
-          f"{time.perf_counter() - t_mesh:.1f}")
-    zoo = zoo_phase()
-    zoo2 = zoo2_phase()
+    # the processes of phases 42-46 and 47-51 start now and wait for their
+    # turn: their start-up overlaps phase 54's single-process runs
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        ahead = [(_child_start([argv], limit + 600, go), go)
+                 for argv, limit, go in (
+                     (ZOO_CHILD, 900, os.path.join(d, "go_zoo")),
+                     (ZOO2_CHILD, 600, os.path.join(d, "go_zoo2")))]
+        rec_tp = rec_tp_phase()
+        print(f"phases 37, 39, 40, 52, 53, 54 seconds "
+              f"{time.perf_counter() - t_mesh:.1f}")
+        torch.cuda.empty_cache()
+        zoo = zoo_phase(ahead[0])
+        torch.cuda.empty_cache()
+        zoo2 = zoo2_phase(ahead[1])
 
     def summed(results, kinds, name):
         return sum(r[name] for (mode, kind), r in results.items()
@@ -5907,6 +6366,13 @@ def main():
                 res["counts"][row["name"]] for r in zoo_tp["ranks"]
                 for runs in r.values() for res in runs.values())
             row["launches"] = sum(row["launches_by_path"].values())
+    # phase 54: both ranks' launches, every run of the three archs
+    for row in rows:
+        if row["name"] in TP_KERNELS:
+            row["launches_by_path"]["lm_train_tp_rec"] = sum(
+                res["counts"][row["name"]] for r in rec_tp["ranks"]
+                for runs in r.values() for res in runs.values())
+            row["launches"] = sum(row["launches_by_path"].values())
     # the auditor (phase 41): both combines, single-trajectory and lane
     # forms together (one counter per kernel)
     for row in rows[:2]:
@@ -5924,6 +6390,8 @@ def main():
 
 if __name__ == "__main__":
     os.chdir(ROOT)
+    if os.environ.get(GO_ENV):      # started ahead of its phase: torch
+        _await_file(os.environ.pop(GO_ENV), timeout=1200)   # is imported
     if sys.argv[1:] == [LM_TRAIN_CHILD]:
         _lm_train_child()
     elif sys.argv[1:] == [BWD_TIMES_CHILD]:
@@ -5934,6 +6402,8 @@ if __name__ == "__main__":
         _zoo2_child()
     elif sys.argv[1:2] == [ZOO_TP_CHILD]:
         _zoo_tp_child(*sys.argv[2:])
+    elif sys.argv[1:2] == [REC_TP_CHILD]:
+        _rec_tp_child(*sys.argv[2:])
     elif sys.argv[1:2] == [MESH_CHILD]:
         which, rest = sys.argv[2], sys.argv[3:]
         if which == "38" and rest:

@@ -14,9 +14,10 @@ trains the arch in node mode (the paper: depth as ODE time,
 strategy; without it the discrete stack trains.
 ``--mesh debug`` trains data-parallel with ZeRO-1 over a ("data", "model")
 mesh (``launch.mesh.make_debug_mesh``): (2, 2) on a world of 4, JAX's
-default, which is also tensor-parallel over "model" (the GQA and MLA
-decoders, dense or MoE, with the patch frontend: ``parallel.tensor``;
-Mamba, xLSTM and the enc-dec model raise), else (world, 1); one
+default, which is also tensor-parallel over "model" (every arch of the
+zoo: the GQA and MLA decoders, dense or MoE, the patch frontend, Mamba,
+the xLSTM and the enc-dec model, whose source frames are drawn per step:
+``parallel.tensor``), else (world, 1); one
 process per rank, started by ``torchrun --nproc-per-node N`` (or alone: a
 world of 1), each data rank taking its rows of the one global batch, so
 the run equals the single-process run (bitwise on a world of 1, to

@@ -15,7 +15,8 @@ import torch
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.nn.attention import (gqa_attention, init_gqa, init_gqa_cache,
                                       init_mla, init_mla_cache, mla_attention)
-from repro_torch.nn.mamba import init_mamba, init_mamba_state, mamba_forward
+from repro_torch.nn.mamba import (channel_split, init_mamba,
+                                  init_mamba_state, mamba_forward)
 from repro_torch.nn.mlp import init_swiglu, swiglu
 from repro_torch.nn.moe import init_moe, moe_ffn
 from repro_torch.nn.norm import init_rmsnorm, rmsnorm
@@ -87,9 +88,12 @@ def layer_forward(p, x: torch.Tensor, spec: LayerSpec, cfg: ArchConfig, *,
     With ``tp`` (a ``parallel.tensor.TensorParallel``: training on a
     "model" axis) ``x`` is the rank's sequence block (``seq_carry``) or
     whole, the weights are the rank's blocks, and the attention (GQA or
-    MLA), a split SwiGLU and an MoE FFN (routed and shared experts
+    MLA), the recurrent mixers (Mamba by channel, the mLSTM and the sLSTM
+    by head), a split SwiGLU and an MoE FFN (routed and shared experts
     together) take their input through ``enter`` and give their output
-    through ``leave``; the norms run on the rows the rank holds.
+    through ``leave``; the norms run on the rows the rank holds.  A Mamba
+    laid out whole runs whole on every rank (on the entered sequence under
+    ``seq_carry``, keeping the rank's rows).
     ``aux_group``: the data ranks of a data-parallel step, over whose rows
     the MoE aux loss runs (``nn.moe.moe_ffn``)."""
     _check_spec(spec)
@@ -106,14 +110,26 @@ def layer_forward(p, x: torch.Tensor, spec: LayerSpec, cfg: ArchConfig, *,
         if tp is not None:
             y = tp.leave(y)
     elif spec.mixer == "mamba":
-        y, new_cache = mamba_forward(p["mamba"], h, cfg.mamba_config(),
-                                     state=cache)
-    elif spec.mixer == "mlstm":
-        y, new_cache = mlstm_forward(p["mlstm"], h, cfg.xlstm_config(),
-                                     state=cache)
+        mcfg = cfg.mamba_config()
+        if tp is None:
+            y, new_cache = mamba_forward(p["mamba"], h, mcfg, state=cache)
+        elif channel_split(p["mamba"], mcfg):
+            y, new_cache = mamba_forward(p["mamba"], tp.enter(h), mcfg,
+                                         tp=tp)
+            y = tp.leave(y)
+        else:       # laid out whole: the whole layer, the rank's rows kept
+            y, new_cache = mamba_forward(
+                p["mamba"], tp.enter(h) if tp.seq_carry else h, mcfg)
+            y = tp.rows(y)
     else:
-        y, new_cache = slstm_forward(p["slstm"], h, cfg.xlstm_config(),
-                                     state=cache)
+        fwd = mlstm_forward if spec.mixer == "mlstm" else slstm_forward
+        if tp is None:
+            y, new_cache = fwd(p[spec.mixer], h, cfg.xlstm_config(),
+                               state=cache)
+        else:
+            y, new_cache = fwd(p[spec.mixer], tp.enter(h),
+                               cfg.xlstm_config(), tp=tp)
+            y = tp.leave(y)
     x = x + rs * y
     aux = 0.0
     if spec.ffn != "none":

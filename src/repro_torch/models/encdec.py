@@ -11,6 +11,15 @@ Parameters: ``{"frontend", "enc_unit", "enc_norm", "embed", "dec_unit",
 per-layer dicts (the JAX package stacks each leaf over a leading L axis;
 ``params_from_jax`` unstacks it).
 
+Tensor parallelism (training, ``tp``): the encoder and the decoder each
+decide ``seq_carry`` on their own length; the frontend's column blocks are
+joined, the attentions run on the rank's heads and a split SwiGLU on its
+ffn columns (each through ``enter`` and ``leave``), the memory is entered
+whole once for every decoder layer's cross-attention (its gradient, the
+sum of the layers', summed over "model" once), and the lookup and the head
+are vocab-parallel where "model" divides the vocab (256206 at 2; whole at
+4).
+
 Serving: the prefill encodes the source, precomputes every decoder
 layer's cross K/V into the cache (in the cache dtype) and fills the
 self-attention caches; decode advances one target token.  Caches, stacked
@@ -46,6 +55,7 @@ from repro_torch.nn.common import dense_init, embed_init, remat
 from repro_torch.nn.mlp import init_swiglu, swiglu
 from repro_torch.nn.norm import init_rmsnorm, rmsnorm
 from repro_torch.nn.rope import apply_rope, rope_freqs
+from .lm import _embed_tp
 
 _MODES = ("train", "prefill", "decode")
 
@@ -117,7 +127,8 @@ def _mha(p, x: torch.Tensor, cfg: ArchConfig, *, kv=None,
     in ``cache`` (prefill, S > 1), or one decode step against that cache
     (S == 1, every memory position).  Returns (out, cache)."""
     B, S, d = x.shape
-    H, Dh = cfg.n_heads, cfg.head_dim
+    Dh = cfg.head_dim
+    H = p["wq"].shape[-1] // Dh     # the rank's heads under tensor parallelism
     uk = cfg.use_kernels
     q = (x @ p["wq"]).reshape(B, S, H, Dh).transpose(1, 2)
 
@@ -159,20 +170,45 @@ def _mha(p, x: torch.Tensor, cfg: ArchConfig, *, kv=None,
     return out, cache
 
 
-def _enc_layer(lp, x, cfg: ArchConfig):
+def _enter(tp, h):
+    return h if tp is None else tp.enter(h)
+
+
+def _leave(tp, y):
+    return y if tp is None else tp.leave(y)
+
+
+def _ffn(p, h, tp):
+    """The SwiGLU, column / row split under ``tp`` when "model" divides
+    d_ff, else whole on the rows the rank holds."""
+    if tp is not None and tp.ffn_split:
+        return tp.leave(swiglu(p, tp.enter(h)))
+    return swiglu(p, h)
+
+
+def _enc_layer(lp, x, cfg: ArchConfig, tp=None):
     eps, uk = cfg.norm_eps, cfg.use_kernels
     h = rmsnorm(lp["attn_norm"], x, eps=eps, use_kernels=uk)
-    y, _ = _mha(lp["attn"], h, cfg, causal=False)
-    x = x + y
+    y, _ = _mha(lp["attn"], _enter(tp, h), cfg, causal=False)
+    x = x + _leave(tp, y)
     h = rmsnorm(lp["ffn_norm"], x, eps=eps, use_kernels=uk)
-    return x + swiglu(lp["mlp"], h)
+    return x + _ffn(lp["mlp"], h, tp)
 
 
-def encode(params, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """frames (B, S_enc, d_frontend) -> memory (B, S_enc, d)."""
-    x = frames.to(params["frontend"].dtype) @ params["frontend"]
+def encode(params, frames: torch.Tensor, cfg: ArchConfig,
+           tp=None) -> torch.Tensor:
+    """frames (B, S_enc, d_frontend) -> memory (B, S_enc, d).  ``tp`` (a
+    ``parallel.tensor.TensorParallel`` decided on S_enc): the frontend's
+    column blocks joined (``join_columns``), the layers on the rank's
+    blocks, and the memory the rank's sequence block under ``seq_carry``
+    (else whole)."""
+    if tp is None:
+        x = frames.to(params["frontend"].dtype) @ params["frontend"]
+    else:           # the kernels take contiguous rows
+        x = tp.rows(frames.to(params["frontend"].dtype)
+                    @ tp.join_columns(params["frontend"])).contiguous()
     for lp in params["enc_unit"]:
-        x = remat(lambda lp_, xx: _enc_layer(lp_, xx, cfg), lp, x)
+        x = remat(lambda lp_, xx: _enc_layer(lp_, xx, cfg, tp), lp, x)
     return rmsnorm(params["enc_norm"], x, eps=cfg.norm_eps,
                    use_kernels=cfg.use_kernels)
 
@@ -190,27 +226,35 @@ def precompute_cross_kv(params, memory: torch.Tensor, cfg: ArchConfig):
 
 
 def _dec_layer(lp, x, cfg: ArchConfig, memory, self_c, cross_c, positions,
-               pos):
+               pos, tp=None):
     eps, uk = cfg.norm_eps, cfg.use_kernels
     h = rmsnorm(lp["self_norm"], x, eps=eps, use_kernels=uk)
-    y, _ = _mha(lp["self_attn"], h, cfg, causal=True, positions=positions,
-                pos=pos, cache=self_c)
-    x = x + y
+    y, _ = _mha(lp["self_attn"], _enter(tp, h), cfg, causal=True,
+                positions=positions, pos=pos, cache=self_c)
+    x = x + _leave(tp, y)
     h = rmsnorm(lp["cross_norm"], x, eps=eps, use_kernels=uk)
-    y, _ = _mha(lp["cross_attn"], h, cfg, kv=memory, cross=True,
+    y, _ = _mha(lp["cross_attn"], _enter(tp, h), cfg, kv=memory, cross=True,
                 causal=False, cache=cross_c)
-    x = x + y
+    x = x + _leave(tp, y)
     h = rmsnorm(lp["ffn_norm"], x, eps=eps, use_kernels=uk)
-    return x + swiglu(lp["mlp"], h)
+    return x + _ffn(lp["mlp"], h, tp)
 
 
 def decode_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
                    memory=None, caches=None, pos: Optional[int] = None,
-                   mode: str = "train", return_hidden: bool = False):
+                   mode: str = "train", return_hidden: bool = False,
+                   tp=None):
     """The decoder stack.  train: ``memory`` given, no caches (each layer
     recomputed in the backward); prefill: ``caches`` (cross K/V filled) and
     ``memory``, tokens from position 0; decode: ``caches`` and ``pos``,
     tokens (B, 1).
+
+    ``tp`` (training; a ``parallel.tensor.TensorParallel`` decided on
+    S_dec): the lookup vocab-parallel (``models.lm._embed_tp``), the layers
+    on the rank's heads and ffn columns, the residual stream the rank's
+    sequence block under ``seq_carry``; ``memory`` whole on every rank (the
+    caller enters it: each layer's cross-attention projects K and V from
+    all of it), and the head the rank's vocab block (``return_hidden``).
 
     Returns {"logits" (B, S, V) float32, "caches", "aux": 0.0}, or with
     return_hidden {"hidden", "head", "caches", "aux"}."""
@@ -221,13 +265,21 @@ def decode_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
             (mode == "train" and memory is None):
         raise ValueError(f"mode {mode!r}: caches are for prefill and decode "
                          f"only, pos for decode only, memory for training")
-    x = params["embed"][tokens]
-    positions = torch.arange(x.shape[1], device=x.device) \
-        if pos is None else None
+    if tp is not None and not return_hidden:
+        raise ValueError("under tensor parallelism the head is the rank's "
+                         "vocab block: ask for return_hidden (the loss is "
+                         "vocab-parallel)")
+    if tp is None:
+        x = params["embed"][tokens]
+        seq = x.shape[1]
+    else:
+        x = _embed_tp(params["embed"], tokens, tp)
+        seq = tokens.shape[1]
+    positions = torch.arange(seq, device=x.device) if pos is None else None
     for i, lp in enumerate(params["dec_unit"]):
         if caches is None:
             x = remat(lambda lp_, xx, mem: _dec_layer(
-                lp_, xx, cfg, mem, None, None, positions, None),
+                lp_, xx, cfg, mem, None, None, positions, None, tp),
                 lp, x, memory)
         else:
             self_c = {"k": caches["self"]["k"][i],

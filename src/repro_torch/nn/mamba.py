@@ -21,6 +21,21 @@ than one chunk must be a whole number of chunks, as in the JAX package.
 Decode (S == 1 with a state) is the O(1) recurrent update with a rolling
 conv buffer.  State: {"conv": (B, k-1, d_inner), "ssm": (B, d_inner,
 d_state)}, float32 whatever the cache dtype (the JAX package's rule).
+
+Tensor parallelism (``tp``, training): channel-parallel, as the JAX
+package constrains ``xb`` to ("batch", "seq", "ffn") with "ffn" on "model":
+each rank scans its d_inner / TP channels of the entered (whole) input.
+Three leaves are not laid out by channel there and are made whole first
+(``TensorParallel.whole``: an all_gather, whose backward sums the ranks'
+partial gradients onto each block): ``in_proj``'s columns split the
+concatenation [x | z] (the rank needs its channels of both halves),
+``x_proj``'s split [dt | B | C] (the rank needs its channels' rows; its
+product is a partial sum over "model", ``TensorParallel.summed``) and
+``dt_proj``'s rows (the rank needs its channels' columns).  The
+replicated conv, dt bias, A and D give the rank its channels, and
+``out_proj``'s row block is the rank's channels already: its output is
+the partial sum the caller's ``leave`` takes.  A layer laid out whole
+(``channel_split`` False) runs whole, as on one device.
 """
 from __future__ import annotations
 
@@ -142,17 +157,52 @@ def _ssm_scan_chunked(dt, Bc, Cc, xb, A, h0, chunk: int):
     return torch.cat(ys, dim=1), h
 
 
-def mamba_forward(p, x: torch.Tensor, cfg: MambaConfig, *, state=None):
+def channel_split(p, cfg: MambaConfig) -> bool:
+    """Whether the layer's leaves are laid out by channel over "model"
+    (``in_proj``'s column block, not the whole)."""
+    return p["in_proj"].shape[-1] != 2 * cfg.d_inner
+
+
+def _rank_leaves(p, cfg: MambaConfig, tp):
+    """The leaves the rank computes its channels with (see the module
+    note): in_proj's x and z columns, conv_w, conv_b, x_proj's rows,
+    dt_proj's columns, dt_bias, A_log and D of its channels."""
+    di, N, R = cfg.d_inner, cfg.d_state, cfg.rank
+    n = di // tp.size
+    lo = tp.rank * n
+    w_in = tp.whole(p["in_proj"], 1, 2 * di)
+    return {"in_x": w_in[:, lo:lo + n], "in_z": w_in[:, di + lo:di + lo + n],
+            "conv_w": p["conv_w"][:, lo:lo + n],
+            "conv_b": p["conv_b"][lo:lo + n],
+            "x_proj": tp.whole(p["x_proj"], 1, R + 2 * N)[lo:lo + n],
+            "dt_proj": tp.whole(p["dt_proj"], 0, R)[:, lo:lo + n],
+            "dt_bias": p["dt_bias"][lo:lo + n],
+            "A_log": p["A_log"][lo:lo + n], "D": p["D"][lo:lo + n]}
+
+
+def mamba_forward(p, x: torch.Tensor, cfg: MambaConfig, *, state=None,
+                  tp=None):
     """x: (B, S, d).  No state: training.  A state with S > 1: prefill (the
     returned state is the one after the last position; the given state's
     conv buffer is read, its ssm state is not: prefill starts from zero,
     as in the JAX package).  A state with S == 1: one decode step.
 
+    ``tp`` (training on a "model" axis, leaves laid out by channel): ``x``
+    whole, the output the rank's channels' partial sum (see the module
+    note).
+
     Returns (out (B, S, d), new state or None)."""
     B, S, d = x.shape
     di, N, R = cfg.d_inner, cfg.d_state, cfg.rank
-    xz = x @ p["in_proj"]
-    xb, z = xz.split(di, dim=-1)                     # (B, S, di) each
+    if tp is None:
+        xz = x @ p["in_proj"]
+        xb, z = xz.split(di, dim=-1)                 # (B, S, di) each
+    else:
+        if state is not None:
+            raise ValueError("a channel-parallel Mamba trains only")
+        p = dict(p, **_rank_leaves(p, cfg, tp))
+        di = di // tp.size
+        xb, z = x @ p["in_x"], x @ p["in_z"]         # (B, S, di / TP)
 
     decode = state is not None and S == 1
     conv_state = state["conv"] if state is not None else None
@@ -160,6 +210,8 @@ def mamba_forward(p, x: torch.Tensor, cfg: MambaConfig, *, state=None):
     xb = F.silu(xb)
 
     proj = xb @ p["x_proj"]
+    if tp is not None:
+        proj = tp.summed(proj)
     dt, Bc, Cc = proj.split([R, N, N], dim=-1)
     dt = _softplus(dt @ p["dt_proj"] + p["dt_bias"])        # (B, S, di)
     A = -torch.exp(p["A_log"])                               # (di, N)

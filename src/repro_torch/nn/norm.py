@@ -33,3 +33,23 @@ def layernorm(p, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     var = xf.var(-1, keepdim=True, correction=0)
     out = (xf - mu) * torch.reciprocal(torch.sqrt(var + eps))
     return (out * p["w"].to(f32) + p["b"].to(f32)).to(x.dtype)
+
+
+def layernorm_split(p, x: torch.Tensor, tp, *, eps: float = 1e-5):
+    """``layernorm`` over a last axis split over "model" (``tp``, a
+    ``parallel.tensor.TensorParallel``): ``x`` holds the rank's block of
+    it, ``p`` the whole weight and bias.  The mean and the population
+    variance take their row sums over every block (two all_reduces, each
+    with an all_reduce of its gradient: ``TensorParallel.summed``), in the
+    plain version's two passes; the rank's block of the output."""
+    f32 = torch.float32
+    n = x.shape[-1]
+    total = n * tp.size
+    lo = tp.rank * n
+    xf = x.to(f32)
+    mu = tp.summed(xf.sum(-1, keepdim=True)) / total
+    dx = xf - mu
+    var = tp.summed((dx * dx).sum(-1, keepdim=True)) / total
+    out = dx * torch.reciprocal(torch.sqrt(var + eps))
+    return (out * p["w"][lo:lo + n].to(f32)
+            + p["b"][lo:lo + n].to(f32)).to(x.dtype)

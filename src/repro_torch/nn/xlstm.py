@@ -23,6 +23,25 @@ As in the JAX package, ``init_mlstm_state`` starts m at 0 while the
 parallel and chunkwise forms start their stabiliser at -inf; serving
 always prefills (S > 1) before it decodes, which takes the state from the
 forms.
+
+Tensor parallelism (``tp``, training; the input entered whole, the output
+a partial sum for the caller's ``leave``), heads-parallel:
+
+* mLSTM: ``up``'s columns split the concatenation [x | z], so it is made
+  whole (``TensorParallel.whole``); every rank then computes x and the
+  conv output ``cx`` over all d_inner channels (q and k read them all)
+  and z on its own heads' channels.  The column blocks of wq, wk and wv
+  are the rank's heads (their columns are ordered by head), the gates
+  take the rank's columns of wi and wf, and the skip LayerNorm over the
+  whole d_inner takes its row statistics summed over "model"
+  (``layernorm_split``); ``down``'s row block is the rank's channels.
+* sLSTM: ``wx``'s columns are head-major (i, f, z, o per head), so its
+  column block gives the rank whole heads for all four gates; the rank
+  takes its heads of ``r`` and ``b`` and runs the recurrence on H / TP
+  heads.  The out LayerNorm over d_model needs every head: the heads'
+  outputs are gathered (all_gather; backward reduce_scatter), and every
+  rank runs the norm whole before its columns of up1 / up2 and its rows
+  of ``down``.
 """
 from __future__ import annotations
 
@@ -30,9 +49,10 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from repro_torch.parallel import comm
 from .common import dense_init, promoted, remat
 from .mamba import _causal_conv
-from .norm import init_layernorm, layernorm
+from .norm import init_layernorm, layernorm, layernorm_split
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,10 +125,12 @@ def _mlstm_block(qi, Fi, F_, i_gate, kf, vf, q0: int):
     return _einsum("bhts,bhsv->bhtv", Smat / denom, vf)
 
 
-def mlstm_forward(p, x: torch.Tensor, cfg: XLSTMConfig, *, state=None):
+def mlstm_forward(p, x: torch.Tensor, cfg: XLSTMConfig, *, state=None,
+                  tp=None):
     """x: (B, S, d).  No state: training; a state with S > 1: prefill (its
     conv buffer is read; the returned state is the one after the last
-    position); a state with S == 1: one decode step.
+    position); a state with S == 1: one decode step.  ``tp``: training on
+    the rank's heads (see the module note).
 
     Returns (out (B, S, d), new state or None)."""
     B, S, d = x.shape
@@ -117,8 +139,20 @@ def mlstm_forward(p, x: torch.Tensor, cfg: XLSTMConfig, *, state=None):
     dh = di // H
     f32 = torch.float32
 
-    xz = x @ p["up"]
-    xb, z = xz.split(di, dim=-1)
+    wi, wf = p["wi"], p["wf"]
+    if tp is None:
+        xz = x @ p["up"]
+        xb, z = xz.split(di, dim=-1)
+    else:
+        if state is not None:
+            raise ValueError("a heads-parallel mLSTM trains only")
+        H //= tp.size
+        lo = tp.rank * H * dh
+        up = tp.whole(p["up"], 1, 2 * di)
+        xb = x @ up[:, :di]                                  # every channel
+        z = x @ up[:, di + lo:di + lo + H * dh]              # the rank's
+        heads_r = slice(tp.rank * H, (tp.rank + 1) * H)
+        wi, wf = wi[:, heads_r], wf[:, heads_r]
     conv_state = state["conv"] if state is not None else None
     cx, new_conv = _causal_conv(xb, p["conv_w"], p["conv_b"], conv_state)
     cx = F.silu(cx)
@@ -129,8 +163,8 @@ def mlstm_forward(p, x: torch.Tensor, cfg: XLSTMConfig, *, state=None):
     q = heads(cx @ p["wq"]) * dh ** -0.5
     k = heads(cx @ p["wk"])
     v = heads(xb @ p["wv"])
-    i_gate = _mm(cx, p["wi"]).transpose(1, 2)                # (B, H, S)
-    f_gate = _mm(cx, p["wf"]).transpose(1, 2)
+    i_gate = _mm(cx, wi).transpose(1, 2)                     # (B, H, S)
+    f_gate = _mm(cx, wf).transpose(1, 2)
 
     decode = state is not None and S == 1
     if decode:
@@ -178,8 +212,12 @@ def mlstm_forward(p, x: torch.Tensor, cfg: XLSTMConfig, *, state=None):
             n = kw.sum(-2)
             new_state = {"conv": new_conv, "C": C, "n": n, "m": m_fin}
 
-    y = y.transpose(1, 2).reshape(B, S, di).to(x.dtype)
-    y = layernorm(p["skip_norm"], y) + cx        # gated skip (xLSTM style)
+    y = y.transpose(1, 2).reshape(B, S, H * dh).to(x.dtype)
+    if tp is None:
+        y = layernorm(p["skip_norm"], y) + cx    # gated skip (xLSTM style)
+    else:
+        y = layernorm_split(p["skip_norm"], y, tp) + \
+            cx[..., lo:lo + H * dh]
     y = y * F.silu(z)
     return y @ p["down"], new_state
 
@@ -313,18 +351,27 @@ def _slstm_chunk(p, xc, c, n, h, m, H, dh):
     return st["c"], st["n"], st["h"], st["m"], torch.stack(hs, dim=1)
 
 
-def slstm_forward(p, x: torch.Tensor, cfg: XLSTMConfig, *, state=None):
+def slstm_forward(p, x: torch.Tensor, cfg: XLSTMConfig, *, state=None,
+                  tp=None):
     """x: (B, S, d).  No state: training (from ``init_slstm_state``); a
-    state: prefill (S > 1) or one decode step (S == 1) from it.
+    state: prefill (S > 1) or one decode step (S == 1) from it.  ``tp``:
+    training on the rank's heads (see the module note).
 
     Returns (out (B, S, d), new state or None)."""
     B, S, d = x.shape
     H = cfg.n_heads
     dh = d // H
-    xw = (x @ p["wx"]).to(torch.float32)                       # (B, S, 4d)
+    xw = (x @ p["wx"]).to(torch.float32)                 # (B, S, 4 H dh)
+    cell_p = p
+    if tp is not None:
+        if state is not None:
+            raise ValueError("a heads-parallel sLSTM trains only")
+        H //= tp.size
+        h0 = tp.rank * H
+        cell_p = {"r": p["r"][h0:h0 + H],
+                  "b": p["b"][4 * dh * h0:4 * dh * (h0 + H)]}
 
-    st0 = init_slstm_state(cfg, B, device=x.device) if state is None \
-        else dict(state)
+    st0 = _zero_state(B, H, dh, x.device) if state is None else dict(state)
 
     if S == 1 and state is not None:
         st = _slstm_cell(p, xw[:, 0], st0, H, dh)
@@ -338,14 +385,16 @@ def slstm_forward(p, x: torch.Tensor, cfg: XLSTMConfig, *, state=None):
         outs = []
         for c0 in range(0, S, cs):
             *carry, hc = remat(
-                lambda xc, *st: _slstm_chunk(p, xc, *st, H, dh),
+                lambda xc, *st: _slstm_chunk(cell_p, xc, *st, H, dh),
                 xw[:, c0:c0 + cs], *carry)
             outs.append(hc)
         hs = torch.cat(outs, dim=1)                            # (B,S,H,dh)
         new_state = dict(zip(("c", "n", "h", "m"), carry)) \
             if state is not None else None
 
-    y = hs.reshape(B, -1, d).to(x.dtype)
+    y = hs.reshape(B, -1, H * dh).to(x.dtype)
+    if tp is not None:          # every head, for the norm over d_model
+        y = comm.gather_from_sequence(y, tp.group, 2)
     y = layernorm(p["out_norm"], y)
     y = (F.gelu(y @ p["up1"], approximate="tanh") * (y @ p["up2"])) \
         @ p["down"]
@@ -354,6 +403,9 @@ def slstm_forward(p, x: torch.Tensor, cfg: XLSTMConfig, *, state=None):
 
 def init_slstm_state(cfg: XLSTMConfig, batch: int, device="cuda"):
     H = cfg.n_heads
-    dh = cfg.d_model // H
+    return _zero_state(batch, H, cfg.d_model // H, device)
+
+
+def _zero_state(batch: int, H: int, dh: int, device):
     z = torch.zeros((batch, H, dh), dtype=torch.float32, device=device)
     return {"c": z, "n": z + 1e-6, "h": z.clone(), "m": z.clone()}

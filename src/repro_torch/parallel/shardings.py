@@ -39,6 +39,10 @@ COL_NAMES = {"wq", "wk", "wv", "wg", "wu", "up", "in_proj", "x_proj",
 ROW_NAMES = {"wo", "wd", "down", "out_proj", "dt_proj"}
 REPLICATED = {"router", "conv_w", "conv_b", "dt_bias", "A_log", "D", "r",
               "b", "w", "b1", "b2", "wi", "wf", "conv_b"}
+#: the Mamba leaves the JAX dryrun's ``--replicate-mamba`` lays out whole
+#: (``extra_replicated``; ``repro.launch.dryrun.MAMBA_PARAM_NAMES``)
+MAMBA_PARAM_NAMES = frozenset({"in_proj", "out_proj", "x_proj", "dt_proj",
+                               "conv_w", "conv_b"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,16 +181,20 @@ def _is_spec_leaf(x):
 
 
 def state_specs(state, mesh, *, ep: bool = False, zero1: bool = True,
-                fsdp: bool = False):
+                fsdp: bool = False, extra_replicated=frozenset()):
     """Specs for the full train state: the ``{"params", "opt"}`` dict or a
     ``train.TrainState`` (rng / data cursor / solver stats are small and
-    always replicated; the result mirrors the input's kind)."""
+    always replicated; the result mirrors the input's kind).
+    ``extra_replicated``: leaf names laid out whole (``param_specs``; e.g.
+    ``MAMBA_PARAM_NAMES``, the JAX dryrun's ``--replicate-mamba``), their
+    optimizer state alike."""
     from repro_torch.train.state import TrainState
     if isinstance(state, TrainState):
         as_dict = {"params": state.params, "opt": state.opt}
         if state.compress_err is not None:
             as_dict["compress_err"] = state.compress_err
-        base = state_specs(as_dict, mesh, ep=ep, zero1=zero1, fsdp=fsdp)
+        base = state_specs(as_dict, mesh, ep=ep, zero1=zero1, fsdp=fsdp,
+                           extra_replicated=extra_replicated)
 
         def repl(t):
             return pytree.tree_map(lambda l: P(*([None] * len(_shape(l)))),
@@ -197,7 +205,8 @@ def state_specs(state, mesh, *, ep: bool = False, zero1: bool = True,
             solver_stats=repl(state.solver_stats),
             compress_err=base.get("compress_err"))
     params = state["params"]
-    pspecs = param_specs(params, mesh, ep=ep, fsdp=fsdp)
+    pspecs = param_specs(params, mesh, ep=ep, fsdp=fsdp,
+                         extra_replicated=extra_replicated)
     n_units = len(params["unit"]) if isinstance(params, dict) \
         and "unit" in params else 0
     out = {"params": pspecs}

@@ -48,6 +48,23 @@ sequence is the P patches and the S tokens, ``seq_carry`` is decided on
 P + S, and the embedding is made whole before the rank takes its rows
 (``models.lm._embed_patches_tp``).
 
+The recurrent mixers run on the entered, whole sequence too (a scan needs
+every position): Mamba on the rank's d_inner / TP channels, the mLSTM and
+the sLSTM on its heads (``nn.mamba``, ``nn.xlstm``).  Where a leaf's
+"model" layout is not the rank's channel or head block (Mamba's in_proj
+over [x | z], x_proj over [dt | B | C], dt_proj's rows; the mLSTM's up
+over [x | z]) the layer makes it whole (``whole``: an all_gather, its
+backward a reduce_scatter of the ranks' partial gradients) and takes its
+part; a product or a statistic summed over every channel is ``summed``
+(an all_reduce each way), and the unsplit leaves the rank takes its
+channels or heads of are partial (``PARTIAL_IN``).  A Mamba laid out whole
+(``state_specs(..., extra_replicated=MAMBA_PARAM_NAMES)``) runs whole on
+every rank.  The enc-dec model decides ``seq_carry`` for its encoder on
+the source's length and for its decoder on the target's, enters the
+memory whole once for every decoder layer's cross-attention, and its
+encoder's unsplit leaves are partial by the encoder's ``seq_carry``
+(``partial_leaves``' ``source_carry``).
+
 The data-parallel step makes a rank's context (``TensorParallel``) and
 passes it down as the ``tp`` argument of ``train_step.loss_and_grads``,
 ``models.lm.lm_forward``, ``models.blocks.layer_forward`` and
@@ -65,46 +82,50 @@ from torch.utils import _pytree as pytree
 from . import comm
 from .layout import Group, axes_group, axis_names, axis_sizes, coordinate
 
-#: what a later slice ports (the mesh's "model" axis for these archs)
-LATER = ("ROADMAP item 17's second half: Mamba with --replicate-mamba, "
-         "xLSTM and the enc-dec model")
-
-
 def check_arch(arch, size: int) -> None:
-    """Raise unless a "model" axis of ``size`` can compute ``arch``: a
-    decoder of GQA or MLA attention and dense SwiGLU or MoE layers (prefix
-    layers, tied or untied head, the patch frontend) whose heads and kv
-    heads ``size`` divides, and, with MoE, its experts' f (and the shared
-    experts' f); with the patch frontend, d_model."""
+    """Raise unless a "model" axis of ``size`` can compute ``arch``: every
+    dim a layer splits must divide by ``size`` (``divides``): the heads and
+    kv heads of its attention (GQA, MLA, the enc-dec model's), with MoE its
+    experts' f (and the shared experts' f), Mamba's d_inner (its channels),
+    the xLSTM heads (the mLSTM's and the sLSTM's, and the sLSTM's up-
+    projection), and d_model where a frontend (the patch or the enc-dec
+    model's) is split by its columns.  A leaf whose dim "model" does not
+    divide is laid out whole (``shardings`` ``pad``); where the layer
+    computes on it as a whole (a SwiGLU of an undivided d_ff, an undivided
+    vocab) it trains, elsewhere it raises here."""
     if size <= 1:
         return
-    what = []
-    if arch.encdec:
-        what.append("the enc-dec model")
-    if arch.frontend not in ("none", "patch"):
-        what.append(f"the {arch.frontend} frontend")
     specs = tuple(arch.prefix) + tuple(arch.pattern)
-    for spec in specs:
-        if spec.mixer not in ("attn", "mla"):
-            what.append(f"the {spec.mixer} mixer")
-    if what:
+    mixers = {s.mixer for s in specs}
+    dims = {}
+    if arch.frontend not in ("none", "patch") and not (
+            arch.encdec and arch.frontend == "audio"):
         raise NotImplementedError(
             f"tensor-parallel training of {arch.name} on 'model' = {size}: "
-            f"{', '.join(sorted(set(what)))} not ported ({LATER})")
-    if arch.n_kv_heads % size or arch.n_heads % size:
-        raise NotImplementedError(
-            f"tensor-parallel training of {arch.name}: 'model' = {size} "
-            f"does not divide its {arch.n_heads} heads / {arch.n_kv_heads} "
-            f"kv heads (replicated attention is not ported)")
-    dims = {}
+            f"the {arch.frontend} frontend is not ported")
+    if arch.encdec or mixers & {"attn", "mla"}:
+        if arch.n_kv_heads % size or arch.n_heads % size:
+            raise NotImplementedError(
+                f"tensor-parallel training of {arch.name}: 'model' = {size} "
+                f"does not divide its {arch.n_heads} heads / "
+                f"{arch.n_kv_heads} kv heads (replicated attention is not "
+                f"ported)")
     if any(s.ffn == "moe" for s in specs):
         moe = arch.moe_config()
         dims["expert f"] = moe.d_ff
         if moe.n_shared:
             dims["shared expert f"] = moe.shared_d_ff or \
                 moe.d_ff * moe.n_shared
-    if arch.frontend == "patch":
+    if arch.frontend == "patch" or arch.encdec:
         dims["d_model (the frontend's columns)"] = arch.d_model
+    if "mamba" in mixers:
+        dims["Mamba d_inner"] = arch.mamba_config().d_inner
+    if mixers & {"mlstm", "slstm"}:
+        dims["xLSTM heads"] = arch.xlstm_config().n_heads
+    if "slstm" in mixers:
+        from repro_torch.nn.xlstm import _slstm_up
+        dims["sLSTM up-projection"] = _slstm_up(
+            arch.d_model, arch.xlstm_config().s_proj_factor)
     whole = [f"{name} {n}" for name, n in dims.items()
              if not divides(n, size)]
     if whole:
@@ -191,6 +212,22 @@ class TensorParallel:
         takes its block (no collective)."""
         return comm.gather_columns(w, self.group, self.seq_carry)
 
+    def whole(self, w: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+        """A weight ``size`` long along ``dim`` made whole: the ranks'
+        blocks of a split one joined (all_gather), a whole one as it is.
+        Backward of the join: the ranks' gradients, each partial (the rank
+        computes on its own channels or heads of the whole weight), summed
+        onto the rank's block (reduce_scatter)."""
+        if w.shape[dim] == size:
+            return w
+        return comm.gather_from_sequence(w, self.group, dim % w.dim())
+
+    def summed(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``, this rank's part of a sum over "model" that every rank
+        then uses on its own channels or heads: the sum (all_reduce), whose
+        gradient, partial on each rank, is summed too (all_reduce)."""
+        return comm.copy_to(comm.reduce_from(t, self.group), self.group)
+
 
 class _ShareGrad(torch.autograd.Function):
     @staticmethod
@@ -212,6 +249,22 @@ def _path_names(path):
 #: ``seq_carry`` too (see the module note)
 PARTIAL_NAMES = frozenset({"q_norm", "k_norm", "wdkv", "kv_norm", "wkr",
                            "router"})
+#: per recurrent mixer, the leaf whose split over "model" makes the layer
+#: run on the rank's channels or heads, and the unsplit leaves the rank
+#: then takes its channels or heads of (Mamba's depthwise conv, dt bias, A
+#: and D; the mLSTM's conv, which every rank runs whole but whose output
+#: only the rank's heads and skip channels read, its gates and its skip
+#: norm; the sLSTM's recurrent weights and gate biases, and its out norm,
+#: which every rank runs whole but whose output only the rank's up-
+#: projection columns read): their gradient is partial without
+#: ``seq_carry`` too.  A Mamba laid out whole (``state_specs(...,
+#: extra_replicated=MAMBA_PARAM_NAMES)``) computes whole on every rank, so
+#: its leaves are partial under ``seq_carry`` alone.
+PARTIAL_IN = {"mamba": ("in_proj", frozenset({"conv_w", "conv_b",
+                                              "dt_bias", "A_log", "D"})),
+              "mlstm": ("up", frozenset({"conv_w", "conv_b", "wi", "wf",
+                                         "skip_norm"})),
+              "slstm": ("wx", frozenset({"r", "b", "out_norm"}))}
 
 
 def model_split(params, mesh) -> List[bool]:
@@ -233,15 +286,40 @@ def model_split(params, mesh) -> List[bool]:
     return out
 
 
-def partial_leaves(params, mesh, seq_carry: bool) -> List[bool]:
+def _mixer_at(path):
+    """(the path up to a recurrent mixer's key, the mixer, the key after
+    it) of a leaf under one (``PARTIAL_IN``), else None."""
+    for i, e in enumerate(path[:-1]):
+        mixer = getattr(e, "key", None)
+        if mixer in PARTIAL_IN and hasattr(path[i + 1], "key"):
+            return tuple(map(str, path[:i + 1])), mixer, str(path[i + 1].key)
+    return None
+
+
+#: the enc-dec model's leaves that compute on the encoder's sequence
+ENCODER_KEYS = frozenset({"frontend", "enc_unit", "enc_norm"})
+
+
+def partial_leaves(params, mesh, seq_carry: bool,
+                   source_carry: Optional[bool] = None) -> List[bool]:
     """Per leaf of ``params`` (in ``tree_leaves`` order): True where the
-    rank's gradient is a partial sum over "model" (see the module note)."""
+    rank's gradient is a partial sum over "model" (see the module note and
+    ``PARTIAL_IN``).  ``source_carry``: the enc-dec encoder's own
+    ``seq_carry``, which its leaves (``ENCODER_KEYS``) take instead."""
     paths = [p for p, _ in pytree.tree_flatten_with_path(params)[0]]
+    split = model_split(params, mesh)
+    at = [_mixer_at(path) for path in paths]
+    running = {a[0] for s, a in zip(split, at)      # mixers run split
+               if s and a is not None and a[2] == PARTIAL_IN[a[1]][0]}
     out = []
-    for split, path in zip(model_split(params, mesh), paths):
+    for s, path, a in zip(split, paths, at):
         names = _path_names(path)
-        out.append(not split and (seq_carry
-                                  or not PARTIAL_NAMES.isdisjoint(names)))
+        local = a is not None and a[0] in running and \
+            a[2] in PARTIAL_IN[a[1]][1]
+        rows = source_carry if source_carry is not None and \
+            names[:1] and names[0] in ENCODER_KEYS else seq_carry
+        out.append(not s and (rows or local
+                              or not PARTIAL_NAMES.isdisjoint(names)))
     return out
 
 

@@ -65,9 +65,10 @@ from .losses import IGNORE
 def check_mesh(mesh, arch=None) -> None:
     """A data-parallel step runs on a mesh with a "data" axis, whose other
     axes larger than 1 are at most "model"; a "model" axis larger than 1
-    computes ``arch`` tensor-parallel, which a decoder of GQA or MLA
-    attention and dense SwiGLU or MoE layers takes so far, with prefix
-    layers and the patch frontend (``parallel.tensor.check_arch``)."""
+    computes ``arch`` tensor-parallel: every arch of the zoo (GQA, MLA,
+    Mamba, mLSTM and sLSTM mixers, dense SwiGLU and MoE FFNs, prefix
+    layers, the patch frontend, the enc-dec model) whose split dims the
+    axis divides (``parallel.tensor.check_arch``)."""
     sizes = _check_axes(mesh)
     if sizes.get("model", 1) > 1:
         if arch is None:
@@ -168,19 +169,26 @@ class DataParallel:
         return comm.all_reduce(weighted.clone(), self.group.group)
 
     # -- gradients -------------------------------------------------------------
-    def roles(self, params, tp):
+    def source_carry(self, batch) -> Optional[bool]:
+        """The enc-dec model's encoder ``seq_carry`` for ``batch`` (its
+        source frames' length); None for a decoder or without "model"."""
+        if self.tp is None or "frames" not in batch:
+            return None
+        return tensor.divides(batch["frames"].shape[1], self.tp.size)
+
+    def roles(self, params, tp, source_carry: Optional[bool] = None):
         """(model_split, partial) flags per leaf of the state's ``params``
-        (``tree_leaves`` order) under the step's context ``tp``: split
-        over "model" (as the state is laid out), and a partial sum over
-        "model"."""
+        (``tree_leaves`` order) under the step's context ``tp`` (and the
+        enc-dec encoder's ``source_carry``): split over "model" (as the
+        state is laid out), and a partial sum over "model"."""
         if tp is None:
             n = len(pytree.tree_leaves(params))
             return [False] * n, [False] * n
         split = tensor.model_split(params, self.mesh)
-        key = (tp.seq_carry, tuple(split))
+        key = (tp.seq_carry, source_carry, tuple(split))
         if key not in self._roles:
             self._roles[key] = (split, tensor.partial_leaves(
-                params, self.mesh, tp.seq_carry))
+                params, self.mesh, tp.seq_carry, source_carry))
         return self._roles[key]
 
     def check_layout(self, p_leaves) -> None:
@@ -412,48 +420,131 @@ def zero1_layout(state, mesh):
     return kinds, dims, owners
 
 
-def _entered(spec, ffn_split: bool) -> int:
-    """The enters (= leaves) of one pass of a layer on a "model" axis: its
-    attention's (GQA or MLA), and its FFN's when that is an MoE or a split
-    SwiGLU."""
-    return 1 + (spec.ffn == "moe" or (spec.ffn == "dense" and ffn_split))
+C = collections.Counter
+
+
+def _enter(seq: bool):
+    """(forward, backward) collectives of ``TensorParallel.enter``."""
+    return (C(all_gather=1) if seq else C(),
+            C(reduce_scatter=1) if seq else C(all_reduce=1))
+
+
+def _leave(seq: bool):
+    """(forward, backward) collectives of ``TensorParallel.leave``."""
+    return (C(reduce_scatter=1) if seq else C(all_reduce=1),
+            C(all_gather=1) if seq else C())
+
+
+#: a split weight made whole (``TensorParallel.whole``), the sLSTM's heads
+#: gathered: (forward, backward)
+_GATHER = (C(all_gather=1), C(reduce_scatter=1))
+#: a partial sum used on the rank's channels (``TensorParallel.summed``)
+_SUMMED = (C(all_reduce=1), C(all_reduce=1))
+
+
+def _layer_regions(spec, arch, m: int, seq: bool, whole_mamba: bool):
+    """The collectives of one layer on a "model" axis of ``m``, in forward
+    order: a list of (forward, backward) Counters, and whether its last
+    one is a leave after which nothing is saved for the backward (the
+    leave of an entered FFN, or of a mixer without an FFN), which an
+    early-stopped recompute does not run."""
+    out = []
+    if spec.mixer in ("attn", "mla"):
+        out += [_enter(seq), _leave(seq)]
+    elif spec.mixer == "mamba":
+        mcfg = arch.mamba_config()
+        if whole_mamba:             # whole on every rank: its rows kept
+            out += [_enter(True)] if seq else []
+        else:
+            out += [_enter(seq), _GATHER]           # in_proj
+            out += [_GATHER] * (tensor.divides(
+                mcfg.rank + 2 * mcfg.d_state, m)
+                + tensor.divides(mcfg.rank, m))     # x_proj, dt_proj
+            out += [_SUMMED, _leave(seq)]           # the x_proj product
+    elif spec.mixer == "mlstm":     # up; the skip norm's two statistics
+        out += [_enter(seq), _GATHER, _SUMMED, _SUMMED, _leave(seq)]
+    else:                           # slstm: the heads gathered for the norm
+        out += [_enter(seq), _GATHER, _leave(seq)]
+    entered = spec.ffn == "moe" or (spec.ffn == "dense"
+                                    and tensor.divides(arch.d_ff, m))
+    if entered:
+        out += [_enter(seq), _leave(seq)]
+    return out, entered or (spec.ffn == "none" and bool(out)
+                            and out[-1] == _leave(seq))
+
+
+def _passes(regions, trailing: bool, forward: int, recompute: int,
+            backward: int, times: int = 1) -> collections.Counter:
+    """The collectives of ``forward`` whole forward passes of a layer, of
+    ``recompute`` early-stopped ones (the trailing leave not run) and of
+    ``backward`` backward passes, ``times`` over."""
+    c = C()
+    for i, (f, b) in enumerate(regions):
+        last = i == len(regions) - 1
+        n = forward + recompute * (not (last and trailing))
+        for k, v in f.items():
+            c[k] += v * n * times
+        for k, v in b.items():
+            c[k] += v * backward * times
+    return c
 
 
 def step_collectives(arch, mesh, n_leaves: int, *, seq_len: int,
                      kinds: Optional[Sequence[str]] = None,
                      loss_chunk: int = 512, microbatches: int = 1,
                      compression: str = "none",
-                     patches: int = 0) -> Dict[str, int]:
+                     patches: int = 0, source_len: int = 0,
+                     whole_mamba: bool = False) -> Dict[str, int]:
     """The collectives of one data-parallel step, by kind (what
     ``parallel.comm.counts()`` reads after it), for ``arch`` on ``mesh``
     (axis sizes read only), ``n_leaves`` param leaves, sequences of
     ``seq_len`` tokens after ``patches`` patch positions (the patch
-    frontend's P; 0 without), and ZeRO-1's leaf ``kinds``
-    (``zero1_layout``; None without ZeRO-1).
+    frontend's P; 0 without), the enc-dec model's source of
+    ``source_len`` frames, ZeRO-1's leaf ``kinds`` (``zero1_layout``; None
+    without ZeRO-1), and Mamba laid out whole (``whole_mamba``:
+    ``state_specs(..., extra_replicated=MAMBA_PARAM_NAMES)``).
 
-    "model" > 1: each layer pass enters the attention (GQA or MLA) and an
-    MoE or a split SwiGLU (``TensorParallel.enter``) and leaves them
-    (``leave``); expert parallelism counts as TP-in-expert.  Under
-    seq_carry (the sequence, P + S, divides by "model") an enter is an
-    all_gather forward and a reduce_scatter backward, a leave the reverse;
-    without it an enter is nothing forward and an all_reduce backward, a
-    leave an all_reduce forward and nothing backward.  Discrete with
-    remat: the prefix layers a forward and a backward, the units a forward
-    per layer, the unit's recompute in the backward (which stops after the
-    last tensor the backward needs: a unit whose last layer's FFN is
-    entered does not recompute that FFN's leave, whose output only feeds
-    the residual add; a whole SwiGLU needs the attention's leave, which is
-    then recomputed), and a backward per layer.  Node mode (no prefix
-    layers): a forward per solver step, and in the symplectic adjoint's
-    backward a forward and a backward per step.  The vocab-parallel lookup
-    is one more leave, the head's input one more enter, and each loss
-    chunk one all_gather.  With patches the embedding is made whole
-    instead: the frontend's columns joined (an all_gather forward; a
-    reduce_scatter backward under seq_carry), the vocab blocks' lookups
-    summed (an all_reduce forward; another backward under seq_carry).  A
-    d_ff or vocab that "model" does not divide leaves its layer whole: no
-    enter or leave; a whole head's loss over the rank's rows is summed once
-    (all_reduce) under seq_carry.  All of that once per microbatch.
+    "model" > 1: each layer pass makes its regions' collectives
+    (``_layer_regions``): an attention (GQA, MLA, the enc-dec model's self-
+    and cross-attention), an MoE (expert parallelism as TP-in-expert) or a
+    split SwiGLU, a Mamba by channel, an mLSTM or an sLSTM by head are
+    entered (``TensorParallel.enter``) and left (``leave``); Mamba also
+    makes in_proj, and x_proj and dt_proj
+    where "model" splits them, whole (an all_gather forward, a
+    reduce_scatter backward) and sums its x_proj product (an all_reduce
+    each way); the mLSTM makes up whole and sums its skip norm's two row
+    statistics; the sLSTM gathers its heads' outputs; a Mamba laid out
+    whole is only entered, under seq_carry.  Under seq_carry (the
+    sequence, P + S, divides by "model") an enter is an all_gather forward
+    and a reduce_scatter backward, a leave the reverse; without it an
+    enter is nothing forward and an all_reduce backward, a leave an
+    all_reduce forward and nothing backward.  Discrete with remat: the
+    prefix layers a forward and a backward; a unit of one layer a forward,
+    its recompute in the backward, which stops after the last tensor the
+    backward needs (a leave after which nothing is saved, that of an
+    entered FFN or of a mixer without an FFN, is not run again: a whole
+    SwiGLU needs the attention's leave, which is then recomputed), and a
+    backward; a unit of several layers (each also checkpointed) a forward
+    of every layer, the unit's recompute, which runs every layer but the
+    last (whose checkpoint holds its input, the last tensor the unit's
+    backward needs), each layer's own early-stopped recompute, and a
+    backward.  Node mode (no prefix layers): a forward per solver step,
+    and in the symplectic adjoint's backward a forward, the layers'
+    early-stopped recomputes (several layers a unit) and a backward per
+    step.  The vocab-parallel lookup is one more leave, the head's input
+    one more enter, and each loss chunk one all_gather.  With patches the
+    embedding is made whole instead: the frontend's columns joined (an
+    all_gather forward; a reduce_scatter backward under seq_carry), the
+    vocab blocks' lookups summed (an all_reduce forward; another backward
+    under seq_carry).  A d_ff or vocab that "model" does not divide leaves
+    its layer whole: no enter or leave; a whole head's loss over the
+    rank's rows is summed once (all_reduce) under seq_carry.  The enc-dec
+    model: its encoder's seq_carry is decided on ``source_len``; its
+    frontend's columns joined (an all_gather; a reduce_scatter backward
+    under the encoder's seq_carry), each encoder and decoder layer a
+    forward, its early-stopped recompute and a backward, the memory
+    entered once (by the encoder's seq_carry), and the decoder's lookup
+    and head as a decoder's.  All of that once per microbatch.
 
     An MoE layer on a "data" axis larger than 1, discrete: one all_reduce
     of the aux loss's sums per forward (a recompute's too) and one per
@@ -462,38 +553,52 @@ def step_collectives(arch, mesh, n_leaves: int, *, seq_len: int,
     Then once per step: one collective per gradient leaf over "data"
     (ZeRO-1's reduce_scatter / reduce / all_reduce by leaf kind; all_reduce
     without ZeRO-1 or with compression), the fused all_reduce of the
-    partial leaves over "model" (when there are any: under seq_carry, or
-    with q/k norms, MLA or MoE), the loss's all_reduce, the clip norm's
-    all_reduce (ZeRO-1 or "model"), int8's all_gather of the leaf maxima
-    over "model", and ZeRO-1's gathers of the new params (all_gather per
-    split leaf, broadcast per owned one)."""
+    partial leaves over "model" (when there are any: under either
+    seq_carry, with q/k norms, MLA, MoE or a recurrent mixer laid out by
+    channel or head), the loss's all_reduce, the clip norm's all_reduce
+    (ZeRO-1 or "model"), int8's all_gather of the leaf maxima over
+    "model", and ZeRO-1's gathers of the new params (all_gather per split
+    leaf, broadcast per owned one)."""
     c: collections.Counter = collections.Counter()
     m = axis_sizes(mesh).get("model", 1)
+    specs = tuple(arch.prefix) + tuple(arch.pattern)
     if m > 1:
-        ffn = tensor.divides(arch.d_ff, m)
         vocab = tensor.divides(arch.vocab, m)
         length = seq_len + patches
         seq = tensor.divides(length, m)
-        per_pass = sum(_entered(s, ffn) for s in arch.pattern)
-        if arch.node.mode != "node":
-            units = arch.n_repeats
-            pre = sum(_entered(s, ffn) for s in arch.prefix)
-            last = _entered(arch.pattern[-1], ffn) > 1
-            ef = pre + per_pass * units * (2 if arch.remat else 1)
-            lf = ef - (units if arch.remat and last else 0)
-            eb = lb = pre + per_pass * units
+        per = C()
+
+        def regions(spec, s=seq):
+            return _layer_regions(spec, arch, m, s, whole_mamba)
+
+        src = arch.encdec and tensor.divides(source_len, m)
+        if arch.encdec:             # its one layer spec: attention, SwiGLU
+            enc, enc_t = regions(arch.pattern[0], src)
+            dec, dec_t = regions(arch.pattern[0])
+            dec = dec[:2] + dec             # self- and cross-attention
+            per.update(_passes(enc, enc_t, 1, 1, 1, arch.enc_layers))
+            per.update(_passes(dec, dec_t, 1, 1, 1, arch.n_layers))
+            per.update(C(all_gather=1, reduce_scatter=src))  # frontend
+            f, b = _enter(src)                               # memory
+            per.update(f + b)
+        elif arch.node.mode != "node":
+            for spec in arch.prefix:
+                per.update(_passes(*regions(spec), 1, 0, 1))
+            several = arch.remat and len(arch.pattern) > 1
+            for i, spec in enumerate(arch.pattern):
+                outer = several and i < len(arch.pattern) - 1
+                per.update(_passes(*regions(spec), 1 + outer,
+                                   int(arch.remat), 1, arch.n_repeats))
         else:
             steps = arch.node.n_steps or arch.n_repeats
-            ef = lf = 2 * per_pass * steps
-            eb = lb = per_pass * steps
-        ef, eb = ef + vocab, eb + vocab         # the head's enter
-        per: collections.Counter = collections.Counter(
-            {"all_gather": ef + lb, "reduce_scatter": lf + eb} if seq
-            else {"all_reduce": lf + eb})
+            inner = int(arch.remat and len(arch.pattern) > 1)
+            for spec in arch.pattern:
+                per.update(_passes(*regions(spec), 2, inner, 1, steps))
+        if vocab:                               # the head's enter
+            per.update(sum(_enter(seq), C()))
         if not patches:
             if vocab:                           # the lookup's leave
-                per["reduce_scatter" if seq else "all_reduce"] += 1
-                per["all_gather" if seq else "all_reduce"] += seq
+                per.update(sum(_leave(seq), C()))
         else:
             per["all_gather"] += 1              # the frontend's columns
             per["reduce_scatter"] += seq
@@ -504,19 +609,24 @@ def step_collectives(arch, mesh, n_leaves: int, *, seq_len: int,
             per["all_reduce"] += 1              # the rows' loss, summed
         for k, v in per.items():
             c[k] += v * microbatches
-        specs = tuple(arch.prefix) + tuple(arch.pattern)
-        if seq or any((s.mixer == "attn" and arch.qk_norm)
-                      or s.mixer == "mla" or s.ffn == "moe" for s in specs):
+        mixers = {s.mixer for s in specs}
+        if seq or src or any(
+                (s.mixer == "attn" and arch.qk_norm) or s.mixer == "mla"
+                or s.ffn == "moe" for s in specs) or \
+                mixers & {"mlstm", "slstm"} or \
+                ("mamba" in mixers and not whole_mamba):
             c["all_reduce"] += 1                # the partial leaves
     moe = [s.ffn == "moe" for s in arch.pattern]
     if axis_sizes(mesh)["data"] > 1 and any(moe + [s.ffn == "moe" for s in
                                                    arch.prefix]) \
             and arch.node.mode != "node":
         # the MoE aux loss's sums over "data": one all_reduce per MoE layer
-        # forward (the recompute's too) and one per backward
+        # forward (a recompute's too) and one per backward
         pre = sum(s.ffn == "moe" for s in arch.prefix)
-        passes = sum(moe) * arch.n_repeats
-        c["all_reduce"] += (2 * pre + passes * (3 if arch.remat else 2)) \
+        several = arch.remat and len(arch.pattern) > 1
+        passes = sum((2 + arch.remat + (several and i < len(moe) - 1))
+                     * is_moe for i, is_moe in enumerate(moe))
+        c["all_reduce"] += (2 * pre + passes * arch.n_repeats) \
             * microbatches
     c["all_reduce"] += 1                        # the loss
     if kinds is not None or m > 1:

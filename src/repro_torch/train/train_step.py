@@ -83,9 +83,16 @@ def _forward_loss(params, batch, arch: ArchConfig, loss_chunk: int,
     labels = batch["labels"]
     patches = batch.get("patch_embeds") if arch.frontend == "patch" else None
     if arch.encdec:
-        memory = encode(params, batch["frames"], arch)
+        # under tensor parallelism the encoder's context is decided on its
+        # own length, and the memory entered whole once for every decoder
+        # layer's cross-attention
+        enc_tp = None if tp is None else \
+            tp.for_seq(batch["frames"].shape[1])
+        memory = encode(params, batch["frames"], arch, enc_tp)
+        if enc_tp is not None:
+            memory = enc_tp.enter(memory)
         out = decode_forward(params, arch, batch["tokens"], memory=memory,
-                             mode="train", return_hidden=rh)
+                             mode="train", return_hidden=rh, tp=tp)
     else:
         out = lm_forward(params, arch, batch["tokens"], extra_embeds=patches,
                          mode="train", return_hidden=rh, tp=tp,
@@ -232,7 +239,8 @@ def make_train_step(arch: ArchConfig, tcfg: TrainConfig,
         params = pytree.tree_unflatten(local, p_tree)
         batch = {k: local_tensor(v) for k, v in batch.items()}
         tp = dp.tensor_parallel(batch)
-        split, partial = dp.roles(state["params"], tp)
+        split, partial = dp.roles(state["params"], tp,
+                                  dp.source_carry(batch))
         dp.check_layout(p_leaves)
         mb = tcfg.microbatches
 

@@ -29,10 +29,12 @@ what each rank runs is in ``torch_world_tp``), at the smoke qwen3-0.6b.
 * CHECKPOINT — a (2, 2) state after two tensor-parallel steps with int8
   compression restores bitwise on (4, 1) (in the world) and on (1, 1) (a
   gloo world of 1 here).
-* REFUSALS — Mamba, xLSTM and the enc-dec model raise on "model" > 1,
-  naming item 17's second half; so does a "model" size that does not
-  divide the kv heads.  (The MoE, MLA and patch-frontend archs train there:
-  ``tests/test_torch_tensor_parallel_zoo.py``.)
+* BUILD AND REFUSALS — Mamba, xLSTM and the enc-dec model pass
+  ``check_mesh`` and build a step on "model" 2, and raise on a "model" size
+  that does not divide a dim their layers split; so does a size that does
+  not divide the kv heads.  (They train there:
+  ``tests/test_torch_tensor_parallel_rec.py``; the MoE, MLA and patch-
+  frontend archs: ``tests/test_torch_tensor_parallel_zoo.py``.)
 """
 import dataclasses
 import importlib
@@ -334,23 +336,44 @@ class _Mesh:
         self.axis_names = ("data", "model")
 
 
-@pytest.mark.parametrize("arch_id, what", [
-    ("jamba-v0.1-52b", "the mamba mixer"),
-    ("xlstm-1.3b", "the mlstm mixer"),
-    ("seamless-m4t-medium", "the enc-dec model"),
-])
-def test_other_archs_raise_on_a_model_axis(arch_id, what):
+#: (arch, a change to its smoke config, a "model" size that does not
+#: divide a dim the changed arch splits, what the refusal names)
+UNDIVIDED = [
+    ("jamba-v0.1-52b", dict(d_model=63, mamba_expand=1), 2,
+     "Mamba d_inner 63"),
+    ("xlstm-1.3b", {}, 8, "xLSTM heads 4"),
+    ("seamless-m4t-medium", {}, 8, "4 heads"),
+]
+
+
+@pytest.fixture(scope="module")
+def build_world():
+    return run_world("torch_world_tp_rec:build_cases", world=2)
+
+
+@pytest.mark.parametrize("arch_id, change, size, what", UNDIVIDED)
+def test_recurrent_and_encdec_archs_build_on_a_model_axis(
+        build_world, arch_id, change, size, what):
+    """Mamba, xLSTM and the enc-dec model pass ``check_mesh`` on "model" 2
+    and make a tensor-parallel train step there (a gloo world of 2 on
+    ("data" 1, "model" 2); ``tests/test_torch_tensor_parallel_rec.py``
+    trains them); a "model" size that does not divide a dim the layer
+    splits still raises, naming it."""
     from repro_torch.parallel import make_sharder
     from repro_torch.train.data_parallel import check_mesh
     arch = get_smoke_arch(arch_id)
-    for fn in (lambda: check_mesh(_Mesh(2), arch),
-               lambda: make_train_step(arch, TrainConfig(),
-                                       shard=make_sharder(_Mesh(2)))):
-        with pytest.raises(NotImplementedError,
-                           match="item 17's second half") as err:
+    check_mesh(_Mesh(2), arch)
+    for rank, res in enumerate(build_world):
+        assert res.get(arch_id) == "ok", f"rank {rank}: {res.get(arch_id)}"
+    bad = arch.with_(**change)
+    for fn in (lambda: check_mesh(_Mesh(size), bad),
+               lambda: make_train_step(bad, TrainConfig(),
+                                       shard=make_sharder(_Mesh(size)))):
+        with pytest.raises(NotImplementedError, match="does not divide") \
+                as err:
             fn()
         assert what in str(err.value), str(err.value)
-    check_mesh(_Mesh(1), arch)       # "model" 1: data parallel only
+    check_mesh(_Mesh(1), bad)        # "model" 1: data parallel only
 
 
 def test_model_size_must_divide_the_kv_heads():

@@ -27,8 +27,8 @@ lifted.
 * CHECKPOINT — deepseek's (2, 2) state after a step, laid out with
   TP-in-expert and with expert parallelism, restores bitwise on (1, 1).
 * BUILD — the three archs make a train step and pass ``check_mesh`` on
-  "model" 2 (``tests/test_torch_tensor_parallel.py`` holds the archs that
-  still raise).
+  "model" 2 (``tests/test_torch_tensor_parallel.py`` holds the recurrent
+  and enc-dec archs' and the refusals of a size that does not divide).
 """
 import dataclasses
 import os

@@ -513,17 +513,21 @@ def test_node_depth_states_match_jax():
 def test_unported_training_paths_name_their_items():
     arch = tqwen.SMOKE
     # data parallelism is ported (tests/test_torch_elastic.py), and so is a
-    # training step on a "model" axis for the GQA and MLA decoders, MoE and
-    # the patch frontend (tests/test_torch_tensor_parallel.py,
-    # test_torch_tensor_parallel_zoo.py); for Mamba (and xLSTM, the enc-dec
-    # model) it is item 17's second half
+    # training step on a "model" axis for every arch (item 17:
+    # tests/test_torch_tensor_parallel.py, test_torch_tensor_parallel_zoo.py,
+    # test_torch_tensor_parallel_rec.py); a "model" size that does not
+    # divide a dim a layer splits raises, naming the dim
     from repro_torch.configs import get_smoke_arch
     from repro_torch.parallel import make_sharder
-    mesh = type("Mesh", (), {"shape": {"data": 2, "model": 2},
-                             "axis_names": ("data", "model")})
-    with pytest.raises(NotImplementedError, match="item 17"):
-        make_train_step(get_smoke_arch("jamba-v0.1-52b"), TrainConfig(),
-                        shard=make_sharder(mesh))
+    from repro_torch.train.data_parallel import check_mesh
+
+    def mesh(model):
+        return type("Mesh", (), {"shape": {"data": 2, "model": model},
+                                 "axis_names": ("data", "model")})
+    jamba = get_smoke_arch("jamba-v0.1-52b")
+    check_mesh(mesh(2), jamba)
+    with pytest.raises(NotImplementedError, match="kv heads"):
+        make_train_step(jamba, TrainConfig(), shard=make_sharder(mesh(4)))
     # the enc-dec model trains (tests/test_torch_zoo_rec_node.py): its
     # state holds the encoder and decoder stacks
     ed = get_smoke_arch("seamless-m4t-medium")

@@ -34,7 +34,8 @@ PHASES = {24: ["saveat_cells"],
           40: ["mesh_train_phase"],
           41: ["analysis_phase"],
           52: ["mesh_tp_phase"],
-          53: ["zoo_tp_phase"]}
+          53: ["zoo_tp_phase"],
+          54: ["rec_tp_phase"]}
 KEEP = ("==", "phase seconds", "s/step", "launches per step", "wall",
         "ms (device", "peak", "bitwise", "rel err", "dopri8 grid", "FAILED",
         "Error", "error", "ptxas flash_attention_bwd", "collectives",

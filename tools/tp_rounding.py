@@ -1,7 +1,7 @@
 """How far a float32 tensor-parallel training step lies from the one-process
 float32 step, against a float64 reference, on the CPU: the rounding under
-``chip_smoke.py`` phases 52's and 53's comparisons with a single-process
-run, whose bounds a tensor-parallel fault must exceed.
+``chip_smoke.py`` phases 52's, 53's and 54's comparisons with a single-
+process run, whose bounds a tensor-parallel fault must exceed.
 
     PYTHONPATH=src python tools/tp_rounding.py [--arch qwen3-0.6b] \\
         [--seq 64] [--batch 8] [--mutate NAME]
@@ -18,7 +18,14 @@ in one process in float64 with the float32 casts lifted
   seed-0 state laid out with ``state_specs(..., ep=True)`` (the TP-in-
   expert runs lay it out with ``ep=False``);
 * internvl2-1b (phase 53): 1 discrete step of ``--seq`` positions, the
-  first quarter patch embeddings (phase 53's 256 of 1024).
+  first quarter patch embeddings (phase 53's 256 of 1024);
+* jamba-v0.1-52b (phase 54): 1 discrete step with Mamba laid out by
+  channel, 1 with it laid out whole (``extra_replicated=
+  MAMBA_PARAM_NAMES``);
+* xlstm-1.3b (phase 54): 1 discrete and 1 node-symplectic step, the labels
+  past the first half of each row IGNORE (phase 54 keeps 32 of 1024);
+* seamless-m4t-medium (phase 54): 1 discrete step of ``--seq`` source
+  frames and a quarter as many target tokens (phase 54's 1024 and 256).
 
 An MoE arch's runs replay the one-process float32 run's expert choices at
 every MoE call (the card's comparison does so too: random routers reroute
@@ -28,7 +35,10 @@ it: ``partials`` leaves the router's and MLA's partial gradients
 (``wdkv``, ``kv_norm``, ``wkr``) unsummed over "model"; ``aux`` counts
 the MoE aux loss's gradient once per rank of "model" (``TensorParallel.
 once`` a no-op); ``frontend`` gives the frontend's column gather the
-backward of the other sequence layout.
+backward of the other sequence layout; ``recurrent`` leaves the recurrent
+mixers' channel and head leaves (``tensor.PARTIAL_IN``) unsummed;
+``summed`` drops the backward sum of ``TensorParallel.summed`` (Mamba's
+x_proj product, the mLSTM skip norm's statistics).
 
 Prints, per step, the relative difference of loss and grad_norm between
 each float32 run and the float64 one and between the two float32 runs,
@@ -44,16 +54,22 @@ import subprocess
 import sys
 import tempfile
 
-#: per arch, the runs of its phase: (name, mode, steps, ep)
+#: per arch, the runs of its phase: (name, mode, steps, layout: "tp",
+#: "ep" (expert parallel) or "whole" (Mamba laid out whole))
 SCHEDULES = {
-    "qwen3-0.6b": (("discrete", "discrete", 2, False),
-                   ("node_symplectic", "node", 1, False)),
-    "deepseek-v2-lite-16b": (("discrete", "discrete", 2, False),
-                             ("node_symplectic", "node", 1, False),
-                             ("ep", "discrete", 1, True)),
-    "internvl2-1b": (("discrete", "discrete", 1, False),),
+    "qwen3-0.6b": (("discrete", "discrete", 2, "tp"),
+                   ("node_symplectic", "node", 1, "tp")),
+    "deepseek-v2-lite-16b": (("discrete", "discrete", 2, "tp"),
+                             ("node_symplectic", "node", 1, "tp"),
+                             ("ep", "discrete", 1, "ep")),
+    "internvl2-1b": (("discrete", "discrete", 1, "tp"),),
+    "jamba-v0.1-52b": (("split", "discrete", 1, "tp"),
+                       ("whole", "discrete", 1, "whole")),
+    "xlstm-1.3b": (("discrete", "discrete", 1, "tp"),
+                   ("node_symplectic", "node", 1, "tp")),
+    "seamless-m4t-medium": (("discrete", "discrete", 1, "tp"),),
 }
-MUTATIONS = ("partials", "aux", "frontend")
+MUTATIONS = ("partials", "aux", "frontend", "recurrent", "summed")
 
 
 def _free_port() -> int:
@@ -96,13 +112,19 @@ def _mutate(name):
         plain = tensor.partial_leaves
         names = {"router", "wdkv", "kv_norm", "wkr"}
 
-        def partial_leaves(params, mesh, seq_carry):
+        def partial_leaves(params, mesh, seq_carry, source_carry=None):
             from torch.utils import _pytree as pytree
             paths = [p for p, _ in pytree.tree_flatten_with_path(params)[0]]
             return [flag and names.isdisjoint(tensor._path_names(path))
-                    for flag, path in zip(plain(params, mesh, seq_carry),
-                                          paths)]
+                    for flag, path in zip(plain(params, mesh, seq_carry,
+                                                source_carry), paths)]
         tensor.partial_leaves = partial_leaves
+    elif name == "recurrent":
+        tensor.PARTIAL_IN = {k: (anchor, frozenset())
+                             for k, (anchor, _) in tensor.PARTIAL_IN.items()}
+    elif name == "summed":
+        tensor.TensorParallel.summed = \
+            lambda self, t: comm.reduce_from(t, self.group)
     elif name == "aux":
         tensor.TensorParallel.once = lambda self, t: t
     elif name == "frontend":
@@ -124,29 +146,32 @@ def _runs(arch_id, batch, seq, mesh=None, dtype="float32", forced=None):
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.optim import cosine_schedule
     from repro_torch.parallel import make_sharder, state_specs, tensor
+    from repro_torch.parallel.shardings import MAMBA_PARAM_NAMES
     from repro_torch.runtime import reshard_state
-    from repro_torch.train import TrainConfig, init_train_state, \
+    from repro_torch.train import IGNORE, TrainConfig, init_train_state, \
         make_train_step
     from repro_torch.train.data_parallel import Zero1, local_tensor
     from torch.utils import _pytree as pytree
     base = get_smoke_arch(arch_id)
     patches = seq // 4 if base.frontend == "patch" else 0
+    tokens = seq // 4 if base.encdec else seq - patches
     out = {}
-    for run, mode, steps, ep in SCHEDULES[arch_id]:
+    for run, mode, steps, layout in SCHEDULES[arch_id]:
         arch = base if mode == "discrete" else base.with_(node=NodeConfig(
             mode="node", method="euler", grad_mode="symplectic"))
         tcfg = TrainConfig(param_dtype=dtype)
         state = init_train_state(arch, tcfg, device="cpu")
         kw = {}
         if mesh is not None:
-            state = reshard_state(state, mesh, state_specs(state, mesh,
-                                                           ep=ep))
+            state = reshard_state(state, mesh, state_specs(
+                state, mesh, ep=layout == "ep",
+                extra_replicated=MAMBA_PARAM_NAMES if layout == "whole"
+                else frozenset()))
             kw = {"shard": make_sharder(mesh),
                   "grad_constraint": Zero1(mesh, state)}
         step = make_train_step(arch, tcfg, lr_fn=cosine_schedule(3e-4, 5, 3),
                                **kw)
-        pipe = iter(TokenPipeline(batch, seq - patches, arch.vocab,
-                                  device="cpu"))
+        pipe = iter(TokenPipeline(batch, tokens, arch.vocab, device="cpu"))
         rows = []
         with _routing(None if forced is None else forced[run]["routes"]) \
                 as calls:
@@ -157,6 +182,13 @@ def _runs(arch_id, batch, seq, mesh=None, dtype="float32", forced=None):
                         (batch, patches, arch.d_frontend),
                         generator=torch.Generator().manual_seed(i)).to(
                             getattr(torch, dtype))
+                if arch.encdec:
+                    b["frames"] = torch.randn(
+                        (batch, seq, arch.d_frontend),
+                        generator=torch.Generator().manual_seed(i)).to(
+                            getattr(torch, dtype))
+                if arch_id == "xlstm-1.3b":
+                    b["labels"][:, tokens // 2:] = IGNORE
                 state, m = step(state, b)
                 rows.append((float(m["loss"]), float(m["grad_norm"])))
         digest = None
