@@ -509,6 +509,7 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12           # H100 SXM float32, outside the tensor cores
 TF32_FLOP_PER_S = 495e12         # H100 SXM TF32 on the tensor cores, dense
+BF16_FLOP_PER_S = 989e12         # H100 SXM bfloat16 on the tensor cores, dense
 MAIN_N = 256 * 43                # the CNF state leaf: batch 256 x dim 43
 MAIN_S = 7                       # dopri5
 LANE_B = (1, 3, 256)             # lane counts of phase 2's lane forms
@@ -1212,6 +1213,8 @@ def lm_kernels_vs_plain():
             if dtype == torch.float32:
                 max_err["flash_attention"] = max(max_err["flash_attention"],
                                                  e)
+                print(f"  flash_attention float32 {case}: max abs err "
+                      f"{e:.3e}")
             n += 1
     torch.cuda.synchronize()
     print(f"LM kernel cases {n} all within tolerance; float32 max abs err "
@@ -2755,6 +2758,53 @@ BWD_CASES = [
 # blocks' and the final norm (57 calls), q_norm (28), k_norm (28)
 RMS_BWD_SHAPES = ((8192, 1024), (131072, 128), (65536, 128))
 
+# the backward variants of bfloat16 training and of head dim 160 (the
+# mma.sync kernels of csrc/flash_attention_bwd.cu for bfloat16, its FMA
+# kernels for float32 at D 160): the shapes of the training paths
+# (qwen3-0.6b's, stablelm-12b's B 8, H 32/8, D 160, internvl2-1b's GQA 7,
+# seamless-m4t-medium's non-causal encoder) and tiles cut off-edge
+BWD_NEW_CASES = {
+    torch.bfloat16: [
+        (8, 16, 8, 1024, 1024, 128, True, None, 0),   # qwen3-0.6b training
+        (8, 32, 8, 1024, 1024, 160, True, None, 0),   # stablelm-12b
+        (8, 7, 1, 1024, 1024, 64, True, None, 0),     # internvl2-1b, GQA 7
+        (8, 16, 16, 1024, 1024, 64, False, None, 0),  # seamless encoder
+        (1, 4, 2, 100, 100, 160, True, None, 0),      # ragged
+        (2, 8, 2, 65, 300, 160, True, 40, 235),       # window + offset
+        (1, 4, 1, 128, 128, 160, True, 64, 0),        # MQA + window
+        (1, 4, 2, 200, 150, 32, False, None, 0),      # D 32, Sq > Sk
+        (1, 4, 2, 200, 200, 16, True, None, 0),       # D 16
+        (1, 8, 2, 100, 333, 64, True, None, 233),     # group 4, q_offset
+        (1, 8, 2, 129, 129, 32, True, 5, 0)],         # window 5
+    torch.float32: [
+        (8, 32, 8, 1024, 1024, 160, True, None, 0),   # stablelm-12b
+        (1, 4, 2, 100, 100, 160, True, None, 0),
+        (2, 8, 2, 65, 300, 160, True, 40, 235),
+        (1, 4, 1, 128, 128, 160, True, 64, 0),
+        (1, 4, 2, 130, 200, 160, False, None, 0)],    # non-causal, Sq < Sk
+}
+# the timed variants: the kernels line's rows
+BWD_VARIANTS = {
+    "flash_attention_bwd_bf16": (BWD_NEW_CASES[torch.bfloat16][0],
+                                 torch.bfloat16),
+    "flash_attention_bwd_bf16_d160": (BWD_NEW_CASES[torch.bfloat16][1],
+                                      torch.bfloat16),
+    "flash_attention_bwd_d160": (BWD_NEW_CASES[torch.float32][0],
+                                 torch.float32),
+}
+RMS_BWD_BF16 = (8192, 5120)        # stablelm-12b's norms at batch 8 x 1024
+
+
+def _bwd_inputs(case, dtype, g):
+    """q, k, v, dout of one backward case (B, H, Hkv, Sq, Sk, D, ...)."""
+    B, H, Hkv, Sq, Sk, D = case[:6]
+    dev = torch.device("cuda")
+    q, do = (torch.randn(B, H, Sq, D, generator=g, device=dev, dtype=dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, Hkv, Sk, D, generator=g, device=dev, dtype=dtype)
+            for _ in range(2))
+    return q, k, v, do
+
 
 def _bwd_device_times_child():
     """Phase 31's kernel times alone, in a process of its own: both
@@ -2782,6 +2832,21 @@ def _bwd_device_times_child():
     out["flash_attention_bwd"] = _device_ms(
         lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), "attn_bwd", 20,
         3)
+    del q, k, v, do, o, lse
+    # the bfloat16 and D 160 variants (phase 31's second part)
+    for name, (case, dtype) in BWD_VARIANTS.items():
+        q, k, v, do = _bwd_inputs(case, dtype, g)
+        o, lse = fa.flash_attention(q, k, v, return_lse=True)
+        out[name] = _device_ms(
+            lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), "attn_bwd",
+            5, 3)
+        del q, k, v, do, o, lse
+    x, dy = (torch.randn(*RMS_BWD_BF16, generator=g, device=dev,
+                         dtype=torch.bfloat16) for _ in range(2))
+    w = torch.randn(RMS_BWD_BF16[1], generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    out["rms_norm_bwd_bf16"] = _device_ms(
+        lambda: rn.rms_norm_bwd(x, w, None, dy), "rms_norm_bwd", 50, 2)
     print(json.dumps(out), flush=True)
 
 
@@ -2811,7 +2876,8 @@ def backward_kernels_vs_plain():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
-    phase("31 backward kernels vs plain (rms_norm_bwd, flash_attention_bwd)")
+    phase("31 backward kernels vs plain (rms_norm_bwd, flash_attention_bwd; "
+          "float32 and float64, then bfloat16 and head dim 160)")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(31)
     max_err = {"rms_norm_bwd": 0.0, "flash_attention_bwd": 0.0}
@@ -2974,7 +3040,159 @@ def backward_kernels_vs_plain():
           "synchronise):")
     for line in lines:
         print("  " + line)
+    del q, k, v, do, o, lse, qr, kr, vr, o_lib
+    new_err, new_main = bwd_variants_vs_plain(g, alone)
+    max_err.update(new_err)
+    main.update(new_main)
     return max_err, main
+
+
+def bwd_variants_vs_plain(g, alone):
+    """Phase 31's second part: the backward variants of bfloat16 training
+    and of head dim 160 against their plain versions (float32 at D 160:
+    1e-4 of the largest entry, phase 31's bound; bfloat16 flash:
+    ``ATTN_TOL``'s 2e-2 of the largest entry; bfloat16 rms_norm_bwd:
+    ``RMS_TOL``'s 2^-7), each twice and bitwise, then their times per
+    call, alone (``alone``: the device-time process's) and host, against
+    SDPA's (F.rms_norm's) backward in the same dtype."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    dev = torch.device("cuda")
+    tol = {torch.float32: BWD_TOL[torch.float32],
+           torch.bfloat16: ATTN_TOL[torch.bfloat16][0]}
+    err = {name: 0.0 for name in BWD_VARIANTS}
+    err["rms_norm_bwd_bf16"] = 0.0
+    for dtype, cases in BWD_NEW_CASES.items():
+        for case in cases:
+            kw = dict(zip(("causal", "window", "q_offset"), case[6:]))
+            q, k, v, do = _bwd_inputs(case, dtype, g)
+            o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            want = ref.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+            errs = [_rel_err(a, b) for a, b in zip(got, want)]
+            abs_err = max(float((a.double() - b.double()).abs().max())
+                          for a, b in zip(got, want))
+            print(f"  flash_attention_bwd {str(dtype)[6:]} {case}: largest "
+                  f"error {max(errs):.3e} of the largest entry (dq, dk, dv "
+                  f"{[f'{e:.3e}' for e in errs]}), abs {abs_err:.3e}")
+            check(max(errs) <= tol[dtype] and all(
+                a.dtype == dtype for a in got),
+                f"flash_attention_bwd {dtype} {case}: rel errs {errs} > "
+                f"{tol[dtype]}")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"flash_attention_bwd {dtype} {case}: two calls differ")
+            for name, (c, dt) in BWD_VARIANTS.items():
+                if dt == dtype and c[5] == case[5]:
+                    err[name] = max(err[name], abs_err)
+            del q, k, v, do, o, lse, got, again, want
+    for rows, d in (RMS_BWD_BF16,) + RMS_BWD_SHAPES + (
+            (12345, 1024), (20, 128), (77, 1000), (5, 16)):
+        x, r, dy = (torch.randn(rows, d, generator=g, device=dev,
+                                dtype=torch.bfloat16) for _ in range(3))
+        w = torch.randn(d, generator=g, device=dev, dtype=torch.bfloat16)
+        for res in (None, r):
+            dx, dw = rn.rms_norm_bwd(x, w, res, dy)
+            dx2, dw2 = rn.rms_norm_bwd(x, w, res, dy)
+            wdx, wdw, _ = ref.rms_norm_bwd_ref(x, w, res, dy)
+            e = max(_rel_err(dx, wdx), _rel_err(dw, wdw))
+            print(f"  rms_norm_bwd bfloat16 {rows}x{d} residual="
+                  f"{res is not None}: largest error {e:.3e} of the largest "
+                  f"entry")
+            check(e <= RMS_TOL[torch.bfloat16][0] and
+                  dx.dtype == dw.dtype == torch.bfloat16,
+                  f"rms_norm_bwd bfloat16 {rows}x{d} residual="
+                  f"{res is not None}: rel err {e}")
+            check(torch.equal(dx, dx2) and torch.equal(dw, dw2),
+                  f"rms_norm_bwd bfloat16 {rows}x{d}: two calls differ")
+            if (rows, d) == RMS_BWD_BF16:
+                err["rms_norm_bwd_bf16"] = max(
+                    err["rms_norm_bwd_bf16"],
+                    float((dx.double() - wdx.double()).abs().max()))
+        del x, r, dy
+    torch.cuda.synchronize()
+
+    lines, main = [], {}
+    for name, (case, dtype) in BWD_VARIANTS.items():
+        B, H, Hkv, S, _, D, causal = case[:7]
+        q, k, v, do = _bwd_inputs(case, dtype, g)
+        o, lse = fa.flash_attention(q, k, v, return_lse=True, causal=causal)
+        t_k = _time_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal), 10, 2)
+        t_p = _time_ms(lambda: ref.attention_bwd_ref(
+            q, k, v, o, lse, do, causal=causal), 3, 1)
+        qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal,
+                                               enable_gqa=True)
+        t_l = _time_ms(lambda: torch.autograd.grad(
+            o_lib, (qr, kr, vr), do, retain_graph=True), 10, 2)
+        h_k = _host_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal), 10)
+        d_k = alone[name]
+        pairs = S * (S + 1) // 2 if causal else S * S
+        flops = 2.5 * 4 * B * H * D * pairs      # five products
+        # float32: 3xTF32 on the tensor cores, as the D <= 128 row; bfloat16:
+        # the tensor cores' bfloat16 rate
+        t_ops = (3 * flops / TF32_FLOP_PER_S if dtype == torch.float32
+                 else flops / BF16_FLOP_PER_S)
+        size = q.element_size()
+        nbytes = ((4 * B * H * S * D + 4 * B * Hkv * S * D) * size
+                  + B * H * S * 4)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        bound = max(t_ops, t_bytes) * 1e3
+        # the design's own work: float32, five products at the CUDA cores'
+        # FMA rate; bfloat16, the seven products of mma.sync kernels (dQ
+        # recomputes S and dP) at the tensor cores' rate
+        own = (flops / F32_FLOP_PER_S if dtype == torch.float32
+               else 1.4 * flops / BF16_FLOP_PER_S) * 1e3
+        own_name = ("float32-FMA bound" if dtype == torch.float32
+                    else "seven-product bound")
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        lines.append(f"{name} {str(dtype)[6:]} B{B} H{H}/{Hkv} S{S} D{D} "
+                     f"{'causal' if causal else 'full'}: kernel {t_k:.6f} "
+                     f"ms (device, 3 kernels {d_k:.6f}, host {h_k:.6f}) "
+                     f"plain {t_p:.6f} sdpa backward {t_l:.6f} "
+                     f"kernel/library {t_k / t_l:.3f} bound {bound:.6f} "
+                     f"({by}; {bound / d_k * 100:.2f}% of it alone) "
+                     f"{own_name} {own:.6f} ({own / d_k * 100:.1f}% of it "
+                     f"alone)")
+        main[name] = dict(
+            ms=t_k, device_ms=d_k, host_ms=h_k, plain_ms=t_p, library_ms=t_l,
+            bound_ms=bound, bound_by=by,
+            **{own_name.replace("-", "_").replace(" ", "_") + "_ms": own},
+            shape=f"{str(dtype)[6:]} B{B} H{H} Hkv{Hkv} S{S} D{D} "
+                  f"{'causal' if causal else 'full'}")
+        del q, k, v, do, o, lse, qr, kr, vr, o_lib
+    rows, d = RMS_BWD_BF16
+    x, dy = (torch.randn(rows, d, generator=g, device=dev,
+                         dtype=torch.bfloat16) for _ in range(2))
+    w = torch.randn(d, generator=g, device=dev, dtype=torch.bfloat16)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y_lib = F.rms_norm(xr, (d,), wr, 1e-6)
+    t_k = _time_ms(lambda: rn.rms_norm_bwd(x, w, None, dy), 100, 10)
+    t_p = _time_ms(lambda: ref.rms_norm_bwd_ref(x, w, None, dy), 20, 2)
+    t_l = _time_ms(lambda: torch.autograd.grad(
+        y_lib, (xr, wr), dy, retain_graph=True), 100, 10)
+    h_k = _host_ms(lambda: rn.rms_norm_bwd(x, w, None, dy), 300)
+    d_k = alone["rms_norm_bwd_bf16"]
+    # x and dy read, dx written; w read, dw written (bfloat16)
+    bound = (3 * rows * d + 2 * d) * 2 / HBM_BYTES_PER_S * 1e3
+    lines.append(f"rms_norm_bwd_bf16 {rows}x{d}: kernel {t_k:.6f} ms "
+                 f"(device, 2 kernels {d_k:.6f}, host {h_k:.6f}) plain "
+                 f"{t_p:.6f} F.rms_norm backward {t_l:.6f} kernel/library "
+                 f"{t_k / t_l:.3f} bound {bound:.6f} (bytes; "
+                 f"{bound / d_k * 100:.1f}% of it alone)")
+    main["rms_norm_bwd_bf16"] = dict(
+        ms=t_k, device_ms=d_k, host_ms=h_k, plain_ms=t_p, library_ms=t_l,
+        bound_ms=bound, bound_by="bytes", shape=f"bfloat16 rows {rows} d {d}")
+    print("bfloat16 and D 160 variants, ms per call (CUDA events; device = "
+          "the kernels' time alone, from torch.profiler; host = host clock "
+          "per call, no synchronise):")
+    for line in lines:
+        print("  " + line)
+    return err, main
 
 
 def _train_argv(*extra):
@@ -5420,6 +5638,8 @@ def zoo_kernels_vs_plain():
             key = "flash_attention_d160" if D == 160 else "flash_attention"
             if dtype == torch.float32:
                 err[key] = max(err[key], e)
+                print(f"  flash_attention float32 {case}: max abs err "
+                      f"{e:.3e}")
             n += 1
         for rows, d in ZOO_RMS:
             x = torch.randn(rows, d, generator=g, device=dev).to(dtype)
@@ -6189,6 +6409,208 @@ def zoo2_rows(zoo2, rows):
             row["encdec_max_abs_err"] = zoo2["flash_bwd"]["max_abs_err"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 55: bfloat16 training (TrainConfig(param_dtype="bfloat16"), the JAX
+# package's dry-run setting) and training at head dim 160, in a process of
+# its own (``python3 chip_smoke.py --train55``): stablelm-12b at full width
+# holds ~30 GB of state at 4 of its 40 layers, and a step makes a new one
+
+TRAIN55_CHILD = "--train55"
+# (arch, layers or None for all, param dtype, modes); stablelm-12b cut to 4
+# of 40 layers (the whole model's 12.1 B parameters do not fit one card)
+TRAIN55_RUNS = (
+    ("stablelm-12b", 4, "bfloat16", ("discrete", "node_symplectic")),
+    ("stablelm-12b", 4, "float32", ("discrete", "node_symplectic")),
+    ("qwen3-0.6b", None, "bfloat16", ("discrete",)),
+)
+# kernel route vs plain route on the card: (loss, grad_norm) relative
+TRAIN55_RTOL = {"bfloat16": (4e-3, 1e-2), "float32": (1e-5, 1e-5)}
+# what kernels/ops.py routes to on the plain route: none of it may run on
+# the kernel route
+TRAIN55_PLAIN = ("rms_norm_ref", "attention_ref", "attention_blocked_ref",
+                 "butcher_combine_ref", "butcher_combine_rows_ref")
+TRAIN55_TITLE = (
+    "55 LM train in bfloat16 and at head dim 160 (batch 8 x 1024): "
+    "stablelm-12b full width, 4 of 40 layers, bfloat16 and float32, one "
+    "discrete and one node-symplectic (euler) step each; qwen3-0.6b whole "
+    "in bfloat16, one discrete step; each against the plain route on the "
+    "card")
+
+
+class _PlainGuard:
+    """Counts the calls of the plain versions in ``TRAIN55_PLAIN`` while
+    it is entered (``kernels/ops.py`` reaches them through the module)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+        self.calls = dict.fromkeys(TRAIN55_PLAIN, 0)
+        self.saved = {n: getattr(ref, n) for n in TRAIN55_PLAIN}
+        for name, fn in self.saved.items():
+            def counted(*args, _name=name, _fn=fn, **kw):
+                self.calls[_name] += 1
+                return _fn(*args, **kw)
+            setattr(ref, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ref
+        for name, fn in self.saved.items():
+            setattr(ref, name, fn)
+
+
+def _train55_child():
+    """Phase 55's runs (``TRAIN55_RUNS``): per run, the plain route's loss
+    and gradient norm on the card (``use_kernels=False``; it also warms
+    cuBLAS up for the step's shapes), then one train step on the kernel
+    route from the same state, each kernel's counter zeroed just before it
+    and read just after, the plain versions guarded; prints s/step, peak
+    bytes and launches, and the runs as JSON on its last line."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import NodeConfig
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.optim.clip import global_norm
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   loss_and_grads, make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for arch_id, layers, dt, modes in TRAIN55_RUNS:
+        base = get_arch(arch_id)
+        if layers is not None:
+            base = base.with_(n_layers=layers)
+        tcfg = TrainConfig(param_dtype=dt)
+        state = init_train_state(base, tcfg, device="cuda")
+        b = synthetic_lm_batch(55, TRAIN_BATCH, TRAIN_SEQ + 1, base.vocab)
+        batch = {k: torch.as_tensor(v, dtype=torch.long, device="cuda")
+                 for k, v in b.items()}
+        for mode in modes:
+            arch = base if mode == "discrete" else base.with_(
+                node=NodeConfig(mode="node", method="euler",
+                                grad_mode="symplectic"))
+            run = f"{arch_id}_{dt}_{mode}"
+            t = time.perf_counter()
+            loss_p, grads = loss_and_grads(state.params, batch,
+                                           arch.with_(use_kernels=False))
+            gn_p, loss_p = float(global_norm(grads)), float(loss_p)
+            plain_s = time.perf_counter() - t
+            del grads
+            gc.collect()
+            torch.cuda.empty_cache()
+            step = make_train_step(arch, tcfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_all_counts()
+            with _PlainGuard() as guard:
+                t = time.perf_counter()
+                new, m = step(state, batch)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t
+            counts = _all_counts()
+            peak = torch.cuda.max_memory_allocated()
+            loss, gn = float(m["loss"]), float(m["grad_norm"])
+            del new, m, step
+            gc.collect()
+            torch.cuda.empty_cache()
+            e_loss = abs(loss - loss_p) / abs(loss_p)
+            e_gn = abs(gn - gn_p) / abs(gn_p)
+            print(f"  {run}: s/step {secs:.4f} (plain route's loss+gradient "
+                  f"{plain_s:.4f} s), peak {peak} B ({peak / 2**30:.2f} "
+                  f"GiB), loss {loss} (plain {loss_p}, rel {e_loss:.3e}), "
+                  f"grad_norm {gn} (plain {gn_p}, rel {e_gn:.3e}), launches "
+                  f"{counts}", flush=True)
+            need = ["rms_norm", "flash_attention", "rms_norm_bwd",
+                    "flash_attention_bwd"] + (
+                        ["butcher_combine"] if mode != "discrete" else [])
+            for name in need:
+                check(counts[name] > 0, f"phase 55 {run}: {name} never "
+                                        f"launched")
+            check(not any(guard.calls.values()),
+                  f"phase 55 {run}: the kernel route ran plain versions "
+                  f"{guard.calls}")
+            check(math.isfinite(loss) and math.isfinite(gn),
+                  f"phase 55 {run}: loss {loss}, grad_norm {gn}")
+            r_loss, r_gn = TRAIN55_RTOL[dt]
+            check(e_loss <= r_loss and e_gn <= r_gn,
+                  f"phase 55 {run}: kernel vs plain route, loss rel "
+                  f"{e_loss} (bound {r_loss}), grad_norm rel {e_gn} (bound "
+                  f"{r_gn})")
+            out[run] = {"counts": counts, "step_seconds": secs,
+                        "plain_seconds": plain_s, "peak": peak,
+                        "loss": loss, "grad_norm": gn, "plain_loss": loss_p,
+                        "plain_grad_norm": gn_p, "loss_rel": e_loss,
+                        "grad_norm_rel": e_gn}
+        del state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+
+
+def train55_phase(ahead=None):
+    """Phase 55 in its own process: started here, or ``ahead`` (``(child,
+    go)``, as ``zoo_phase``)."""
+    phase(TRAIN55_TITLE)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out = _child_phase([TRAIN55_CHILD], 55, timeout=600) if ahead is None \
+        else _child_go(*ahead, 55)
+    print(f"phase 55 seconds {time.perf_counter() - t:.1f}")
+    return out
+
+
+def train55_rows(t55, bwd_err, bwd_main, rows):
+    """Phase 55's launches: added to the ``rows`` of the kernels each run
+    reaches in the variant the row stands for (forward rms_norm in every
+    run, flash at D 128 in qwen3's and at D 160 in stablelm's, the float32
+    rms_norm_bwd in stablelm's float32 runs, the combine in the node
+    runs); returns the new rows of the backward variants, with phase 31's
+    errors and times."""
+    def paths(kernel, keep):
+        return {f"lm_train_{run}": r["counts"][kernel]
+                for run, r in t55.items() if keep(run)}
+
+    def qwen(run):
+        return run.startswith("qwen3")
+
+    def stablelm(dt):
+        return lambda run: run.startswith("stablelm") and dt in run
+
+    add = {"rms_norm": paths("rms_norm", lambda run: True),
+           "flash_attention": paths("flash_attention", qwen),
+           "flash_attention_d160": paths(
+               "flash_attention", lambda run: not qwen(run)),
+           "rms_norm_bwd": paths("rms_norm_bwd",
+                                 lambda run: "float32" in run),
+           "butcher_combine": paths("butcher_combine",
+                                    lambda run: "node" in run)}
+    for row in rows:
+        if row["name"] in add:
+            row["launches_by_path"].update(add[row["name"]])
+            row["launches"] = sum(row["launches_by_path"].values())
+    flash = ("src/repro_torch/csrc/flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention.py:94")
+    new = {"flash_attention_bwd_bf16": (
+               flash, paths("flash_attention_bwd", qwen)),
+           "flash_attention_bwd_bf16_d160": (
+               flash, paths("flash_attention_bwd", stablelm("bfloat16"))),
+           "flash_attention_bwd_d160": (
+               flash, paths("flash_attention_bwd", stablelm("float32"))),
+           "rms_norm_bwd_bf16": (
+               ("src/repro_torch/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:39"),
+               paths("rms_norm_bwd", lambda run: "bfloat16" in run))}
+    out = []
+    for name, ((source, replaces), by_path) in new.items():
+        check(sum(by_path.values()) > 0, f"{name}: never launched on phase "
+                                         f"55's path")
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": sum(by_path.values()),
+                    "launches_by_path": by_path,
+                    "max_abs_err": bwd_err[name], **bwd_main[name]})
+    return out
+
+
 def lm_train_rows(train, bwd_err, bwd_main):
     """The kernels line's rows of the backward kernels: launches from
     phase 32 (both modes), the rest from phase 31."""
@@ -6236,6 +6658,7 @@ def main():
     serve_card_vs_cpu()
     rows += lm_report(lm_err, lm_launches)
     profile_serve(params)
+    del params
     ps = per_sample_main_path()
     per_sample_exactness()
     ps_mem = per_sample_memory()
@@ -6278,7 +6701,8 @@ def main():
         ahead = [(_child_start([argv], limit + 600, go), go)
                  for argv, limit, go in (
                      (ZOO_CHILD, 900, os.path.join(d, "go_zoo")),
-                     (ZOO2_CHILD, 600, os.path.join(d, "go_zoo2")))]
+                     (ZOO2_CHILD, 600, os.path.join(d, "go_zoo2")),
+                     (TRAIN55_CHILD, 600, os.path.join(d, "go_55")))]
         rec_tp = rec_tp_phase()
         print(f"phases 37, 39, 40, 52, 53, 54 seconds "
               f"{time.perf_counter() - t_mesh:.1f}")
@@ -6286,6 +6710,9 @@ def main():
         zoo = zoo_phase(ahead[0])
         torch.cuda.empty_cache()
         zoo2 = zoo2_phase(ahead[1])
+        print(f"main process: {torch.cuda.memory_allocated()} B allocated "
+              f"before phase 55")
+        t55 = _timed(train55_phase, ahead[2])
 
     def summed(results, kinds, name):
         return sum(r[name] for (mode, kind), r in results.items()
@@ -6380,6 +6807,7 @@ def main():
         row["launches"] = sum(row["launches_by_path"].values())
     rows += zoo_rows(zoo, rows)
     zoo2_rows(zoo2, rows)
+    rows += train55_rows(t55, bwd_err, bwd_main, rows)
     print(f"total_seconds {time.perf_counter() - t0:.1f}")
     print(smi.splitlines()[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"kernels": rows}))
@@ -6400,6 +6828,8 @@ if __name__ == "__main__":
         _zoo_child()
     elif sys.argv[1:] == [ZOO2_CHILD]:
         _zoo2_child()
+    elif sys.argv[1:] == [TRAIN55_CHILD]:
+        _train55_child()
     elif sys.argv[1:2] == [ZOO_TP_CHILD]:
         _zoo_tp_child(*sys.argv[2:])
     elif sys.argv[1:2] == [REC_TP_CHILD]:

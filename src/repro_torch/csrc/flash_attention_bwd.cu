@@ -23,9 +23,15 @@
 // written once by one thread, so two calls give the same bits.  Three
 // launches: the row-dot pass, dK/dV, dQ.
 //
-// float32 (every D in 16, 32, 64, 128): wgmma in 3xTF32 on the tensor cores.
-// double: FMA on the CUDA cores in double (wgmma has no float64, and double
-// is the exactness path), the simple kernels at the end of this file.
+// float32 at D 16, 32, 64, 128: wgmma in 3xTF32 on the tensor cores.
+// bfloat16 at D 16 to 160: mma.sync m16n8k16 on the tensor cores, the
+// bfloat16 kernels near the end of this file (P and dS rounded to bfloat16
+// as operands, every sum in float32).  The simple FMA kernels take the rest
+// on the CUDA cores: double in double (wgmma has no float64, and double is
+// the exactness path), and float32 at D 160 (the wgmma layout does not fit
+// a CTA there: dK/dV would need 249,856 bytes of shared memory, dQ 233,472;
+// their bound is operations over the 67 TFLOP/s of float32 FMA, 3.21 ms at
+// stablelm-12b's B 8, H 32/8, S 1024, D 160, causal).
 //
 // Bound on the H100: operations.  Five products per allowed (query, key)
 // pair and head dim: S = Q.K^T, dP = dO.V^T, dV += P^T.dO, dK += dS^T.Q, dQ
@@ -100,6 +106,7 @@
 // exchange 4096 = 200704; dq: 3 slots x (raw K 16384 + K^T hi/lo 32768 + dS
 // 16384) = 196608; each plus 1 KB of alignment slack and the barriers.
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -122,12 +129,36 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// dvec[b,h,i] = sum_d dout[b,h,i,d] out[b,h,i,d]; one warp a row
+// The storage types and what the kernels compute in: float64 in double,
+// float32 and bfloat16 in float (the row dots' type); the FMA kernels' tile
+// edge (keys and queries) that fits a CTA's shared memory at D 160 (double
+// only to D 128)
 template <typename T>
+struct Fma {
+  using A = float;
+  static constexpr int kTile = 64;
+};
+template <>
+struct Fma<double> {
+  using A = double;
+  static constexpr int kTile = 32;
+};
+
+__device__ __forceinline__ float acc_of(float v) { return v; }
+__device__ __forceinline__ double acc_of(double v) { return v; }
+__device__ __forceinline__ float acc_of(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float exp_acc(float v) { return expf(v); }
+__device__ __forceinline__ double exp_acc(double v) { return exp(v); }
+
+// dvec[b,h,i] = sum_d dout[b,h,i,d] out[b,h,i,d] in the compute type (float
+// for bfloat16); one warp a row
+template <typename T, typename A = typename Fma<T>::A>
 __global__ void __launch_bounds__(256)
 attn_bwd_dot_kernel(const T* __restrict__ out, Strides3 os,
                     const T* __restrict__ dout, Strides3 ds,
-                    T* __restrict__ dvec, int H, int Sq, int D,
+                    A* __restrict__ dvec, int H, int Sq, int D,
                     long long rows) {
   const long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
@@ -137,8 +168,8 @@ attn_bwd_dot_kernel(const T* __restrict__ out, Strides3 os,
   const int h = (int)(bh % H), b = (int)(bh / H);
   const T* orow = out + b * os.b + h * os.h + i * os.s;
   const T* drow = dout + b * ds.b + h * ds.h + i * ds.s;
-  T acc = T(0);
-  for (int c = lane; c < D; c += 32) acc += drow[c] * orow[c];
+  A acc = A(0);
+  for (int c = lane; c < D; c += 32) acc += acc_of(drow[c]) * acc_of(orow[c]);
   acc = warp_sum(acc);
   if (lane == 0) dvec[r] = acc;
 }
@@ -151,12 +182,13 @@ template <typename T>
 int launch_dot(const void* out, const void* dout, void* dvec,
                const long long* st, int B, int H, int Sq, int D,
                cudaStream_t stream) {
+  using A = typename Fma<T>::A;
   const long long rows = (long long)B * H * Sq;
   const long long blocks = (rows * 32 + 255) / 256;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   attn_bwd_dot_kernel<T><<<(int)blocks, 256, 0, stream>>>(
       static_cast<const T*>(out), strides_at(st, 3),
-      static_cast<const T*>(dout), strides_at(st, 4), static_cast<T*>(dvec),
+      static_cast<const T*>(dout), strides_at(st, 4), static_cast<A*>(dvec),
       H, Sq, D, rows);
   return (int)cudaGetLastError();
 }
@@ -846,67 +878,75 @@ int launch_f32(const void* q, const void* k, const void* v, const void* out,
 }
 
 // ===========================================================================
-// double: FMA on the CUDA cores, in double
+// FMA on the CUDA cores: float64 in double, float32 at D 160
 // ===========================================================================
 //
 // Simple on purpose: each of 256 threads (a 16 x 16 grid) holds a register
 // micro-tile (rows ty + 16a, columns tx + 16c: strided, so that a warp's
-// shared reads fall in distinct banks or broadcast) of 32 x 32 tiles, rows
-// padded by one element.  The dkdv kernel: one CTA per (kv tile, kv head,
-// batch) keeps K and V in shared memory and walks the query tiles of each of
-// its group's heads that the tile test keeps, computing S and dP, then P and
-// dS into shared memory, then dV += P^T dout and dK += dS^T Q.  The dq
-// kernel: one CTA per (query tile, head, batch) keeps Q and dout and walks
-// its live kv tiles (the forward's contiguous range), dQ += dS K.
+// shared reads fall in distinct banks or broadcast) of square tiles of
+// Fma<T>::kTile rows (32 for double, 64 for float), rows padded by one
+// element.  The dkdv kernel: one CTA per (kv tile, kv head, batch) keeps K
+// and V in shared memory and walks the query tiles of each of its group's
+// heads that the tile test keeps, computing S and dP, then P and dS into
+// shared memory, then dV += P^T dout and dK += dS^T Q.  The dq kernel: one
+// CTA per (query tile, head, batch) keeps Q and dout and walks its live kv
+// tiles (the forward's contiguous range), dQ += dS K; it recomputes S and
+// dP (seven products in all, not five), which keeps it free of atomics and
+// of a dS scratch.
+//
+// Shared memory (bytes): (2 (Q, dout) + 2 (K, V)) tiles x (D + 1) + P, dS
+// (tile x (tile + 1)) + lse and D rows: 198,656 for float at D 160,
+// 149,504 for double at D 128.
 
-constexpr int kF64Threads = 256;
-constexpr int kF64Tile = 32;
+constexpr int kFmaThreads = 256;
 
 // rows [r0, r0 + R) of one head (row stride s_stride, D contiguous) into a
-// shared tile of R rows of D + 1; rows past S are zeros
-template <int D, int R>
-__device__ __forceinline__ void load_tile(double* dst, const double* src,
+// shared tile of R rows of D + 1 in the compute type; rows past S are zeros
+template <int D, int R, typename T, typename A>
+__device__ __forceinline__ void load_tile(A* dst, const T* src,
                                           long long s_stride, int r0, int S) {
-  for (int e = threadIdx.x; e < R * D; e += kF64Threads) {
+  for (int e = threadIdx.x; e < R * D; e += kFmaThreads) {
     const int r = e / D, c = e % D;
     const int row = r0 + r;
-    dst[r * (D + 1) + c] = row < S ? src[(long long)row * s_stride + c] : 0.0;
+    dst[r * (D + 1) + c] =
+        row < S ? acc_of(src[(long long)row * s_stride + c]) : A(0);
   }
 }
 
-template <int D>
-struct F64Smem {
-  static constexpr int kBQ = kF64Tile, kBK = kF64Tile;
+template <typename T, int D>
+struct FmaSmem {
+  using A = typename Fma<T>::A;
+  static constexpr int kBQ = Fma<T>::kTile, kBK = Fma<T>::kTile;
   static constexpr int kLD = D + 1, kLP = kBK + 1;
   // dkdv: Q, dout, K, V, P, dS, lse, D
-  static constexpr int kDkdv =
-      (2 * kBQ * kLD + 2 * kBK * kLD + 2 * kBQ * kLP + 2 * kBQ) * 8;
+  static constexpr int kDkdv = (2 * kBQ * kLD + 2 * kBK * kLD + 2 * kBQ * kLP +
+                                2 * kBQ) * (int)sizeof(A);
   // dq: Q, dout, K, V, dS, lse, D
   static constexpr int kDq =
-      (2 * kBQ * kLD + 2 * kBK * kLD + kBQ * kLP + 2 * kBQ) * 8;
+      (2 * kBQ * kLD + 2 * kBK * kLD + kBQ * kLP + 2 * kBQ) * (int)sizeof(A);
 };
 
 // S = Q K^T and dP = dout V^T on this thread's micro-tile (rows ty + 16a,
 // keys tx + 16c), then P and dS of the tile's allowed pairs
-template <int D>
+template <typename T, int D, typename A>
 __device__ __forceinline__ void probs_and_ds(
-    const double* sQ, const double* sdO, const double* sK, const double* sV,
-    const double* sL, const double* sDv, double* sP, double* sdS, int q0,
-    int k0, int Sq, double scale, const AttnMask& mask) {
-  using S = F64Smem<D>;
+    const A* sQ, const A* sdO, const A* sK, const A* sV, const A* sL,
+    const A* sDv, A* sP, A* sdS, int q0, int k0, int Sq, A scale,
+    const AttnMask& mask) {
+  using S = FmaSmem<T, D>;
   constexpr int TM = S::kBQ / 16, TN = S::kBK / 16, LD = S::kLD, LP = S::kLP;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  double s[TM][TN], dp[TM][TN];
+  A s[TM][TN], dp[TM][TN];
 #pragma unroll
   for (int a = 0; a < TM; ++a)
 #pragma unroll
     for (int c = 0; c < TN; ++c) {
-      s[a][c] = 0.0;
-      dp[a][c] = 0.0;
+      s[a][c] = A(0);
+      dp[a][c] = A(0);
     }
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    double qa[TM], oa[TM], kb[TN], vb[TN];
+    A qa[TM], oa[TM], kb[TN], vb[TN];
 #pragma unroll
     for (int a = 0; a < TM; ++a) {
       qa[a] = sQ[(ty + 16 * a) * LD + d];
@@ -931,50 +971,52 @@ __device__ __forceinline__ void probs_and_ds(
 #pragma unroll
     for (int c = 0; c < TN; ++c) {
       const int j = k0 + tx + 16 * c;
-      double p = 0.0;
+      A p = A(0);
       if (i < Sq && mask.allowed(i + mask.q_offset, j))
-        p = exp(s[a][c] * scale - sL[r]);
+        p = exp_acc(s[a][c] * scale - sL[r]);
       sP[r * LP + tx + 16 * c] = p;
       sdS[r * LP + tx + 16 * c] = p * (dp[a][c] - sDv[r]);
     }
   }
 }
 
-template <int D>
-__device__ __forceinline__ void load_rows(double* sL, double* sDv,
+template <int BQ, typename A>
+__device__ __forceinline__ void load_rows(A* sL, A* sDv,
                                           const float* __restrict__ lse,
-                                          const double* __restrict__ dvec,
+                                          const A* __restrict__ dvec,
                                           long long bh, int q0, int Sq) {
-  for (int r = threadIdx.x; r < kF64Tile; r += kF64Threads) {
+  for (int r = threadIdx.x; r < BQ; r += kFmaThreads) {
     const int i = q0 + r;
-    sL[r] = i < Sq ? (double)lse[bh * Sq + i] : 0.0;
-    sDv[r] = i < Sq ? dvec[bh * Sq + i] : 0.0;
+    sL[r] = i < Sq ? (A)lse[bh * Sq + i] : A(0);
+    sDv[r] = i < Sq ? dvec[bh * Sq + i] : A(0);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kF64Threads)
-attn_bwd_dkdv_f64_kernel(const double* __restrict__ q, Strides3 qs,
-                         const double* __restrict__ k, Strides3 ks,
-                         const double* __restrict__ v, Strides3 vs,
-                         const double* __restrict__ dout, Strides3 dos,
+template <typename T, int D>
+__global__ void __launch_bounds__(kFmaThreads)
+attn_bwd_dkdv_fma_kernel(const T* __restrict__ q, Strides3 qs,
+                         const T* __restrict__ k, Strides3 ks,
+                         const T* __restrict__ v, Strides3 vs,
+                         const T* __restrict__ dout, Strides3 dos,
                          const float* __restrict__ lse,
-                         const double* __restrict__ dvec,
-                         double* __restrict__ dk, Strides3 dks,
-                         double* __restrict__ dv, Strides3 dvs, int H,
-                         int group, int Sq, double scale, AttnMask mask) {
-  using S = F64Smem<D>;
+                         const typename Fma<T>::A* __restrict__ dvec,
+                         T* __restrict__ dk, Strides3 dks,
+                         T* __restrict__ dv, Strides3 dvs, int H,
+                         int group, int Sq, double scale_d, AttnMask mask) {
+  using S = FmaSmem<T, D>;
+  using A = typename S::A;
   constexpr int BQ = S::kBQ, BK = S::kBK, LD = S::kLD, LP = S::kLP;
   constexpr int TK = BK / 16, TD = D / 16;
-  extern __shared__ __align__(16) unsigned char smem_f64[];
-  double* sQ = reinterpret_cast<double*>(smem_f64);
-  double* sdO = sQ + BQ * LD;
-  double* sK = sdO + BQ * LD;
-  double* sV = sK + BK * LD;
-  double* sP = sV + BK * LD;
-  double* sdS = sP + BQ * LP;
-  double* sL = sdS + BQ * LP;
-  double* sDv = sL + BQ;
+  const A scale = (A)scale_d;
+  extern __shared__ __align__(16) unsigned char smem_fma[];
+  A* sQ = reinterpret_cast<A*>(smem_fma);
+  A* sdO = sQ + BQ * LD;
+  A* sK = sdO + BQ * LD;
+  A* sV = sK + BK * LD;
+  A* sP = sV + BK * LD;
+  A* sdS = sP + BQ * LP;
+  A* sL = sdS + BQ * LP;
+  A* sDv = sL + BQ;
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int hk = blockIdx.y, b = blockIdx.z;
@@ -982,13 +1024,13 @@ attn_bwd_dkdv_f64_kernel(const double* __restrict__ q, Strides3 qs,
   load_tile<D, BK>(sK, k + b * ks.b + hk * ks.h, ks.s, k0, mask.Sk);
   load_tile<D, BK>(sV, v + b * vs.b + hk * vs.h, vs.s, k0, mask.Sk);
 
-  double acc_k[TK][TD], acc_v[TK][TD];
+  A acc_k[TK][TD], acc_v[TK][TD];
 #pragma unroll
   for (int a = 0; a < TK; ++a)
 #pragma unroll
     for (int c = 0; c < TD; ++c) {
-      acc_k[a][c] = 0.0;
-      acc_v[a][c] = 0.0;
+      acc_k[a][c] = A(0);
+      acc_v[a][c] = A(0);
     }
   const int nq = (Sq + BQ - 1) / BQ;
   for (int g = 0; g < group; ++g) {
@@ -1002,15 +1044,15 @@ attn_bwd_dkdv_f64_kernel(const double* __restrict__ q, Strides3 qs,
       __syncthreads();   // the previous pair's readers are done
       load_tile<D, BQ>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, Sq);
       load_tile<D, BQ>(sdO, dout + b * dos.b + h * dos.h, dos.s, q0, Sq);
-      load_rows<D>(sL, sDv, lse, dvec, bh, q0, Sq);
+      load_rows<BQ>(sL, sDv, lse, dvec, bh, q0, Sq);
       __syncthreads();
-      probs_and_ds<D>(sQ, sdO, sK, sV, sL, sDv, sP, sdS, q0, k0, Sq, scale,
-                      mask);
+      probs_and_ds<T, D>(sQ, sdO, sK, sV, sL, sDv, sP, sdS, q0, k0, Sq,
+                         scale, mask);
       __syncthreads();
       // dV[j] += sum_i P[i][j] dout[i];  dK[j] += sum_i dS[i][j] Q[i]
 #pragma unroll 2
       for (int r = 0; r < BQ; ++r) {
-        double pa[TK], sa[TK], ob[TD], qb[TD];
+        A pa[TK], sa[TK], ob[TD], qb[TD];
 #pragma unroll
         for (int a = 0; a < TK; ++a) {
           pa[a] = sP[r * LP + ty + 16 * a];
@@ -1035,8 +1077,8 @@ attn_bwd_dkdv_f64_kernel(const double* __restrict__ q, Strides3 qs,
   for (int a = 0; a < TK; ++a) {
     const int j = k0 + ty + 16 * a;
     if (j >= mask.Sk) continue;
-    double* dkr = dk + b * dks.b + hk * dks.h + j * dks.s;
-    double* dvr = dv + b * dvs.b + hk * dvs.h + j * dvs.s;
+    T* dkr = dk + b * dks.b + hk * dks.h + j * dks.s;
+    T* dvr = dv + b * dvs.b + hk * dvs.h + j * dvs.s;
 #pragma unroll
     for (int c = 0; c < TD; ++c) {
       dkr[tx + 16 * c] = acc_k[a][c] * scale;
@@ -1045,29 +1087,31 @@ attn_bwd_dkdv_f64_kernel(const double* __restrict__ q, Strides3 qs,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kF64Threads)
-attn_bwd_dq_f64_kernel(const double* __restrict__ q, Strides3 qs,
-                       const double* __restrict__ k, Strides3 ks,
-                       const double* __restrict__ v, Strides3 vs,
-                       const double* __restrict__ dout, Strides3 dos,
+template <typename T, int D>
+__global__ void __launch_bounds__(kFmaThreads)
+attn_bwd_dq_fma_kernel(const T* __restrict__ q, Strides3 qs,
+                       const T* __restrict__ k, Strides3 ks,
+                       const T* __restrict__ v, Strides3 vs,
+                       const T* __restrict__ dout, Strides3 dos,
                        const float* __restrict__ lse,
-                       const double* __restrict__ dvec,
-                       double* __restrict__ dq, Strides3 dqs, int H,
-                       int group, int Sq, double scale, AttnMask mask) {
-  using S = F64Smem<D>;
+                       const typename Fma<T>::A* __restrict__ dvec,
+                       T* __restrict__ dq, Strides3 dqs, int H,
+                       int group, int Sq, double scale_d, AttnMask mask) {
+  using S = FmaSmem<T, D>;
+  using A = typename S::A;
   constexpr int BQ = S::kBQ, BK = S::kBK, LD = S::kLD, LP = S::kLP;
   constexpr int TM = BQ / 16, TD = D / 16;
-  extern __shared__ __align__(16) unsigned char smem_f64[];
-  double* sQ = reinterpret_cast<double*>(smem_f64);
-  double* sdO = sQ + BQ * LD;
-  double* sK = sdO + BQ * LD;
-  double* sV = sK + BK * LD;
-  double* sdS = sV + BK * LD;
-  double* sL = sdS + BQ * LP;
-  double* sDv = sL + BQ;
+  const A scale = (A)scale_d;
+  extern __shared__ __align__(16) unsigned char smem_fma[];
+  A* sQ = reinterpret_cast<A*>(smem_fma);
+  A* sdO = sQ + BQ * LD;
+  A* sK = sdO + BQ * LD;
+  A* sV = sK + BK * LD;
+  A* sdS = sV + BK * LD;
+  A* sL = sdS + BQ * LP;
+  A* sDv = sL + BQ;
   // dS goes where dkdv keeps P; P itself is not needed here
-  double* sP = sdS;
+  A* sP = sdS;
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
@@ -1075,16 +1119,16 @@ attn_bwd_dq_f64_kernel(const double* __restrict__ q, Strides3 qs,
   const int q0 = blockIdx.x * BQ;
   load_tile<D, BQ>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, Sq);
   load_tile<D, BQ>(sdO, dout + b * dos.b + h * dos.h, dos.s, q0, Sq);
-  load_rows<D>(sL, sDv, lse, dvec, bh, q0, Sq);
+  load_rows<BQ>(sL, sDv, lse, dvec, bh, q0, Sq);
   int j_begin, j_end;
   mask.kv_tiles(q0 + mask.q_offset, min(q0 + BQ, Sq) - 1 + mask.q_offset, BK,
                 &j_begin, &j_end);
 
-  double acc[TM][TD];
+  A acc[TM][TD];
 #pragma unroll
   for (int a = 0; a < TM; ++a)
 #pragma unroll
-    for (int c = 0; c < TD; ++c) acc[a][c] = 0.0;
+    for (int c = 0; c < TD; ++c) acc[a][c] = A(0);
   for (int jt = j_begin; jt < j_end; ++jt) {
     const int k0 = jt * BK;
     __syncthreads();   // the previous tile's readers are done
@@ -1093,12 +1137,12 @@ attn_bwd_dq_f64_kernel(const double* __restrict__ q, Strides3 qs,
     __syncthreads();
     // P is written and then overwritten by dS in the same slot: each
     // thread writes only its own entries, P first
-    probs_and_ds<D>(sQ, sdO, sK, sV, sL, sDv, sP, sdS, q0, k0, Sq, scale,
-                    mask);
+    probs_and_ds<T, D>(sQ, sdO, sK, sV, sL, sDv, sP, sdS, q0, k0, Sq, scale,
+                       mask);
     __syncthreads();
 #pragma unroll 2
     for (int j = 0; j < BK; ++j) {
-      double sa[TM], kb[TD];
+      A sa[TM], kb[TD];
 #pragma unroll
       for (int a = 0; a < TM; ++a) sa[a] = sdS[(ty + 16 * a) * LP + j];
 #pragma unroll
@@ -1113,80 +1157,564 @@ attn_bwd_dq_f64_kernel(const double* __restrict__ q, Strides3 qs,
   for (int a = 0; a < TM; ++a) {
     const int i = q0 + ty + 16 * a;
     if (i >= Sq) continue;
-    double* dqr = dq + b * dqs.b + h * dqs.h + i * dqs.s;
+    T* dqr = dq + b * dqs.b + h * dqs.h + i * dqs.s;
 #pragma unroll
     for (int c = 0; c < TD; ++c) dqr[tx + 16 * c] = acc[a][c] * scale;
   }
 }
 
-template <int D>
-int launch_f64(const void* q, const void* k, const void* v, const void* out,
+template <typename T, int D>
+int launch_fma(const void* q, const void* k, const void* v, const void* out,
                const void* dout, const float* lse, void* dvec, void* dq,
                void* dk, void* dv, const long long* st, int B, int H, int Hkv,
                int Sq, int Sk, double scale, const AttnMask& mask,
                cudaStream_t stream) {
-  using S = F64Smem<D>;
+  using S = FmaSmem<T, D>;
+  using A = typename S::A;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        attn_bwd_dkdv_f64_kernel<D>,
+        attn_bwd_dkdv_fma_kernel<T, D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, S::kDkdv);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(attn_bwd_dq_f64_kernel<D>,
+      e = cudaFuncSetAttribute(attn_bwd_dq_fma_kernel<T, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                S::kDq);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  const double* qt = static_cast<const double*>(q);
-  const double* kt = static_cast<const double*>(k);
-  const double* vt = static_cast<const double*>(v);
-  const double* dot = static_cast<const double*>(dout);
-  double* dvt = static_cast<double*>(dvec);
-  int e = launch_dot<double>(out, dout, dvec, st, B, H, Sq, D, stream);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  const A* dvt = static_cast<const A*>(dvec);
+  int e = launch_dot<T>(out, dout, dvec, st, B, H, Sq, D, stream);
   if (e != 0) return e;
   const int group = H / Hkv;
   dim3 gkv((Sk + S::kBK - 1) / S::kBK, Hkv, B);
-  attn_bwd_dkdv_f64_kernel<D><<<gkv, kF64Threads, S::kDkdv, stream>>>(
+  attn_bwd_dkdv_fma_kernel<T, D><<<gkv, kFmaThreads, S::kDkdv, stream>>>(
       qt, strides_at(st, 0), kt, strides_at(st, 1), vt, strides_at(st, 2), dot,
-      strides_at(st, 4), lse, dvt, static_cast<double*>(dk), strides_at(st, 6),
-      static_cast<double*>(dv), strides_at(st, 7), H, group, Sq, scale, mask);
+      strides_at(st, 4), lse, dvt, static_cast<T*>(dk), strides_at(st, 6),
+      static_cast<T*>(dv), strides_at(st, 7), H, group, Sq, scale, mask);
   e = (int)cudaGetLastError();
   if (e != 0) return e;
   dim3 gq((Sq + S::kBQ - 1) / S::kBQ, H, B);
-  attn_bwd_dq_f64_kernel<D><<<gq, kF64Threads, S::kDq, stream>>>(
+  attn_bwd_dq_fma_kernel<T, D><<<gq, kFmaThreads, S::kDq, stream>>>(
       qt, strides_at(st, 0), kt, strides_at(st, 1), vt, strides_at(st, 2), dot,
-      strides_at(st, 4), lse, dvt, static_cast<double*>(dq), strides_at(st, 5),
-      H, group, Sq, scale, mask);
+      strides_at(st, 4), lse, dvt, static_cast<T*>(dq), strides_at(st, 5), H,
+      group, Sq, scale, mask);
+  return (int)cudaGetLastError();
+}
+
+// ===========================================================================
+// bfloat16: mma.sync m16n8k16 on the tensor cores
+// ===========================================================================
+//
+// bfloat16 q, k, v, dout are read as they are (16-byte vector loads into
+// shared memory, rows padded by 8 elements so that each ldmatrix phase
+// meets 8 distinct 16-byte bank groups) and multiplied on the tensor cores
+// with mma.sync.m16n8k16 (bfloat16 operands, float32 accumulators), the
+// flash recurrence of the float32 kernels: S = Q.K^T, dP = dO.V^T in
+// float32; P = exp(S scale - lse) and dS = P (dP - D) in float32, rounded
+// to bfloat16 only where they are the A operand of the next product (dV +=
+// P^T.dO, dK += dS^T.Q, dQ += dS.K), as FlashAttention does; every sum in
+// float32, dq, dk, dv rounded to bfloat16 once.  Bound on the H100:
+// operations over the bfloat16 tensor-core rate, five products (0.0869 ms
+// at qwen3's B 8, H 16/8, S 1024, D 128, causal); this design does seven
+// (the dQ kernel recomputes S and dP, so there is no dS scratch and no
+// atomic); each CTA's next tile is copied by cp.async into a second stage
+// while the current one is computed.
+//
+//   dkdv kernel  one CTA of 4 warps per (64 keys, kv head, batch); warp w
+//                owns keys 16w .. 16w + 15 and keeps their dK and dV (D/2
+//                floats a thread each) in registers over its GQA group's
+//                32-query tiles (16 at D 160) in a fixed order: S^T =
+//                K.Q^T and dP^T = V.dO^T (A = K or V rows by ldmatrix, B =
+//                Q or dO rows),
+//                then P^T and dS^T in the accumulators' registers become
+//                the A fragments of dV += P^T.dO and dK += dS^T.Q (B by
+//                ldmatrix.trans).
+//   dq kernel    one CTA of 4 warps per (64 queries, head, batch); warp w
+//                owns queries 16w .. 16w + 15, walks the live 32-key tiles:
+//                S = Q.K^T, dP = dO.V^T, dS as A fragments of dQ += dS.K.
+//
+// Shared memory (bytes): dkdv K and V (64 rows each of D + 8) and two
+// stages of Q, dO (32 rows each; 16 at D 160), lse and D, 70,144 at D 128
+// and 64,768 at D 160; dq Q and dO (64 rows each) and two stages of K and V
+// (32 rows each), 69,632 at D 128 and 86,016 at D 160.
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kMmaKeys = 64;       // keys per dK/dV CTA (16 a warp)
+// queries per dK/dV step: 16 at D 160, where dK and dV take 80 floats a
+// thread each
+__host__ __device__ constexpr int mma_qtile(int D) {
+  return D > 128 ? 16 : 32;
+}
+constexpr int kMmaQRows = 64;      // queries per dQ CTA (16 a warp)
+constexpr int kMmaKTile = 32;      // keys per dQ step
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a.b, a 16 x 16 (row), b 16 x 8 (col), bfloat16 in, float32 out
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// an asynchronous copy of `bytes` (0 or N) bytes into N bytes of shared
+// memory, the rest zero-filled
+template <int N>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         int bytes) {
+  if (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(src), "n"(N), "r"(bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every group but the newest `N` has landed (this thread's copies)
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [r0, r0 + R) of one head (row stride s, D contiguous, 16-byte
+// aligned) into a shared tile of R rows of LDS elements (at address dst),
+// by asynchronous copies; rows past S zeros
+template <int D, int R, int LDS>
+__device__ __forceinline__ void load_rows_bf16(uint32_t dst,
+                                               const __nv_bfloat16* src,
+                                               long long s, int r0, int S) {
+  constexpr int kVec = D / 8;    // 16-byte vectors a row
+  for (int e = threadIdx.x; e < R * kVec; e += kMmaThreads) {
+    const int r = e / kVec, c = e % kVec;
+    const int row = r0 + r;
+    cp_async<16>(dst + 2 * (r * LDS + 8 * c),
+                 row < S ? src + (long long)row * s + 8 * c : src,
+                 row < S ? 16 : 0);
+  }
+}
+
+// The lane's ldmatrix row address of a 16 x 16 block at (r0, c0) of a
+// row-major tile of LDS elements: the A fragment (rows r0..r0+15 by
+// lane % 16, columns c0 or c0 + 8 by lane / 16), or, ``b`` set, two B
+// fragments of 8 rows each (rows by lane % 8 and lane / 16, columns by
+// (lane / 8) % 2); ``trans`` takes rows by lane % 16 and columns by lane /
+// 16 for ldmatrix.trans
+template <int LDS>
+__device__ __forceinline__ uint32_t frag_addr(uint32_t base, int r0, int c0,
+                                              bool b) {
+  const int l = threadIdx.x % 32;
+  const int r = b ? r0 + l % 8 + 8 * (l / 16) : r0 + l % 16;
+  const int c = b ? c0 + 8 * ((l / 8) % 2) : c0 + 8 * (l / 16);
+  return base + 2 * (r * LDS + c);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+attn_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, Strides3 qs,
+                         const __nv_bfloat16* __restrict__ k, Strides3 ks,
+                         const __nv_bfloat16* __restrict__ v, Strides3 vs,
+                         const __nv_bfloat16* __restrict__ dout, Strides3 dos,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ dvec,
+                         __nv_bfloat16* __restrict__ dk, Strides3 dks,
+                         __nv_bfloat16* __restrict__ dv, Strides3 dvs, int H,
+                         int group, int Sq, float scale, AttnMask mask) {
+  constexpr int LDS = D + 8, BQ = mma_qtile(D), NT = D / 8;
+  // a stage: Q and dO of one query tile, then its lse and D rows
+  constexpr int kStage = 2 * BQ * LDS * 2 + 2 * BQ * 4;
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  const uint32_t aK = smem_addr(smem_mma), aV = aK + kMmaKeys * LDS * 2;
+  const uint32_t aS0 = aV + kMmaKeys * LDS * 2;
+  const float* const rows0 =
+      reinterpret_cast<const float*>(smem_mma + 2 * kMmaKeys * LDS * 2 +
+                                     2 * BQ * LDS * 2);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * kMmaKeys, k_hi = k0 + kMmaKeys - 1;
+  const float scale_log2 = scale * kLog2e;
+  const int nq = (Sq + BQ - 1) / BQ;
+  // the next live query tile after (gi, it), group heads outermost
+  auto next_tile = [&](int& gi, int& it) {
+    while (true) {
+      if (++it == nq) {
+        it = 0;
+        if (++gi == group) return false;
+      }
+      const int q0 = it * BQ;
+      if (mask.tile_live(q0 + mask.q_offset,
+                         min(q0 + BQ, Sq) - 1 + mask.q_offset, k0, k_hi))
+        return true;
+    }
+  };
+  // a tile's Q, dO, lse and D rows into stage st (rows past Sq zeros)
+  auto issue = [&](int st, int gi, int it) {
+    const int h = hk * group + gi, q0 = it * BQ;
+    const long long bh = (long long)b * H + h;
+    const uint32_t aQ = aS0 + st * kStage, adO = aQ + BQ * LDS * 2;
+    load_rows_bf16<D, BQ, LDS>(aQ, q + b * qs.b + h * qs.h, qs.s, q0, Sq);
+    load_rows_bf16<D, BQ, LDS>(adO, dout + b * dos.b + h * dos.h, dos.s, q0,
+                               Sq);
+    for (int r = threadIdx.x; r < BQ; r += kMmaThreads) {
+      const bool in = q0 + r < Sq;
+      const uint32_t dst = adO + BQ * LDS * 2 + 4 * r;
+      cp_async<4>(dst, lse + (in ? bh * Sq + q0 + r : 0), in ? 4 : 0);
+      cp_async<4>(dst + 4 * BQ, dvec + (in ? bh * Sq + q0 + r : 0),
+                  in ? 4 : 0);
+    }
+  };
+  load_rows_bf16<D, kMmaKeys, LDS>(aK, k + b * ks.b + hk * ks.h, ks.s, k0,
+                                   mask.Sk);
+  load_rows_bf16<D, kMmaKeys, LDS>(aV, v + b * vs.b + hk * vs.h, vs.s, k0,
+                                   mask.Sk);
+  int gi = 0, it = -1;
+  bool have = next_tile(gi, it);
+  if (have) issue(0, gi, it);
+  cp_async_commit();
+
+  float acc_k[NT][4], acc_v[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_k[n][i] = acc_v[n][i] = 0.f;
+  const int kw = 16 * warp;          // the warp's keys in the tile
+  for (int n_tile = 0; have; ++n_tile) {
+    // the next live tile's copies go out while this one is computed
+    int g2 = gi, i2 = it;
+    const bool more = next_tile(g2, i2);
+    if (more) issue((n_tile + 1) & 1, g2, i2);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int st = n_tile & 1, q0 = it * BQ;
+    const uint32_t aQ = aS0 + st * kStage, adO = aQ + BQ * LDS * 2;
+    const float* sL = rows0 + st * (kStage / 4);
+    const float* sDv = sL + BQ;
+    // S^T = K.Q^T and dP^T = V.dO^T: keys kw.. x the tile's BQ queries
+    float s[BQ / 8][4], dp[BQ / 8][4];
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ak[4], av[4];
+      ldsm_x4(frag_addr<LDS>(aK, kw, 16 * kk, false), ak);
+      ldsm_x4(frag_addr<LDS>(aV, kw, 16 * kk, false), av);
+#pragma unroll
+      for (int np = 0; np < BQ / 16; ++np) {
+        uint32_t bq[4], bo[4];
+        ldsm_x4(frag_addr<LDS>(aQ, 16 * np, 16 * kk, true), bq);
+        ldsm_x4(frag_addr<LDS>(adO, 16 * np, 16 * kk, true), bo);
+        mma_bf16(s[2 * np], ak, bq[0], bq[1]);
+        mma_bf16(s[2 * np + 1], ak, bq[2], bq[3]);
+        mma_bf16(dp[2 * np], av, bo[0], bo[1]);
+        mma_bf16(dp[2 * np + 1], av, bo[2], bo[3]);
+      }
+    }
+    // P^T and dS^T (rows: keys k0 + kw + g (+8); columns: queries q0 + 8n +
+    // 2t (+1)), as the A fragments of the next two products
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n) {
+      float pv[4], dsv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + kw + g + 8 * (i / 2);
+        const int ql = 8 * n + 2 * t + i % 2, qi = q0 + ql;
+        const bool ok = qi < Sq && mask.allowed(qi + mask.q_offset, key);
+        pv[i] = ok ? exp2f(fmaf(s[n][i], scale_log2, -sL[ql] * kLog2e))
+                   : 0.f;
+        dsv[i] = pv[i] * (dp[n][i] - sDv[ql]);
+      }
+      pa[n / 2][2 * (n % 2)] = pack_bf16(pv[0], pv[1]);
+      pa[n / 2][2 * (n % 2) + 1] = pack_bf16(pv[2], pv[3]);
+      da[n / 2][2 * (n % 2)] = pack_bf16(dsv[0], dsv[1]);
+      da[n / 2][2 * (n % 2) + 1] = pack_bf16(dsv[2], dsv[3]);
+    }
+    // dV += P^T.dO, dK += dS^T.Q: k = the tile's queries, n = D
+#pragma unroll
+    for (int kq = 0; kq < BQ / 16; ++kq)
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        uint32_t bo[4], bq[4];
+        ldsm_x4_t(frag_addr<LDS>(adO, 16 * kq, 16 * n2, false), bo);
+        ldsm_x4_t(frag_addr<LDS>(aQ, 16 * kq, 16 * n2, false), bq);
+        mma_bf16(acc_v[2 * n2], pa[kq], bo[0], bo[1]);
+        mma_bf16(acc_v[2 * n2 + 1], pa[kq], bo[2], bo[3]);
+        mma_bf16(acc_k[2 * n2], da[kq], bq[0], bq[1]);
+        mma_bf16(acc_k[2 * n2 + 1], da[kq], bq[2], bq[3]);
+      }
+    __syncthreads();   // this stage is refilled two tiles on
+    gi = g2;
+    it = i2;
+    have = more;
+  }
+  cp_async_wait<0>();
+  // epilogue: keys past Sk not written
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int key = k0 + kw + g + 8 * hr;
+    if (key >= mask.Sk) continue;
+    __nv_bfloat16* dkr = dk + b * dks.b + hk * dks.h + key * dks.s;
+    __nv_bfloat16* dvr = dv + b * dvs.b + hk * dvs.h + key * dvs.s;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      *reinterpret_cast<uint32_t*>(dkr + 8 * n + 2 * t) =
+          pack_bf16(acc_k[n][2 * hr] * scale, acc_k[n][2 * hr + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dvr + 8 * n + 2 * t) =
+          pack_bf16(acc_v[n][2 * hr], acc_v[n][2 * hr + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+attn_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, Strides3 qs,
+                       const __nv_bfloat16* __restrict__ k, Strides3 ks,
+                       const __nv_bfloat16* __restrict__ v, Strides3 vs,
+                       const __nv_bfloat16* __restrict__ dout, Strides3 dos,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ dvec,
+                       __nv_bfloat16* __restrict__ dq, Strides3 dqs, int H,
+                       int group, int Sq, float scale, AttnMask mask) {
+  constexpr int LDS = D + 8, BK = kMmaKTile, NT = D / 8;
+  // a stage: K and V of one key tile
+  constexpr int kStage = 2 * BK * LDS * 2;
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  const uint32_t aQ = smem_addr(smem_mma), adO = aQ + kMmaQRows * LDS * 2;
+  const uint32_t aS0 = adO + kMmaQRows * LDS * 2;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  const long long bh = (long long)b * H + h;
+  const int q0 = blockIdx.x * kMmaQRows, qw = 16 * warp;
+  const float scale_log2 = scale * kLog2e;
+  int j_begin, j_end;
+  mask.kv_tiles(q0 + mask.q_offset,
+                min(q0 + kMmaQRows, Sq) - 1 + mask.q_offset, BK, &j_begin,
+                &j_end);
+  auto issue = [&](int st, int jt) {
+    const uint32_t aK = aS0 + st * kStage, aV = aK + BK * LDS * 2;
+    load_rows_bf16<D, BK, LDS>(aK, k + b * ks.b + hk * ks.h, ks.s, jt * BK,
+                               mask.Sk);
+    load_rows_bf16<D, BK, LDS>(aV, v + b * vs.b + hk * vs.h, vs.s, jt * BK,
+                               mask.Sk);
+  };
+  load_rows_bf16<D, kMmaQRows, LDS>(aQ, q + b * qs.b + h * qs.h, qs.s, q0,
+                                    Sq);
+  load_rows_bf16<D, kMmaQRows, LDS>(adO, dout + b * dos.b + h * dos.h, dos.s,
+                                    q0, Sq);
+  if (j_begin < j_end) issue(0, j_begin);
+  cp_async_commit();
+  // this thread's rows q0 + qw + g (+8): lse (log2 units) and D
+  float rl[2], rd[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int i = q0 + qw + g + 8 * hr;
+    rl[hr] = i < Sq ? lse[bh * Sq + i] * kLog2e : 0.f;
+    rd[hr] = i < Sq ? dvec[bh * Sq + i] : 0.f;
+  }
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  for (int jt = j_begin; jt < j_end; ++jt) {
+    // the next tile's copies go out while this one is computed
+    if (jt + 1 < j_end) issue((jt + 1 - j_begin) & 1, jt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int kt0 = jt * BK;
+    const uint32_t aK = aS0 + ((jt - j_begin) & 1) * kStage,
+                   aV = aK + BK * LDS * 2;
+    // S = Q.K^T and dP = dO.V^T: the warp's 16 queries x BK keys
+    float s[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t aq[4], ao[4];
+      ldsm_x4(frag_addr<LDS>(aQ, qw, 16 * kk, false), aq);
+      ldsm_x4(frag_addr<LDS>(adO, qw, 16 * kk, false), ao);
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4(frag_addr<LDS>(aK, 16 * np, 16 * kk, true), bk);
+        ldsm_x4(frag_addr<LDS>(aV, 16 * np, 16 * kk, true), bv);
+        mma_bf16(s[2 * np], aq, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], aq, bk[2], bk[3]);
+        mma_bf16(dp[2 * np], ao, bv[0], bv[1]);
+        mma_bf16(dp[2 * np + 1], ao, bv[2], bv[3]);
+      }
+    }
+    // dS (rows: queries; columns: keys kt0 + 8n + 2t (+1)) as A fragments
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      float dsv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qi = q0 + qw + g + 8 * (i / 2);
+        const int key = kt0 + 8 * n + 2 * t + i % 2;
+        const bool ok = qi < Sq && mask.allowed(qi + mask.q_offset, key);
+        const float p =
+            ok ? exp2f(fmaf(s[n][i], scale_log2, -rl[i / 2])) : 0.f;
+        dsv[i] = p * (dp[n][i] - rd[i / 2]);
+      }
+      da[n / 2][2 * (n % 2)] = pack_bf16(dsv[0], dsv[1]);
+      da[n / 2][2 * (n % 2) + 1] = pack_bf16(dsv[2], dsv[3]);
+    }
+    // dQ += dS.K: k = the tile's keys, n = D
+#pragma unroll
+    for (int kq = 0; kq < BK / 16; ++kq)
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        uint32_t bk[4];
+        ldsm_x4_t(frag_addr<LDS>(aK, 16 * kq, 16 * n2, false), bk);
+        mma_bf16(acc[2 * n2], da[kq], bk[0], bk[1]);
+        mma_bf16(acc[2 * n2 + 1], da[kq], bk[2], bk[3]);
+      }
+    __syncthreads();   // this stage is refilled two tiles on
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + qw + g + 8 * hr;
+    if (row >= Sq) continue;
+    __nv_bfloat16* dqr = dq + b * dqs.b + h * dqs.h + row * dqs.s;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<uint32_t*>(dqr + 8 * n + 2 * t) =
+          pack_bf16(acc[n][2 * hr] * scale, acc[n][2 * hr + 1] * scale);
+  }
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, const void* out,
+               const void* dout, const float* lse, void* dvec, void* dq,
+               void* dk, void* dv, const long long* st, int B, int H, int Hkv,
+               int Sq, int Sk, double scale, const AttnMask& mask,
+               cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  constexpr int LDS = D + 8;
+  // K and V, then two stages of Q, dO, lse and D rows; Q and dO, then two
+  // stages of K and V
+  constexpr int BQ = mma_qtile(D);
+  constexpr int kDkdv =
+      2 * kMmaKeys * LDS * 2 + 2 * (2 * BQ * LDS * 2 + 2 * BQ * 4);
+  constexpr int kDq = (2 * kMmaQRows + 4 * kMmaKTile) * LDS * 2;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        attn_bwd_dkdv_mma_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kDkdv);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(attn_bwd_dq_mma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kDq);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  // 16-byte row loads: bases and row strides of q, k, v, dout aligned
+  for (int i : {0, 1, 2, 4})
+    if (st[3 * i] % 8 || st[3 * i + 1] % 8 || st[3 * i + 2] % 8)
+      return (int)cudaErrorInvalidValue;
+  for (const void* p : {q, k, v, dout})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+  const bf* qt = static_cast<const bf*>(q);
+  const bf* kt = static_cast<const bf*>(k);
+  const bf* vt = static_cast<const bf*>(v);
+  const bf* dot = static_cast<const bf*>(dout);
+  const float* dvt = static_cast<const float*>(dvec);
+  int e = launch_dot<bf>(out, dout, dvec, st, B, H, Sq, D, stream);
+  if (e != 0) return e;
+  const int group = H / Hkv;
+  dim3 gkv((Sk + kMmaKeys - 1) / kMmaKeys, Hkv, B);
+  attn_bwd_dkdv_mma_kernel<D><<<gkv, kMmaThreads, kDkdv, stream>>>(
+      qt, strides_at(st, 0), kt, strides_at(st, 1), vt, strides_at(st, 2), dot,
+      strides_at(st, 4), lse, dvt, static_cast<bf*>(dk), strides_at(st, 6),
+      static_cast<bf*>(dv), strides_at(st, 7), H, group, Sq, (float)scale,
+      mask);
+  e = (int)cudaGetLastError();
+  if (e != 0) return e;
+  dim3 gq((Sq + kMmaQRows - 1) / kMmaQRows, H, B);
+  attn_bwd_dq_mma_kernel<D><<<gq, kMmaThreads, kDq, stream>>>(
+      qt, strides_at(st, 0), kt, strides_at(st, 1), vt, strides_at(st, 2), dot,
+      strides_at(st, 4), lse, dvt, static_cast<bf*>(dq), strides_at(st, 5), H,
+      group, Sq, (float)scale, mask);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype codes shared with repro_torch/kernels/flash_attention.py:
-//   0 float32, 1 float64 (the backward takes no other).
-// The bytes of the dS scratch that a float32 call needs (0 for float64), in
-// *bytes.  Returns 0, or cudaErrorInvalidValue.
+//   0 float32, 1 float64, 3 bfloat16 (the backward takes no other).
+// The bytes of the dS scratch that a call needs (float32 at D <= 128, the
+// wgmma kernels; 0 for the FMA kernels), in *bytes.  Returns 0, or
+// cudaErrorInvalidValue.
 extern "C" int flash_attention_bwd_scratch_bytes(int dtype, int B, int H,
-                                                 int Sq, int Sk, int causal,
-                                                 int has_window, int window,
-                                                 int q_offset,
+                                                 int Sq, int Sk, int D,
+                                                 int causal, int has_window,
+                                                 int window, int q_offset,
                                                  long long* bytes) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || (dtype != 0 && dtype != 1))
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 ||
+      (dtype != 0 && dtype != 1 && dtype != 3))
     return (int)cudaErrorInvalidValue;
   const AttnMask mask{Sk, causal, has_window, window, q_offset};
-  *bytes = dtype == 0 ? (long long)B * H * scratch_blocks(mask, Sq) * kBlock
-                      : 0;
+  *bytes = dtype == 0 && D <= 128
+               ? (long long)B * H * scratch_blocks(mask, Sq) * kBlock
+               : 0;
   return 0;
 }
 
 // strides: 24 element strides, (b, h, s) for q, k, v, out, dout, dq, dk and
-// dv in that order (the last dim of each contiguous; float32: q, k, v and
-// dout bases and their b, h, s strides 16-byte aligned, TMA's rule); lse:
-// contiguous (B, H, Sq) float, the forward's; dvec: a (B, H, Sq) scratch
-// buffer of the dtype; scratch: float32's dS scratch of
-// flash_attention_bwd_scratch_bytes (16-byte aligned; null for float64).
-// Launches three kernels (dot, dkdv, dq) on the stream.  Returns the
+// dv in that order (the last dim of each contiguous; float32 at D <= 128: q,
+// k, v and dout bases and their b, h, s strides 16-byte aligned, TMA's
+// rule); lse: contiguous (B, H, Sq) float, the forward's; dvec: a (B, H, Sq)
+// scratch buffer of the compute type (float for bfloat16); scratch: the dS
+// scratch of flash_attention_bwd_scratch_bytes (16-byte aligned; null where
+// that is 0).  Launches three kernels (dot, dkdv, dq) on the stream:
+// float32 at D 16..128 the wgmma kernels, bfloat16 (D 16..160) the mma.sync
+// kernels (q, k, v, dout bases and row strides 16-byte aligned), float32 at
+// D 160 and float64 (D 16..128) the FMA kernels.  Returns the
 // cudaError_t of the launches (0 = success), cudaErrorInvalidValue for
 // arguments the kernels do not take, or 1000 + the CUresult when a tensor
 // map cannot be encoded.
@@ -1202,7 +1730,7 @@ extern "C" int flash_attention_bwd_launch(
   const AttnMask mask{Sk, causal, has_window, window, q_offset};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lf = static_cast<const float*>(lse);
-  if (dtype == 0) {
+  if (dtype == 0 && D <= 128) {
     for (const void* p : {q, k, v, dout, (const void*)scratch})
       if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
         return (int)cudaErrorInvalidValue;
@@ -1215,10 +1743,21 @@ extern "C" int flash_attention_bwd_launch(
     return launch_f32<DD>(q, k, v, out, dout, lf, dvec, scratch, dq, dk,    \
                           dv, strides, B, H, Hkv, Sq, Sk, scale, mask, st); \
   case 1000 + DD:                                                           \
-    return launch_f64<DD>(q, k, v, out, dout, lf, dvec, dq, dk, dv,         \
-                          strides, B, H, Hkv, Sq, Sk, scale, mask, st);
+    return launch_fma<double, DD>(q, k, v, out, dout, lf, dvec, dq, dk, dv, \
+                                  strides, B, H, Hkv, Sq, Sk, scale, mask,  \
+                                  st);
     FAB_CASE(16) FAB_CASE(32) FAB_CASE(64) FAB_CASE(128)
 #undef FAB_CASE
+    case 160:
+      return launch_fma<float, 160>(q, k, v, out, dout, lf, dvec, dq, dk, dv,
+                                    strides, B, H, Hkv, Sq, Sk, scale, mask,
+                                    st);
+#define BF_CASE(DD)                                                         \
+  case 3000 + DD:                                                           \
+    return launch_mma<DD>(q, k, v, out, dout, lf, dvec, dq, dk, dv,         \
+                          strides, B, H, Hkv, Sq, Sk, scale, mask, st);
+    BF_CASE(16) BF_CASE(32) BF_CASE(64) BF_CASE(128) BF_CASE(160)
+#undef BF_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }

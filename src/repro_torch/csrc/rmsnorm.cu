@@ -47,7 +47,9 @@
 //   dx = dres = r g - v r^3 mean(g * v),   dw = sum over rows of dy v r,
 //
 // in T for float and double (a double input is computed in double, the
-// exact gradient of the formula; other dtypes are refused).  r is
+// exact gradient of the formula), and for bfloat16 in float: x, res and dy
+// read as bfloat16, w, the statistics, the dw partials and dw in float, dx
+// rounded to bfloat16 once (float16 is refused).  r is
 // recomputed from x (+ res), not saved by the forward.  Bound: bytes,
 // (3 or 4) * rows * d * sizeof(T), each of x, res, dy read once and dx
 // written once.  Two launches, no atomics:
@@ -94,8 +96,10 @@ template <> __device__ __forceinline__ __nv_bfloat16 store_as<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
-// V elements of T moved as one aligned access (16 bytes on the vector path)
-template <typename T, int V> struct alignas(sizeof(T) * V) Pack { T v[V]; };
+// V elements of T moved as one aligned access (16 bytes on the vector path;
+// the backward's float vectors of bfloat16 rows, 32 bytes, as two)
+template <typename T, int V>
+struct alignas(sizeof(T) * V < 16 ? sizeof(T) * V : 16) Pack { T v[V]; };
 
 template <typename T, int V>
 __device__ __forceinline__ void load_row(const T* p, float (&f)[V]) {
@@ -297,28 +301,41 @@ __device__ __forceinline__ double inv_rms(double ss, int d, double eps) {
   return 1.0 / sqrt(ss / (double)d + eps);
 }
 
-template <typename T, int V>
-__device__ __forceinline__ void load_t(const T* p, T (&f)[V]) {
-  const Pack<T, V> q = *reinterpret_cast<const Pack<T, V>*>(p);
-#pragma unroll
-  for (int e = 0; e < V; ++e) f[e] = q.v[e];
+// the backward's storage type T to its compute type A and back: A is T
+// for float and double, float for bfloat16
+__device__ __forceinline__ float acc_of(float v) { return v; }
+__device__ __forceinline__ double acc_of(double v) { return v; }
+__device__ __forceinline__ float acc_of(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void put(float& d, float v) { d = v; }
+__device__ __forceinline__ void put(double& d, double v) { d = v; }
+__device__ __forceinline__ void put(__nv_bfloat16& d, float v) {
+  d = __float2bfloat16_rn(v);
 }
 
-template <typename T, int V>
-__device__ __forceinline__ void store_t(T* p, const T (&f)[V]) {
+template <typename T, typename A, int V>
+__device__ __forceinline__ void load_t(const T* p, A (&f)[V]) {
+  const Pack<T, V> q = *reinterpret_cast<const Pack<T, V>*>(p);
+#pragma unroll
+  for (int e = 0; e < V; ++e) f[e] = acc_of(q.v[e]);
+}
+
+template <typename T, typename A, int V>
+__device__ __forceinline__ void store_t(T* p, const A (&f)[V]) {
   Pack<T, V> q;
 #pragma unroll
-  for (int e = 0; e < V; ++e) q.v[e] = f[e];
+  for (int e = 0; e < V; ++e) put(q.v[e], f[e]);
   *reinterpret_cast<Pack<T, V>*>(p) = q;
 }
 
-template <typename T, bool kRes, int V>
+template <typename T, bool kRes, int V, typename A>
 __device__ __forceinline__ void load_vt(const T* x, const T* res, int64_t at,
-                                        T (&v)[V]) {
-  load_t<T, V>(x + at, v);
+                                        A (&v)[V]) {
+  load_t<T>(x + at, v);
   if (kRes) {
-    T u[V];
-    load_t<T, V>(res + at, u);
+    A u[V];
+    load_t<T>(res + at, u);
 #pragma unroll
     for (int e = 0; e < V; ++e) v[e] += u[e];
   }
@@ -361,32 +378,33 @@ __device__ __forceinline__ void group_sum2(T& a, T& b, int tpr, int grp,
 // + groups, ...; writes dx and partial[c][:].  Thread t of a group holds
 // vectors t, t + tpr, ... (kN of them) of each row, and the same vectors of
 // w and of its column sums for all the block's rows.  kN == 0: the row
-// does not fit, one group of kThreads walks it twice.
-template <typename T, bool kRes, int V, int kN, int kThreads>
+// does not fit, one group of kThreads walks it twice.  x, res, dy and dx
+// are T; w, the partials and every sum are the compute type A.
+template <typename T, typename A, bool kRes, int V, int kN, int kThreads>
 __global__ void __launch_bounds__(kThreads)
 rms_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
-                    const T* __restrict__ w, const T* __restrict__ dy,
-                    T* __restrict__ dx, T* __restrict__ partial,
-                    int64_t rows, int d, int tpr, int64_t rpc, T eps) {
+                    const A* __restrict__ w, const T* __restrict__ dy,
+                    T* __restrict__ dx, A* __restrict__ partial,
+                    int64_t rows, int d, int tpr, int64_t rpc, A eps) {
   constexpr int kHeld = kN > 0 ? kN : 1;
   // the groups' column sums meet here (several groups: kThreads == kBwdBlock)
   constexpr int kCols = kThreads == kBwdBlock ? kBwdBlock * kHeld * V : 1;
-  __shared__ __align__(16) T cols[kCols];
-  __shared__ T red[2][2 * kThreads / 32];   // two buffers: rows alternate
+  __shared__ __align__(16) A cols[kCols];
+  __shared__ A red[2][2 * kThreads / 32];   // two buffers: rows alternate
   const int t = threadIdx.x % tpr, grp = threadIdx.x / tpr;
   const int groups = blockDim.x / tpr;
   const int nv = d / V;
   const int64_t r0 = (int64_t)blockIdx.x * rpc;
   const int64_t r1 = r0 + rpc < rows ? r0 + rpc : rows;
-  T* out = partial + (int64_t)blockIdx.x * d;
-  T wv[kHeld][V], acc[kHeld][V];
+  A* out = partial + (int64_t)blockIdx.x * d;
+  A wv[kHeld][V], acc[kHeld][V];
   if (kN > 0) {
 #pragma unroll
     for (int k = 0; k < kHeld; ++k) {
       const int q = t + k * tpr;
 #pragma unroll
-      for (int e = 0; e < V; ++e) acc[k][e] = wv[k][e] = T(0);
-      if (q < nv) load_t<T, V>(w + q * V, wv[k]);
+      for (int e = 0; e < V; ++e) acc[k][e] = wv[k][e] = A(0);
+      if (q < nv) load_t<A>(w + q * V, wv[k]);
     }
   }
   int it = 0;
@@ -394,19 +412,19 @@ rms_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
     const int64_t r = base + grp;
     const bool live = r < r1;
     const int64_t row = r * d;
-    T ss = T(0), dot = T(0);
+    A ss = A(0), dot = A(0);
     if (kN > 0) {
-      T v[kHeld][V], g[kHeld][V];   // g: dy, as loaded
+      A v[kHeld][V], g[kHeld][V];   // g: dy, as loaded
       // every load of the row is issued before the first use
 #pragma unroll
       for (int k = 0; k < kHeld; ++k) {
         const int q = t + k * tpr;
         if (live && q < nv) {
-          load_vt<T, kRes, V>(x, res, row + (int64_t)q * V, v[k]);
-          load_t<T, V>(dy + row + (int64_t)q * V, g[k]);
+          load_vt<T, kRes>(x, res, row + (int64_t)q * V, v[k]);
+          load_t<T>(dy + row + (int64_t)q * V, g[k]);
         } else {
 #pragma unroll
-          for (int e = 0; e < V; ++e) v[k][e] = g[k][e] = T(0);
+          for (int e = 0; e < V; ++e) v[k][e] = g[k][e] = A(0);
         }
       }
 #pragma unroll
@@ -418,28 +436,28 @@ rms_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
         }
       group_sum2(ss, dot, tpr, grp, red[it & 1]);
       if (live) {
-        const T inv = inv_rms(ss, d, eps);
-        const T coef = inv * inv * inv * (dot / (T)d);
+        const A inv = inv_rms(ss, d, eps);
+        const A coef = inv * inv * inv * (dot / (A)d);
 #pragma unroll
         for (int k = 0; k < kHeld; ++k) {
           const int q = t + k * tpr;
           if (q < nv) {
-            T o[V];
+            A o[V];
 #pragma unroll
             for (int e = 0; e < V; ++e) {
               o[e] = inv * (g[k][e] * wv[k][e]) - v[k][e] * coef;
               acc[k][e] += g[k][e] * v[k][e] * inv;
             }
-            store_t<T, V>(dx + row + (int64_t)q * V, o);
+            store_t<T>(dx + row + (int64_t)q * V, o);
           }
         }
       }
     } else {
       for (int q = t; live && q < nv; q += tpr) {
-        T u[V], gq[V], wq[V];
-        load_vt<T, kRes, V>(x, res, row + (int64_t)q * V, u);
-        load_t<T, V>(dy + row + (int64_t)q * V, gq);
-        load_t<T, V>(w + q * V, wq);
+        A u[V], gq[V], wq[V];
+        load_vt<T, kRes>(x, res, row + (int64_t)q * V, u);
+        load_t<T>(dy + row + (int64_t)q * V, gq);
+        load_t<A>(w + q * V, wq);
 #pragma unroll
         for (int e = 0; e < V; ++e) {
           ss += u[e] * u[e];
@@ -448,26 +466,26 @@ rms_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
       }
       group_sum2(ss, dot, tpr, grp, red[it & 1]);
       if (live) {
-        const T inv = inv_rms(ss, d, eps);
-        const T coef = inv * inv * inv * (dot / (T)d);
+        const A inv = inv_rms(ss, d, eps);
+        const A coef = inv * inv * inv * (dot / (A)d);
         for (int q = t; q < nv; q += tpr) {
-          T u[V], gq[V], wq[V], o[V], p[V];
-          load_vt<T, kRes, V>(x, res, row + (int64_t)q * V, u);
-          load_t<T, V>(dy + row + (int64_t)q * V, gq);
-          load_t<T, V>(w + q * V, wq);
+          A u[V], gq[V], wq[V], o[V], p[V];
+          load_vt<T, kRes>(x, res, row + (int64_t)q * V, u);
+          load_t<T>(dy + row + (int64_t)q * V, gq);
+          load_t<A>(w + q * V, wq);
           if (r == r0) {
 #pragma unroll
-            for (int e = 0; e < V; ++e) p[e] = T(0);
+            for (int e = 0; e < V; ++e) p[e] = A(0);
           } else {   // this thread's own earlier store
-            load_t<T, V>(out + q * V, p);
+            load_t<A>(out + q * V, p);
           }
 #pragma unroll
           for (int e = 0; e < V; ++e) {
             o[e] = inv * (gq[e] * wq[e]) - u[e] * coef;
             p[e] += gq[e] * u[e] * inv;
           }
-          store_t<T, V>(dx + row + (int64_t)q * V, o);
-          store_t<T, V>(out + q * V, p);
+          store_t<T>(dx + row + (int64_t)q * V, o);
+          store_t<A>(out + q * V, p);
         }
       }
     }
@@ -477,7 +495,7 @@ rms_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
 #pragma unroll
     for (int k = 0; k < kHeld; ++k) {
       const int q = t + k * tpr;
-      if (q < nv) store_t<T, V>(out + q * V, acc[k]);
+      if (q < nv) store_t<A>(out + q * V, acc[k]);
     }
     return;
   }
@@ -485,11 +503,11 @@ rms_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
 #pragma unroll
   for (int k = 0; k < kHeld; ++k) {
     const int q = t + k * tpr;
-    if (q < nv) store_t<T, V>(cols + grp * d + q * V, acc[k]);
+    if (q < nv) store_t<A>(cols + grp * d + q * V, acc[k]);
   }
   __syncthreads();
   for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    T s = T(0);
+    A s = A(0);
     for (int i = 0; i < groups; ++i) s += cols[i * d + j];
     out[j] = s;
   }
@@ -519,44 +537,44 @@ rms_norm_bwd_dw_kernel(const T* __restrict__ partial, T* __restrict__ dw,
   }
 }
 
-template <typename T, bool kRes, int V, int kN, int kThreads>
-int launch_bwd_n(const T* x, const T* res, const T* w, const T* dy, T* dx,
-                 T* partial, int64_t rows, int d, int tpr, int64_t rpc,
-                 int nchunks, T eps, cudaStream_t stream) {
+template <typename T, typename A, bool kRes, int V, int kN, int kThreads>
+int launch_bwd_n(const T* x, const T* res, const A* w, const T* dy, T* dx,
+                 A* partial, int64_t rows, int d, int tpr, int64_t rpc,
+                 int nchunks, A eps, cudaStream_t stream) {
   const int threads = tpr < kBwdBlock ? kBwdBlock : tpr;
-  rms_norm_bwd_kernel<T, kRes, V, kN, kThreads><<<nchunks, threads, 0, stream>>>(
+  rms_norm_bwd_kernel<T, A, kRes, V, kN, kThreads><<<nchunks, threads, 0, stream>>>(
       x, res, w, dy, dx, partial, rows, d, tpr, rpc, eps);
   return (int)cudaGetLastError();
 }
 
 // The group size: the fewest threads (a power of 2) that hold a row in
 // kBwdMaxN vectors each, from d alone.
-template <typename T, bool kRes, int V>
-int launch_bwd_v(const T* x, const T* res, const T* w, const T* dy, T* dx,
-                 T* partial, int64_t rows, int d, int64_t rpc, int nchunks,
-                 T eps, cudaStream_t stream) {
+template <typename T, typename A, bool kRes, int V>
+int launch_bwd_v(const T* x, const T* res, const A* w, const T* dy, T* dx,
+                 A* partial, int64_t rows, int d, int64_t rpc, int nchunks,
+                 A eps, cudaStream_t stream) {
   const int nv = d / V;
   int tpr = 1;
   while (tpr * kBwdMaxN < nv) tpr <<= 1;
   if (tpr > kMaxThreads)
-    return launch_bwd_n<T, kRes, V, 0, kMaxThreads>(
+    return launch_bwd_n<T, A, kRes, V, 0, kMaxThreads>(
         x, res, w, dy, dx, partial, rows, d, kMaxThreads, rpc, nchunks, eps,
         stream);
   const int n = (nv + tpr - 1) / tpr;
   if (tpr > kBwdBlock)  // then n > 2
-    return launch_bwd_n<T, kRes, V, kBwdMaxN, kMaxThreads>(
+    return launch_bwd_n<T, A, kRes, V, kBwdMaxN, kMaxThreads>(
         x, res, w, dy, dx, partial, rows, d, tpr, rpc, nchunks, eps, stream);
   if (n == 1)
-    return launch_bwd_n<T, kRes, V, 1, kBwdBlock>(
+    return launch_bwd_n<T, A, kRes, V, 1, kBwdBlock>(
         x, res, w, dy, dx, partial, rows, d, tpr, rpc, nchunks, eps, stream);
   if (n == 2)
-    return launch_bwd_n<T, kRes, V, 2, kBwdBlock>(
+    return launch_bwd_n<T, A, kRes, V, 2, kBwdBlock>(
         x, res, w, dy, dx, partial, rows, d, tpr, rpc, nchunks, eps, stream);
-  return launch_bwd_n<T, kRes, V, kBwdMaxN, kBwdBlock>(
+  return launch_bwd_n<T, A, kRes, V, kBwdMaxN, kBwdBlock>(
       x, res, w, dy, dx, partial, rows, d, tpr, rpc, nchunks, eps, stream);
 }
 
-template <typename T, bool kRes>
+template <typename T, typename A, bool kRes>
 int launch_bwd(const void* xp, const void* resp, const void* wp,
                const void* dyp, void* dxp, void* dwp, void* partialp,
                int64_t rows, int d, int64_t rpc, int nchunks, double eps,
@@ -564,40 +582,41 @@ int launch_bwd(const void* xp, const void* resp, const void* wp,
   constexpr int V = 16 / sizeof(T);
   const T* x = static_cast<const T*>(xp);
   const T* res = static_cast<const T*>(resp);
-  const T* w = static_cast<const T*>(wp);
+  const A* w = static_cast<const A*>(wp);
   const T* dy = static_cast<const T*>(dyp);
   T* dx = static_cast<T*>(dxp);
-  T* partial = static_cast<T*>(partialp);
+  A* partial = static_cast<A*>(partialp);
   if ((int64_t)nchunks * rpc < rows || (int64_t)(nchunks - 1) * rpc >= rows)
     return (int)cudaErrorInvalidValue;
   const int e =
       d % V == 0 && aligned16(x) && aligned16(w) && aligned16(dy) &&
               aligned16(dx) && (!kRes || aligned16(res))
-          ? launch_bwd_v<T, kRes, V>(x, res, w, dy, dx, partial, rows, d, rpc,
-                                     nchunks, (T)eps, stream)
-          : launch_bwd_v<T, kRes, 1>(x, res, w, dy, dx, partial, rows, d, rpc,
-                                     nchunks, (T)eps, stream);
+          ? launch_bwd_v<T, A, kRes, V>(x, res, w, dy, dx, partial, rows, d,
+                                        rpc, nchunks, (A)eps, stream)
+          : launch_bwd_v<T, A, kRes, 1>(x, res, w, dy, dx, partial, rows, d,
+                                        rpc, nchunks, (A)eps, stream);
   if (e != (int)cudaSuccess) return e;
-  rms_norm_bwd_dw_kernel<T><<<(d + 31) / 32, 32 * kDwLanes, 0, stream>>>(
-      partial, static_cast<T*>(dwp), d, nchunks);
+  rms_norm_bwd_dw_kernel<A><<<(d + 31) / 32, 32 * kDwLanes, 0, stream>>>(
+      partial, static_cast<A*>(dwp), d, nchunks);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename A = T>
 int launch_bwd_r(const void* x, const void* res, const void* w, const void* dy,
                  void* dx, void* dw, void* partial, int64_t rows, int d,
                  int64_t rpc, int nchunks, double eps, cudaStream_t stream) {
   if (res == nullptr)
-    return launch_bwd<T, false>(x, nullptr, w, dy, dx, dw, partial, rows, d,
-                                rpc, nchunks, eps, stream);
-  return launch_bwd<T, true>(x, res, w, dy, dx, dw, partial, rows, d, rpc,
-                             nchunks, eps, stream);
+    return launch_bwd<T, A, false>(x, nullptr, w, dy, dx, dw, partial, rows,
+                                   d, rpc, nchunks, eps, stream);
+  return launch_bwd<T, A, true>(x, res, w, dy, dx, dw, partial, rows, d, rpc,
+                                nchunks, eps, stream);
 }
 
 }  // namespace
 
-// The backward.  dtype codes as below, 0 float32 or 1 float64 only; w, dw
-// and the partials (nchunks x d) are of the dtype; res may be null; rows of
+// The backward.  dtype codes as below, 0 float32, 1 float64 or 3 bfloat16;
+// w, dw and the partials (nchunks x d) are of the compute type (the dtype;
+// float for bfloat16); res may be null; rows of
 // rpc per chunk, nchunks = ceil(rows / rpc).  dx is also dres.  Returns the
 // cudaError_t of the two launches.
 extern "C" int rms_norm_bwd_launch(int dtype, const void* x, const void* res,
@@ -611,6 +630,7 @@ extern "C" int rms_norm_bwd_launch(int dtype, const void* x, const void* res,
   switch (dtype) {
     case 0: return launch_bwd_r<float>(x, res, w, dy, dx, dw, partial, rows, d, rpc, nchunks, eps, st);
     case 1: return launch_bwd_r<double>(x, res, w, dy, dx, dw, partial, rows, d, rpc, nchunks, eps, st);
+    case 3: return launch_bwd_r<__nv_bfloat16, float>(x, res, w, dy, dx, dw, partial, rows, d, rpc, nchunks, eps, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -25,8 +25,7 @@ At D 160 (stablelm-12b) a float32 CTA takes kv tiles of 16 keys, which
 keeps its shared memory at 181 KB (32-key tiles would need 280 KB) and
 its registers at D 128's count; 16-bit inputs keep 32 keys and land in
 TMA's 64-byte swizzle (a 320-byte row is no multiple of 128).  float64
-does not fit at D 160 and raises, as does the backward at D 160 (ROADMAP
-queue 2).
+does not fit at D 160 and raises.
 It writes its output into a (B, Sq, H, D) buffer and returns the
 (B, H, Sq, D) view of it, so that the caller's transpose back to
 (B, Sq, H*D) is free.
@@ -34,15 +33,24 @@ It writes its output into a (B, Sq, H, D) buffer and returns the
 With ``return_lse=True`` the forward also returns each query row's
 log-sum-exp of its scaled scores, (B, H, Sq) float32: what the backward
 recomputes the probabilities from.  The backward, ``flash_attention_bwd``
-(``csrc/flash_attention_bwd.cu``, float32 and float64), takes q, k, v, the
-output, lse and the output's cotangent and returns (dq, dk, dv) from three
-deterministic kernels (a row-dot pass, one CTA per kv tile for dk/dv
-summing its GQA group in a fixed order, one CTA per query tile for dq; no
-atomics).  float32 runs its five products on the tensor cores with
+(``csrc/flash_attention_bwd.cu``, float32, float64 and bfloat16, every
+head dim of ``BWD_HEAD_DIMS``), takes q, k, v, the output, lse and the
+output's cotangent and returns (dq, dk, dv) from three deterministic
+kernels (a row-dot pass, one CTA per kv tile for dk/dv summing its GQA
+group in a fixed order, one CTA per query tile for dq; no atomics).
+float32 at D 16 to 128 runs its five products on the tensor cores with
 ``wgmma`` in 3xTF32 from TMA-fed tiles, and the dk/dv kernel hands dS to
 the dq kernel through a scratch tensor of the tiles the masks keep (0.285
 GB at the LM's training shape, B 8, H 16, S 1024, causal), allocated here
-per call; float64 runs FMA on the CUDA cores.  ``kernels/ops.py`` makes the
+per call.  bfloat16 at every D runs ``mma.sync`` m16n8k16 on the tensor
+cores: its bfloat16 inputs are read as they are (no float32 copy), S, dP,
+P and dS are float32, P and dS rounded to bfloat16 only as the operands of
+dV, dK and dQ, every sum float32 and dq, dk, dv rounded to bfloat16 once
+(the JAX package's ``attention_ref`` differentiated on bfloat16 inputs,
+with FlashAttention's roundings); its dQ kernel recomputes S and dP, so it
+needs no scratch.  float64 (in double) and float32 at D 160
+(stablelm-12b; the wgmma layout does not fit a CTA's shared memory there)
+run simple FMA kernels on the CUDA cores.  ``kernels/ops.py`` makes the
 pair a ``torch.autograd.Function``; the plain version is
 ``kernels/ref.py::attention_bwd_ref``.
 
@@ -66,7 +74,7 @@ __all__ = ["flash_attention", "flash_attention_bwd", "tma_ready", "SOURCE",
 # the forward's head dims; 160 (stablelm-12b) in float32, float16 and
 # bfloat16 only: float64's tiles at D 160 do not fit a CTA's shared memory
 HEAD_DIMS = (16, 32, 64, 128, 160)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
+BWD_HEAD_DIMS = (16, 32, 64, 128, 160)
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
                torch.bfloat16: 3}
 _vp, _i32 = ctypes.c_void_p, ctypes.c_int
@@ -79,11 +87,11 @@ SOURCE = LIBRARY.source
 BWD_LIBRARY = CudaLibrary("flash_attention_bwd", {
     "flash_attention_bwd_launch": [_i32] + [_vp] * 12 + [_i32] * 6 + [
         ctypes.c_double] + [_i32] * 4 + [_vp],
-    "flash_attention_bwd_scratch_bytes": [_i32] * 9 + [
+    "flash_attention_bwd_scratch_bytes": [_i32] * 10 + [
         ctypes.POINTER(ctypes.c_longlong)],
 })
 BWD_SOURCE = BWD_LIBRARY.source
-_BWD_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+_BWD_DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 3}
 
 
 def _strides(t: torch.Tensor):
@@ -144,8 +152,7 @@ def check_bwd_head_dim(D: int):
     if D not in BWD_HEAD_DIMS:
         raise NotImplementedError(
             f"flash_attention_bwd: head dim {D} is not ported (the backward "
-            f"takes {BWD_HEAD_DIMS}; D 160 is open in ROADMAP queue 2, "
-            f"\"flash backward at D 160\")")
+            f"takes {BWD_HEAD_DIMS})")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -193,10 +200,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: Optional[float] = None):
     """The gradients (dq, dk, dv) of ``flash_attention(q, k, v, ...)`` for
     the output cotangent ``dout``, on the card, from the forward's output
-    ``out`` and ``lse`` (its ``return_lse``).  q, k, v, out, dout: float32
-    or float64 (another dtype raises ``TypeError``), any strides with the
-    last dim contiguous (float32 reads dout by TMA too: ``tma_ready``);
-    lse: (B, H, Sq) float32.  dq comes back as the
+    ``out`` and ``lse`` (its ``return_lse``).  q, k, v, out, dout: float32,
+    float64 or bfloat16 (another dtype raises ``TypeError``), any strides
+    with the last dim contiguous (float32 at D <= 128 reads dout by TMA
+    too: ``tma_ready``); lse: (B, H, Sq) float32.  dq comes back as the
     (B, H, Sq, D) view of a (B, Sq, H, D) buffer, like the forward's output;
     dk and dv as (B, Hkv, Sk, D) views of (B, Sk, Hkv, D) buffers."""
     name = "flash_attention_bwd"
@@ -219,10 +226,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"{name}: lse {lse.dtype} {tuple(lse.shape)} is not "
                          f"a contiguous ({B}, {H}, {Sq}) float32 tensor")
-    if code == 0 and not tma_ready(dout):
-        raise ValueError(f"{name}: TMA needs dout's base and b, h, s strides "
-                         f"16-byte aligned (got storage offset "
-                         f"{dout.storage_offset()}, strides "
+    if (code == 3 or code == 0 and D <= 128) and not tma_ready(dout):
+        raise ValueError(f"{name}: the kernels read dout's rows 16 bytes at a "
+                         f"time (TMA for float32): its base and b, h, s "
+                         f"strides must be 16-byte aligned (got storage "
+                         f"offset {dout.storage_offset()}, strides "
                          f"{tuple(dout.stride())})")
     scale = scale if scale is not None else D ** -0.5
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
@@ -236,11 +244,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             0 if window is None else int(window), int(q_offset))
     nbytes = ctypes.c_longlong(0)
     raise_on(lib.flash_attention_bwd_scratch_bytes(
-        code, B, H, Sq, Sk, *mask, ctypes.byref(nbytes)), name)
-    # float32's dS scratch: only the (query, key) tiles the masks keep
+        code, B, H, Sq, Sk, D, *mask, ctypes.byref(nbytes)), name)
+    # the wgmma kernels' dS scratch: only the (query, key) tiles the masks
+    # keep
     scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=q.device) \
         if nbytes.value else None
-    dvec = torch.empty((B, H, Sq), dtype=q.dtype, device=q.device)
+    # the row dots in the compute type (float32 for bfloat16)
+    dvec = torch.empty((B, H, Sq), dtype=torch.promote_types(
+        q.dtype, torch.float32), device=q.device)
     strides = (ctypes.c_longlong * 24)(*(
         s for t in (q, k, v, out, dout) + views for s in _strides(t)))
     err = call(lib.flash_attention_bwd_launch, q.get_device(), code,

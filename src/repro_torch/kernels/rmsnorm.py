@@ -9,11 +9,14 @@ package's ``rms_norm_pallas``).  The plain PyTorch version is
 ``kernels/ref.py::rms_norm_ref``; ``kernels/ops.py`` routes CPU tensors
 there and CUDA tensors here.
 
-The backward, ``rms_norm_bwd`` (float32 and float64), is in the same
-source: one pass over the rows writes dx (which is also the residual's
+The backward, ``rms_norm_bwd`` (float32, float64 and bfloat16), is in the
+same source: one pass over the rows writes dx (which is also the residual's
 gradient) and one partial row of dw per chunk of rows, then a small launch
 sums the partials in a fixed order; no atomics, and the chunks depend on
-the shape alone, so that two calls give the same bits.  ``kernels/ops.py``
+the shape alone, so that two calls give the same bits.  bfloat16 rows are
+read as they are and computed in float32 (the statistics, the dw partials
+and dw), dx rounded to bfloat16 once: the JAX package's autodiff of its
+float32 ``rms_norm_ref``, cast back.  ``kernels/ops.py``
 makes the pair a ``torch.autograd.Function``; the plain version is
 ``kernels/ref.py::rms_norm_bwd_ref``.
 
@@ -43,7 +46,7 @@ LIBRARY = CudaLibrary("rmsnorm", {
                             ctypes.c_longlong, ctypes.c_int, ctypes.c_double,
                             _vp],
 })
-_BWD_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+_BWD_DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 3}
 SOURCE = LIBRARY.source
 
 
@@ -86,16 +89,16 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
 
 
 DW_CHUNKS = 256             # blocks of the one-pass kernel, at most
-DW_PARTIAL_ELEMENTS = 1 << 18   # dw partials, at most (1 MB in float32)
+DW_PARTIAL_ELEMENTS = 1 << 21   # dw partials, at most (8 MB in float32)
 DW_MIN_ROWS = 32            # rows a chunk, at least
 
 
 def _dw_chunks(rows: int, d: int):
     """Rows per chunk and chunk count of the one-pass kernel (one block and
     one partial row of dw per chunk): about 256 chunks (two blocks an SM on
-    the H100), fewer where the partials would pass 2^18 elements, at least
-    32 rows each.  A function of the shape alone, so the summation order is
-    fixed on every card."""
+    the H100), fewer where the partials would pass 2^21 elements (d past
+    8192), at least 32 rows each.  A function of the shape alone, so the
+    summation order is fixed on every card."""
     target = max(1, min(DW_CHUNKS, DW_PARTIAL_ELEMENTS // d))
     rpc = max(DW_MIN_ROWS, -(-rows // target))
     return rpc, -(-rows // rpc)
@@ -107,8 +110,9 @@ def rms_norm_bwd(x: torch.Tensor, w: torch.Tensor,
     """The gradients of ``rms_norm(x, w, residual, eps)`` for the output
     cotangent ``dy``, on the card: (dx, dw).  dx, like x, is also the
     residual's gradient; dw is in w's dtype.  x, residual, dy: contiguous
-    float32 or float64 CUDA tensors of one shape and dtype (another dtype
-    raises ``TypeError``); w: (d,), read in x's dtype."""
+    float32, float64 or bfloat16 CUDA tensors of one shape and dtype
+    (another dtype raises ``TypeError``); w: (d,), read in the compute type
+    (x's dtype; float32 for bfloat16), in which dw is summed."""
     name = "rms_norm_bwd"
     code = _BWD_DTYPE_CODE.get(x.dtype)
     if code is None:
@@ -125,10 +129,11 @@ def rms_norm_bwd(x: torch.Tensor, w: torch.Tensor,
     rows = x.numel() // d if d else 0
     if rows == 0:
         return dx, torch.zeros_like(w)
-    wt = w.to(x.dtype).contiguous()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    wt = w.to(acc).contiguous()
     rpc, nchunks = _dw_chunks(rows, d)
-    dw = torch.empty(d, dtype=x.dtype, device=x.device)
-    partial = torch.empty((nchunks, d), dtype=x.dtype, device=x.device)
+    dw = torch.empty(d, dtype=acc, device=x.device)
+    partial = torch.empty((nchunks, d), dtype=acc, device=x.device)
     err = call(LIBRARY.load().rms_norm_bwd_launch, x.get_device(), code,
                x.data_ptr(),
                None if residual is None else residual.data_ptr(),

@@ -55,8 +55,11 @@ def _nbytes(tree) -> int:
 
 
 def run_cell(arch_id: str, shape_name: str, *, device="cuda",
-             verbose: bool = True) -> dict:
-    """The state bytes of one (arch, shape) cell on one card."""
+             param_dtype: str = "bfloat16", verbose: bool = True) -> dict:
+    """The state bytes of one (arch, shape) cell on one card.  A train cell
+    holds its params in ``param_dtype`` (the JAX dry run's default,
+    bfloat16), as do their gradients, and AdamW's float32 m and v, plus
+    float32 master copies when the params are not float32."""
     from repro_torch.models.encdec import init_encdec, init_encdec_caches
     from repro_torch.models.lm import init_caches, init_lm
     from repro_torch.train.train_step import TrainConfig, init_train_state
@@ -65,7 +68,8 @@ def run_cell(arch_id: str, shape_name: str, *, device="cuda",
     B, S = shape.global_batch, shape.seq_len
     parts = {"params": 0, "grads": 0, "opt_state": 0, "caches": 0}
     if shape.kind == "train":
-        state = init_train_state(arch, TrainConfig(), device="meta")
+        state = init_train_state(arch, TrainConfig(param_dtype=param_dtype),
+                                 device="meta")
         params = state.params
         parts["params"] = _nbytes(params)
         parts["grads"] = parts["params"]

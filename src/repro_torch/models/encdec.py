@@ -44,7 +44,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
@@ -55,7 +54,7 @@ from repro_torch.nn.common import dense_init, embed_init, remat
 from repro_torch.nn.mlp import init_swiglu, swiglu
 from repro_torch.nn.norm import init_rmsnorm, rmsnorm
 from repro_torch.nn.rope import apply_rope, rope_freqs
-from .lm import _embed_tp
+from .lm import _embed_tp, tensor_from_numpy
 
 _MODES = ("train", "prefill", "decode")
 
@@ -106,7 +105,7 @@ def params_from_jax(np_tree, cfg: ArchConfig, *, device="cuda",
     package's layout: the stacked ``enc_unit`` and ``dec_unit`` leaves
     split along their leading axis into per-layer dicts."""
     def to_t(a):
-        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+        return tensor_from_numpy(a, device=device, dtype=dtype)
 
     out = {k: pytree.tree_map(to_t, v) for k, v in np_tree.items()
            if k not in ("enc_unit", "dec_unit")}

@@ -123,6 +123,21 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
     }
 
 
+def tensor_from_numpy(a, *, device="cuda",
+                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A numpy array (or scalar) as a tensor on ``device``, in its own
+    dtype unless one is given.  A ``bfloat16`` array (the ``ml_dtypes``
+    type that ``np.asarray`` of a JAX bfloat16 leaf gives; numpy and torch
+    have no common name for it, so it is recognised by name) keeps its bits:
+    it is read as uint16 and viewed as ``torch.bfloat16``, with no round
+    trip through float32."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+        return t.to(device=device, dtype=dtype or torch.bfloat16)
+    return torch.as_tensor(a, dtype=dtype, device=device)
+
+
 def params_from_jax(np_tree, cfg: ArchConfig, *, device="cuda",
                     dtype: Optional[torch.dtype] = None):
     """The JAX package's ``init_lm`` params (as numpy arrays, e.g. after
@@ -134,7 +149,7 @@ def params_from_jax(np_tree, cfg: ArchConfig, *, device="cuda",
     one is given (the float32 router of a float64 model stays float32).
     """
     def to_t(a):
-        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+        return tensor_from_numpy(a, device=device, dtype=dtype)
 
     out = {k: pytree.tree_map(to_t, v) for k, v in np_tree.items()
            if k != "unit"}

@@ -106,14 +106,14 @@ def train_state_from_jax(np_tree, cfg, device="cuda") -> TrainState:
     per unit; ``models.encdec.params_from_jax`` for the enc-dec model); the step, data cursor, solver counters and compression
     residual as tensors.  The JAX PRNG key has no counterpart in a
     ``torch.Generator``: ``rng`` is the state ``init_train_state(...,
-    seed=0)`` makes.  The dtypes are the JAX package's."""
-    import numpy as np
+    seed=0)`` makes.  The dtypes are the JAX package's, bfloat16 leaves
+    included (bit for bit: ``models.lm.tensor_from_numpy``)."""
     from repro_torch.models import encdec, lm
     params_from_jax = encdec.params_from_jax if cfg.encdec else \
         lm.params_from_jax
 
     def scalar(a, dt):
-        return torch.as_tensor(np.array(a), dtype=dt, device=device)
+        return lm.tensor_from_numpy(a, dtype=dt, device=device)
 
     params = params_from_jax(np_tree["params"], cfg, device=device)
     jopt = np_tree["opt"]

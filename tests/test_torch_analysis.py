@@ -399,8 +399,10 @@ def test_dryrun_cells_on_meta(monkeypatch):
     train = by_cell[("qwen3-0.6b", "train_4k")]
     parts = train["bytes_per_device"]
     assert train["n_params"] == 596049920
-    assert parts["params"] == parts["grads"] == 4 * train["n_params"]
-    assert parts["opt_state"] == 2 * parts["params"] + 4   # m, v, step
+    # bfloat16 params and grads (the JAX dry run's param_dtype), float32
+    # m, v and masters, the int32 step
+    assert parts["params"] == parts["grads"] == 2 * train["n_params"]
+    assert parts["opt_state"] == 3 * 4 * train["n_params"] + 4
     assert train["hbm_headroom"]["fits"]
     # the MoE archs' parameter counts are the JAX package's init's
     for arch_id in ("deepseek-v2-lite-16b", "mixtral-8x7b"):

@@ -589,9 +589,42 @@ def test_rms_norm_bwd_kernel_paths_on_card(dtype, rows, d, offset, residual):
 @pytest.mark.cuda
 def test_rms_norm_bwd_refuses_other_dtypes_on_card():
     dev = _on_card()
-    x = torch.ones(4, 16, device=dev, dtype=torch.bfloat16)
+    x = torch.ones(4, 16, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError, match="not supported"):
         rms_kern.rms_norm_bwd(x, torch.ones(16, device=dev), None, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("rows,d,offset", [
+    (8192, 5120, 0), (8192, 1024, 0), (131072, 128, 0), (12345, 1024, 0),
+    (20, 128, 0), (7, 1000, 0), (33, 999, 0), (64, 1024, 1),
+    (9, 20000, 0), (5, 40000, 0)])
+def test_rms_norm_bwd_bf16_matches_plain_on_card(rows, d, offset, residual):
+    """bfloat16 rows (float32 inside, dx and dw rounded once) on every path
+    of the one-pass kernel: 16-byte accesses, scalar ones (odd d, storage
+    offset 1), one row over 1024 threads, and a row too long for registers
+    (d 40000); against the plain version at 2^-7 of the largest entry
+    (``RMS_TOL``'s bfloat16 bound in chip_smoke.py), bitwise against a
+    second call."""
+    dev = _on_card()
+    g = torch.Generator(device=dev).manual_seed(rows + d + offset)
+
+    def view():
+        buf = torch.randn(rows * d + offset, generator=g, device=dev,
+                          dtype=torch.bfloat16)
+        return buf[offset:].view(rows, d)
+
+    x, r, dy = view(), view(), view()
+    w = torch.randn(d, generator=g, device=dev, dtype=torch.bfloat16)
+    res = r if residual else None
+    dx, dw = rms_kern.rms_norm_bwd(x, w, res, dy)
+    wdx, wdw, _ = tref.rms_norm_bwd_ref(x, w, res, dy)
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    assert _rel_err(dx, wdx) <= 2.0 ** -7
+    assert _rel_err(dw, wdw) <= 2.0 ** -7
+    dx2, dw2 = rms_kern.rms_norm_bwd(x, w, res, dy)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
 
 
 # the float32 kernels' tiles cut off-edge: 64 keys x 16 queries (dK/dV, and
@@ -633,6 +666,44 @@ def test_flash_attention_bwd_kernel_matches_plain_on_card(case, dtype):
     for a, b in zip(got, want):
         assert a.shape == b.shape
         assert _rel_err(a, b) <= BWD_TOL[dtype]
+    again = flash_kern.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# head dim 160 (stablelm-12b): float32's FMA kernels (64-row tiles) and
+# bfloat16's mma.sync kernels (16-query dK/dV steps) cut off-edge
+BWD_D160_CASES = [
+    (8, 32, 8, 1024, 1024, 160, True, None, 0),  # stablelm-12b training
+    (1, 4, 2, 100, 100, 160, True, None, 0),     # ragged
+    (2, 8, 2, 65, 300, 160, True, 40, 235),      # window + offset
+    (1, 4, 1, 128, 128, 160, True, 64, 0),       # MQA + window
+    (1, 4, 2, 130, 200, 160, False, None, 0),    # non-causal, Sq < Sk
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", [
+    (c, "bfloat16") for c in BWD_ATTN_CASES + BWD_D160_CASES] + [
+    (c, "float32") for c in BWD_D160_CASES])
+def test_flash_attention_bwd_bf16_and_d160_match_plain_on_card(case, dtype):
+    """bfloat16 at every head dim (the mma.sync kernels, against the plain
+    version at 2e-2 of the largest entry, chip_smoke.py's ``ATTN_TOL``
+    for bfloat16) and float32 at D 160 (the FMA kernels, phase 31's
+    1e-4); outputs in the inputs' dtype, bitwise against a second call."""
+    dev = _on_card()
+    B, H, Hkv, Sq, Sk, D, causal, window, q_offset = case
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.tensor(a, device=dev).to(tdt)
+               for a in attn_inputs(case))
+    do = torch.tensor(np.random.default_rng(5).normal(size=(B, H, Sq, D)),
+                      device=dev).to(tdt)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = flash_kern.flash_attention(q, k, v, return_lse=True, **kw)
+    got = flash_kern.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = tref.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == tdt
+        assert _rel_err(a, b) <= (2e-2 if dtype == "bfloat16" else 1e-4)
     again = flash_kern.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 

@@ -140,17 +140,19 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 @pytest.mark.parametrize("rows,d", [(8192, 1024), (131072, 128),
                                     (65536, 128), (12345, 1024), (20, 128),
-                                    (1, 16), (9, 20000)])
+                                    (1, 16), (9, 20000), (8192, 5120)])
 def test_rms_norm_bwd_chunks_follow_the_shape(rows, d):
     """The one-pass backward's chunks of rows (one block and one partial
     dw row each) cover the rows with no empty chunk (the launcher refuses
-    one), hold at least 32 rows, and number at most 256 with at most 2^18
-    partial elements where d allows; the training shapes get 256."""
+    one), hold at least 32 rows, and number at most 256 with at most 2^21
+    partial elements where d allows; the training shapes get 256,
+    stablelm-12b's d 5120 too."""
     from repro_torch.kernels import rmsnorm as rn
     rpc, n = rn._dw_chunks(rows, d)
     assert (n - 1) * rpc < rows <= n * rpc
-    assert rpc >= 32 and n <= 256 and (n == 1 or n * d <= 1 << 18)
-    if (rows, d) in ((8192, 1024), (131072, 128), (65536, 128)):
+    assert rpc >= 32 and n <= 256 and (n == 1 or n * d <= 1 << 21)
+    if (rows, d) in ((8192, 1024), (131072, 128), (65536, 128),
+                     (8192, 5120)):
         assert n == 256
 
 

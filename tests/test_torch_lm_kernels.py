@@ -176,11 +176,11 @@ def test_ops_kernel_path_refuses_autograd():
     assert x.grad is not None
     assert (rms_kern.rms_norm_bwd.launches,
             flash_kern.flash_attention_bwd.launches) == before
-    # the backward wrappers take float32 and float64 only
+    # the backward wrappers take float32, float64 and bfloat16 only
     with pytest.raises(TypeError, match="not supported"):
-        rms_kern.rms_norm_bwd(x.detach().to(torch.bfloat16),
+        rms_kern.rms_norm_bwd(x.detach().to(torch.float16),
                               torch.ones(16), None,
-                              x.detach().to(torch.bfloat16))
+                              x.detach().to(torch.float16))
     qb = q.detach().to(torch.float16)
     with pytest.raises(TypeError, match="not supported"):
         flash_kern.flash_attention_bwd(qb, qb, qb, qb,

@@ -148,20 +148,24 @@ def test_serve_cli_runs_every_new_arch_on_cpu():
 
 
 def test_flash_head_dim_160_limits():
-    """The flash forward takes D 160 (stablelm-12b) in float32 and 16-bit
-    types; float64 at D 160 and the backward at D 160 raise, the latter
-    before any launch and naming its ROADMAP entry (card runs of D 160:
-    tests/test_torch_cuda.py)."""
+    """The flash forward and backward take D 160 (stablelm-12b) in float32
+    and bfloat16 (the forward in float16 too); float64 at D 160 raises in
+    both, and a head dim the backward does not take raises before any
+    launch (card runs of D 160: tests/test_torch_cuda.py)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    assert 160 in fa.HEAD_DIMS and 160 not in fa.BWD_HEAD_DIMS
+    assert 160 in fa.HEAD_DIMS and 160 in fa.BWD_HEAD_DIMS
     q = torch.zeros((1, 2, 4, 160), dtype=torch.float64)
     with pytest.raises(ValueError, match="not float64"):
         fa.flash_attention(q, q, q)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        fa.flash_attention_bwd(q, q, q, q, q[..., 0], q)
+    with pytest.raises(ValueError, match="not float64"):
+        fa.flash_attention_bwd(q, q, q, q, q[..., 0].float(), q)
+    # D 160 passes the backward's gate; a CPU tensor then fails only the
+    # kernel's device check
     qg = torch.zeros((1, 2, 4, 160), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="D 160"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         ops.attention(qg, qg, qg, use_kernels=True)
+    with pytest.raises(NotImplementedError, match="head dim 96"):
+        fa.check_bwd_head_dim(96)
     with pytest.raises(ValueError, match="head dim 96"):
         fa.flash_attention(*(torch.zeros((1, 2, 4, 96)),) * 3)
