@@ -2759,10 +2759,15 @@ BWD_CASES = [
 RMS_BWD_SHAPES = ((8192, 1024), (131072, 128), (65536, 128))
 
 # the backward variants of bfloat16 training and of head dim 160 (the
-# mma.sync kernels of csrc/flash_attention_bwd.cu for bfloat16, its FMA
-# kernels for float32 at D 160): the shapes of the training paths
-# (qwen3-0.6b's, stablelm-12b's B 8, H 32/8, D 160, internvl2-1b's GQA 7,
-# seamless-m4t-medium's non-causal encoder) and tiles cut off-edge
+# bfloat16 wgmma kernels of csrc/flash_attention_bwd.cu, its FMA kernels
+# for float32 at D 160): the shapes of the training paths (qwen3-0.6b's,
+# stablelm-12b's B 8, H 32/8, D 160, internvl2-1b's GQA 7,
+# seamless-m4t-medium's non-causal encoder) and tiles cut off-edge; the
+# bfloat16 cases from "group 1" on cut the wgmma kernels' tiles (dK/dV 64
+# keys over 64-query steps; dQ 128 queries, 64 a warpgroup, over 64-key
+# steps) at every head dim: one past a tile,
+# Sq < Sk with q_offset, windows under one tile, GQA groups 1, 2, 4 and 7
+# (tests/test_torch_cuda.py::BWD_BF16_EDGE_CASES)
 BWD_NEW_CASES = {
     torch.bfloat16: [
         (8, 16, 8, 1024, 1024, 128, True, None, 0),   # qwen3-0.6b training
@@ -2775,7 +2780,22 @@ BWD_NEW_CASES = {
         (1, 4, 2, 200, 150, 32, False, None, 0),      # D 32, Sq > Sk
         (1, 4, 2, 200, 200, 16, True, None, 0),       # D 16
         (1, 8, 2, 100, 333, 64, True, None, 233),     # group 4, q_offset
-        (1, 8, 2, 129, 129, 32, True, 5, 0)],         # window 5
+        (1, 8, 2, 129, 129, 32, True, 5, 0),          # window 5
+        (1, 4, 4, 129, 129, 16, True, None, 0),       # group 1, 128 + 1
+        (1, 7, 1, 65, 65, 16, False, None, 0),        # GQA 7, 64 + 1
+        (1, 4, 2, 65, 193, 32, True, None, 128),      # group 2, Sq < Sk
+        (1, 8, 2, 129, 129, 32, True, 16, 0),         # group 4, window 16
+        (1, 8, 2, 129, 257, 64, False, None, 0),      # group 4, Sq < Sk
+        (1, 7, 1, 130, 130, 64, True, None, 0),       # GQA 7, ragged
+        (1, 4, 4, 100, 333, 64, True, 30, 233),       # window + offset
+        (1, 14, 2, 65, 65, 128, True, None, 0),       # GQA 7, 64 + 1
+        (1, 8, 4, 129, 129, 128, True, 40, 0),        # group 2, window 40
+        (1, 8, 2, 65, 321, 128, True, None, 256),     # group 4, Sq < Sk
+        (1, 4, 4, 1, 129, 128, True, None, 128),      # one query
+        (1, 4, 4, 33, 97, 160, True, None, 64),       # 32 + 1, offset
+        (1, 8, 4, 129, 129, 160, True, 20, 0),        # group 2, window 20
+        (1, 7, 1, 65, 65, 160, True, None, 0),        # GQA 7
+        (1, 8, 2, 129, 200, 160, False, None, 0)],    # group 4, Sq < Sk
     torch.float32: [
         (8, 32, 8, 1024, 1024, 160, True, None, 0),   # stablelm-12b
         (1, 4, 2, 100, 100, 160, True, None, 0),
@@ -2833,13 +2853,18 @@ def _bwd_device_times_child():
         lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), "attn_bwd", 20,
         3)
     del q, k, v, do, o, lse
-    # the bfloat16 and D 160 variants (phase 31's second part)
+    # the bfloat16 and D 160 variants (phase 31's second part), and the
+    # bfloat16 forward with lse at the bfloat16 shapes
     for name, (case, dtype) in BWD_VARIANTS.items():
         q, k, v, do = _bwd_inputs(case, dtype, g)
         o, lse = fa.flash_attention(q, k, v, return_lse=True)
         out[name] = _device_ms(
             lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), "attn_bwd",
             5, 3)
+        if dtype == torch.bfloat16:
+            out[name + " forward_lse"] = _device_ms(
+                lambda: fa.flash_attention(q, k, v, return_lse=True),
+                "flash_attention_kernel", 5, 1)
         del q, k, v, do, o, lse
     x, dy = (torch.randn(*RMS_BWD_BF16, generator=g, device=dev,
                          dtype=torch.bfloat16) for _ in range(2))
@@ -3054,7 +3079,8 @@ def bwd_variants_vs_plain(g, alone):
     ``ATTN_TOL``'s 2e-2 of the largest entry; bfloat16 rms_norm_bwd:
     ``RMS_TOL``'s 2^-7), each twice and bitwise, then their times per
     call, alone (``alone``: the device-time process's) and host, against
-    SDPA's (F.rms_norm's) backward in the same dtype."""
+    SDPA's (F.rms_norm's) backward in the same dtype, and the bfloat16
+    forward with lse beside each bfloat16 row (``_forward_lse_bf16``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -3142,29 +3168,51 @@ def bwd_variants_vs_plain(g, alone):
                   + B * H * S * 4)
         t_bytes = nbytes / HBM_BYTES_PER_S
         bound = max(t_ops, t_bytes) * 1e3
-        # the design's own work: float32, five products at the CUDA cores'
-        # FMA rate; bfloat16, the seven products of mma.sync kernels (dQ
-        # recomputes S and dP) at the tensor cores' rate
-        own = (flops / F32_FLOP_PER_S if dtype == torch.float32
-               else 1.4 * flops / BF16_FLOP_PER_S) * 1e3
-        own_name = ("float32-FMA bound" if dtype == torch.float32
-                    else "seven-product bound")
         by = "operations" if t_ops >= t_bytes else "bytes"
+        if dtype == torch.float32:
+            # the design's own work: five products at the CUDA cores' FMA
+            # rate
+            own = flops / F32_FLOP_PER_S * 1e3
+            extra = (f"float32-FMA bound {own:.6f} ({own / d_k * 100:.1f}% "
+                     f"of it alone)")
+            extra_row = dict(float32_FMA_bound_ms=own)
+        else:
+            # what one call allocates: the outputs, the row dots and the
+            # bfloat16 dS scratch of the live tiles
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            peak = torch.cuda.max_memory_allocated() - base
+            extra = (f"bytes allocated by one call {peak} (outputs, row "
+                     f"dots and the dS scratch)")
+            extra_row = dict(call_bytes=peak)
         lines.append(f"{name} {str(dtype)[6:]} B{B} H{H}/{Hkv} S{S} D{D} "
                      f"{'causal' if causal else 'full'}: kernel {t_k:.6f} "
                      f"ms (device, 3 kernels {d_k:.6f}, host {h_k:.6f}) "
                      f"plain {t_p:.6f} sdpa backward {t_l:.6f} "
                      f"kernel/library {t_k / t_l:.3f} bound {bound:.6f} "
-                     f"({by}; {bound / d_k * 100:.2f}% of it alone) "
-                     f"{own_name} {own:.6f} ({own / d_k * 100:.1f}% of it "
-                     f"alone)")
+                     f"({by}; {bound / d_k * 100:.2f}% of it alone) {extra}")
         main[name] = dict(
             ms=t_k, device_ms=d_k, host_ms=h_k, plain_ms=t_p, library_ms=t_l,
-            bound_ms=bound, bound_by=by,
-            **{own_name.replace("-", "_").replace(" ", "_") + "_ms": own},
+            bound_ms=bound, bound_by=by, **extra_row,
             shape=f"{str(dtype)[6:]} B{B} H{H} Hkv{Hkv} S{S} D{D} "
                   f"{'causal' if causal else 'full'}")
-        del q, k, v, do, o, lse, qr, kr, vr, o_lib
+        del qr, kr, vr, o_lib
+        if dtype == torch.bfloat16:
+            fwd = _forward_lse_bf16(q, k, v, causal,
+                                    alone[name + " forward_lse"])
+            main[name].update(fwd)
+            share = fwd["forward_lse_bound_ms"] / fwd["forward_lse_device_ms"]
+            lines.append(
+                f"  its forward with lse: kernel {fwd['forward_lse_ms']:.6f} "
+                f"ms (device {fwd['forward_lse_device_ms']:.6f}, host "
+                f"{fwd['forward_lse_host_ms']:.6f}) plain "
+                f"{fwd['forward_lse_plain_ms']:.6f} SDPA flash forward with "
+                f"lse {fwd['forward_lse_library_ms']:.6f} kernel/library "
+                f"{fwd['forward_lse_ms'] / fwd['forward_lse_library_ms']:.3f}"
+                f" bound {fwd['forward_lse_bound_ms']:.6f} (operations at "
+                f"the bfloat16 rate; {share * 100:.2f}% of it alone)")
+        del q, k, v, do, o, lse
     rows, d = RMS_BWD_BF16
     x, dy = (torch.randn(rows, d, generator=g, device=dev,
                          dtype=torch.bfloat16) for _ in range(2))
@@ -3193,6 +3241,33 @@ def bwd_variants_vs_plain(g, alone):
     for line in lines:
         print("  " + line)
     return err, main
+
+
+def _forward_lse_bf16(q, k, v, causal, alone_ms):
+    """The bfloat16 forward with the row log-sum-exp, as the bfloat16
+    training steps call it: per call, alone (``alone_ms``, the device-time
+    process's), host, plain, and SDPA's flash forward with lse (K and V
+    expanded to the query heads before the timing); bound: its two
+    products over the causal (or all) pairs at the bfloat16 rate."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    t_k = _time_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
+                                              return_lse=True), 10, 2)
+    h_k = _host_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
+                                              return_lse=True), 10)
+    t_p = _time_ms(lambda: (ref.attention_ref(q, k, v, causal=causal),
+                            ref.attention_lse_ref(q, k, causal=causal)), 3, 1)
+    ke, ve = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+    t_l = _time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+        q, ke, ve, 0.0, causal), 10, 2)
+    del ke, ve
+    pairs = S * (S + 1) // 2 if causal else S * S
+    bound = 4 * B * H * D * pairs / BF16_FLOP_PER_S * 1e3
+    return dict(forward_lse_ms=t_k, forward_lse_device_ms=alone_ms,
+                forward_lse_host_ms=h_k, forward_lse_plain_ms=t_p,
+                forward_lse_library_ms=t_l, forward_lse_bound_ms=bound)
 
 
 def _train_argv(*extra):

@@ -24,9 +24,10 @@
 // launches: the row-dot pass, dK/dV, dQ.
 //
 // float32 at D 16, 32, 64, 128: wgmma in 3xTF32 on the tensor cores.
-// bfloat16 at D 16 to 160: mma.sync m16n8k16 on the tensor cores, the
-// bfloat16 kernels near the end of this file (P and dS rounded to bfloat16
-// as operands, every sum in float32).  The simple FMA kernels take the rest
+// bfloat16 at D 16 to 160: wgmma in bfloat16 on the tensor cores, from
+// TMA-fed tiles, the bfloat16 kernels near the end of this file (P and dS
+// rounded to bfloat16 as operands, every sum in float32; dQ recomputes S and
+// dP instead of reading a dS scratch).  The simple FMA kernels take the rest
 // on the CUDA cores: double in double (wgmma has no float64, and double is
 // the exactness path), and float32 at D 160 (the wgmma layout does not fit
 // a CTA there: dK/dV would need 249,856 bytes of shared memory, dQ 233,472;
@@ -1207,76 +1208,479 @@ int launch_fma(const void* q, const void* k, const void* v, const void* out,
 }
 
 // ===========================================================================
-// bfloat16: mma.sync m16n8k16 on the tensor cores
+// bfloat16: wgmma from TMA-fed tiles
 // ===========================================================================
 //
-// bfloat16 q, k, v, dout are read as they are (16-byte vector loads into
-// shared memory, rows padded by 8 elements so that each ldmatrix phase
-// meets 8 distinct 16-byte bank groups) and multiplied on the tensor cores
-// with mma.sync.m16n8k16 (bfloat16 operands, float32 accumulators), the
-// flash recurrence of the float32 kernels: S = Q.K^T, dP = dO.V^T in
-// float32; P = exp(S scale - lse) and dS = P (dP - D) in float32, rounded
-// to bfloat16 only where they are the A operand of the next product (dV +=
-// P^T.dO, dK += dS^T.Q, dQ += dS.K), as FlashAttention does; every sum in
-// float32, dq, dk, dv rounded to bfloat16 once.  Bound on the H100:
-// operations over the bfloat16 tensor-core rate, five products (0.0869 ms
-// at qwen3's B 8, H 16/8, S 1024, D 128, causal); this design does seven
-// (the dQ kernel recomputes S and dP, so there is no dS scratch and no
-// atomic); each CTA's next tile is copied by cp.async into a second stage
-// while the current one is computed.
+// The flash recurrence of the float32 kernels on bfloat16 q, k, v, dout as
+// they are (no float32 copy): S = Q.K^T and dP = dO.V^T in float32; P =
+// exp(S scale - lse) and dS = P (dP - D) in float32, rounded to bfloat16
+// only where they are the A operand of the next product (dV += P^T.dO, dK
+// += dS^T.Q, dQ += dS.K), as FlashAttention does; every sum in float32,
+// dq, dk, dv rounded to bfloat16 once.
 //
-//   dkdv kernel  one CTA of 4 warps per (64 keys, kv head, batch); warp w
-//                owns keys 16w .. 16w + 15 and keeps their dK and dV (D/2
-//                floats a thread each) in registers over its GQA group's
-//                32-query tiles (16 at D 160) in a fixed order: S^T =
-//                K.Q^T and dP^T = V.dO^T (A = K or V rows by ldmatrix, B =
-//                Q or dO rows),
-//                then P^T and dS^T in the accumulators' registers become
-//                the A fragments of dV += P^T.dO and dK += dS^T.Q (B by
-//                ldmatrix.trans).
-//   dq kernel    one CTA of 4 warps per (64 queries, head, batch); warp w
-//                owns queries 16w .. 16w + 15, walks the live 32-key tiles:
-//                S = Q.K^T, dP = dO.V^T, dS as A fragments of dQ += dS.K.
+// Bound on the H100: operations over the bfloat16 tensor-core rate, five
+// products (0.0869 ms at qwen3's B 8, H 16/8, S 1024, D 128, causal), and
+// this design does those five.  The dK/dV kernel writes each dS^T tile, as
+// rounded to bfloat16 for dK += dS^T.Q, to a scratch of the live (64-query,
+// 64-key) tiles in global memory (0.143 GB at that shape, ~0.085 ms of HBM
+// traffic written and read once), in the swizzled image that the dQ kernel
+// reads as its MN-major A operand; so dQ += dS.K is the dQ kernel's one
+// product, with no exp and no S or dP.  A first design recomputed S and dP
+// in the dQ kernel (seven products, no scratch: the two products looked
+// cheaper than the scratch's traffic at the tensor cores' full rate), and
+// that dQ kernel, latency-bound on the exp between its products, took
+// longer than the scratch's dQ kernel and the dK/dV kernel's writes of the
+// scratch together (PERF.md).  No atomics: each dS^T tile is written once,
+// by one CTA, and read once.
 //
-// Shared memory (bytes): dkdv K and V (64 rows each of D + 8) and two
-// stages of Q, dO (32 rows each; 16 at D 160), lse and D, 70,144 at D 128
-// and 64,768 at D 160; dq Q and dO (64 rows each) and two stages of K and V
-// (32 rows each), 69,632 at D 128 and 86,016 at D 160.
+// Every product is one wgmma.m64nNk16 (bfloat16 in, float32 accumulators)
+// on tiles that TMA lands in its swizzle (128 bytes; 64 at D 160, whose
+// 320-byte rows are no multiple of 128, chunks of 32 elements; 64 and 32 at
+// D 32 and 16), which is wgmma's operand layout both ways: read K-major, a
+// K, V, Q or dO tile is the A or B operand of S^T = K.Q^T and dP^T = V.dO^T;
+// read MN-major (the transpose bit that wgmma has for 16-bit types), dO
+// and Q are the B operands of dV += P^T.dO and dK += dS^T.Q, and K that of
+// dQ += dS.K (whose A, a dS^T tile of the scratch, is read MN-major too),
+// exactly as they landed.  P^T and dS^T go from the float32 accumulator
+// straight into the bfloat16 A-register fragment of the next wgmma: the
+// accumulator holds columns 2t and 2t+1 of each 8-column block of rows g
+// and g+8, which packed pairwise is the A fragment of a 16-deep step.
+//
+// Both kernels: heavy causal tiles first; two consumer warpgroups of 64
+// rows each (the M of every wgmma) and a ring of slots that one thread
+// fills by TMA and bulk copies; mbarriers order the roles: full (the bytes
+// landed, and in the dK/dV kernel the row values written), free (every
+// consumer warp is done with the slot).  The dK/dV kernel has 384 threads:
+// a producer warpgroup (setmaxnreg 24) whose first warp alone works, and
+// the consumers (setmaxnreg 240).  The dQ kernel is the two consumer
+// warpgroups alone, thread 0 refilling each slot once every warp is done
+// with it: with its ~100 registers two CTAs share an SM at D <= 128.
+// Registers bound the dK/dV layout: a first one gave each warpgroup dK and
+// dV of its own 64 keys and S^T, dP^T of 64 queries (192 accumulator
+// floats a thread), and ptxas, whatever setmaxnreg granted, kept an
+// accumulator in local memory or moved it there around every S^T chain,
+// and serialized every wgmma; so no consumer holds more than D/2 + 32
+// accumulator floats (its own sum and S^T or dP^T of 64 queries), and none
+// spills.  P is 2^x from the
+// SFU alone (ex2.approx.ftz: a P below 2^-126 is 0, far below what the
+// bfloat16 operands and the float32 sums resolve); exp2f's range handling
+// added three instructions an element on the path every other step waits
+// for.  Only steps that the causal diagonal, the window edge or Sk cross
+// pay for the element mask; rows past Sq get lse = +inf, so their P is 0.
+//
+//   dkdv kernel  per (64 keys, kv head, batch): K and V once; then, for
+//                each of its GQA group's heads in order, the query blocks of
+//                64 its keys meet: Q, dO by TMA, and lse (times log2 e) and
+//                D by the producer warp.  Both warpgroups work on the same
+//                64 keys: warpgroup 0 computes S^T = K.Q^T, P^T, hands P^T
+//                (float) to warpgroup 1 through a 2-slot exchange in shared
+//                memory (named barriers), and keeps dV += P^T.dO; warpgroup
+//                1 computes dP^T = V.dO^T, dS^T = P^T (dP^T - D), keeps dK
+//                += dS^T.Q and writes dS^T's bfloat16 A fragments to the
+//                scratch (their swizzled positions; the producer puts each
+//                step's tile index beside its rows).  With two exchange
+//                slots warpgroup 0 runs up to a step ahead, so its S^T and
+//                exp overlap warpgroup 1's dK of the step before; and each
+//                warpgroup issues its next step's S^T (dP^T) chain right
+//                behind this step's dV (dK) product, waiting for both at
+//                the top of the next step.
+//   dq kernel    per (128 queries, head, batch), 256 threads: its live kv
+//                tiles of 64 keys, K by TMA and the two 64-query blocks'
+//                dS^T tiles by bulk copies; warpgroup w keeps dQ of rows
+//                64w .. 64w + 63 (D/2 floats a thread) and runs dQ += dS.K
+//                with both operands read MN-major; it skips a tile its
+//                block's rows do not see (that tile is not in the scratch).
+//
+// Shared memory (bytes): dkdv K, V 2 x 64 x 2D, 3 slots of Q, dO (2 x 64 x
+// 2D) with the rows (2 x 64 x 4) and the tile index, each slot rounded up
+// to 1 KB, and the exchange 2 x 16384: 166,912 at D 128 and 199,680 at D
+// 160; dq 3 slots of K (64 x 2D) and two dS^T tiles (2 x 8192): 98,304 at D
+// 128 and 110,592 at D 160; each plus 1 KB of alignment slack and the
+// barriers.
 
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMmaKeys = 64;       // keys per dK/dV CTA (16 a warp)
-// queries per dK/dV step: 16 at D 160, where dK and dV take 80 floats a
-// thread each
-__host__ __device__ constexpr int mma_qtile(int D) {
-  return D > 128 ? 16 : 32;
+constexpr int kHKeys = 64;     // keys per dK/dV CTA (both warpgroups')
+constexpr int kHQ = 64;        // queries per dK/dV step
+constexpr int kHRows = 128;    // queries per dQ CTA (64 a consumer warpgroup)
+constexpr int kHStep = 64;     // keys per dQ step
+constexpr int kHSlots = 3;     // the dK/dV kernel's ring
+constexpr int kHQSlots = 3;    // the dQ kernel's ring
+static_assert(kHQ == 64 && kHStep == 64 && kHKeys == 64,
+              "S^T and dP^T are m64n64 products (products_kmajor), and a dS "
+              "tile is 64 x 64");
+// bytes of one dS^T tile of the scratch: 64 keys x 64 queries of bfloat16,
+// rows of 128 bytes in TMA's and wgmma's 128-byte swizzle (the MN-major A
+// operand image of dQ += dS.K)
+constexpr int kHTile = kHKeys * kHQ * 2;
+// named barriers of the dK/dV kernel's P^T exchange (0 is __syncthreads):
+// slot x full (1 + x), empty (3 + x)
+constexpr int kHNbXFull = 1, kHNbXEmpty = 3;
+
+// A bfloat16 tile with D along its rows, as TMA lands it: chunks of kPer
+// elements, rows of kOp bytes (TMA's swizzle of that width); chunk c of a
+// tile of R rows at c R kOp
+template <int D>
+struct Rows16 {
+  static constexpr int kOp =
+      D * 2 <= 128 ? D * 2 : (D * 2) % 128 == 0 ? 128 : 64;
+  static constexpr int kPer = kOp / 2;
+  static constexpr int kChunks = D / kPer;
+};
+
+template <int D>
+struct HKvPlan {
+  static constexpr int kKV = kHKeys * D * 2;    // K or V
+  static constexpr int kQ = kHQ * D * 2;        // Q or dO of one step
+  // a slot: Q, dO, then lse (log2 units) and D of its kHQ rows
+  static constexpr int oSdO = kQ;
+  static constexpr int oSRows = 2 * kQ;
+  // a slot: Q, dO, the lse and D rows, then the step's dS tile index (int)
+  static constexpr int kStage =
+      (2 * kQ + 2 * kHQ * 4 + 16 + 1023) / 1024 * 1024;
+  static constexpr int oK = 0;
+  static constexpr int oV = kKV;
+  static constexpr int oRing = 2 * kKV;
+  // the P^T exchange: two slots of 64 keys x kHQ queries of float, at the
+  // accumulator's fragment positions (a thread's four values of each
+  // 8-query block as one float4)
+  static constexpr int oX = oRing + kHSlots * kStage;
+  static constexpr int kX = kHKeys * kHQ * 4;
+  static constexpr int oBar = oX + 2 * kX;
+  static constexpr int kBytes = oBar + (1 + 2 * kHSlots) * 8 + 1024;
+};
+
+template <int D>
+struct HQPlan {
+  static constexpr int kK = kHStep * D * 2;     // K of one step
+  // a slot: K, then the dS^T tiles of the two warpgroups' query blocks
+  static constexpr int oSdS = kK;
+  static constexpr int kStage = kK + 2 * kHTile;
+  static constexpr int oBar = kHQSlots * kStage;
+  static constexpr int kBytes = oBar + 2 * kHQSlots * 8 + 1024;
+};
+// dK/dV barriers: 0 K and V landed; per slot full (1 + s) and free (1 +
+// kHSlots + s)
+__device__ __forceinline__ int h_full(int s) { return 1 + s; }
+__device__ __forceinline__ int h_free(int s) { return 1 + kHSlots + s; }
+
+// The live 64-key tiles of 64-query block iq, [*jb, *jb + n): the dS tiles
+// of that block in the scratch; returns n
+__host__ __device__ inline int h_block_tiles(const AttnMask& m, int Sq, int iq,
+                                             int* jb) {
+  const int last = iq * kHQ + kHQ < Sq ? iq * kHQ + kHQ : Sq;
+  int je;
+  m.kv_tiles(iq * kHQ + m.q_offset, last - 1 + m.q_offset, kHKeys, jb, &je);
+  return je > *jb ? je - *jb : 0;
 }
-constexpr int kMmaQRows = 64;      // queries per dQ CTA (16 a warp)
-constexpr int kMmaKTile = 32;      // keys per dQ step
 
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+// dS tiles of one (b, h): every 64-query block's live tiles, blocks in
+// order, each block's tiles in order
+inline long long h_scratch_tiles(const AttnMask& m, int Sq) {
+  long long n = 0;
+  int jb;
+  for (int iq = 0; iq < (Sq + kHQ - 1) / kHQ; ++iq)
+    n += h_block_tiles(m, Sq, iq, &jb);
+  return n;
+}
+// arrivals on a dK/dV full barrier: the TMA lane's, and each lane of the
+// warp that writes the rows
+constexpr int kHRowArrivals = 32;
+
+// d[64 x 64] += a[64 x 16] . b[64 x 16]^T, a and b in shared memory,
+// both K-major
+__device__ __forceinline__ void wgmma_bf16_ss_n64(float (&d)[32], uint64_t da,
+                                                 uint64_t db) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+// d[64 x 64] = a[64 x 16] . b[64 x 16]^T, a and b in shared memory,
+// both K-major; d tied in and out, scale-d 0 (its old values unused)
+__device__ __forceinline__ void wgmma_bf16_ssz_n64(float (&d)[32], uint64_t da,
+                                                 uint64_t db) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
 }
 
-// c += a.b, a 16 x 16 (row), b 16 x 8 (col), bfloat16 in, float32 out
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// d[64 x 16] += a[64 x 16] . b[16 x 16], a and b MN-major in shared memory
+__device__ __forceinline__ void wgmma_bf16_sstt_n16(float (&d)[8],
+                                                   uint64_t da, uint64_t db) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64 x 32] += a[64 x 16] . b[16 x 32], a and b MN-major in shared memory
+__device__ __forceinline__ void wgmma_bf16_sstt_n32(float (&d)[16],
+                                                   uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15"
+      "}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64 x 64] += a[64 x 16] . b[16 x 64], a and b MN-major in shared memory
+__device__ __forceinline__ void wgmma_bf16_sstt_n64(float (&d)[32],
+                                                   uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64 x 128] += a[64 x 16] . b[16 x 128], a and b MN-major in shared memory
+__device__ __forceinline__ void wgmma_bf16_sstt_n128(float (&d)[64],
+                                                   uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64 x 160] += a[64 x 16] . b[16 x 160], a and b MN-major in shared memory
+__device__ __forceinline__ void wgmma_bf16_sstt_n160(float (&d)[80],
+                                                   uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_sstt(float (&d)[N / 2], uint64_t da,
+                                                uint64_t db) {
+  if constexpr (N == 16) wgmma_bf16_sstt_n16(d, da, db);
+  else if constexpr (N == 32) wgmma_bf16_sstt_n32(d, da, db);
+  else if constexpr (N == 64) wgmma_bf16_sstt_n64(d, da, db);
+  else if constexpr (N == 128) wgmma_bf16_sstt_n128(d, da, db);
+  else wgmma_bf16_sstt_n160(d, da, db);
+}
+
+// d[64 x 16] += a[64 x 16] . b[16 x 16], a in registers (the bf16 A
+// fragment), b MN-major in shared memory
+__device__ __forceinline__ void wgmma_bf16_rs_n16(float (&d)[8],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 32] += a[64 x 16] . b[16 x 32], a in registers (the bf16 A
+// fragment), b MN-major in shared memory
+__device__ __forceinline__ void wgmma_bf16_rs_n32(float (&d)[16],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 64] += a[64 x 16] . b[16 x 64], a in registers (the bf16 A
+// fragment), b MN-major in shared memory
+__device__ __forceinline__ void wgmma_bf16_rs_n64(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 128] += a[64 x 16] . b[16 x 128], a in registers (the bf16 A
+// fragment), b MN-major in shared memory
+__device__ __forceinline__ void wgmma_bf16_rs_n128(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 160] += a[64 x 16] . b[16 x 160], a in registers (the bf16 A
+// fragment), b MN-major in shared memory
+__device__ __forceinline__ void wgmma_bf16_rs_n160(float (&d)[80],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  if constexpr (N == 16) wgmma_bf16_rs_n16(d, a, db);
+  else if constexpr (N == 32) wgmma_bf16_rs_n32(d, a, db);
+  else if constexpr (N == 64) wgmma_bf16_rs_n64(d, a, db);
+  else if constexpr (N == 128) wgmma_bf16_rs_n128(d, a, db);
+  else wgmma_bf16_rs_n160(d, a, db);
+}
+
+// 2^x by the SFU alone (ex2.approx.ftz: a result below 2^-126 is 0)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -1284,402 +1688,512 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// an asynchronous copy of `bytes` (0 or N) bytes into N bytes of shared
-// memory, the rest zero-filled
-template <int N>
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
-                                         int bytes) {
-  if (N == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-                 "l"(src), "r"(bytes)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
-                 "l"(src), "n"(N), "r"(bytes)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// every group but the newest `N` has landed (this thread's copies)
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// rows [r0, r0 + R) of one head (row stride s, D contiguous, 16-byte
-// aligned) into a shared tile of R rows of LDS elements (at address dst),
-// by asynchronous copies; rows past S zeros
-template <int D, int R, int LDS>
-__device__ __forceinline__ void load_rows_bf16(uint32_t dst,
-                                               const __nv_bfloat16* src,
-                                               long long s, int r0, int S) {
-  constexpr int kVec = D / 8;    // 16-byte vectors a row
-  for (int e = threadIdx.x; e < R * kVec; e += kMmaThreads) {
-    const int r = e / kVec, c = e % kVec;
-    const int row = r0 + r;
-    cp_async<16>(dst + 2 * (r * LDS + 8 * c),
-                 row < S ? src + (long long)row * s + 8 * c : src,
-                 row < S ? 16 : 0);
+// acc = a[64 x D] . b[64 x D]^T over D in steps of 16, a and b K-major
+// tiles of Rows16<D> (a of ra rows, b of rb rows, starting at a row that is
+// a multiple of 8).  The first step does not read acc but has it tied in
+// and out (scale-d 0): acc is carried across the pipelined loop, where a
+// write-only accumulator makes the compiler copy it at the back edge and
+// ptxas then serializes every wgmma (C7515)
+template <int D>
+__device__ __forceinline__ void products_kmajor(float (&acc)[32], uint32_t a,
+                                                int ra, uint32_t b, int rb) {
+  using R = Rows16<D>;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint32_t c = 16 * ks / R::kPer, off = (16 * ks % R::kPer) * 2;
+    const uint64_t da = gmma_desc(a + c * ra * R::kOp + off, R::kOp);
+    const uint64_t db = gmma_desc(b + c * rb * R::kOp + off, R::kOp);
+    if (ks == 0) wgmma_bf16_ssz_n64(acc, da, db);
+    else wgmma_bf16_ss_n64(acc, da, db);
   }
 }
 
-// The lane's ldmatrix row address of a 16 x 16 block at (r0, c0) of a
-// row-major tile of LDS elements: the A fragment (rows r0..r0+15 by
-// lane % 16, columns c0 or c0 + 8 by lane / 16), or, ``b`` set, two B
-// fragments of 8 rows each (rows by lane % 8 and lane / 16, columns by
-// (lane / 8) % 2); ``trans`` takes rows by lane % 16 and columns by lane /
-// 16 for ldmatrix.trans
-template <int LDS>
-__device__ __forceinline__ uint32_t frag_addr(uint32_t base, int r0, int c0,
-                                              bool b) {
-  const int l = threadIdx.x % 32;
-  const int r = b ? r0 + l % 8 + 8 * (l / 16) : r0 + l % 16;
-  const int c = b ? c0 + 8 * ((l / 8) % 2) : c0 + 8 * (l / 16);
-  return base + 2 * (r * LDS + c);
+// acc[D / 2] += a . b over K = 16 * KS, a as bfloat16 A fragments, b the
+// MN-major tile of Rows16<D> of rows rows (one per K index)
+template <int D, int KS>
+__device__ __forceinline__ void products_mn(float (&acc)[D / 2],
+                                            const uint32_t (&a)[KS][4],
+                                            uint32_t b, int rows) {
+  using R = Rows16<D>;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    wgmma_bf16_rs<D>(acc, a[kk],
+                     gmma_desc_mn(b + 16 * kk * R::kOp, R::kOp,
+                                  rows * R::kOp));
+}
+
+// The accumulator's 8-column blocks packed pairwise: the bfloat16 A
+// fragments of the 16-deep steps over its columns
+template <int N>
+__device__ __forceinline__ void to_afrag(const float (&acc)[N / 2],
+                                         uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(acc[8 * kk + 2 * r], acc[8 * kk + 2 * r + 1]);
+}
+
+// The query blocks of bq rows that keys [k_lo, k_hi] meet: a contiguous
+// range [*b, *e) (empty when *e <= *b)
+__device__ __forceinline__ void q_blocks(const AttnMask& m, int Sq, int bq,
+                                         int k_lo, int k_hi, int* b, int* e) {
+  const int nq = (Sq + bq - 1) / bq;
+  int first = nq, last = -1;
+  for (int iq = 0; iq < nq; ++iq) {
+    const int q_lo = iq * bq + m.q_offset;
+    const int q_hi = min(iq * bq + bq, Sq) - 1 + m.q_offset;
+    if (m.tile_live(q_lo, q_hi, k_lo, k_hi)) {
+      if (first == nq) first = iq;
+      last = iq;
+    }
+  }
+  *b = first;
+  *e = last + 1;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-attn_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, Strides3 qs,
-                         const __nv_bfloat16* __restrict__ k, Strides3 ks,
-                         const __nv_bfloat16* __restrict__ v, Strides3 vs,
-                         const __nv_bfloat16* __restrict__ dout, Strides3 dos,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ dvec,
-                         __nv_bfloat16* __restrict__ dk, Strides3 dks,
-                         __nv_bfloat16* __restrict__ dv, Strides3 dvs, int H,
-                         int group, int Sq, float scale, AttnMask mask) {
-  constexpr int LDS = D + 8, BQ = mma_qtile(D), NT = D / 8;
-  // a stage: Q and dO of one query tile, then its lse and D rows
-  constexpr int kStage = 2 * BQ * LDS * 2 + 2 * BQ * 4;
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  const uint32_t aK = smem_addr(smem_mma), aV = aK + kMmaKeys * LDS * 2;
-  const uint32_t aS0 = aV + kMmaKeys * LDS * 2;
-  const float* const rows0 =
-      reinterpret_cast<const float*>(smem_mma + 2 * kMmaKeys * LDS * 2 +
-                                     2 * BQ * LDS * 2);
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_dkdv_bf16_kernel(__grid_constant__ const CUtensorMap qmap,
+                          __grid_constant__ const CUtensorMap kmap,
+                          __grid_constant__ const CUtensorMap vmap,
+                          __grid_constant__ const CUtensorMap domap,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dvec,
+                          uint8_t* __restrict__ dsbuf, long long nblk,
+                          __nv_bfloat16* __restrict__ dk, Strides3 dks,
+                          __nv_bfloat16* __restrict__ dv, Strides3 dvs,
+                          int B, int H, int Hkv, int group, int Sq,
+                          float scale, AttnMask mask) {
+  using R = Rows16<D>;
+  using P = HKvPlan<D>;
+  constexpr int BQ = kHQ;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t sbase = smem_addr(smem);
+  const uint32_t bars = sbase + P::oBar;
+  auto bar = [&](int i) { return bars + 8 * i; };
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int k0 = blockIdx.x * kMmaKeys, k_hi = k0 + kMmaKeys - 1;
-  const float scale_log2 = scale * kLog2e;
-  const int nq = (Sq + BQ - 1) / BQ;
-  // the next live query tile after (gi, it), group heads outermost
-  auto next_tile = [&](int& gi, int& it) {
-    while (true) {
-      if (++it == nq) {
-        it = 0;
-        if (++gi == group) return false;
-      }
-      const int q0 = it * BQ;
-      if (mask.tile_live(q0 + mask.q_offset,
-                         min(q0 + BQ, Sq) - 1 + mask.q_offset, k0, k_hi))
-        return true;
-    }
-  };
-  // a tile's Q, dO, lse and D rows into stage st (rows past Sq zeros)
-  auto issue = [&](int st, int gi, int it) {
-    const int h = hk * group + gi, q0 = it * BQ;
-    const long long bh = (long long)b * H + h;
-    const uint32_t aQ = aS0 + st * kStage, adO = aQ + BQ * LDS * 2;
-    load_rows_bf16<D, BQ, LDS>(aQ, q + b * qs.b + h * qs.h, qs.s, q0, Sq);
-    load_rows_bf16<D, BQ, LDS>(adO, dout + b * dos.b + h * dos.h, dos.s, q0,
-                               Sq);
-    for (int r = threadIdx.x; r < BQ; r += kMmaThreads) {
-      const bool in = q0 + r < Sq;
-      const uint32_t dst = adO + BQ * LDS * 2 + 4 * r;
-      cp_async<4>(dst, lse + (in ? bh * Sq + q0 + r : 0), in ? 4 : 0);
-      cp_async<4>(dst + 4 * BQ, dvec + (in ? bh * Sq + q0 + r : 0),
-                  in ? 4 : 0);
-    }
-  };
-  load_rows_bf16<D, kMmaKeys, LDS>(aK, k + b * ks.b + hk * ks.h, ks.s, k0,
-                                   mask.Sk);
-  load_rows_bf16<D, kMmaKeys, LDS>(aV, v + b * vs.b + hk * vs.h, vs.s, k0,
-                                   mask.Sk);
-  int gi = 0, it = -1;
-  bool have = next_tile(gi, it);
-  if (have) issue(0, gi, it);
-  cp_async_commit();
+  // kv tiles outermost in the grid: with a causal mask the first ones meet
+  // the most query blocks, so the grid's tail is the light CTAs
+  const int j = blockIdx.x / (Hkv * B);
+  const int hk = blockIdx.x % Hkv, b = (blockIdx.x / Hkv) % B;
+  const int k0 = j * kHKeys;
+  // steps: the group's heads in order, each over the query blocks [ib, ie)
+  // that the CTA's keys meet (every step is live for both warpgroups)
+  int ib, ie;
+  q_blocks(mask, Sq, BQ, k0, k0 + kHKeys - 1, &ib, &ie);
+  const int nb = ie > ib ? ie - ib : 0;
+  const int n_steps = group * nb;
 
-  float acc_k[NT][4], acc_v[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc_k[n][i] = acc_v[n][i] = 0.f;
-  const int kw = 16 * warp;          // the warp's keys in the tile
-  for (int n_tile = 0; have; ++n_tile) {
-    // the next live tile's copies go out while this one is computed
-    int g2 = gi, i2 = it;
-    const bool more = next_tile(g2, i2);
-    if (more) issue((n_tile + 1) & 1, g2, i2);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int st = n_tile & 1, q0 = it * BQ;
-    const uint32_t aQ = aS0 + st * kStage, adO = aQ + BQ * LDS * 2;
-    const float* sL = rows0 + st * (kStage / 4);
-    const float* sDv = sL + BQ;
-    // S^T = K.Q^T and dP^T = V.dO^T: keys kw.. x the tile's BQ queries
-    float s[BQ / 8][4], dp[BQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      ldsm_x4(frag_addr<LDS>(aK, kw, 16 * kk, false), ak);
-      ldsm_x4(frag_addr<LDS>(aV, kw, 16 * kk, false), av);
-#pragma unroll
-      for (int np = 0; np < BQ / 16; ++np) {
-        uint32_t bq[4], bo[4];
-        ldsm_x4(frag_addr<LDS>(aQ, 16 * np, 16 * kk, true), bq);
-        ldsm_x4(frag_addr<LDS>(adO, 16 * np, 16 * kk, true), bo);
-        mma_bf16(s[2 * np], ak, bq[0], bq[1]);
-        mma_bf16(s[2 * np + 1], ak, bq[2], bq[3]);
-        mma_bf16(dp[2 * np], av, bo[0], bo[1]);
-        mma_bf16(dp[2 * np + 1], av, bo[2], bo[3]);
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(bar(0), 1);
+    for (int s = 0; s < kHSlots; ++s) {
+      mbar_init(bar(h_full(s)), 1 + kHRowArrivals);
+      mbar_init(bar(h_free(s)), kConsumers / 32);
     }
-    // P^T and dS^T (rows: keys k0 + kw + g (+8); columns: queries q0 + 8n +
-    // 2t (+1)), as the A fragments of the next two products
-    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-      float pv[4], dsv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + kw + g + 8 * (i / 2);
-        const int ql = 8 * n + 2 * t + i % 2, qi = q0 + ql;
-        const bool ok = qi < Sq && mask.allowed(qi + mask.q_offset, key);
-        pv[i] = ok ? exp2f(fmaf(s[n][i], scale_log2, -sL[ql] * kLog2e))
-                   : 0.f;
-        dsv[i] = pv[i] * (dp[n][i] - sDv[ql]);
-      }
-      pa[n / 2][2 * (n % 2)] = pack_bf16(pv[0], pv[1]);
-      pa[n / 2][2 * (n % 2) + 1] = pack_bf16(pv[2], pv[3]);
-      da[n / 2][2 * (n % 2)] = pack_bf16(dsv[0], dsv[1]);
-      da[n / 2][2 * (n % 2) + 1] = pack_bf16(dsv[2], dsv[3]);
-    }
-    // dV += P^T.dO, dK += dS^T.Q: k = the tile's queries, n = D
-#pragma unroll
-    for (int kq = 0; kq < BQ / 16; ++kq)
-#pragma unroll
-      for (int n2 = 0; n2 < D / 16; ++n2) {
-        uint32_t bo[4], bq[4];
-        ldsm_x4_t(frag_addr<LDS>(adO, 16 * kq, 16 * n2, false), bo);
-        ldsm_x4_t(frag_addr<LDS>(aQ, 16 * kq, 16 * n2, false), bq);
-        mma_bf16(acc_v[2 * n2], pa[kq], bo[0], bo[1]);
-        mma_bf16(acc_v[2 * n2 + 1], pa[kq], bo[2], bo[3]);
-        mma_bf16(acc_k[2 * n2], da[kq], bq[0], bq[1]);
-        mma_bf16(acc_k[2 * n2 + 1], da[kq], bq[2], bq[3]);
-      }
-    __syncthreads();   // this stage is refilled two tiles on
-    gi = g2;
-    it = i2;
-    have = more;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_wait<0>();
-  // epilogue: keys past Sk not written
+  __syncthreads();
+
+  // the warp index through a shuffle, so the compiler knows it is uniform
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+
+  if (warp >= kConsumers / 32) {
+    // ---- producer warpgroup: its first warp alone works (lane 0 issues
+    // every TMA copy; the 32 lanes write each step's row values, read before
+    // the slot is free); it is whole so that its setmaxnreg.dec frees what
+    // the consumers take
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (n_steps == 0 || warp != kConsumers / 32) return;
+    if (lane == 0) {
+      mbar_expect_tx(bar(0), 2 * P::kKV);
+#pragma unroll
+      for (int c = 0; c < R::kChunks; ++c) {
+        tma_load(sbase + P::oK + c * kHKeys * R::kOp, &kmap, c * R::kPer, k0,
+                 hk, b, bar(0));
+        tma_load(sbase + P::oV + c * kHKeys * R::kOp, &vmap, c * R::kPer, k0,
+                 hk, b, bar(0));
+      }
+    }
+    // the dS tiles of the blocks before ib, in each head's part of the
+    // scratch; then the step's block's first tile and its live count
+    int base = 0, toff = 0, n_prev = 0;
+    for (int iq = 0; iq < ib; ++iq) {
+      int jb;
+      base += h_block_tiles(mask, Sq, iq, &jb);
+    }
+    for (int i = 0; i < n_steps; ++i) {
+      const int s = i % kHSlots, n = i / kHSlots;
+      const int h = hk * group + i / nb, iq = ib + i % nb, q0 = iq * BQ;
+      const long long bh = (long long)b * H + h;
+      toff = i % nb == 0 ? base : toff + n_prev;
+      int jb;
+      n_prev = h_block_tiles(mask, Sq, iq, &jb);
+      float lv[BQ / 32], dvv[BQ / 32];
+#pragma unroll
+      for (int x = 0; x < BQ / 32; ++x) {
+        const int qi = q0 + lane + 32 * x;
+        lv[x] = qi < Sq ? lse[bh * Sq + qi] * kLog2e : INFINITY;
+        dvv[x] = qi < Sq ? dvec[bh * Sq + qi] : 0.f;
+      }
+      if (n >= 1) mbar_wait_or_trap(bar(h_free(s)), (n - 1) & 1);
+      if (lane == 0) {
+        mbar_expect_tx(bar(h_full(s)), 2 * P::kQ);
+        const uint32_t st = sbase + P::oRing + s * P::kStage;
+#pragma unroll
+        for (int c = 0; c < R::kChunks; ++c) {
+          tma_load(st + c * BQ * R::kOp, &qmap, c * R::kPer, q0, h, b,
+                   bar(h_full(s)));
+          tma_load(st + P::oSdO + c * BQ * R::kOp, &domap, c * R::kPer, q0,
+                   h, b, bar(h_full(s)));
+        }
+      }
+      float* const rows = reinterpret_cast<float*>(
+          smem + P::oRing + s * P::kStage + P::oSRows);
+#pragma unroll
+      for (int x = 0; x < BQ / 32; ++x) {
+        rows[lane + 32 * x] = lv[x];
+        rows[BQ + lane + 32 * x] = dvv[x];
+      }
+      if (lane == 0)
+        reinterpret_cast<int*>(rows)[2 * BQ] = toff + j - jb;
+      mbar_arrive(bar(h_full(s)));
+    }
+    return;
+  }
+
+  // ---- consumers on the CTA's 64 keys: warpgroup 0 S^T -> P^T, dV;
+  // warpgroup 1 dP^T -> dS^T, dK ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int wg = warp / 4, wl = warp % 4;
+  const int g = lane / 4, t = lane % 4;
+  const int tid = threadIdx.x % 128;
+  const float scale_log2 = scale * kLog2e;
+  const int off = mask.q_offset;
+
+  constexpr int kNA = D / 2;      // dV (warpgroup 0) or dK (1) a thread
+  float acc[kNA];
+#pragma unroll
+  for (int i = 0; i < kNA; ++i) acc[i] = 0.f;
+
+  if (n_steps > 0) {
+    mbar_wait_or_trap(bar(0), 0);
+    const uint32_t aKV = sbase + (wg == 0 ? P::oK : P::oV);
+    float* const xch = reinterpret_cast<float*>(smem + P::oX);
+    auto slot = [&](int i) {
+      return sbase + P::oRing + (i % kHSlots) * P::kStage;
+    };
+    // S^T = K.Q^T (warpgroup 0) or dP^T = V.dO^T (1): keys k0 + 16wl + g +
+    // 8hr, queries q0 + 8n + 2t + e at [4n + 2hr + e]; the exchange holds a
+    // thread's four values of block n as one float4.  Pipelined by a step:
+    // step i + 1's chain goes out right behind step i's dV (dK) product, and
+    // both are waited for at the top of step i + 1
+    float sacc[BQ / 2];
+#pragma unroll
+    for (int y = 0; y < BQ / 2; ++y) sacc[y] = 0.f;
+    mbar_wait_or_trap(bar(h_full(0)), 0);
+    wgmma_fence();
+    products_kmajor<D>(sacc, aKV, kHKeys,
+                       wg == 0 ? slot(0) : slot(0) + P::oSdO, BQ);
+    wgmma_commit();
+    for (int i = 0; i < n_steps; ++i) {
+      const int x = i & 1;
+      const int q0 = (ib + i % nb) * BQ;
+      const uint32_t aQ = slot(i), adO = aQ + P::oSdO;
+      const float* const rows = reinterpret_cast<const float*>(
+          smem + P::oRing + (i % kHSlots) * P::kStage + P::oSRows);
+      float* const xb = xch + x * (BQ / 2) * 128;
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      fence_regs(acc);
+      if (i >= 1) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar(h_free((i - 1) % kHSlots)));
+      }
+      if (wg == 0) {
+        // P^T = exp2(S^T scale log2e - lse log2e) on the allowed pairs,
+        // handed to warpgroup 1 at the same fragment positions
+        const bool full = mask.tile_full(q0 + off, q0 + BQ - 1 + off, k0,
+                                         k0 + kHKeys - 1);
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(rows + 8 * n + 2 * t);
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int y = 4 * n + 2 * hr + e;
+              float p =
+                  ex2_ftz(fmaf(sacc[y], scale_log2, -(e ? l2.y : l2.x)));
+              if (!full && !mask.allowed(q0 + 8 * n + 2 * t + e + off,
+                                         k0 + 16 * wl + g + 8 * hr))
+                p = 0.f;
+              sacc[y] = p;
+            }
+        }
+        if (i >= 2) named_barrier(kHNbXEmpty + x, kConsumers);
+#pragma unroll
+        for (int m = 0; m < BQ / 8; ++m)
+          reinterpret_cast<float4*>(xb)[m * 128 + tid] =
+              make_float4(sacc[4 * m], sacc[4 * m + 1], sacc[4 * m + 2],
+                          sacc[4 * m + 3]);
+        __threadfence_block();
+        named_arrive(kHNbXFull + x, kConsumers);
+      } else {
+        // dS^T = P^T (dP^T - D)
+        named_barrier(kHNbXFull + x, kConsumers);
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n) {
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(rows + BQ + 8 * n + 2 * t);
+          const float4 p4 = reinterpret_cast<const float4*>(xb)[n * 128 + tid];
+          sacc[4 * n] = p4.x * (sacc[4 * n] - d2.x);
+          sacc[4 * n + 1] = p4.y * (sacc[4 * n + 1] - d2.y);
+          sacc[4 * n + 2] = p4.z * (sacc[4 * n + 2] - d2.x);
+          sacc[4 * n + 3] = p4.w * (sacc[4 * n + 3] - d2.y);
+        }
+        if (i + 2 < n_steps) named_arrive(kHNbXEmpty + x, kConsumers);
+      }
+      uint32_t af[BQ / 16][4];
+      to_afrag<BQ>(sacc, af);
+      if (wg == 1) {
+        // dS^T, as rounded for dK += dS^T.Q, to the scratch for the dQ
+        // kernel: row key, 128 bytes of queries, swizzled (its MN-major A)
+        const long long bh = (long long)b * H + hk * group + i / nb;
+        uint8_t* const tile =
+            dsbuf + (bh * nblk + reinterpret_cast<const int*>(rows)[2 * BQ]) *
+                        kHTile;
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            *reinterpret_cast<uint32_t*>(
+                tile + swz(16 * wl + g + 8 * (r & 1),
+                           (16 * kk + 8 * (r >> 1) + 2 * t) * 2, 128)) =
+                af[kk][r];
+      }
+      const bool more = i + 1 < n_steps;
+      if (more)
+        mbar_wait_or_trap(bar(h_full((i + 1) % kHSlots)),
+                          ((i + 1) / kHSlots) & 1);
+      wgmma_fence();
+      products_mn<D, BQ / 16>(acc, af, wg == 0 ? adO : aQ, BQ);
+      if (more)
+        products_kmajor<D>(sacc, aKV, kHKeys,
+                           wg == 0 ? slot(i + 1) : slot(i + 1) + P::oSdO,
+                           BQ);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+
+  // ---- epilogue: dV (warpgroup 0), scale dK (1), bfloat16; keys past Sk
+  // not written
+  __nv_bfloat16* const ob = wg == 0 ? dv + b * dvs.b + hk * dvs.h
+                                    : dk + b * dks.b + hk * dks.h;
+  const long long os = wg == 0 ? dvs.s : dks.s;
+  const float f = wg == 0 ? 1.f : scale;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int key = k0 + kw + g + 8 * hr;
+    const int key = k0 + 16 * wl + g + 8 * hr;
     if (key >= mask.Sk) continue;
-    __nv_bfloat16* dkr = dk + b * dks.b + hk * dks.h + key * dks.s;
-    __nv_bfloat16* dvr = dv + b * dvs.b + hk * dvs.h + key * dvs.s;
+    __nv_bfloat16* const row = ob + key * os;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      *reinterpret_cast<uint32_t*>(dkr + 8 * n + 2 * t) =
-          pack_bf16(acc_k[n][2 * hr] * scale, acc_k[n][2 * hr + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dvr + 8 * n + 2 * t) =
-          pack_bf16(acc_v[n][2 * hr], acc_v[n][2 * hr + 1]);
-    }
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(row + 8 * n + 2 * t) =
+          pack_bf16(acc[4 * n + 2 * hr] * f, acc[4 * n + 2 * hr + 1] * f);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-attn_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, Strides3 qs,
-                       const __nv_bfloat16* __restrict__ k, Strides3 ks,
-                       const __nv_bfloat16* __restrict__ v, Strides3 vs,
-                       const __nv_bfloat16* __restrict__ dout, Strides3 dos,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ dvec,
-                       __nv_bfloat16* __restrict__ dq, Strides3 dqs, int H,
-                       int group, int Sq, float scale, AttnMask mask) {
-  constexpr int LDS = D + 8, BK = kMmaKTile, NT = D / 8;
-  // a stage: K and V of one key tile
-  constexpr int kStage = 2 * BK * LDS * 2;
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  const uint32_t aQ = smem_addr(smem_mma), adO = aQ + kMmaQRows * LDS * 2;
-  const uint32_t aS0 = adO + kMmaQRows * LDS * 2;
+__global__ void __launch_bounds__(kConsumers, 2)
+attn_bwd_dq_bf16_kernel(__grid_constant__ const CUtensorMap kmap,
+                        const uint8_t* __restrict__ dsbuf, long long nblk,
+                        __nv_bfloat16* __restrict__ dq, Strides3 dqs, int B,
+                        int H, int group, int Sq, float scale,
+                        AttnMask mask) {
+  using R = Rows16<D>;
+  using P = HQPlan<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t sbase = smem_addr(smem);
+  const uint32_t bars = sbase + P::oBar;
+  auto bar = [&](int i) { return bars + 8 * i; };
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  // query tiles outermost, last first: causal ones see the most keys
+  const int nqt = (Sq + kHRows - 1) / kHRows;
+  const int iq = nqt - 1 - blockIdx.x / (H * B);
+  const int h = blockIdx.x % H, b = (blockIdx.x / H) % B;
+  const int hk = h / group;
   const long long bh = (long long)b * H + h;
-  const int q0 = blockIdx.x * kMmaQRows, qw = 16 * warp;
-  const float scale_log2 = scale * kLog2e;
-  int j_begin, j_end;
-  mask.kv_tiles(q0 + mask.q_offset,
-                min(q0 + kMmaQRows, Sq) - 1 + mask.q_offset, BK, &j_begin,
-                &j_end);
-  auto issue = [&](int st, int jt) {
-    const uint32_t aK = aS0 + st * kStage, aV = aK + BK * LDS * 2;
-    load_rows_bf16<D, BK, LDS>(aK, k + b * ks.b + hk * ks.h, ks.s, jt * BK,
-                               mask.Sk);
-    load_rows_bf16<D, BK, LDS>(aV, v + b * vs.b + hk * vs.h, vs.s, jt * BK,
-                               mask.Sk);
+  const int q0 = iq * kHRows;
+  const int off = mask.q_offset;
+  int jb, je;
+  mask.kv_tiles(q0 + off, min(q0 + kHRows, Sq) - 1 + off, kHStep, &jb, &je);
+  const int n_steps = je > jb ? je - jb : 0;
+  // each warpgroup's 64-query block: its live tiles [wjb, wjb + wn) and
+  // its first dS tile in (b, h)'s part of the scratch
+  int wjb0 = 0, wn0 = 0, wjb1 = 0, wn1 = 0;
+  long long woff0 = 0, woff1 = 0;
+  for (int ib = 0; ib < 2 * iq + 2; ++ib) {
+    int bjb = 0;
+    const int n = ib * kHQ < Sq ? h_block_tiles(mask, Sq, ib, &bjb) : 0;
+    if (ib == 2 * iq) {
+      wjb0 = bjb;
+      wn0 = n;
+      woff0 = woff1;
+    } else if (ib == 2 * iq + 1) {
+      wjb1 = bjb;
+      wn1 = n;
+      break;
+    }
+    woff1 += n;
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kHQSlots; ++s) {
+      mbar_init(bar(s), 1);
+      mbar_init(bar(kHQSlots + s), kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+
+  // thread 0 issues every copy, K by TMA and each live dS^T tile by a bulk
+  // copy: step i into slot i % kHQSlots once every warp is done with it
+  auto issue = [&](int i) {
+    const int s = i % kHQSlots, jj = jb + i;
+    const bool l0 = jj >= wjb0 && jj < wjb0 + wn0;
+    const bool l1 = jj >= wjb1 && jj < wjb1 + wn1;
+    mbar_expect_tx(bar(s), P::kK + (l0 + l1) * kHTile);
+    const uint32_t st = sbase + s * P::kStage;
+#pragma unroll
+    for (int c = 0; c < R::kChunks; ++c)
+      tma_load(st + c * kHStep * R::kOp, &kmap, c * R::kPer, jj * kHStep,
+               hk, b, bar(s));
+    if (l0)
+      bulk_load(st + P::oSdS,
+                dsbuf + (bh * nblk + woff0 + jj - wjb0) * kHTile, kHTile,
+                bar(s));
+    if (l1)
+      bulk_load(st + P::oSdS + kHTile,
+                dsbuf + (bh * nblk + woff1 + jj - wjb1) * kHTile, kHTile,
+                bar(s));
   };
-  load_rows_bf16<D, kMmaQRows, LDS>(aQ, q + b * qs.b + h * qs.h, qs.s, q0,
-                                    Sq);
-  load_rows_bf16<D, kMmaQRows, LDS>(adO, dout + b * dos.b + h * dos.h, dos.s,
-                                    q0, Sq);
-  if (j_begin < j_end) issue(0, j_begin);
-  cp_async_commit();
-  // this thread's rows q0 + qw + g (+8): lse (log2 units) and D
-  float rl[2], rd[2];
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kHQSlots && i < n_steps; ++i) issue(i);
+
+  // ---- warpgroup wg owns query rows q0 + 64wg .. + 63 ----
+  const int wg = warp / 4, wl = warp % 4;
+  const int g = lane / 4, t = lane % 4;
+  const int qw0 = q0 + 64 * wg;
+  const int mjb = wg == 0 ? wjb0 : wjb1;
+  const int mje = mjb + (wg == 0 ? wn0 : wn1);
+  constexpr int kNA = D / 2;
+  float acc[kNA];
+#pragma unroll
+  for (int i = 0; i < kNA; ++i) acc[i] = 0.f;
+  for (int i = 0; i < n_steps; ++i) {
+    const int s = i % kHQSlots, jj = jb + i;
+    mbar_wait_or_trap(bar(s), (i / kHQSlots) & 1);
+    if (jj >= mjb && jj < mje) {
+      // dQ += dS.K over the step's 64 keys: dS^T (A) and K (B) both read
+      // MN-major, 16 keys a wgmma
+      const uint32_t aK = sbase + s * P::kStage;
+      const uint32_t aS = aK + P::oSdS + wg * kHTile;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kHStep / 16; ++kk)
+        wgmma_bf16_sstt<D>(acc, gmma_desc_mn(aS + 16 * kk * 128, 128, 0),
+                           gmma_desc_mn(aK + 16 * kk * R::kOp, R::kOp,
+                                        kHStep * R::kOp));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar(kHQSlots + s));
+    if (threadIdx.x == 0 && i + kHQSlots < n_steps) {
+      mbar_wait_or_trap(bar(kHQSlots + s), (i / kHQSlots) & 1);
+      issue(i + kHQSlots);
+    }
+  }
+
+  // ---- epilogue: scale dQ, bfloat16; rows past Sq not written ----
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int i = q0 + qw + g + 8 * hr;
-    rl[hr] = i < Sq ? lse[bh * Sq + i] * kLog2e : 0.f;
-    rd[hr] = i < Sq ? dvec[bh * Sq + i] : 0.f;
-  }
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-  for (int jt = j_begin; jt < j_end; ++jt) {
-    // the next tile's copies go out while this one is computed
-    if (jt + 1 < j_end) issue((jt + 1 - j_begin) & 1, jt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int kt0 = jt * BK;
-    const uint32_t aK = aS0 + ((jt - j_begin) & 1) * kStage,
-                   aV = aK + BK * LDS * 2;
-    // S = Q.K^T and dP = dO.V^T: the warp's 16 queries x BK keys
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      ldsm_x4(frag_addr<LDS>(aQ, qw, 16 * kk, false), aq);
-      ldsm_x4(frag_addr<LDS>(adO, qw, 16 * kk, false), ao);
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t bk[4], bv[4];
-        ldsm_x4(frag_addr<LDS>(aK, 16 * np, 16 * kk, true), bk);
-        ldsm_x4(frag_addr<LDS>(aV, 16 * np, 16 * kk, true), bv);
-        mma_bf16(s[2 * np], aq, bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], aq, bk[2], bk[3]);
-        mma_bf16(dp[2 * np], ao, bv[0], bv[1]);
-        mma_bf16(dp[2 * np + 1], ao, bv[2], bv[3]);
-      }
-    }
-    // dS (rows: queries; columns: keys kt0 + 8n + 2t (+1)) as A fragments
-    uint32_t da[BK / 16][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      float dsv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qi = q0 + qw + g + 8 * (i / 2);
-        const int key = kt0 + 8 * n + 2 * t + i % 2;
-        const bool ok = qi < Sq && mask.allowed(qi + mask.q_offset, key);
-        const float p =
-            ok ? exp2f(fmaf(s[n][i], scale_log2, -rl[i / 2])) : 0.f;
-        dsv[i] = p * (dp[n][i] - rd[i / 2]);
-      }
-      da[n / 2][2 * (n % 2)] = pack_bf16(dsv[0], dsv[1]);
-      da[n / 2][2 * (n % 2) + 1] = pack_bf16(dsv[2], dsv[3]);
-    }
-    // dQ += dS.K: k = the tile's keys, n = D
-#pragma unroll
-    for (int kq = 0; kq < BK / 16; ++kq)
-#pragma unroll
-      for (int n2 = 0; n2 < D / 16; ++n2) {
-        uint32_t bk[4];
-        ldsm_x4_t(frag_addr<LDS>(aK, 16 * kq, 16 * n2, false), bk);
-        mma_bf16(acc[2 * n2], da[kq], bk[0], bk[1]);
-        mma_bf16(acc[2 * n2 + 1], da[kq], bk[2], bk[3]);
-      }
-    __syncthreads();   // this stage is refilled two tiles on
-  }
-  cp_async_wait<0>();
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = q0 + qw + g + 8 * hr;
+    const int row = qw0 + 16 * wl + g + 8 * hr;
     if (row >= Sq) continue;
-    __nv_bfloat16* dqr = dq + b * dqs.b + h * dqs.h + row * dqs.s;
+    __nv_bfloat16* const dqr = dq + b * dqs.b + h * dqs.h + row * dqs.s;
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+    for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<uint32_t*>(dqr + 8 * n + 2 * t) =
-          pack_bf16(acc[n][2 * hr] * scale, acc[n][2 * hr + 1] * scale);
+          pack_bf16(acc[4 * n + 2 * hr] * scale,
+                    acc[4 * n + 2 * hr + 1] * scale);
   }
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, const void* out,
-               const void* dout, const float* lse, void* dvec, void* dq,
-               void* dk, void* dv, const long long* st, int B, int H, int Hkv,
-               int Sq, int Sk, double scale, const AttnMask& mask,
-               cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, const void* out,
+                const void* dout, const float* lse, void* dvec, void* scratch,
+                void* dq, void* dk, void* dv, const long long* st, int B,
+                int H, int Hkv, int Sq, int Sk, double scale,
+                const AttnMask& mask, cudaStream_t stream) {
   using bf = __nv_bfloat16;
-  constexpr int LDS = D + 8;
-  // K and V, then two stages of Q, dO, lse and D rows; Q and dO, then two
-  // stages of K and V
-  constexpr int BQ = mma_qtile(D);
-  constexpr int kDkdv =
-      2 * kMmaKeys * LDS * 2 + 2 * (2 * BQ * LDS * 2 + 2 * BQ * 4);
-  constexpr int kDq = (2 * kMmaQRows + 4 * kMmaKTile) * LDS * 2;
+  using R = Rows16<D>;
+  using PK = HKvPlan<D>;
+  using PQ = HQPlan<D>;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        attn_bwd_dkdv_mma_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kDkdv);
+        attn_bwd_dkdv_bf16_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, PK::kBytes);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(attn_bwd_dq_mma_kernel<D>,
+      e = cudaFuncSetAttribute(attn_bwd_dq_bf16_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kDq);
+                               PQ::kBytes);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  // 16-byte row loads: bases and row strides of q, k, v, dout aligned
-  for (int i : {0, 1, 2, 4})
-    if (st[3 * i] % 8 || st[3 * i + 1] % 8 || st[3 * i + 2] % 8)
-      return (int)cudaErrorInvalidValue;
-  for (const void* p : {q, k, v, dout})
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
-      return (int)cudaErrorInvalidValue;
-  const bf* qt = static_cast<const bf*>(q);
-  const bf* kt = static_cast<const bf*>(k);
-  const bf* vt = static_cast<const bf*>(v);
-  const bf* dot = static_cast<const bf*>(dout);
-  const float* dvt = static_cast<const float*>(dvec);
-  int e = launch_dot<bf>(out, dout, dvec, st, B, H, Sq, D, stream);
+  // boxes: Q, dO of a dK/dV step; K, V of a dK/dV CTA, and K of a dQ step
+  const CUtensorMapDataType t16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap qm, dom, km, vm;
+  int e = encode_rows(&qm, t16, 2, q, D, Sq, H, B, st, R::kPer, kHQ);
+  if (e == 0) e = encode_rows(&dom, t16, 2, dout, D, Sq, H, B, st + 12, R::kPer, kHQ);
+  if (e == 0) e = encode_rows(&km, t16, 2, k, D, Sk, Hkv, B, st + 3, R::kPer, kHKeys);
+  if (e == 0) e = encode_rows(&vm, t16, 2, v, D, Sk, Hkv, B, st + 6, R::kPer, kHKeys);
   if (e != 0) return e;
+  e = launch_dot<bf>(out, dout, dvec, st, B, H, Sq, D, stream);
+  if (e != 0) return e;
+  const long long nblk = h_scratch_tiles(mask, Sq);
   const int group = H / Hkv;
-  dim3 gkv((Sk + kMmaKeys - 1) / kMmaKeys, Hkv, B);
-  attn_bwd_dkdv_mma_kernel<D><<<gkv, kMmaThreads, kDkdv, stream>>>(
-      qt, strides_at(st, 0), kt, strides_at(st, 1), vt, strides_at(st, 2), dot,
-      strides_at(st, 4), lse, dvt, static_cast<bf*>(dk), strides_at(st, 6),
-      static_cast<bf*>(dv), strides_at(st, 7), H, group, Sq, (float)scale,
-      mask);
+  const int nkv = (Sk + kHKeys - 1) / kHKeys;
+  const int nqt = (Sq + kHRows - 1) / kHRows;
+  if ((long long)nkv * Hkv * B > 0x7fffffffLL ||
+      (long long)nqt * H * B > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  uint8_t* const ds = static_cast<uint8_t*>(scratch);
+  attn_bwd_dkdv_bf16_kernel<D><<<nkv * Hkv * B, kThreads, PK::kBytes,
+                                 stream>>>(
+      qm, km, vm, dom, lse, static_cast<const float*>(dvec), ds, nblk,
+      static_cast<bf*>(dk), strides_at(st, 6), static_cast<bf*>(dv),
+      strides_at(st, 7), B, H, Hkv, group, Sq, (float)scale, mask);
   e = (int)cudaGetLastError();
   if (e != 0) return e;
-  dim3 gq((Sq + kMmaQRows - 1) / kMmaQRows, H, B);
-  attn_bwd_dq_mma_kernel<D><<<gq, kMmaThreads, kDq, stream>>>(
-      qt, strides_at(st, 0), kt, strides_at(st, 1), vt, strides_at(st, 2), dot,
-      strides_at(st, 4), lse, dvt, static_cast<bf*>(dq), strides_at(st, 5), H,
-      group, Sq, (float)scale, mask);
+  attn_bwd_dq_bf16_kernel<D><<<nqt * H * B, kConsumers, PQ::kBytes,
+                               stream>>>(
+      km, ds, nblk, static_cast<bf*>(dq), strides_at(st, 5), B, H, group, Sq,
+      (float)scale, mask);
   return (int)cudaGetLastError();
 }
 
@@ -1701,20 +2215,21 @@ extern "C" int flash_attention_bwd_scratch_bytes(int dtype, int B, int H,
   const AttnMask mask{Sk, causal, has_window, window, q_offset};
   *bytes = dtype == 0 && D <= 128
                ? (long long)B * H * scratch_blocks(mask, Sq) * kBlock
-               : 0;
+           : dtype == 3 ? (long long)B * H * h_scratch_tiles(mask, Sq) * kHTile
+                        : 0;
   return 0;
 }
 
 // strides: 24 element strides, (b, h, s) for q, k, v, out, dout, dq, dk and
-// dv in that order (the last dim of each contiguous; float32 at D <= 128: q,
-// k, v and dout bases and their b, h, s strides 16-byte aligned, TMA's
-// rule); lse: contiguous (B, H, Sq) float, the forward's; dvec: a (B, H, Sq)
-// scratch buffer of the compute type (float for bfloat16); scratch: the dS
-// scratch of flash_attention_bwd_scratch_bytes (16-byte aligned; null where
-// that is 0).  Launches three kernels (dot, dkdv, dq) on the stream:
-// float32 at D 16..128 the wgmma kernels, bfloat16 (D 16..160) the mma.sync
-// kernels (q, k, v, dout bases and row strides 16-byte aligned), float32 at
-// D 160 and float64 (D 16..128) the FMA kernels.  Returns the
+// dv in that order (the last dim of each contiguous; float32 at D <= 128
+// and bfloat16: q, k, v and dout bases and their b, h, s strides 16-byte
+// aligned, TMA's rule); lse: contiguous (B, H, Sq) float, the forward's;
+// dvec: a (B, H, Sq) scratch buffer of the compute type (float for
+// bfloat16); scratch: the dS scratch of flash_attention_bwd_scratch_bytes
+// (16-byte aligned; null where that is 0).  Launches three kernels (dot,
+// dkdv, dq) on the stream: float32 at D 16..128 the 3xTF32 wgmma kernels,
+// bfloat16 (D 16..160) the bfloat16 wgmma kernels, float32 at D 160 and
+// float64 (D 16..128) the FMA kernels.  Returns the
 // cudaError_t of the launches (0 = success), cudaErrorInvalidValue for
 // arguments the kernels do not take, or 1000 + the CUresult when a tensor
 // map cannot be encoded.
@@ -1730,11 +2245,12 @@ extern "C" int flash_attention_bwd_launch(
   const AttnMask mask{Sk, causal, has_window, window, q_offset};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lf = static_cast<const float*>(lse);
-  if (dtype == 0 && D <= 128) {
+  if (dtype == 0 && D <= 128 || dtype == 3) {
     for (const void* p : {q, k, v, dout, (const void*)scratch})
       if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
         return (int)cudaErrorInvalidValue;
-    if (scratch == nullptr && scratch_blocks(mask, Sq) > 0)
+    if (scratch == nullptr && (dtype == 0 ? scratch_blocks(mask, Sq)
+                                          : h_scratch_tiles(mask, Sq)) > 0)
       return (int)cudaErrorInvalidValue;
   }
   switch (dtype * 1000 + D) {
@@ -1754,8 +2270,8 @@ extern "C" int flash_attention_bwd_launch(
                                     st);
 #define BF_CASE(DD)                                                         \
   case 3000 + DD:                                                           \
-    return launch_mma<DD>(q, k, v, out, dout, lf, dvec, dq, dk, dv,         \
-                          strides, B, H, Hkv, Sq, Sk, scale, mask, st);
+    return launch_bf16<DD>(q, k, v, out, dout, lf, dvec, scratch, dq, dk,   \
+                           dv, strides, B, H, Hkv, Sq, Sk, scale, mask, st);
     BF_CASE(16) BF_CASE(32) BF_CASE(64) BF_CASE(128) BF_CASE(160)
 #undef BF_CASE
     default: return (int)cudaErrorInvalidValue;

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the flash attention kernels
 // (flash_attention.cu, forward; flash_attention_bwd.cu, backward): TF32
 // splitting for 3xTF32 products, TMA's swizzled tile layout (which is also
-// wgmma's K-major shared-memory operand layout), wgmma descriptors and
-// instructions, mbarriers, TMA and bulk copies, and the host side's tensor
-// map encoding.
+// wgmma's K-major shared-memory operand layout, and for 16-bit types its
+// MN-major one), wgmma descriptors and the TF32 instructions, mbarriers, TMA
+// and bulk copies, and the host side's tensor map encoding.
 #pragma once
 
 #include <cuda.h>
@@ -41,6 +41,19 @@ __device__ __forceinline__ uint32_t op_off(int rows, int row, int k, int rb) {
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t rb) {
   const uint64_t layout = rb == 128 ? 1 : rb == 64 ? 2 : 3;
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)((8 * rb) >> 4) << 32) | (layout << 62);
+}
+
+// wgmma shared-memory descriptor of an MN-major swizzled 16-bit operand
+// (wgmma's transpose bit set) as TMA lands a tile of rows of rb bytes along
+// MN, one row per K index: a swizzle atom is rb bytes of MN by 8 rows of K;
+// successive atoms along MN lie `lbo` bytes apart (the tile's TMA chunks),
+// successive 8-row groups along K rb * 8 apart
+__device__ __forceinline__ uint64_t gmma_desc_mn(uint32_t addr, uint32_t rb,
+                                                 uint32_t lbo) {
+  const uint64_t layout = rb == 128 ? 1 : rb == 64 ? 2 : 3;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((8 * rb) >> 4) << 32) | (layout << 62);
 }
 
@@ -129,6 +142,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// every committed wgmma group but the newest N is complete
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // keeps the compiler from moving reads or writes of an accumulator
 // register across the asynchronous wgmma that owns it

@@ -42,13 +42,22 @@ float32 at D 16 to 128 runs its five products on the tensor cores with
 ``wgmma`` in 3xTF32 from TMA-fed tiles, and the dk/dv kernel hands dS to
 the dq kernel through a scratch tensor of the tiles the masks keep (0.285
 GB at the LM's training shape, B 8, H 16, S 1024, causal), allocated here
-per call.  bfloat16 at every D runs ``mma.sync`` m16n8k16 on the tensor
-cores: its bfloat16 inputs are read as they are (no float32 copy), S, dP,
-P and dS are float32, P and dS rounded to bfloat16 only as the operands of
-dV, dK and dQ, every sum float32 and dq, dk, dv rounded to bfloat16 once
-(the JAX package's ``attention_ref`` differentiated on bfloat16 inputs,
-with FlashAttention's roundings); its dQ kernel recomputes S and dP, so it
-needs no scratch.  float64 (in double) and float32 at D 160
+per call.  bfloat16 at every D runs ``wgmma`` in bfloat16 on the tensor
+cores, fed by TMA: its bfloat16 inputs are read as they land (no float32
+copy, no transposed copy: wgmma reads dO, Q and K MN-major where they are
+the B operand of dV, dK and dQ), S, dP, P and dS are float32, P and dS
+rounded to bfloat16 only as the A-register operands of dV, dK and dQ,
+every sum float32 and dq, dk, dv rounded to bfloat16 once (the JAX
+package's ``attention_ref`` differentiated on bfloat16 inputs, with
+FlashAttention's roundings).  Its bound is operations at the tensor
+cores' bfloat16 rate, five products; a producer lane keeps a ring of TMA
+tiles filled while two consumer warpgroups compute.  In the dK/dV kernel
+both work on the same 64 keys (one S^T -> P^T and dV, the other dP^T ->
+dS^T and dK, P^T handed over in shared memory), and the second writes each
+dS^T tile, bfloat16, to a scratch of the tiles the masks keep (0.143 GB
+at qwen3-0.6b's training shape, B 8, H 16, S 1024, causal; allocated here
+per call), which the dQ kernel reads for its one product, dQ += dS.K.
+float64 (in double) and float32 at D 160
 (stablelm-12b; the wgmma layout does not fit a CTA's shared memory there)
 run simple FMA kernels on the CUDA cores.  ``kernels/ops.py`` makes the
 pair a ``torch.autograd.Function``; the plain version is
@@ -202,8 +211,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the output cotangent ``dout``, on the card, from the forward's output
     ``out`` and ``lse`` (its ``return_lse``).  q, k, v, out, dout: float32,
     float64 or bfloat16 (another dtype raises ``TypeError``), any strides
-    with the last dim contiguous (float32 at D <= 128 reads dout by TMA
-    too: ``tma_ready``); lse: (B, H, Sq) float32.  dq comes back as the
+    with the last dim contiguous (bfloat16, and float32 at D <= 128, read
+    dout by TMA too: ``tma_ready``); lse: (B, H, Sq) float32.  dq comes back as the
     (B, H, Sq, D) view of a (B, Sq, H, D) buffer, like the forward's output;
     dk and dv as (B, Hkv, Sk, D) views of (B, Sk, Hkv, D) buffers."""
     name = "flash_attention_bwd"
@@ -227,10 +236,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: lse {lse.dtype} {tuple(lse.shape)} is not "
                          f"a contiguous ({B}, {H}, {Sq}) float32 tensor")
     if (code == 3 or code == 0 and D <= 128) and not tma_ready(dout):
-        raise ValueError(f"{name}: the kernels read dout's rows 16 bytes at a "
-                         f"time (TMA for float32): its base and b, h, s "
-                         f"strides must be 16-byte aligned (got storage "
-                         f"offset {dout.storage_offset()}, strides "
+        raise ValueError(f"{name}: the kernels read dout by TMA: its base "
+                         f"and b, h, s strides must be 16-byte aligned (got "
+                         f"storage offset {dout.storage_offset()}, strides "
                          f"{tuple(dout.stride())})")
     scale = scale if scale is not None else D ** -0.5
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
@@ -245,8 +253,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     nbytes = ctypes.c_longlong(0)
     raise_on(lib.flash_attention_bwd_scratch_bytes(
         code, B, H, Sq, Sk, D, *mask, ctypes.byref(nbytes)), name)
-    # the wgmma kernels' dS scratch: only the (query, key) tiles the masks
-    # keep
+    # the wgmma kernels' dS scratch (float32 at D <= 128, bfloat16): only
+    # the (query, key) tiles the masks keep
     scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=q.device) \
         if nbytes.value else None
     # the row dots in the compute type (float32 for bfloat16)

@@ -671,7 +671,7 @@ def test_flash_attention_bwd_kernel_matches_plain_on_card(case, dtype):
 
 
 # head dim 160 (stablelm-12b): float32's FMA kernels (64-row tiles) and
-# bfloat16's mma.sync kernels (16-query dK/dV steps) cut off-edge
+# bfloat16's wgmma kernels (64-key dK/dV tiles, 64-row steps) cut off-edge
 BWD_D160_CASES = [
     (8, 32, 8, 1024, 1024, 160, True, None, 0),  # stablelm-12b training
     (1, 4, 2, 100, 100, 160, True, None, 0),     # ragged
@@ -681,12 +681,35 @@ BWD_D160_CASES = [
 ]
 
 
+# the bfloat16 wgmma kernels' tiles cut off-edge at every head dim: dK/dV
+# per 64 keys over 64-query steps, dQ per 128 queries (64 a warpgroup) over
+# 64-key steps; one past a tile, Sq < Sk with q_offset, windows under one
+# tile, GQA groups 1, 2, 4 and 7
+BWD_BF16_EDGE_CASES = [
+    (1, 4, 4, 129, 129, 16, True, None, 0),      # group 1, one past 128
+    (1, 7, 1, 65, 65, 16, False, None, 0),       # GQA 7, one past 64
+    (1, 4, 2, 65, 193, 32, True, None, 128),     # group 2, Sq < Sk, offset
+    (1, 8, 2, 129, 129, 32, True, 16, 0),        # group 4, window 16
+    (1, 8, 2, 129, 257, 64, False, None, 0),     # group 4, Sq < Sk
+    (1, 7, 1, 130, 130, 64, True, None, 0),      # GQA 7, ragged
+    (1, 4, 4, 100, 333, 64, True, 30, 233),      # window + offset
+    (1, 14, 2, 65, 65, 128, True, None, 0),      # GQA 7, one past 64
+    (1, 8, 4, 129, 129, 128, True, 40, 0),       # group 2, window 40
+    (1, 8, 2, 65, 321, 128, True, None, 256),    # group 4, Sq < Sk, offset
+    (1, 4, 4, 1, 129, 128, True, None, 128),     # one query
+    (1, 4, 4, 33, 97, 160, True, None, 64),      # one past 32, offset
+    (1, 8, 4, 129, 129, 160, True, 20, 0),       # group 2, window 20
+    (1, 7, 1, 65, 65, 160, True, None, 0),       # GQA 7
+    (1, 8, 2, 129, 200, 160, False, None, 0),    # group 4, Sq < Sk
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case,dtype", [
-    (c, "bfloat16") for c in BWD_ATTN_CASES + BWD_D160_CASES] + [
-    (c, "float32") for c in BWD_D160_CASES])
+    (c, "bfloat16") for c in BWD_ATTN_CASES + BWD_D160_CASES
+    + BWD_BF16_EDGE_CASES] + [(c, "float32") for c in BWD_D160_CASES])
 def test_flash_attention_bwd_bf16_and_d160_match_plain_on_card(case, dtype):
-    """bfloat16 at every head dim (the mma.sync kernels, against the plain
+    """bfloat16 at every head dim (the wgmma kernels, against the plain
     version at 2e-2 of the largest entry, chip_smoke.py's ``ATTN_TOL``
     for bfloat16) and float32 at D 160 (the FMA kernels, phase 31's
     1e-4); outputs in the inputs' dtype, bitwise against a second call."""

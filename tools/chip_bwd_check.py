@@ -7,8 +7,14 @@ events over back-to-back calls).  The short first check of a new kernel;
 
     python3 tools/chip_bwd_check.py        # on a machine with an H100
     python3 tools/chip_bwd_check.py --rms-only --chunks 128 256 512
+    python3 tools/chip_bwd_check.py --bf16
 
-``--rms-only`` skips flash attention; ``--chunks`` times rms_norm_bwd at
+``--bf16`` checks only the bfloat16 flash backward instead: every
+bfloat16 case of ``chip_smoke.py``'s phase 31 (the training shapes and the
+tiles cut off-edge at every head dim) against the plain version at 2e-2
+of the largest entry, bitwise against a second call, then per-call and
+per-kernel times at qwen3-0.6b's and stablelm-12b's shapes beside SDPA's
+bfloat16 backward and the five-product bound.  ``--rms-only`` skips flash attention; ``--chunks`` times rms_norm_bwd at
 each given chunk target (``rmsnorm.DW_CHUNKS``) beside the default, at the
 three training shapes (per call, each kernel alone, and ``F.rms_norm``'s
 backward).  Exits 1 when a case is out of tolerance (1e-5 / 1e-4 of max |plain| in
@@ -20,6 +26,7 @@ import sys
 import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "src"))
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import torch  # noqa: E402
 
@@ -45,6 +52,56 @@ CASES = [(8, 16, 8, 1024, 1024, 128, True, None, 0),
          (1, 4, 4, 256, 256, 128, True, 8, 0),
          (2, 8, 4, 48, 300, 128, True, 20, 252),
          (1, 8, 2, 129, 129, 32, True, 5, 0)]
+
+
+def check_bf16(g, dev):
+    """The bfloat16 flash backward: every bfloat16 case of chip_smoke.py's
+    phase 31 (``BWD_NEW_CASES``), then the times at its timed shapes
+    (``BWD_VARIANTS``); returns the number of cases out of tolerance."""
+    import torch.nn.functional as F
+    from chip_smoke import BWD_NEW_CASES, BWD_VARIANTS
+    bad = 0
+    for case in BWD_NEW_CASES[torch.bfloat16]:
+        B, H, Hkv, Sq, Sk, D, causal, window, q_offset = case
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        q, do = (torch.randn(B, H, Sq, D, generator=g, device=dev,
+                             dtype=torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(B, Hkv, Sk, D, generator=g, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        want = ref.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        errs = [rel(a.double(), b.double()) for a, b in zip(got, want)]
+        ok = max(errs) <= 2e-2 and all(
+            torch.equal(a, b) for a, b in zip(got, again))
+        bad += not ok
+        print(f"flash_attention_bwd bfloat16 {case}: dq/dk/dv "
+              f"{[f'{e:.3e}' for e in errs]} {'ok' if ok else 'BAD'}",
+              flush=True)
+    for case, dtype in BWD_VARIANTS.values():
+        if dtype != torch.bfloat16:
+            continue
+        B, H, Hkv, S, _, D = case[:6]
+        q, do = (torch.randn(B, H, S, D, generator=g, device=dev,
+                             dtype=torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(B, Hkv, S, D, generator=g, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        o, lse = fa.flash_attention(q, k, v, return_lse=True)
+        ms = timed(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), 20)
+        alone = kernel_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse,
+                                                         do), 10)
+        qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                               enable_gqa=True)
+        lib = timed(lambda: torch.autograd.grad(o_lib, (qr, kr, vr), do,
+                                                retain_graph=True), 20)
+        bound = 2.5 * 4 * B * H * D * (S * (S + 1) // 2) / 989e12 * 1e3
+        print(f"bfloat16 backward B{B} H{H}/{Hkv} S{S} D{D} causal: "
+              f"{ms:.6f} ms per call, alone {sum(alone.values()):.6f} "
+              f"{alone}; SDPA backward {lib:.6f}; bound {bound:.6f} (5 "
+              f"products, {bound / ms * 100:.1f}%)", flush=True)
+    return bad
 
 
 def rel(a, b):
@@ -133,6 +190,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--rms-only", action="store_true")
     ap.add_argument("--chunks", nargs="*", type=int, default=[])
+    ap.add_argument("--bf16", action="store_true")
     args = ap.parse_args(argv)
     t = time.perf_counter()
     _build.build_all([butcher_combine.LIBRARY, butcher_combine.ROWS_LIBRARY,
@@ -144,11 +202,15 @@ def main(argv=None):
         for line in lib.log.splitlines():
             if "Compiling" in line:
                 keep = "bwd" in line
-            if keep and any(k in line for k in ("registers", "spill",
-                                                "Compiling", "warning")):
+            if "warning" in line or keep and any(
+                    k in line for k in ("registers", "spill", "Compiling")):
                 print(f"  ptxas {name}: {line.strip()}")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+    if args.bf16:
+        bad = check_bf16(g, dev)
+        print(f"cases out of tolerance: {bad}")
+        return 1 if bad else 0
     bad = 0
     for dtype in (torch.float32, torch.float64):
         tol = 1e-12 if dtype == torch.float64 else 1e-5
